@@ -1,0 +1,505 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``tpuvsr_torch``) on one
+NVIDIA card.
+
+Phases, in order; a failing phase ends the run with a non-zero exit:
+  1. build every hand kernel from ``tpuvsr_torch/csrc`` with nvcc
+     (sm_90a, one nvcc per source, all at once);
+  2. print the card's name and power limit (nvidia-smi);
+  3. hold each kernel against its plain PyTorch version on the card, on
+     the largest inputs each one met in an untimed recording run of the
+     main path (same depth, tile, chunk and 2^26 FPSet slots); time
+     kernel, plain version and, where PyTorch computes the same function
+     in one call (K2: a torch.sort lexsort), that call;
+  4. run the counter stub through DeviceBFS on the card (16 distinct,
+     levels [1,2,3,4,3,2,1]; the Bound violation trace);
+  5. the main path: device_bfs_check on examples/VSR_defect.cfg to
+     depth 10 (tile 128, 64 tiles a chunk, 2^26 FPSet slots), launch
+     counts reset just before and read just after; the level sizes must
+     be the JAX package's recorded ones;
+  6. print the kernels line, then the result line last.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
+``--out FILE`` writes the measurements as JSON, ``--profile`` adds a
+torch.profiler table of a depth-7 run to that file, ``--depth N``
+changes the main path's depth (10 by default).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEFECT = os.path.join(ROOT, "examples", "VSR_defect.cfg")
+LEVELS = [1, 5, 18, 62, 226, 833, 2950, 10048, 32805, 101949, 299683]
+STUB_TRACE = [(None, {"x": 0, "y": 0}), ("IncY", {"x": 0, "y": 1}),
+              ("IncY", {"x": 0, "y": 2}), ("IncX", {"x": 1, "y": 2}),
+              ("IncX", {"x": 2, "y": 2}), ("IncX", {"x": 3, "y": 2})]
+MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
+OPS_RATE = 67e12             # H100 SXM float32 outside the tensor cores
+
+
+class SmokeError(Exception):
+    pass
+
+
+def need(cond, msg):
+    if not cond:
+        raise SmokeError(msg)
+
+
+def device_us(prof):
+    """Microseconds of device activity (kernels, copies, memsets) in a
+    torch.profiler trace: the device-side events only, since a CPU op's
+    device time repeats that of the kernels it launched."""
+    from torch.autograd import DeviceType
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type != DeviceType.CPU)
+
+
+def cuda_ms(fn, reps=20, warm=3):
+    """(device ms, issue ms) of one fn() call: the device time is the
+    sum of the kernels, copies and memsets torch.profiler records over
+    ``reps`` calls; the issue time is CUDA events around the same calls
+    back to back, which the host's launch rate bounds when the kernels
+    are short."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    issue = a.elapsed_time(b) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = device_us(prof)
+    if dev_us <= 0:
+        raise SmokeError("torch.profiler recorded no device time")
+    return dev_us / reps / 1e3, issue
+
+
+def bound(nbytes, nops):
+    t_b, t_o = nbytes / MEM_RATE * 1e3, nops / OPS_RATE * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def lexsort_keep(fps, mask):
+    """The queue-order first-occurrence keep mask of K2 from torch.sort:
+    masked lanes take the all-ones key (as in the JAX lexsort), two
+    stable sorts of 64-bit keys group equal keys with the lower lane
+    first, and a valid lane is kept where its fingerprint differs from
+    the one sorted before it (the JAX rule, masked neighbours included)."""
+    import torch
+    k = torch.where(mask[:, None], fps, -1).to(torch.int64) & 0xFFFFFFFF
+    hi = ((k[:, 0] - 2**31) << 32) | k[:, 1]   # signed order = unsigned
+    lo = ((k[:, 2] - 2**31) << 32) | k[:, 3]
+    _, perm = torch.sort(lo, stable=True)
+    _, p2 = torch.sort(hi[perm], stable=True)
+    perm = perm[p2]
+    sf = fps[perm]
+    first = torch.ones_like(mask)
+    first[1:] = (sf[1:] != sf[:-1]).any(dim=1)
+    keep = torch.zeros_like(mask)
+    keep[perm] = first & mask[perm]
+    return keep
+
+
+def max_abs(a, b):
+    import torch
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) \
+        if a.numel() else 0
+
+
+class Recorder:
+    """Keeps the inputs of the largest call of each wrapper during a
+    run (cloned, so later in-place updates do not reach them)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def keep(self, name, size, make):
+        if size > self.calls.get(name, (-1, None))[0]:
+            self.calls[name] = (size, make())
+
+    def install(self):
+        import torch
+        from tpuvsr_torch.engine import device_bfs as D
+        from tpuvsr_torch.engine.pack import PackSpec
+        from tpuvsr_torch.models.vsr_kernel import VSRKernel
+        rec = self
+        ins, ded = D.insert_core, D.dedup_keep
+        pack, unpack = PackSpec.pack, PackSpec.unpack
+        parts, full = VSRKernel.parent_parts, VSRKernel.fingerprint
+        incr = VSRKernel.fingerprint_incremental
+
+        def insert_core(table, fps, mask):
+            def snap():
+                s = table["slots"]
+                return (fps.clone(), mask.clone(),
+                        s[s[:, 0] != 0][:, :4].contiguous())
+            rec.keep("fpset_insert", fps.shape[0], snap)
+            return ins(table, fps, mask)
+
+        def dedup_keep(fps, mask):
+            rec.keep("dedup_batch", fps.shape[0],
+                     lambda: (fps.clone(), mask.clone()))
+            return ded(fps, mask)
+
+        def p_pack(self, flat, out=None, dest=None):
+            rec.keep("pack", flat.shape[0], lambda: (
+                self, flat.clone(), None if dest is None else dest.clone(),
+                None if out is None else out.shape[0]))
+            return pack(self, flat, out, dest)
+
+        def p_unpack(self, packed, rows=None):
+            rec.keep("unpack", packed.shape[0] if rows is None
+                     else rows.shape[0],
+                     lambda: (self, packed.clone(),
+                              None if rows is None else rows.clone()))
+            return unpack(self, packed, rows)
+
+        def p_parts(self, flat):
+            rec.keep("vsr_fp_parts", flat.shape[0],
+                     lambda: (self, flat.clone()))
+            return parts(self, flat)
+
+        def p_full(self, flat):
+            rec.keep("vsr_fp_full", flat.shape[0],
+                     lambda: (self, flat.clone()))
+            return full(self, flat)
+
+        def p_incr(self, succ, ri, ts, pidx, parent, prt):
+            rec.keep("vsr_fp_incremental", succ.shape[0], lambda: (
+                self, succ.clone(), ri.clone(), ts.clone(), pidx.clone(),
+                parent.clone(), tuple(x.clone() for x in prt)))
+            return incr(self, succ, ri, ts, pidx, parent, prt)
+
+        D.insert_core, D.dedup_keep = insert_core, dedup_keep
+        PackSpec.pack, PackSpec.unpack = p_pack, p_unpack
+        VSRKernel.parent_parts, VSRKernel.fingerprint = p_parts, p_full
+        VSRKernel.fingerprint_incremental = p_incr
+
+        def uninstall():
+            D.insert_core, D.dedup_keep = ins, ded
+            PackSpec.pack, PackSpec.unpack = pack, unpack
+            VSRKernel.parent_parts, VSRKernel.fingerprint = parts, full
+            VSRKernel.fingerprint_incremental = incr
+        return uninstall
+
+
+def check_kernels(rec):
+    """Phase 3: every kernel against its plain version, on the card."""
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine import fpset as F
+    out = []
+    dev = torch.device("cuda")
+
+    def row(name, ms, plain_ms, err, nbytes, nops, library_ms=None,
+            extra=None):
+        (ms, issue_ms), (plain_ms, plain_issue_ms) = ms, plain_ms
+        if library_ms is not None:
+            library_ms = library_ms[0]
+        b, by = bound(nbytes, nops)
+        r = {"name": name, "route": "cuda",
+             "source": "tpuvsr_torch/csrc/" + kernels.KERNELS[name][0] + ".cu",
+             "replaces": kernels.KERNELS[name][1], "launches": None,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b, "bound_by": by, "library_ms": library_ms}
+        r.update(extra or {}, issue_ms=issue_ms, plain_issue_ms=plain_issue_ms,
+                 bytes=nbytes, ops=nops)
+        out.append(r)
+        print(f"  {name}: err {err} ms {ms:.4f} plain {plain_ms:.4f} "
+              f"bound {b:.5f} ({by}) library {library_ms}", flush=True)
+        need(err == 0, f"{name} disagrees with its plain version")
+
+    # -- K1: the recorded batch into a 2^26-slot table holding what the
+    # recording run's table held just before that insert
+    fps, mask, table_fps = rec.calls["fpset_insert"][1]
+    n = fps.shape[0]
+    keep = F.dedup_batch(fps, mask)
+    canon = torch.zeros_like(mask)
+    canon[keep[0]] = keep[1]
+    base = F.empty_table(1 << 26, dev)
+    ones = torch.ones((table_fps.shape[0],), dtype=torch.bool, device=dev)
+    F.insert_core(base, table_fps, ones)
+    ta = {"slots": base["slots"].clone()}
+    _t, fk, ok_ = F.insert_core(ta, fps, canon)
+    tb = {"slots": base["slots"].clone()}
+    _t, fp_, op_ = F.insert_core_plain(tb, fps, canon)
+    torch.cuda.synchronize()
+    def members(t):
+        s = t["slots"]
+        return torch.unique(s[s[:, 0] != 0][:, :4], dim=0)
+    same_set = torch.equal(members(ta), members(tb))
+    need(bool(ok_) == op_, "fpset_insert overflow flag differs")
+    need(same_set, "fpset_insert membership differs from the plain version")
+    n_fresh = int(fk.sum())
+    need(n_fresh > 0, "the recorded insert batch has no fresh lane")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def fresh_batch():
+        return torch.randint(-2**31, 2**31 - 1, (n, 4), dtype=torch.int32,
+                             device=dev, generator=gen)
+    batches = [fresh_batch() for _ in range(46)]
+    it = iter(batches)
+    ms = cuda_ms(lambda: F.insert_core(ta, next(it), canon), reps=20, warm=3)
+    it2 = iter([fresh_batch() for _ in range(8)])
+    plain_ms = cuda_ms(lambda: F.insert_core_plain(tb, next(it2), canon),
+                       reps=3, warm=1)
+    # bytes the data needs: mask, fresh, fps, one 20-byte probe read per
+    # masked lane, one 20-byte row written per fresh lane
+    # (fingerprint read only where the mask is set)
+    n_mask = int(canon.sum())
+    row("fpset_insert", ms, plain_ms, max_abs(fk, fp_),
+        n_mask * 16 + 2 * n + 20 * n_mask + 20 * n_fresh, 0,
+        extra={"shape": [n, 4], "table_slots": 1 << 26,
+               "masked": n_mask, "fresh": n_fresh})
+    del ta, tb, base
+
+    # -- K2: dedup
+    fps, mask = rec.calls["dedup_batch"][1]
+    n = fps.shape[0]
+    kk = F.dedup_keep(fps, mask)
+    perm, keep = F.dedup_batch(fps, mask)
+    kp = torch.zeros_like(mask)
+    kp[perm] = keep
+    ms = cuda_ms(lambda: F.dedup_keep(fps, mask))
+    plain_ms = cuda_ms(lambda: F.dedup_batch(fps, mask), reps=5)
+    need(torch.equal(lexsort_keep(fps, mask), kk),
+         "dedup_batch disagrees with the torch.sort lexsort")
+    lib = cuda_ms(lambda: lexsort_keep(fps, mask))
+    row("dedup_batch", ms, plain_ms, max_abs(kk, kp), n * 16 + 2 * n, 0,
+        library_ms=lib, extra={"shape": [n, 4],
+                               "library": "torch.sort lexsort, 2 keys"})
+
+    # -- K3
+    kern, flat = rec.calls["vsr_fp_parts"][1]
+    B, L = flat.shape
+    a = kern.parent_parts(flat)
+    p = kern.parent_parts_plain(flat)
+    err = max(max_abs(x, y) for x, y in zip(a, p))
+    ms = cuda_ms(lambda: kern.parent_parts(flat))
+    plain_ms = cuda_ms(lambda: kern.parent_parts_plain(flat), reps=5)
+    cols = kern.R * kern.nrep + kern.M * kern.nmsg
+    row("vsr_fp_parts", ms, plain_ms, err,
+        B * L * 4 + B * (kern.R + kern.M + 1) * 16, B * cols * 4 * 2,
+        extra={"shape": [B, L]})
+    kern, flat = rec.calls["vsr_fp_full"][1]
+    B, L = flat.shape
+    ms = cuda_ms(lambda: kern.fingerprint(flat))
+    plain_ms = cuda_ms(lambda: kern.fingerprint_plain(flat), reps=5)
+    row("vsr_fp_full", ms, plain_ms,
+        max_abs(kern.fingerprint(flat), kern.fingerprint_plain(flat)),
+        B * L * 4 + B * 16, B * cols * 4 * 2, extra={"shape": [B, L]})
+    kern, succ, ri, ts, pidx, parent, prt = rec.calls["vsr_fp_incremental"][1]
+    n, L = succ.shape
+    args = (succ, ri, ts, pidx, parent, prt)
+    ms = cuda_ms(lambda: kern.fingerprint_incremental(*args))
+    plain_ms = cuda_ms(lambda: kern.fingerprint_incremental_plain(*args),
+                       reps=5)
+    n_ts = int((ts >= 0).sum())
+    cols_read = n * kern.nrep + n_ts * kern.nmsg
+    row("vsr_fp_incremental", ms, plain_ms,
+        max_abs(kern.fingerprint_incremental(*args),
+                kern.fingerprint_incremental_plain(*args)),
+        cols_read * 4 + n * (ri.element_size() + pidx.element_size()
+                             + ts.shape[1] * 4) + (n + n_ts) * 16 + n * 16,
+        cols_read * 4 * 2, extra={"shape": [n, L], "touched_slots": n_ts})
+
+    # -- K4
+    pk, flat, dest, out_rows = rec.calls["pack"][1]
+    B, L = flat.shape
+    lanes_read = int((pk._bits > 0).sum())     # a 0-bit lane is not read
+    if dest is None:
+        wk, wp = pk.pack(flat), pk.pack_plain(flat)
+        n_rows = B
+        call = lambda: pk.pack(flat)
+        pcall = lambda: pk.pack_plain(flat)
+    else:
+        oa = torch.zeros((out_rows, pk.words), dtype=torch.int32, device=dev)
+        ob = oa.clone()
+        wk, wp = pk.pack(flat, oa, dest), pk.pack_plain(flat, ob, dest)
+        n_rows = int((dest >= 0).sum())
+        call = lambda: pk.pack(flat, oa, dest)
+        pcall = lambda: pk.pack_plain(flat, ob, dest)
+    # a row whose dest is -1 is neither read nor written
+    row("pack", cuda_ms(call), cuda_ms(pcall, reps=5), max_abs(wk, wp),
+        n_rows * lanes_read * 4 + (0 if dest is None else B * 4)
+        + n_rows * pk.words * 4, 0,
+        extra={"shape": [B, L], "rows_written": n_rows,
+               "lanes_read": lanes_read})
+    pk, packed, rows = rec.calls["unpack"][1]
+    B = packed.shape[0] if rows is None else rows.shape[0]
+    row("unpack", cuda_ms(lambda: pk.unpack(packed, rows)),
+        cuda_ms(lambda: pk.unpack_plain(packed, rows), reps=5),
+        max_abs(pk.unpack(packed, rows), pk.unpack_plain(packed, rows)),
+        B * pk.words * 4 + B * 8 + B * pk.lanes * 4, 0,
+        extra={"shape": [B, pk.lanes]})
+    torch.cuda.synchronize()
+    return out
+
+
+def gpu_line():
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    need(r.returncode == 0, f"nvidia-smi failed: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="write the measurements to this JSON file")
+    ap.add_argument("--depth", type=int, default=10)
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "tpuvsr_torch")):
+        print("chip_smoke: run it from a checkout of the repository "
+              "(tpuvsr_torch/ is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS, device_bfs_check
+    from tpuvsr_torch.engine.spec import load_binding
+    from tpuvsr_torch.testing import (STUB_DISTINCT, STUB_LEVELS,
+                                      stub_device_engine)
+    doc = {}
+    t_all = time.time()
+
+    print("phase 1: build", flush=True)
+    t0 = time.time()
+    took = kernels.build()
+    doc["build_s"] = time.time() - t0
+    print(f"  built {sorted(took)} in {doc['build_s']:.1f}s", flush=True)
+
+    print("phase 2: card", flush=True)
+    card = gpu_line()
+    print(card, flush=True)
+    doc["card"] = card
+    doc["device_name"] = torch.cuda.get_device_name(0)
+
+    print("phase 3: kernels against their plain versions", flush=True)
+    binding = load_binding(DEFECT)
+    rec = Recorder()
+    uninstall = rec.install()
+    eng = DeviceBFS(binding, tile_size=128, chunk_tiles=64,
+                    fpset_capacity=1 << 26, device="cuda")
+    t0 = time.time()
+    warm = eng.run(max_depth=args.depth)
+    uninstall()
+    doc["record_s"] = time.time() - t0
+    need(warm.levels == LEVELS[:args.depth + 1],
+         f"recording run levels {warm.levels}")
+    doc["recorded_sizes"] = {k: v[0] for k, v in rec.calls.items()}
+    rows = check_kernels(rec)
+    del rec, eng
+
+    print("phase 4: counter stub", flush=True)
+    r = stub_device_engine(device="cuda").run()
+    need(r.ok and r.distinct_states == STUB_DISTINCT
+         and r.levels == STUB_LEVELS, f"stub run: {r.distinct_states} "
+         f"{r.levels}")
+    r = stub_device_engine(device="cuda", inv_bound=4).run()
+    need(not r.ok and r.violated_invariant == "Bound"
+         and [(t.action_name, t.state) for t in r.trace] == STUB_TRACE,
+         f"stub violation trace: {[(t.action_name, t.state) for t in r.trace]}")
+    print(f"  stub: 16 distinct, levels {STUB_LEVELS}, Bound trace ok",
+          flush=True)
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            device_bfs_check(binding, max_depth=7, fpset_capacity=1 << 20,
+                             device="cuda")
+            torch.cuda.synchronize()
+            wall7 = time.time() - t0
+        ka = prof.key_averages()
+        dev_us = device_us(prof)
+        doc["profile_depth7"] = {
+            "wall_s": wall7, "device_s": dev_us / 1e6,
+            "device_busy_share": dev_us / 1e6 / wall7,
+            "table": ka.table(sort_by="cuda_time_total", row_limit=40)}
+        print(f"  profiled depth 7: wall {wall7:.3f}s, device busy "
+              f"{dev_us / 1e6:.3f}s", flush=True)
+
+    print(f"phase 5: main path, defect config to depth {args.depth}",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    res = device_bfs_check(binding, max_depth=args.depth, tile_size=128,
+                           chunk_tiles=64, fpset_capacity=1 << 26,
+                           device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    need(res.ok, f"main path: {res.violated_invariant} {res.error}")
+    need(res.levels == LEVELS[:args.depth + 1],
+         f"main path levels {res.levels}")
+    need(res.distinct_states == sum(LEVELS[:args.depth + 1]),
+         f"main path distinct {res.distinct_states}")
+    main = {"depth": args.depth, "levels": res.levels,
+            "distinct": res.distinct_states,
+            "generated": res.states_generated, "wall_s": wall,
+            "distinct_per_s": res.distinct_states / wall,
+            "generated_per_s": res.states_generated / wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": counts, "metrics": res.metrics}
+    doc["main"] = main
+    print(f"  levels {res.levels}", flush=True)
+    print(f"  distinct {res.distinct_states} generated "
+          f"{res.states_generated} wall {wall:.3f}s distinct/s "
+          f"{main['distinct_per_s']:.1f} generated/s "
+          f"{main['generated_per_s']:.1f} max_memory_allocated "
+          f"{main['max_memory_allocated']}", flush=True)
+    print(f"  launches {counts}", flush=True)
+    for k in rows:
+        k["launches"] = counts[k["name"]]
+        need(k["launches"] > 0, f"{k['name']} was not launched on the "
+             f"main path")
+    doc["kernels"] = rows
+    doc["total_s"] = time.time() - t_all
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=1, default=str)
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in ("name", "route", "source", "replaces",
+                           "launches", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
+        for r in rows]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

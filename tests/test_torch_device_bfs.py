@@ -1,0 +1,241 @@
+"""The port's DeviceBFS (fused commit, packed frontier) against the JAX
+package's, on the CPU: the counter stub's fixpoint, traces and growth
+pauses, and the VSR defect config's first levels.  Also the port's
+isolation from the JAX package and its refusal to run on a CPU it was
+not asked for.  Integer results: tolerance 0."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from tpuvsr.engine.device_bfs import DeviceBFS as JDeviceBFS
+from tpuvsr.frontend.cfg import parse_cfg_file as j_cfg
+from tpuvsr.models.vsr import VSRCodec as JCodec
+from tpuvsr.models.vsr_kernel import VSRKernel as JKernel
+from tpuvsr.testing import counter_spec
+from tpuvsr.testing import stub_model_factory as j_stub_factory
+from tpuvsr_torch.engine.device_bfs import DeviceBFS, device_bfs_check
+from tpuvsr_torch.engine.spec import load_binding
+from tpuvsr_torch.testing import (STUB_DISTINCT, STUB_LEVELS,
+                                  stub_device_engine)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFECT = os.path.join(ROOT, "examples", "VSR_defect.cfg")
+
+
+def _jax_stub(limit=3, inv_bound=None, **kw):
+    spec = counter_spec(inv_bound, limit=None if limit == 3 else limit)
+    eng = JDeviceBFS(spec, model_factory=j_stub_factory(
+        limit=limit, inv_bound=inv_bound), hash_mode="full",
+        tile_size=kw.pop("tile_size", 4),
+        fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
+        next_capacity=kw.pop("next_capacity", 1 << 6), pipeline=1, **kw)
+    return eng
+
+
+def _port_stub(**kw):
+    return stub_device_engine(device="cpu", **kw)
+
+
+def _trace(res):
+    return [(t.position, t.action_name, t.state) for t in res.trace]
+
+
+def _same(jr, pr, je, pe):
+    assert (pr.ok, pr.distinct_states, pr.states_generated) == \
+        (jr.ok, jr.distinct_states, jr.states_generated)
+    assert pe.level_sizes == je.level_sizes
+    assert pr.metrics["gauges"]["action_expansions"] == \
+        jr.metrics["gauges"]["action_expansions"]
+    assert pr.violated_invariant == jr.violated_invariant
+    assert pr.error == jr.error
+    assert _trace(pr) == _trace(jr)
+
+
+def test_stub_fixpoint_matches_jax():
+    je, pe = _jax_stub(), _port_stub()
+    jr, pr = je.run(), pe.run()
+    assert pr.distinct_states == STUB_DISTINCT
+    assert pe.level_sizes == STUB_LEVELS
+    _same(jr, pr, je, pe)
+
+
+def test_stub_violation_trace_matches_jax():
+    je, pe = _jax_stub(inv_bound=4), _port_stub(inv_bound=4)
+    jr, pr = je.run(), pe.run()
+    assert not pr.ok and pr.violated_invariant == "Bound"
+    _same(jr, pr, je, pe)
+
+
+@pytest.mark.parametrize("case", [
+    dict(tile_size=2, next_capacity=4),          # R_NEXT_GROW
+    dict(fpset_capacity=4),                      # R_FPSET_GROW
+    dict(tile_size=1, chunk_tiles=1),
+])
+def test_stub_growth_pauses_match_jax(case):
+    je, pe = _jax_stub(**case), _port_stub(**case)
+    jr, pr = je.run(), pe.run()
+    _same(jr, pr, je, pe)
+    assert pr.distinct_states == STUB_DISTINCT
+
+
+def test_stub_next_and_fpset_growth_happen():
+    r = _port_stub(tile_size=2, next_capacity=4).run()
+    assert r.metrics["counters"].get("grow_next_buffer", 0) > 0
+    r = _port_stub(fpset_capacity=4).run()
+    assert r.metrics["counters"].get("grow_fpset", 0) > 0
+
+
+def test_stub_expand_growth_matches_jax():
+    """Caps forced below the per-tile need (Limit 10: up to 11 states a
+    level in one 16-wide tile) drive R_EXPAND_GROW in both engines."""
+    je = _jax_stub(limit=10, tile_size=16)
+    je.expand_caps = [8, 8]
+    je._level = jax.jit(je._make_level(),
+                        donate_argnums=(0, 4, 5, 6, 7, 10))
+    pe = _port_stub(limit=10, tile_size=16)
+    pe.expand_caps = [8, 8]
+    jr, pr = je.run(), pe.run()
+    _same(jr, pr, je, pe)
+    assert pr.metrics["counters"]["grow_expand_buffer"] > 0
+    assert jr.metrics["counters"]["grow_expand_buffer"] > 0
+    assert pe.expand_caps == je.expand_caps
+
+
+def test_stub_deadlock_matches_jax():
+    je, pe = _jax_stub(), _port_stub()
+    jr = je.run(check_deadlock=True)
+    pr = pe.run(check_deadlock=True)
+    assert pr.error == "deadlock" and pr.deadlock_state == {"x": 3, "y": 3}
+    assert pr.deadlock_state == jr.deadlock_state
+    _same(jr, pr, je, pe)
+
+
+def _jax_level_bfs(depth, batch=64):
+    """Host-driven level BFS with the JAX VSRKernel from the dense
+    Init, the frontier padded to one fixed batch so JAX compiles
+    once."""
+    cfg = j_cfg(DEFECT)
+    codec = JCodec(cfg.constants)
+    kern = JKernel(codec)
+    init = codec.zero_state()
+    init["view"][:] = 1
+    init["ct"][:, :, 2] = 1
+    fp_all = jax.jit(lambda s: jax.vmap(kern.fingerprint)(s))
+    seen = {tuple(np.asarray(fp_all({k: v[None] for k, v in init.items()}))[0])}
+    frontier = [init]
+    levels = [1]
+    for _ in range(depth):
+        nxt = []
+        for off in range(0, len(frontier), batch):
+            part = frontier[off:off + batch]
+            b = {k: np.stack([p[k] for p in part]
+                             + [part[0][k]] * (batch - len(part)))
+                 for k in init}
+            succ, en = kern.step_batch(b)
+            en = np.asarray(en)[:len(part)]
+            flat = {k: np.asarray(v)[:len(part)].reshape(
+                (-1,) + np.asarray(v).shape[2:]) for k, v in succ.items()}
+            pad = batch * kern.n_lanes - en.size
+            fps = np.asarray(fp_all({k: np.concatenate(
+                [v, np.repeat(v[:1], pad, axis=0)]) for k, v in flat.items()}))
+            for i in np.nonzero(en.reshape(-1))[0]:
+                key = tuple(fps[i])
+                if key not in seen:
+                    seen.add(key)
+                    nxt.append({k: v[i] for k, v in flat.items()})
+        levels.append(len(nxt))
+        frontier = nxt
+    return levels
+
+
+@pytest.fixture(scope="module")
+def port_defect_depth4():
+    eng = DeviceBFS(load_binding(DEFECT), tile_size=32, chunk_tiles=4,
+                    fpset_capacity=1 << 14, next_capacity=1 << 10,
+                    device="cpu")
+    return eng, eng.run(max_depth=4)
+
+
+def test_defect_depth4_matches_jax_level_bfs(port_defect_depth4):
+    eng, res = port_defect_depth4
+    assert eng.level_sizes == [1, 5, 18, 62, 226]
+    assert res.distinct_states == 312 and res.ok
+    assert _jax_level_bfs(4) == eng.level_sizes
+
+
+def test_defect_bag_growth_keeps_levels(port_defect_depth4):
+    """Starting at MAX_MSGS=4 drives R_BAG_GROW (re-layout of the
+    packed buffers, padded messages); levels and counts are those of
+    the MAX_MSGS=32 run."""
+    ref_eng, ref = port_defect_depth4
+    eng = DeviceBFS(load_binding(DEFECT), max_msgs=4, tile_size=32,
+                    chunk_tiles=4, fpset_capacity=1 << 14,
+                    next_capacity=1 << 10, device="cpu")
+    res = eng.run(max_depth=4)
+    assert res.metrics["counters"]["grow_message_table"] >= 1
+    assert eng.codec.shape.MAX_MSGS > 4
+    assert eng.level_sizes == ref_eng.level_sizes
+    assert (res.distinct_states, res.states_generated) == \
+        (ref.distinct_states, ref.states_generated)
+    assert res.metrics["gauges"]["action_expansions"] == \
+        ref.metrics["gauges"]["action_expansions"]
+
+
+def test_device_bfs_check_entry_point_on_cpu():
+    res = device_bfs_check(load_binding(DEFECT), max_depth=2,
+                           tile_size=16, chunk_tiles=2,
+                           fpset_capacity=1 << 12, next_capacity=1 << 8,
+                           device="cpu")
+    assert res.levels == [1, 5, 18]
+
+
+# ----------------------------------------------------------------------
+# isolation and device choice
+# ----------------------------------------------------------------------
+def test_import_loads_no_jax():
+    code = ("import sys, tpuvsr_torch, tpuvsr_torch.engine.device_bfs, "
+            "tpuvsr_torch.testing, tpuvsr_torch.engine.carry\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'tpuvsr' or "
+            "m.startswith('tpuvsr.')]\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_tpuvsr_import_in_the_port():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _s, names in os.walk(os.path.join(ROOT, "tpuvsr_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    bad = [(f, m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "tpuvsr")]
+    assert not bad and len(files) > 15
+
+
+def test_entry_points_refuse_a_cpu_not_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceBFS(load_binding(DEFECT))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stub_device_engine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_bfs_check(load_binding(DEFECT), max_depth=1)

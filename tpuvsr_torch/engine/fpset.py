@@ -1,0 +1,254 @@
+"""Device-resident fingerprint set, and kernels K1 (insert) and K2
+(batch dedup).
+
+The same table as ``tpuvsr/engine/fpset.py``: one ``slots[CAP, 5]``
+table of uint32 words (kept here as int32 bit patterns) with columns
+(tag, row0, row1, row2, claim) — tag is fingerprint word 0 remapped
+0 -> 1 (0 marks an empty slot), row0..2 are words 1..3, claim holds the
+batch lane that inserted the slot — linear probing from ``_slot_hash``
+of the keyed fingerprint, at most ``MAX_PROBES`` probes.  A table
+written by the JAX package answers queries here unchanged
+(``engine/carry.py``).
+
+Unlike the JAX functions, ``insert_core`` updates the table IN PLACE
+(the table is the largest object on the card: 1.3 GB at 2^26 slots)
+and returns the same dict.
+
+The wrappers ``insert_core`` (K1) and ``dedup_keep`` (K2) take the
+plain PyTorch versions for CPU tensors and the kernels of
+``csrc/fpset_insert.cu`` and ``csrc/dedup.cu`` for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .pack import MASK32, to_i32, to_u32
+
+MAX_PROBES = 64
+
+
+def empty_table(capacity: int, device):
+    """capacity must be a power of two."""
+    if capacity & (capacity - 1):
+        raise ValueError(f"FPSet capacity {capacity} is not a power of 2")
+    return {"slots": torch.zeros((capacity, 5), dtype=torch.int32,
+                                 device=device)}
+
+
+def mul32(a: torch.Tensor, c) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 a, c in [0, 2^32) (c a tensor or an
+    int), without leaving int64 range: c is split in 16-bit halves."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def _slot_hash(k: torch.Tensor) -> torch.Tensor:
+    """[B, 4] int64 words in [0, 2^32) -> [B] probe start (int64)."""
+    h = k[:, 0] ^ mul32(k[:, 1], 0x9E3779B1)
+    h = h ^ mul32(k[:, 2], 0x85EBCA6B) ^ (k[:, 3] >> 5)
+    h = h ^ (h >> 15)
+    return mul32(h, 0x27D4EB2F)
+
+
+def _keyed(fps: torch.Tensor):
+    """Canonical (tag, row) words as int64 in [0, 2^32), and the probe
+    start: word 0 remapped 0 -> 1 so 0 can mark empty slots."""
+    k = to_u32(fps)
+    k[:, 0] = torch.where(k[:, 0] == 0, 1, k[:, 0])
+    return k, _slot_hash(k)
+
+
+# ----------------------------------------------------------------------
+# K2: batch dedup
+# ----------------------------------------------------------------------
+def dedup_batch(fps: torch.Tensor, mask: torch.Tensor):
+    """Plain version with the JAX contract: returns (perm, keep) where
+    ``perm`` sorts the batch so equal fingerprints are adjacent
+    (masked-out lanes sort to the end) and ``keep[i]`` marks lanes of
+    ``fps[perm]`` that are valid first occurrences."""
+    key = [torch.where(mask, to_u32(fps[:, i]), MASK32) for i in range(4)]
+    perm = torch.arange(fps.shape[0], device=fps.device)
+    for k in (key[3], key[2], key[1], key[0]):   # lexsort: last = major
+        perm = perm[torch.argsort(k[perm], stable=True)]
+    sfps = fps[perm]
+    neq = (sfps[1:] != sfps[:-1]).any(dim=1)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=fps.device),
+                       neq])
+    return perm, first & mask[perm]
+
+
+def dedup_keep(fps: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K2 wrapper: the first-occurrence keep mask in QUEUE order, i.e.
+    ``zeros.at[perm].set(keep)`` of ``dedup_batch`` (what the fused
+    commit consumes, device_bfs.py:937-938)."""
+    if fps.device.type == "cpu":
+        perm, keep = dedup_batch(fps, mask)
+        out = torch.zeros_like(mask)
+        out[perm] = keep
+        return out
+    return _dedup_kernel(fps, mask)
+
+
+def _dedup_kernel(fps, mask):
+    n = fps.shape[0]
+    keep = torch.empty((n,), dtype=torch.bool, device=fps.device)
+    hcap = 64
+    while hcap < 2 * n:
+        hcap *= 2
+    dev = fps.device
+    hkeys = torch.empty((hcap, 4), dtype=torch.int32, device=dev)
+    hstate = torch.empty((hcap,), dtype=torch.int32, device=dev)
+    hmin = torch.empty((hcap,), dtype=torch.int32, device=dev)
+    lane_slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    ck = kernels.check
+    kernels.launch(
+        "dedup_batch", "tpuvsr_dedup_batch",
+        ck(fps, "fps", torch.int32, (n, 4)),
+        ck(mask, "mask", torch.bool, (n,)), n, keep.data_ptr(),
+        hkeys.data_ptr(), hstate.data_ptr(), hmin.data_ptr(), hcap,
+        lane_slot.data_ptr(), kernels.stream_of(fps))
+    return keep
+
+
+# ----------------------------------------------------------------------
+# K1: insert
+# ----------------------------------------------------------------------
+def insert_core_plain(table, fps, mask):
+    """Plain version of ``insert_core``: the JAX claim-then-verify pass,
+    all lanes in lock step.  In a probe round every unresolved lane that
+    sees an empty slot claims it; among lanes claiming one slot in the
+    same round the highest lane id wins (the JAX scatter's last writer
+    on the CPU); a lane that reads back its own (tag, row) under another
+    lane's claim resolves as a duplicate."""
+    slots = table["slots"]
+    capm = slots.shape[0] - 1
+    keyed, h0 = _keyed(fps)
+    n = fps.shape[0]
+    dev = fps.device
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    payload = to_i32(torch.cat([keyed, lane[:, None]], dim=1))
+    unresolved = mask.clone()
+    fresh = torch.zeros_like(mask)
+    for t in range(MAX_PROBES):
+        if not bool(unresolved.any()):
+            break
+        idx = (h0 + t) & capm
+        cur = slots[idx]
+        mine = (to_u32(cur[:, :4]) == keyed).all(dim=1)
+        dup = unresolved & mine
+        empty = unresolved & (cur[:, 0] == 0)
+        # one winner per claimed slot: the highest claiming lane
+        e_idx, e_lane = idx[empty], lane[empty]
+        order = torch.argsort(e_idx * n + e_lane)
+        s_idx, s_lane = e_idx[order], e_lane[order]
+        last = torch.ones_like(s_idx, dtype=torch.bool)
+        if s_idx.numel() > 1:
+            last[:-1] = s_idx[1:] != s_idx[:-1]
+        win = s_lane[last]
+        slots[idx[win]] = payload[win]
+        post = slots[idx]
+        won = empty & (post == payload).all(dim=1)
+        lost_dup = empty & ~won & (to_u32(post[:, :4]) == keyed).all(dim=1)
+        fresh = fresh | won
+        unresolved = unresolved & ~dup & ~won & ~lost_dup
+    return table, fresh, bool(unresolved.any())
+
+
+def insert_core(table, fps, mask):
+    """K1 wrapper: insert ``fps[mask]`` ([n, 4] int32 words, [n] bool)
+    into ``table`` in place.  Returns (table, fresh, overflow): exactly
+    one lane per distinct new fingerprint is fresh; duplicates of a
+    stored fingerprint are not; ``overflow`` (a bool on the CPU, a
+    0-dim int32 CUDA tensor on the card, read without a sync) is set
+    when some lane was still unresolved after MAX_PROBES probes — its
+    insert did not happen (grow the table and retry)."""
+    if fps.device.type == "cpu":
+        return insert_core_plain(table, fps, mask)
+    return _insert_kernel(table, fps, mask)
+
+
+def _insert_kernel(table, fps, mask):
+    slots = table["slots"]
+    n = fps.shape[0]
+    fresh = torch.empty((n,), dtype=torch.bool, device=fps.device)
+    overflow = torch.zeros((), dtype=torch.int32, device=fps.device)
+    ck = kernels.check
+    kernels.launch(
+        "fpset_insert", "tpuvsr_fpset_insert",
+        ck(slots, "slots", torch.int32, (slots.shape[0], 5)),
+        slots.shape[0], ck(fps, "fps", torch.int32, (n, 4)),
+        ck(mask, "mask", torch.bool, (n,)), n, fresh.data_ptr(),
+        overflow.data_ptr(), kernels.stream_of(fps))
+    return table, fresh, overflow
+
+
+def query_core(table, fps, mask):
+    """Read-only membership probe (plain PyTorch, any device): returns
+    (fresh, overflow).  ``fresh`` marks masked lanes whose fingerprint
+    is NOT in the table; lanes unresolved after MAX_PROBES raise
+    ``overflow`` and are not fresh."""
+    slots = table["slots"]
+    capm = slots.shape[0] - 1
+    keyed, h0 = _keyed(fps)
+    unresolved = mask.clone()
+    fresh = torch.zeros_like(mask)
+    for t in range(MAX_PROBES):
+        if not bool(unresolved.any()):
+            break
+        cur = slots[(h0 + t) & capm]
+        mine = (to_u32(cur[:, :4]) == keyed).all(dim=1)
+        empty = unresolved & (cur[:, 0] == 0)
+        fresh = fresh | empty
+        unresolved = unresolved & ~mine & ~empty
+    return fresh, bool(unresolved.any())
+
+
+def grow(table, factor=4):
+    """Rebuild into a table ``factor`` times larger (on probe overflow
+    or high load): chunked re-insertion of every occupied slot through
+    ``insert_core``."""
+    slots = table["slots"]
+    occ = slots[:, 0] != 0
+    fps = slots[occ][:, :4]
+    cap = slots.shape[0]
+    new = empty_table(cap * factor, slots.device)
+    chunk = 1 << 16
+    for off in range(0, fps.shape[0], chunk):
+        part = fps[off:off + chunk]
+        m = torch.ones((part.shape[0],), dtype=torch.bool,
+                       device=slots.device)
+        new, _fresh, ovf = insert_core(new, part.contiguous(), m)
+        if bool(ovf):
+            return grow(table, factor * 2)
+    return new
+
+
+def table_stats(slots):
+    """Host-side occupancy/collision stats of a table's ``slots``
+    (tensor or numpy): "displaced" slots are occupied slots not at
+    their probe-chain start."""
+    if isinstance(slots, torch.Tensor):
+        slots = slots.cpu().numpy()
+    s = np.asarray(slots).view(np.uint32)
+    cap = int(s.shape[0])
+    occ = s[:, 0] != 0
+    n = int(occ.sum())
+    out = {"capacity": cap, "occupied": n,
+           "occupancy": n / cap if cap else 0.0,
+           "displaced": 0, "collision_rate": 0.0}
+    if n == 0:
+        return out
+    keyed = s[occ, :4].astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = keyed[:, 0] ^ (keyed[:, 1] * np.uint32(0x9E3779B1))
+        h = h ^ (keyed[:, 2] * np.uint32(0x85EBCA6B)) ^ (keyed[:, 3] >> 5)
+        h = h ^ (h >> 15)
+        home = (h * np.uint32(0x27D4EB2F)) & np.uint32(cap - 1)
+    idx = np.nonzero(occ)[0].astype(np.uint32)
+    displaced = int((home != idx).sum())
+    out["displaced"] = displaced
+    out["collision_rate"] = displaced / n
+    return out

@@ -1,0 +1,175 @@
+"""Hand kernels for Hopper: build, load, launch and count.
+
+Each CUDA source under ``tpuvsr_torch/csrc/`` is compiled with ``nvcc``
+for ``sm_90a`` into its own shared library with a plain C interface,
+at first use, under ``build/tpuvsr_torch/`` at the repository root (the
+file name carries a digest of the sources and flags, so a stale build is
+never loaded), and bound with ``ctypes``.  ``build()`` starts one
+``nvcc`` per source, all at once.
+
+The wrappers that call these kernels live beside their plain PyTorch
+versions (``engine/fpset.py``, ``engine/pack.py``,
+``models/vsr_kernel.py``).  A wrapper sends a CPU tensor to the plain
+version and a CUDA tensor to ``launch()``, which raises when the C
+entry point reports a CUDA error and otherwise adds one to the kernel's
+launch count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuvsr_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel name -> (source stem, the JAX function it replaces)
+KERNELS = {
+    "fpset_insert": ("fpset_insert",
+                     "tpuvsr/engine/fpset.py:111 insert_core"),
+    "dedup_batch": ("dedup", "tpuvsr/engine/fpset.py:70 dedup_batch"),
+    "vsr_fp_full": ("vsr_fingerprint",
+                    "tpuvsr/models/vsr_kernel.py:1079 fingerprint"),
+    "vsr_fp_parts": ("vsr_fingerprint",
+                     "tpuvsr/models/vsr_kernel.py:1093 parent_parts"),
+    "vsr_fp_incremental": (
+        "vsr_fingerprint",
+        "tpuvsr/models/vsr_kernel.py:1132 fingerprint_incremental"),
+    "pack": ("pack", "tpuvsr/engine/pack.py:199 PackSpec.pack"),
+    "unpack": ("pack", "tpuvsr/engine/pack.py:220 PackSpec.unpack"),
+}
+SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
+
+# C entry point -> argument types ("p" pointer, "i" int, "q" long long)
+_LAYOUT = "iiiiipppppp"
+_ENTRY = {
+    "tpuvsr_fpset_insert": "pqppipp" + "p",
+    "tpuvsr_dedup_batch": "ppippppqp" + "p",
+    "tpuvsr_vsr_fp_parts": _LAYOUT + "pipppp" + "p",
+    "tpuvsr_vsr_fp_incremental": _LAYOUT + "pippipppppp" + "p",
+    "tpuvsr_pack": "piii" + "ppppppppp" + "p",
+    "tpuvsr_unpack": "ppiiipppppp" + "p",
+}
+_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
+
+_libs: dict = {}
+_launches = {name: 0 for name in KERNELS}
+
+
+def _nvcc():
+    path = (os.environ.get("NVCC") or shutil.which("nvcc")
+            or "/usr/local/cuda/bin/nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found (looked for {path}); the "
+                           "hand kernels build only where the CUDA "
+                           "toolkit is installed")
+    return path
+
+
+def lib_path(stem: str) -> Path:
+    """Where the shared library of one source lives once built."""
+    h = hashlib.sha256()
+    for part in (CSRC / f"{stem}.cu", CSRC / "common.cuh"):
+        h.update(part.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:12]}.so"
+
+
+def build(stems=SOURCES) -> dict:
+    """Compile every source of ``stems`` that has no current build, one
+    ``nvcc`` process per source, all started together.  Returns
+    {stem: seconds} for the sources compiled now; raises with nvcc's
+    output when one fails.  The ptxas report (registers, spills) of
+    each build is kept beside the library as ``<lib>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [s for s in stems if not lib_path(s).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.time()
+    for stem in todo:
+        out = lib_path(stem)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{stem}.cu")]
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, out)
+    took, failed = {}, []
+    for stem, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        took[stem] = time.time() - t0
+        Path(str(out) + ".log").write_bytes(log)
+        if p.returncode != 0:
+            failed.append(f"{stem}.cu:\n{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return took
+
+
+def _lib(stem: str):
+    lib = _libs.get(stem)
+    if lib is None:
+        path = lib_path(stem)
+        if not path.exists():
+            build((stem,))
+        lib = ctypes.CDLL(str(path))
+        for name, sig in _ENTRY.items():
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes = [_CTYPE[c] for c in sig]
+                fn.restype = ctypes.c_int
+        _libs[stem] = lib
+    return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(kernel: str, entry: str, *args) -> None:
+    """Call one C entry point of a kernel and count the launch; raises
+    RuntimeError when it returns a CUDA error code."""
+    stem = KERNELS[kernel][0]
+    rc = getattr(_lib(stem), entry)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {rc} "
+                           f"({torch.cuda.get_device_name()})")
+    _launches[kernel] += 1
+
+
+def launch_counts() -> dict:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def check(t: torch.Tensor, name: str, dtype, shape=None):
+    """Refuse what a kernel does not take: a CPU tensor, another dtype,
+    another shape, a non-contiguous layout."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    return t.data_ptr()

@@ -1,0 +1,580 @@
+"""Dense state layout for the VSR family (reference: VSR.tla).
+
+A copy of ``tpuvsr/models/vsr.py`` (``VSRCodec``) with two changes:
+``pad_msgs`` pads torch tensors, and ``init_dense()`` builds VSR.tla's
+``Init`` state densely (the port has no interpreter to enumerate it).
+
+The reference checker (TLC) represents a state as a heap of nested
+records/sets/bags.  The device engine instead lays every reachable state of
+one spec x constants binding out as a fixed-shape struct-of-arrays of
+int32, so a frontier of N states is a pytree of ``[N, ...]`` arrays that
+a batched transition kernel (vsr_kernel.py) can step in parallel.
+
+Layout derivation (constants -> shapes), with reference citations:
+
+* ``R``/``C``/``V`` from ReplicaCount/ClientCount/Values (VSR.tla:92-96).
+* ``MAX_OPS = V``: each value is requested at most once ever, because
+  ``v \\notin DOMAIN aux_client_acked`` guards ReceiveClientRequest
+  (VSR.tla:369) and the ghost map only grows (VSR.tla:392,473) — so no
+  log can exceed |Values| entries.
+* ``MAX_VIEW = 1 + StartViewOnTimerLimit``: views are only ever minted by
+  TimerSendSVC incrementing by one under ``aux_svc < limit``
+  (VSR.tla:578-580); every other view adoption copies an existing view.
+* Message bag (VSR.tla:228-275): a content-addressed slot table of
+  ``MAX_MSGS`` rows.  A row holds the scalar header fields, the Prepare
+  payload entry, an optional log payload, and a pending-delivery count.
+  Rows are never freed: TLC bag semantics keep a delivered message in
+  DOMAIN with count 0 (tombstone), and the A01-family counts those
+  tombstones for quorums (SURVEY.md §2.7.4) — so ``present`` and
+  ``count`` are independent columns.
+* Implied-field compression (each documented invariant is established by
+  the action set; see vsr_kernel.py for the transitions):
+    - every SVC in ``rep_svc_recv[r]`` has view_number = View(r) and
+      dest = r (reset discipline at VSR.tla:298-301, 586, 612-615, 637,
+      683, 786, 833), so the set is stored as a source bitmask;
+    - every DVC in ``rep_dvc_recv[r]`` likewise (VSR.tla:662, 688, 700),
+      so DVC slots are keyed [dest, source] and store only the payload;
+    - every RecoveryResponse in ``rep_rec_recv[r]`` has x =
+      rep_rec_number[r] (guard VSR.tla:873) and dest = r.
+  One slot per (dest, source) is exact while RestartEmptyLimit = 0
+  (a second distinct same-view DVC from one source needs a restarted
+  replica to re-reach an old view); the kernel raises an overflow flag
+  if the bound is ever violated, and the layout refuses restarts > 0
+  with more than one slot budget unavailable.
+* Client table faithful to VSR.tla:337-339, 379-384; the layout requires
+  ``C = 1`` because ReceivePrepareMsg's other-client arm dereferences the
+  nonexistent ``m.commit`` field (VSR.tla:421) and would fault in TLC for
+  C > 1 — the corpus never runs C > 1 (SURVEY.md §2.7.1).
+
+Identifier conventions: replica/client ids and value ids are stored
+1-based exactly as in the spec (0 = absent/Nil); array axes are indexed
+with id-1.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..core.values import FnVal, TLAError, mk_record, value_key
+
+# Status encoding (VSR.tla:99-101)
+NORMAL, VIEWCHANGE, RECOVERING = 0, 1, 2
+STATUS_NAMES = ("Normal", "ViewChange", "Recovering")
+
+# Message-type encoding; 0 marks an empty slot.  Request/Reply/Commit are
+# declared in the spec but never sent (SURVEY.md §2.3), so get no code.
+(M_NONE, M_PREPARE, M_PREPAREOK, M_SVC, M_DVC, M_SV, M_GETSTATE,
+ M_NEWSTATE, M_RECOVERY, M_RECOVERYRESP) = range(10)
+MSGTYPE_NAMES = {
+    M_PREPARE: "PrepareMsg", M_PREPAREOK: "PrepareOkMsg",
+    M_SVC: "StartViewChangeMsg", M_DVC: "DoViewChangeMsg",
+    M_SV: "StartViewMsg", M_GETSTATE: "GetStateMsg",
+    M_NEWSTATE: "NewStateMsg", M_RECOVERY: "RecoveryMsg",
+    M_RECOVERYRESP: "RecoveryResponseMsg",
+}
+
+# Message header columns (hdr[M, NHDR]).  H_FLAG/H_CP exist only in
+# the CP06 layout (dual-mode replies: flag 0/1 + checkpoint number,
+# CP06:404-431); every other model's hdr plane stops at NHDR = 9
+# columns — the header width is a Codec class attribute (CP06Codec
+# overrides it to CP_NHDR) so the pre-checkpoint models don't pay two
+# always-zero hashed columns per slot (the r2->r3 bench regression).
+(H_TYPE, H_VIEW, H_OP, H_COMMIT, H_DEST, H_SRC, H_X, H_FIRST, H_LNV,
+ H_FLAG, H_CP) = range(11)
+NHDR = 9
+CP_NHDR = 11
+
+# Log-entry columns (LogEntryType, VSR.tla:157-161)
+E_VIEW, E_OPER, E_CLIENT, E_REQ = range(4)
+NENT = 4
+
+# Client-table columns (VSR.tla:317-320)
+T_REQ, T_OP, T_EXEC = range(3)
+
+# Error flags set by the kernel
+ERR_BAG_OVERFLOW = 1
+ERR_DVC_OVERFLOW = 2
+ERR_REC_OVERFLOW = 4
+
+
+@dataclass(frozen=True)
+class VSRShape:
+    """Static shape parameters for one spec x constants binding."""
+    R: int
+    C: int
+    V: int
+    MAX_OPS: int
+    MAX_MSGS: int
+    MAX_VIEW: int
+    timer_limit: int
+    restart_limit: int
+
+    @property
+    def f(self):
+        return self.R // 2
+
+
+def shape_from_cfg(constants, max_msgs=None):
+    """Derive the dense shapes from a bound .cfg constant map."""
+    R = constants["ReplicaCount"]
+    C = constants["ClientCount"]
+    V = len(constants["Values"])
+    T = constants["StartViewOnTimerLimit"]
+    restarts = constants.get("RestartEmptyLimit", 0)
+    if C != 1:
+        raise TLAError(
+            "dense layout requires ClientCount = 1: the reference spec "
+            "faults for C > 1 (dead m.commit field, VSR.tla:421)")
+    # Field-width bounds of the packed log-entry sort key used for the
+    # kernel's deterministic CHOOSE (vsr_kernel._entry_sort_key): client
+    # 4 bits, operation 4 bits, request_number 8 bits, view 8 bits.
+    if V >= 16 or 1 + T + restarts >= 256:
+        raise TLAError(
+            f"config exceeds packed sort-key field widths (V={V} < 16, "
+            f"max view {1 + T + restarts} < 256 required)")
+    if max_msgs is None:
+        # The distinct-message universe is bounded but loose; start
+        # small — lane count and state size scale with MAX_MSGS, and the
+        # device engine grows the table in place on overflow.  (Measured:
+        # the shrunken flagship config peaks at 16 domain entries.)
+        max_msgs = 8 * (1 + T + restarts)
+    return VSRShape(R=R, C=C, V=V, MAX_OPS=V, MAX_MSGS=max_msgs,
+                    MAX_VIEW=1 + T, timer_limit=T, restart_limit=restarts)
+
+
+class VSRCodec:
+    """Host-side bridge between interpreter state dicts and dense arrays.
+
+    Used for: building the dense initial state, decoding violating /
+    trace states back into TLC-style records, and the differential tests
+    that hold the kernel to the interpreter oracle.
+    """
+
+    NHDR = NHDR          # header columns (CP06Codec widens to CP_NHDR)
+
+    def __init__(self, constants, shape: VSRShape = None, max_msgs=None):
+        self.constants = constants
+        self.shape = shape or shape_from_cfg(constants, max_msgs=max_msgs)
+        values = sorted(constants["Values"], key=value_key)
+        self.value_id = {v: i + 1 for i, v in enumerate(values)}
+        self.values = values              # id-1 -> ModelValue
+        self.nil = constants["Nil"]
+        self.status_id = {constants["Normal"]: NORMAL,
+                          constants["ViewChange"]: VIEWCHANGE}
+        rec = constants.get("Recovering")
+        if rec is not None:
+            self.status_id[rec] = RECOVERING
+        self.status_mv = {i: mv for mv, i in self.status_id.items()}
+        self.mtype_id = {}
+        for code, cname in MSGTYPE_NAMES.items():
+            mv = constants.get(cname)
+            if mv is not None:
+                self.mtype_id[mv] = code
+        self.mtype_mv = {i: mv for mv, i in self.mtype_id.items()}
+
+    # -- empty dense state -------------------------------------------------
+    def zero_state(self):
+        s = self.shape
+        z = lambda *sh: np.zeros(sh, np.int32)
+        return {
+            "status": z(s.R), "view": z(s.R), "op": z(s.R),
+            "commit": z(s.R), "lnv": z(s.R),
+            "log": z(s.R, s.MAX_OPS, NENT), "log_len": z(s.R),
+            "peer_op": z(s.R, s.R),
+            "ct": z(s.R, s.C, 3),
+            "svc": z(s.R, s.R),
+            "dvc": z(s.R, s.R), "dvc_lnv": z(s.R, s.R),
+            "dvc_op": z(s.R, s.R), "dvc_commit": z(s.R, s.R),
+            "dvc_log": z(s.R, s.R, s.MAX_OPS, NENT),
+            "dvc_log_len": z(s.R, s.R),
+            "sent_dvc": z(s.R), "sent_sv": z(s.R),
+            "rec_number": z(s.R),
+            "rec": z(s.R, s.R), "rec_view": z(s.R, s.R),
+            "rec_has_log": z(s.R, s.R),
+            "rec_log": z(s.R, s.R, s.MAX_OPS, NENT),
+            "rec_log_len": z(s.R, s.R),
+            "rec_op": z(s.R, s.R), "rec_commit": z(s.R, s.R),
+            "m_present": z(s.MAX_MSGS), "m_count": z(s.MAX_MSGS),
+            "m_hdr": z(s.MAX_MSGS, self.NHDR),
+            "m_entry": z(s.MAX_MSGS, NENT),
+            "m_log": z(s.MAX_MSGS, s.MAX_OPS, NENT),
+            "m_log_len": z(s.MAX_MSGS), "m_has_log": z(s.MAX_MSGS),
+            "aux_svc": z(), "aux_restart": z(), "aux_acked": z(s.V),
+            "err": z(),
+        }
+
+    # -- packed-frontier bit budgets (engine/pack.py) ----------------------
+    # Per-plane (or per-column, for the heterogeneous hdr/entry planes)
+    # value ranges derived from the shape attributes this constructor
+    # already guards plus the widths-pass range table; speclint's drift
+    # pass cross-checks the structural packing constants against
+    # widths.FAMILY_PACKED.  m_count keeps raw 32-bit lanes (bag counts
+    # have no static bound).
+
+    @staticmethod
+    def _range_hi(ranges, name, default):
+        r = ranges.get(name)
+        return max(default, int(r[1])) if r else default
+
+    def plane_bounds(self, ranges):
+        s = self.shape
+        view = max(self._range_hi(ranges, "view_number",
+                                  s.MAX_VIEW - 1),
+                   s.MAX_VIEW - 1 + s.restart_limit)
+        ops = self._range_hi(ranges, "op_number", s.MAX_OPS)
+        req = self._range_hi(ranges, "request_number", s.V)
+        cli = self._range_hi(ranges, "client_id", s.C)
+        # nonce x: minted once per RestartEmpty (UniqueNumber under
+        # aux_restart < restart_limit, vsr_kernel.py:676-695)
+        x = max(self._range_hi(ranges, "recovery_nonce",
+                               s.restart_limit), s.restart_limit)
+        ent = [(0, view), (0, s.V), (0, cli), (0, req)]  # E_* columns
+        hdr = [None] * self.NHDR
+        hdr[H_TYPE] = (0, max(self.mtype_id.values(), default=9))
+        hdr[H_VIEW] = (0, view)
+        hdr[H_OP] = (-1, ops + 1)
+        hdr[H_COMMIT] = (-1, ops)
+        hdr[H_DEST] = (-1, s.R)
+        hdr[H_SRC] = (0, s.R)
+        hdr[H_X] = (0, max(1, x))
+        hdr[H_FIRST] = (-1, ops + 1)
+        hdr[H_LNV] = (0, view)
+        return {
+            "status": (0, max(self.status_id.values())),
+            "view": (0, view), "op": (0, ops), "commit": (0, ops),
+            "lnv": (0, view),
+            "log": ent, "log_len": (0, ops), "peer_op": (0, ops),
+            "ct": [(0, req), (0, ops), (0, 1)],       # T_REQ/T_OP/T_EXEC
+            "svc": (0, 1),
+            "dvc": (0, 1), "dvc_lnv": (0, view), "dvc_op": (0, ops),
+            "dvc_commit": (0, ops), "dvc_log": ent,
+            "dvc_log_len": (0, ops),
+            "sent_dvc": (0, 1), "sent_sv": (0, 1),
+            "rec_number": (0, max(1, x)), "rec": (0, 1),
+            "rec_view": (0, view), "rec_has_log": (0, 1),
+            "rec_log": ent, "rec_log_len": (0, ops),
+            "rec_op": (-1, ops), "rec_commit": (-1, ops),
+            "m_present": (0, 1),
+            "m_hdr": hdr, "m_entry": ent, "m_log": ent,
+            "m_log_len": (0, ops), "m_has_log": (0, 1),
+            "aux_svc": (0, max(1, s.timer_limit)),
+            "aux_restart": (0, max(1, s.restart_limit)),
+            "aux_acked": (0, 2),
+            "err": (0, 7),
+        }
+
+    # -- message-table growth ----------------------------------------------
+    MSG_KEYS = ("m_present", "m_count", "m_hdr", "m_entry", "m_log",
+                "m_log_len", "m_has_log")
+
+    def pad_msgs(self, dense, old_max_msgs):
+        """Pad a dense state dict from `old_max_msgs` slots to this
+        codec's MAX_MSGS by appending all-zero slots along axis 1 (the
+        batch axis is 0).  Zero padding is content-neutral: absent
+        slots contribute nothing to fingerprints, so grown states hash
+        identically.  Takes numpy arrays or torch tensors."""
+        import torch
+        new = self.shape.MAX_MSGS
+        out = dict(dense)
+        for k in self.MSG_KEYS:
+            v = dense[k]
+            shape = list(v.shape)
+            shape[1] = new - old_max_msgs
+            if isinstance(v, np.ndarray):
+                out[k] = np.concatenate(
+                    [v, np.zeros(shape, v.dtype)], axis=1)
+            else:
+                out[k] = torch.cat(
+                    [v, torch.zeros(shape, dtype=v.dtype,
+                                    device=v.device)], dim=1)
+        return out
+
+    # -- Init ----------------------------------------------------------
+    def init_dense(self):
+        """VSR.tla's ``Init`` as a dense state: every replica Normal in
+        view 1 with an empty log, every client-table row executed
+        (VSR.tla:317-339), no message and no ghost entry — all zeros
+        except ``view`` and ``ct[:, :, T_EXEC]``."""
+        d = self.zero_state()
+        d["view"][:] = 1
+        d["ct"][:, :, T_EXEC] = 1
+        return d
+
+    # -- encode ------------------------------------------------------------
+    def _enc_entry(self, e: FnVal):
+        return [e.apply("view_number"), self.value_id[e.apply("operation")],
+                e.apply("client_id"), e.apply("request_number")]
+
+    def _enc_log(self, log: FnVal, first_op=1):
+        """Encode a log-valued field with domain first_op..first_op+n-1
+        into (rows[MAX_OPS, NENT], length)."""
+        rows = np.zeros((self.shape.MAX_OPS, NENT), np.int32)
+        n = len(log)
+        for i in range(n):
+            rows[i] = self._enc_entry(log.apply(first_op + i))
+        return rows, n
+
+    def encode_msg_row(self, m: FnVal):
+        """One bag-domain record -> dense row pieces (hdr, entry, log,
+        log_len, has_log)."""
+        hdr = np.zeros(self.NHDR, np.int32)
+        entry = np.zeros(NENT, np.int32)
+        log = np.zeros((self.shape.MAX_OPS, NENT), np.int32)
+        log_len = 0
+        has_log = 0
+        t = self.mtype_id[m.apply("type")]
+        hdr[H_TYPE] = t
+        get = m.get
+        if get("view_number") is not None:
+            hdr[H_VIEW] = get("view_number")
+        hdr[H_DEST] = get("dest")
+        hdr[H_SRC] = get("source")
+        if t == M_PREPARE:
+            hdr[H_OP] = get("op_number")
+            hdr[H_COMMIT] = get("commit_number")
+            entry[:] = self._enc_entry(get("message"))
+        elif t in (M_PREPAREOK, M_GETSTATE):
+            hdr[H_OP] = get("op_number")
+        elif t == M_SVC:
+            pass
+        elif t == M_DVC:
+            hdr[H_OP] = get("op_number")
+            hdr[H_COMMIT] = get("commit_number")
+            hdr[H_LNV] = get("last_normal_vn")
+            log, log_len = self._enc_log(get("log"))
+            has_log = 1
+        elif t == M_SV:
+            hdr[H_OP] = get("op_number")
+            hdr[H_COMMIT] = get("commit_number")
+            log, log_len = self._enc_log(get("log"))
+            has_log = 1
+        elif t == M_NEWSTATE:
+            hdr[H_OP] = get("op_number")
+            hdr[H_COMMIT] = get("commit_number")
+            hdr[H_FIRST] = get("first_op")
+            log, log_len = self._enc_log(get("log"), first_op=get("first_op"))
+            has_log = 1
+        elif t == M_RECOVERY:
+            hdr[H_X] = get("x")
+        elif t == M_RECOVERYRESP:
+            hdr[H_X] = get("x")
+            lg = get("log")
+            if isinstance(lg, FnVal):
+                log, log_len = self._enc_log(lg)
+                has_log = 1
+                hdr[H_OP] = get("op_number")
+                hdr[H_COMMIT] = get("commit_number")
+            else:                       # log|op|commit are Nil (VSR.tla:850-855)
+                hdr[H_OP] = -1
+                hdr[H_COMMIT] = -1
+        else:
+            raise TLAError(f"unencodable message type {m.apply('type')}")
+        return hdr, entry, log, log_len, has_log
+
+    def encode(self, st: dict):
+        """Interpreter state dict -> dense state (numpy pytree)."""
+        s = self.shape
+        d = self.zero_state()
+        for r in range(1, s.R + 1):
+            i = r - 1
+            d["status"][i] = self.status_id[st["rep_status"].apply(r)]
+            d["view"][i] = st["rep_view_number"].apply(r)
+            d["op"][i] = st["rep_op_number"].apply(r)
+            d["commit"][i] = st["rep_commit_number"].apply(r)
+            d["lnv"][i] = st["rep_last_normal_view"].apply(r)
+            d["log"][i], d["log_len"][i] = self._enc_log(st["rep_log"].apply(r))
+            for r2 in range(1, s.R + 1):
+                d["peer_op"][i][r2 - 1] = st["rep_peer_op_number"].apply(r).apply(r2)
+            for c in range(1, s.C + 1):
+                row = st["rep_client_table"].apply(r).apply(c)
+                d["ct"][i][c - 1] = [row.apply("request_number"),
+                                     row.apply("op_number"),
+                                     1 if row.apply("executed") else 0]
+            for m in st["rep_svc_recv"].apply(r):
+                if m.apply("view_number") != d["view"][i] or m.apply("dest") != r:
+                    raise TLAError("svc_recv implied-field invariant violated")
+                d["svc"][i][m.apply("source") - 1] = 1
+            for m in st["rep_dvc_recv"].apply(r):
+                if m.apply("view_number") != d["view"][i] or m.apply("dest") != r:
+                    raise TLAError("dvc_recv implied-field invariant violated")
+                j = m.apply("source") - 1
+                if d["dvc"][i][j]:
+                    raise TLAError("DVC slot collision: restart-era spec "
+                                   "state needs multi-slot layout")
+                d["dvc"][i][j] = 1
+                d["dvc_lnv"][i][j] = m.apply("last_normal_vn")
+                d["dvc_op"][i][j] = m.apply("op_number")
+                d["dvc_commit"][i][j] = m.apply("commit_number")
+                d["dvc_log"][i][j], d["dvc_log_len"][i][j] = \
+                    self._enc_log(m.apply("log"))
+            d["sent_dvc"][i] = 1 if st["rep_sent_dvc"].apply(r) else 0
+            d["sent_sv"][i] = 1 if st["rep_sent_sv"].apply(r) else 0
+            d["rec_number"][i] = st["rep_rec_number"].apply(r)
+            for m in st["rep_rec_recv"].apply(r):
+                if m.apply("x") != d["rec_number"][i] or m.apply("dest") != r:
+                    raise TLAError("rec_recv implied-field invariant violated")
+                j = m.apply("source") - 1
+                if d["rec"][i][j]:
+                    raise TLAError("recovery-response slot collision")
+                d["rec"][i][j] = 1
+                d["rec_view"][i][j] = m.apply("view_number")
+                lg = m.apply("log")
+                if isinstance(lg, FnVal):
+                    d["rec_has_log"][i][j] = 1
+                    d["rec_log"][i][j], d["rec_log_len"][i][j] = self._enc_log(lg)
+                    d["rec_op"][i][j] = m.apply("op_number")
+                    d["rec_commit"][i][j] = m.apply("commit_number")
+                else:
+                    d["rec_op"][i][j] = -1
+                    d["rec_commit"][i][j] = -1
+        for k, (m, cnt) in enumerate(st["messages"].items):
+            if k >= s.MAX_MSGS:
+                raise TLAError(f"message bag exceeds MAX_MSGS={s.MAX_MSGS}")
+            hdr, entry, log, log_len, has_log = self.encode_msg_row(m)
+            d["m_present"][k] = 1
+            d["m_count"][k] = cnt
+            d["m_hdr"][k] = hdr
+            d["m_entry"][k] = entry
+            d["m_log"][k] = log
+            d["m_log_len"][k] = log_len
+            d["m_has_log"][k] = has_log
+        d["aux_svc"][()] = st["aux_svc"]
+        d["aux_restart"][()] = st["aux_restart"]
+        for v, acked in st["aux_client_acked"].items:
+            d["aux_acked"][self.value_id[v] - 1] = 2 if acked else 1
+        return d
+
+    # -- decode ------------------------------------------------------------
+    def _dec_entry(self, row):
+        return mk_record(view_number=int(row[E_VIEW]),
+                         operation=self.values[int(row[E_OPER]) - 1],
+                         client_id=int(row[E_CLIENT]),
+                         request_number=int(row[E_REQ]))
+
+    def _dec_log(self, rows, n, first_op=1):
+        return FnVal((first_op + i, self._dec_entry(rows[i]))
+                     for i in range(int(n)))
+
+    def decode_msg_row(self, hdr, entry, log, log_len, has_log):
+        t = int(hdr[H_TYPE])
+        mv = self.mtype_mv[t]
+        f = {"type": mv, "dest": int(hdr[H_DEST]), "source": int(hdr[H_SRC])}
+        if t == M_PREPARE:
+            f.update(view_number=int(hdr[H_VIEW]), op_number=int(hdr[H_OP]),
+                     commit_number=int(hdr[H_COMMIT]),
+                     message=self._dec_entry(entry))
+        elif t in (M_PREPAREOK, M_GETSTATE):
+            f.update(view_number=int(hdr[H_VIEW]), op_number=int(hdr[H_OP]))
+        elif t == M_SVC:
+            f.update(view_number=int(hdr[H_VIEW]))
+        elif t == M_DVC:
+            f.update(view_number=int(hdr[H_VIEW]), op_number=int(hdr[H_OP]),
+                     commit_number=int(hdr[H_COMMIT]),
+                     last_normal_vn=int(hdr[H_LNV]),
+                     log=self._dec_log(log, log_len))
+        elif t == M_SV:
+            f.update(view_number=int(hdr[H_VIEW]), op_number=int(hdr[H_OP]),
+                     commit_number=int(hdr[H_COMMIT]),
+                     log=self._dec_log(log, log_len))
+        elif t == M_NEWSTATE:
+            f.update(view_number=int(hdr[H_VIEW]), op_number=int(hdr[H_OP]),
+                     commit_number=int(hdr[H_COMMIT]),
+                     first_op=int(hdr[H_FIRST]),
+                     log=self._dec_log(log, log_len, first_op=int(hdr[H_FIRST])))
+        elif t == M_RECOVERY:
+            f.update(x=int(hdr[H_X]))
+        elif t == M_RECOVERYRESP:
+            f.update(view_number=int(hdr[H_VIEW]), x=int(hdr[H_X]))
+            if has_log:
+                f.update(log=self._dec_log(log, log_len),
+                         op_number=int(hdr[H_OP]),
+                         commit_number=int(hdr[H_COMMIT]))
+            else:
+                f.update(log=self.nil, op_number=self.nil,
+                         commit_number=self.nil)
+        else:
+            raise TLAError(f"bad message type code {t}")
+        return FnVal(f.items())
+
+    def decode(self, d: dict):
+        """Dense state -> interpreter state dict (exact TLC-style values)."""
+        s = self.shape
+        d = {k: np.asarray(v) for k, v in d.items()}
+        reps = range(1, s.R + 1)
+        st = {}
+        st["replicas"] = frozenset(reps)
+        st["clients"] = frozenset(range(1, s.C + 1))
+        st["rep_status"] = FnVal((r, self.status_mv[int(d["status"][r - 1])])
+                                 for r in reps)
+        for name, key in [("rep_view_number", "view"), ("rep_op_number", "op"),
+                          ("rep_commit_number", "commit"),
+                          ("rep_last_normal_view", "lnv"),
+                          ("rep_rec_number", "rec_number")]:
+            st[name] = FnVal((r, int(d[key][r - 1])) for r in reps)
+        st["rep_log"] = FnVal(
+            (r, self._dec_log(d["log"][r - 1], d["log_len"][r - 1]))
+            for r in reps)
+        st["rep_peer_op_number"] = FnVal(
+            (r, FnVal((r2, int(d["peer_op"][r - 1][r2 - 1])) for r2 in reps))
+            for r in reps)
+        st["rep_client_table"] = FnVal(
+            (r, FnVal((c, mk_record(
+                request_number=int(d["ct"][r - 1][c - 1][T_REQ]),
+                op_number=int(d["ct"][r - 1][c - 1][T_OP]),
+                executed=bool(d["ct"][r - 1][c - 1][T_EXEC])))
+                for c in range(1, s.C + 1)))
+            for r in reps)
+        st["rep_svc_recv"] = FnVal(
+            (r, frozenset(
+                FnVal([("type", self.mtype_mv[M_SVC]),
+                       ("view_number", int(d["view"][r - 1])),
+                       ("dest", r), ("source", r2)])
+                for r2 in reps if d["svc"][r - 1][r2 - 1]))
+            for r in reps)
+        st["rep_dvc_recv"] = FnVal(
+            (r, frozenset(
+                FnVal([("type", self.mtype_mv[M_DVC]),
+                       ("view_number", int(d["view"][r - 1])),
+                       ("log", self._dec_log(d["dvc_log"][r - 1][j],
+                                             d["dvc_log_len"][r - 1][j])),
+                       ("last_normal_vn", int(d["dvc_lnv"][r - 1][j])),
+                       ("op_number", int(d["dvc_op"][r - 1][j])),
+                       ("commit_number", int(d["dvc_commit"][r - 1][j])),
+                       ("dest", r), ("source", j + 1)])
+                for j in range(s.R) if d["dvc"][r - 1][j]))
+            for r in reps)
+        st["rep_sent_dvc"] = FnVal((r, bool(d["sent_dvc"][r - 1])) for r in reps)
+        st["rep_sent_sv"] = FnVal((r, bool(d["sent_sv"][r - 1])) for r in reps)
+
+        def rec_msg(r, j):
+            f = {"type": self.mtype_mv[M_RECOVERYRESP],
+                 "view_number": int(d["rec_view"][r - 1][j]),
+                 "x": int(d["rec_number"][r - 1]),
+                 "dest": r, "source": j + 1}
+            if d["rec_has_log"][r - 1][j]:
+                f.update(log=self._dec_log(d["rec_log"][r - 1][j],
+                                           d["rec_log_len"][r - 1][j]),
+                         op_number=int(d["rec_op"][r - 1][j]),
+                         commit_number=int(d["rec_commit"][r - 1][j]))
+            else:
+                f.update(log=self.nil, op_number=self.nil,
+                         commit_number=self.nil)
+            return FnVal(f.items())
+
+        st["rep_rec_recv"] = FnVal(
+            (r, frozenset(rec_msg(r, j)
+                          for j in range(s.R) if d["rec"][r - 1][j]))
+            for r in reps)
+        st["messages"] = FnVal(
+            (self.decode_msg_row(d["m_hdr"][k], d["m_entry"][k], d["m_log"][k],
+                                 d["m_log_len"][k], d["m_has_log"][k]),
+             int(d["m_count"][k]))
+            for k in range(s.MAX_MSGS) if d["m_present"][k])
+        st["aux_svc"] = int(d["aux_svc"])
+        st["aux_restart"] = int(d["aux_restart"])
+        st["aux_client_acked"] = FnVal(
+            (self.values[i], int(d["aux_acked"][i]) == 2)
+            for i in range(s.V) if d["aux_acked"][i])
+        return st

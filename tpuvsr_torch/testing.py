@@ -1,0 +1,144 @@
+"""The counter stub: a two-counter spec as a torch codec and kernel.
+
+A port of ``tpuvsr/testing.py:stub_model_factory``.  It implements the
+kernel contract the device BFS consumes (``action_names``,
+``_lane_count``, ``_guard_fns``, ``_action_fns``, ``fingerprint``,
+``invariant_fns``/``invariant_fn``, ``pk``) over a state space of
+``STUB_DISTINCT`` = 16 states with level sizes ``STUB_LEVELS`` — small
+enough that every engine path (growth pauses, violation, deadlock,
+trace replay) runs in seconds.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .engine.pack import build_pack_spec, to_i32
+from .engine.spec import SpecBinding
+from .frontend.cfg import parse_cfg_text
+
+COUNTER_CFG = ("CONSTANTS\n    Limit = 3\n"
+               "INIT Init\nNEXT Next\nINVARIANT Bound\n")
+
+#: the counter spec's exact fixpoint
+STUB_DISTINCT = 16
+STUB_LEVELS = [1, 2, 3, 4, 3, 2, 1]
+
+
+class _Shape:
+    MAX_MSGS = 4
+
+
+class StubCodec:
+    MSG_KEYS = ()
+
+    def __init__(self, limit=3):
+        self.shape = _Shape()
+        self.limit = limit
+
+    def zero_state(self):
+        z = np.zeros((), np.int32)
+        return {"status": z, "x": z.copy(), "y": z.copy(), "err": z.copy()}
+
+    def plane_bounds(self, ranges):
+        return {"status": (0, 1), "x": (0, self.limit + 1),
+                "y": (0, self.limit + 1), "err": (0, 1)}
+
+    def init_dense(self):
+        return self.zero_state()
+
+    def decode(self, d):
+        return {"x": int(np.asarray(d["x"])), "y": int(np.asarray(d["y"]))}
+
+    def pad_msgs(self, batch, old):
+        return batch
+
+
+class StubKern:
+    action_names = ("IncX", "IncY")
+    n_lanes = 2
+
+    def __init__(self, codec, limit=3, inv_bound=None):
+        self.limit = limit
+        self.inv_bound = inv_bound
+        self.pk = build_pack_spec(codec)
+
+    def _lane_count(self, name):
+        return 1
+
+    def _guard_fns(self):
+        lim = self.limit
+        return [lambda st: (st["x"] < lim)[:, None],
+                lambda st: (st["y"] < lim)[:, None]]
+
+    def _action_fns(self):
+        lim = self.limit
+
+        def incx(st, lane):
+            return ({"status": st["status"], "x": st["x"] + 1,
+                     "y": st["y"], "err": torch.zeros_like(st["err"])},
+                    st["x"] < lim)
+
+        def incy(st, lane):
+            return ({"status": st["status"], "x": st["x"],
+                     "y": st["y"] + 1, "err": torch.zeros_like(st["err"])},
+                    st["y"] < lim)
+        return [incx, incy]
+
+    def fingerprint(self, flat):
+        st = self.pk.unflatten(flat)
+        x = st["x"].to(torch.int64)
+        y = st["y"].to(torch.int64)
+        return to_i32(torch.stack([(x * 7 + y + 1), x + 1, y + 1,
+                                   torch.full_like(x, 99)], dim=1)
+                      & 0xFFFFFFFF)
+
+    def invariant_fns(self, names):
+        if self.inv_bound is None:
+            f = lambda st: torch.ones_like(st["x"], dtype=torch.bool)
+        else:
+            b = self.inv_bound
+            f = lambda st: st["x"] + st["y"] <= b
+        return [(n, f) for n in names]
+
+    def invariant_fn(self, names):
+        fns = self.invariant_fns(names)
+
+        def check(st):
+            ok = torch.ones_like(st["x"], dtype=torch.bool)
+            for _n, f in fns:
+                ok = ok & f(st)
+            return ok
+        return check
+
+
+def counter_binding():
+    """The counter spec's binding: Init is x = y = 0."""
+    cfg = parse_cfg_text(COUNTER_CFG)
+    return SpecBinding(module="ObsCounter", cfg=cfg,
+                       init=lambda codec: [codec.init_dense()],
+                       invariants=list(cfg.invariants))
+
+
+def stub_model_factory(limit=3, inv_bound=None):
+    """A ``model_factory`` producing (codec, kernel) for the counter
+    spec; ``inv_bound`` tightens Bound to x + y <= b (a reachable
+    violation)."""
+    def make(binding, max_msgs=None):
+        codec = StubCodec(limit)
+        return codec, StubKern(codec, limit, inv_bound)
+    return make
+
+
+def stub_device_engine(inv_bound=None, device=None, limit=3, **kw):
+    """A small DeviceBFS over the counter stub (the JAX harness's
+    defaults: tile 4, FPSet 2^8 slots, next buffer 2^6 rows)."""
+    from .engine.device_bfs import DeviceBFS
+    return DeviceBFS(counter_binding(),
+                     model_factory=stub_model_factory(
+                         limit=limit, inv_bound=inv_bound),
+                     tile_size=kw.pop("tile_size", 4),
+                     fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
+                     next_capacity=kw.pop("next_capacity", 1 << 6),
+                     device=device, **kw)
