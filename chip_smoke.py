@@ -6,23 +6,39 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
   1. build every hand kernel from ``tpuvsr_torch/csrc`` with nvcc
      (sm_90a, one nvcc per source, all at once);
   2. print the card's name and power limit (nvidia-smi);
-  3. hold each kernel against its plain PyTorch version on the card, on
-     the largest inputs each one met in an untimed recording run of the
-     main path (same depth, tile, chunk and 2^26 FPSet slots); time
-     kernel, plain version and, where PyTorch computes the same function
-     in one call (K2: a torch.sort lexsort), that call;
+  3. hold each kernel of the BFS path against its plain PyTorch version
+     on the card, on the largest inputs each one met in an untimed
+     recording run of that path (same depth, tile, chunk and 2^26 FPSet
+     slots); time kernel, plain version and, where PyTorch computes the
+     same function in one call (K2: a torch.sort lexsort), that call;
   4. run the counter stub through DeviceBFS on the card (16 distinct,
      levels [1,2,3,4,3,2,1]; the Bound violation trace);
-  5. the main path: device_bfs_check on examples/VSR_defect.cfg to
-     depth 10 (tile 128, 64 tiles a chunk, 2^26 FPSet slots), launch
-     counts reset just before and read just after; the level sizes must
-     be the JAX package's recorded ones;
-  6. print the kernels line, then the result line last.
+  5. the BFS path: device_bfs_check on examples/VSR_defect.cfg to depth
+     10 (tile 128, 64 tiles a chunk, 2^26 FPSet slots), launch counts
+     reset just before and read just after; the level sizes must be the
+     JAX package's recorded ones;
+  6. the hunt path (the walker fleet):
+     a. an untimed recording pass of the guided defect hunt (its first
+        round, kernel by kernel: every round has the same shapes); K5
+        (lane choice and swarm noise) held bit for bit against its plain
+        version (sim/rng.py) on the largest inputs the pass met, and K1,
+        K2 and K3 on the hunt's own batches; each timed; then the same
+        round through the CUDA graph of a step that the hunt replays
+        must give the same walks bit for bit;
+     b. the counter-stub fleet on the card: its Bound violation trace
+        must be the JAX package's (STUB_FLEET below);
+     c. the guided defect hunt (4096 walkers, depth 40, seed 2,
+        max_seconds 600), launch counts reset just before and read just
+        after; its trace is replayed through the port's kernel, and
+        walks, steps, trace length and actions must be the JAX CPU
+        record of the same run (HUNT_RECORD below);
+  7. print the kernels line, then the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
 ``--out FILE`` writes the measurements as JSON, ``--profile`` adds a
-torch.profiler table of a depth-7 run to that file, ``--depth N``
-changes the main path's depth (10 by default).
+torch.profiler table of a depth-7 BFS run and of one steady round of
+the hunt to that file, ``--depth N`` changes the BFS path's depth (10
+by default).
 """
 
 from __future__ import annotations
@@ -40,6 +56,32 @@ LEVELS = [1, 5, 18, 62, 226, 833, 2950, 10048, 32805, 101949, 299683]
 STUB_TRACE = [(None, {"x": 0, "y": 0}), ("IncY", {"x": 0, "y": 1}),
               ("IncY", {"x": 0, "y": 2}), ("IncX", {"x": 1, "y": 2}),
               ("IncX", {"x": 2, "y": 2}), ("IncX", {"x": 3, "y": 2})]
+# tpuvsr.testing.stub_fleet(walkers=64, inv_x_bound=2).run(num=1024,
+# depth=8, seed=7) on the CPU (python tests/test_torch_fleet.py stub)
+STUB_FLEET = {"violated": "Bound", "walks": 64, "steps": 307,
+              "trace": [[None, 0, 0], ["IncY", 0, 1], ["IncX", 1, 1],
+                        ["IncY", 1, 2], ["IncY", 1, 3], ["IncX", 2, 3],
+                        ["IncX", 3, 3]]}
+HUNT = {"walkers": 4096, "depth": 40, "max_seconds": 600.0, "sigma": 1.0,
+        "mode": "guided"}
+# the JAX package's guided hunt on the CPU, same walkers and depth, seed
+# 2 (python tests/test_torch_fleet.py hunt 4096 40 2, about half an hour
+# on 8 CPU cores): the violation on walk 728,342 of round 178, step 30
+HUNT_RECORD = {2: {
+    "ok": False, "violated": "AcknowledgedWriteNotLost", "walks": 729088,
+    "steps": 25253786, "trace_len": 31, "walk": 728342,
+    "actions": [
+        "ReceiveClientRequest", "TimerSendSVC", "ReceivePrepareMsg",
+        "ReceivePrepareOkMsg", "TimerSendSVC", "ExecuteOp",
+        "ReceiveClientRequest", "ReceiveHigherSVC",
+        "ReceiveHigherSVC", "SendDVC", "ReceiveMatchingDVC",
+        "ReceiveMatchingSVC", "SendDVC", "SendSV",
+        "ReceiveClientRequest", "SendGetState", "TimerSendSVC",
+        "ReceiveHigherSVC", "ReceiveMatchingSVC", "SendDVC",
+        "ReceiveHigherSVC", "SendDVC", "SendDVC",
+        "ReceiveMatchingSVC", "ReceiveMatchingSVC",
+        "ReceiveMatchingSVC", "ReceiveMatchingDVC", "SendSV",
+        "ReceiveSV", "ReceiveSV"]}}
 MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
 OPS_RATE = 67e12             # H100 SXM float32 outside the tensor cores
 
@@ -67,7 +109,8 @@ def cuda_ms(fn, reps=20, warm=3):
     sum of the kernels, copies and memsets torch.profiler records over
     ``reps`` calls; the issue time is CUDA events around the same calls
     back to back, which the host's launch rate bounds when the kernels
-    are short."""
+    are short.  The profiled calls are made again once if the profiler
+    records no device time; a second miss fails the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
@@ -81,14 +124,15 @@ def cuda_ms(fn, reps=20, warm=3):
     b.record()
     torch.cuda.synchronize()
     issue = a.elapsed_time(b) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = device_us(prof)
-    if dev_us <= 0:
-        raise SmokeError("torch.profiler recorded no device time")
-    return dev_us / reps / 1e3, issue
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = device_us(prof)
+        if dev_us > 0:
+            return dev_us / reps / 1e3, issue
+    raise SmokeError("torch.profiler recorded no device time")
 
 
 def bound(nbytes, nops):
@@ -200,40 +244,40 @@ class Recorder:
         return uninstall
 
 
-def check_kernels(rec):
-    """Phase 3: every kernel against its plain version, on the card."""
-    import torch
+def kernel_row(out, name, ms, plain_ms, err, nbytes, nops,
+               library_ms=None, extra=None, label=None):
+    """Append one kernels-line row (``label`` names a kernel measured
+    on another path than the BFS one) and fail on a disagreement."""
     from tpuvsr_torch import kernels
+    (ms, issue_ms), (plain_ms, plain_issue_ms) = ms, plain_ms
+    if library_ms is not None:
+        library_ms = library_ms[0]
+    b, by = bound(nbytes, nops)
+    r = {"name": label or name, "route": "cuda",
+         "source": "tpuvsr_torch/csrc/" + kernels.KERNELS[name][0] + ".cu",
+         "replaces": kernels.KERNELS[name][1], "launches": None,
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": b, "bound_by": by, "library_ms": library_ms}
+    r.update(extra or {}, kernel=name, issue_ms=issue_ms,
+             plain_issue_ms=plain_issue_ms, bytes=nbytes, ops=nops)
+    out.append(r)
+    print(f"  {r['name']}: err {err} ms {ms:.4f} plain {plain_ms:.4f} "
+          f"bound {b:.5f} ({by}) library {library_ms}", flush=True)
+    need(err == 0, f"{r['name']} disagrees with its plain version")
+
+
+def check_insert(out, fps, mask, table_fps, cap, label=None):
+    """K1 against its plain version: the recorded batch (first
+    occurrences only, as the callers insert) into a table of ``cap``
+    slots holding ``table_fps``; timed on fresh random batches."""
+    import torch
     from tpuvsr_torch.engine import fpset as F
-    out = []
-    dev = torch.device("cuda")
-
-    def row(name, ms, plain_ms, err, nbytes, nops, library_ms=None,
-            extra=None):
-        (ms, issue_ms), (plain_ms, plain_issue_ms) = ms, plain_ms
-        if library_ms is not None:
-            library_ms = library_ms[0]
-        b, by = bound(nbytes, nops)
-        r = {"name": name, "route": "cuda",
-             "source": "tpuvsr_torch/csrc/" + kernels.KERNELS[name][0] + ".cu",
-             "replaces": kernels.KERNELS[name][1], "launches": None,
-             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b, "bound_by": by, "library_ms": library_ms}
-        r.update(extra or {}, issue_ms=issue_ms, plain_issue_ms=plain_issue_ms,
-                 bytes=nbytes, ops=nops)
-        out.append(r)
-        print(f"  {name}: err {err} ms {ms:.4f} plain {plain_ms:.4f} "
-              f"bound {b:.5f} ({by}) library {library_ms}", flush=True)
-        need(err == 0, f"{name} disagrees with its plain version")
-
-    # -- K1: the recorded batch into a 2^26-slot table holding what the
-    # recording run's table held just before that insert
-    fps, mask, table_fps = rec.calls["fpset_insert"][1]
+    dev = fps.device
     n = fps.shape[0]
     keep = F.dedup_batch(fps, mask)
     canon = torch.zeros_like(mask)
     canon[keep[0]] = keep[1]
-    base = F.empty_table(1 << 26, dev)
+    base = F.empty_table(cap, dev)
     ones = torch.ones((table_fps.shape[0],), dtype=torch.bool, device=dev)
     F.insert_core(base, table_fps, ones)
     ta = {"slots": base["slots"].clone()}
@@ -241,12 +285,13 @@ def check_kernels(rec):
     tb = {"slots": base["slots"].clone()}
     _t, fp_, op_ = F.insert_core_plain(tb, fps, canon)
     torch.cuda.synchronize()
+
     def members(t):
         s = t["slots"]
         return torch.unique(s[s[:, 0] != 0][:, :4], dim=0)
-    same_set = torch.equal(members(ta), members(tb))
     need(bool(ok_) == op_, "fpset_insert overflow flag differs")
-    need(same_set, "fpset_insert membership differs from the plain version")
+    need(torch.equal(members(ta), members(tb)),
+         "fpset_insert membership differs from the plain version")
     n_fresh = int(fk.sum())
     need(n_fresh > 0, "the recorded insert batch has no fresh lane")
     gen = torch.Generator(device=dev)
@@ -255,8 +300,7 @@ def check_kernels(rec):
     def fresh_batch():
         return torch.randint(-2**31, 2**31 - 1, (n, 4), dtype=torch.int32,
                              device=dev, generator=gen)
-    batches = [fresh_batch() for _ in range(46)]
-    it = iter(batches)
+    it = iter([fresh_batch() for _ in range(46)])
     ms = cuda_ms(lambda: F.insert_core(ta, next(it), canon), reps=20, warm=3)
     it2 = iter([fresh_batch() for _ in range(8)])
     plain_ms = cuda_ms(lambda: F.insert_core_plain(tb, next(it2), canon),
@@ -265,11 +309,26 @@ def check_kernels(rec):
     # masked lane, one 20-byte row written per fresh lane
     # (fingerprint read only where the mask is set)
     n_mask = int(canon.sum())
-    row("fpset_insert", ms, plain_ms, max_abs(fk, fp_),
-        n_mask * 16 + 2 * n + 20 * n_mask + 20 * n_fresh, 0,
-        extra={"shape": [n, 4], "table_slots": 1 << 26,
-               "masked": n_mask, "fresh": n_fresh})
-    del ta, tb, base
+    kernel_row(out, "fpset_insert", ms, plain_ms, max_abs(fk, fp_),
+               n_mask * 16 + 2 * n + 20 * n_mask + 20 * n_fresh, 0,
+               extra={"shape": [n, 4], "table_slots": cap,
+                      "masked": n_mask, "fresh": n_fresh}, label=label)
+
+
+def check_kernels(rec):
+    """Phase 3: every kernel against its plain version, on the card."""
+    import torch
+    from tpuvsr_torch.engine import fpset as F
+    out = []
+    dev = torch.device("cuda")
+
+    def row(*a, **k):
+        kernel_row(out, *a, **k)
+
+    # -- K1: the recorded batch into a 2^26-slot table holding what the
+    # recording run's table held just before that insert
+    fps, mask, table_fps = rec.calls["fpset_insert"][1]
+    check_insert(out, fps, mask, table_fps, 1 << 26)
 
     # -- K2: dedup
     fps, mask = rec.calls["dedup_batch"][1]
@@ -352,6 +411,332 @@ def check_kernels(rec):
         extra={"shape": [B, pk.lanes]})
     torch.cuda.synchronize()
     return out
+
+
+class HuntRecorder:
+    """Keeps, during a hunt run, the inputs of the K5 call with the most
+    enabled lanes, the swarm-noise call, and the splitter's K1/K2/K3
+    calls on walker batches with the most live walkers."""
+
+    def __init__(self, walkers):
+        self.walkers = walkers
+        self.calls = {}
+
+    keep = Recorder.keep
+
+    def install(self):
+        from tpuvsr_torch.engine import fpset as F
+        from tpuvsr_torch.models.vsr_kernel import VSRKernel
+        from tpuvsr_torch.sim import rng
+        rec, W = self, self.walkers
+        choose, swarm = rng.choose_lanes, rng.swarm_noise
+        ins, ded, full = F.insert_core, F.dedup_keep, VSRKernel.fingerprint
+
+        def p_choose(wkeys, d, en, lane_aid, wlogw=None):
+            rec.keep("fleet_choose", int(en.sum()), lambda: (
+                wkeys.clone(), d if isinstance(d, int) else d.clone(),
+                en.clone(), lane_aid.clone(),
+                None if wlogw is None else wlogw.clone()))
+            return choose(wkeys, d, en, lane_aid, wlogw)
+
+        def p_swarm(wkeys, logw, sigma):
+            rec.keep("fleet_swarm_noise", wkeys.shape[0], lambda: (
+                wkeys.clone(), logw.clone(), sigma))
+            return swarm(wkeys, logw, sigma)
+
+        def p_insert(table, fps, mask):
+            if fps.shape[0] == W:      # not a grow() chunk
+                def snap():
+                    s = table["slots"]
+                    return (fps.clone(), mask.clone(),
+                            s[s[:, 0] != 0][:, :4].contiguous(),
+                            s.shape[0])
+                rec.keep("fpset_insert", int(mask.sum()), snap)
+            return ins(table, fps, mask)
+
+        def p_dedup(fps, mask):
+            rec.keep("dedup_batch", int(mask.sum()),
+                     lambda: (fps.clone(), mask.clone()))
+            return ded(fps, mask)
+
+        def p_full(self, flat):
+            rec.keep("vsr_fp_full", flat.shape[0],
+                     lambda: (self, flat.clone()))
+            return full(self, flat)
+
+        rng.choose_lanes, rng.swarm_noise = p_choose, p_swarm
+        F.insert_core, F.dedup_keep = p_insert, p_dedup
+        VSRKernel.fingerprint = p_full
+
+        def uninstall():
+            rng.choose_lanes, rng.swarm_noise = choose, swarm
+            F.insert_core, F.dedup_keep = ins, ded
+            VSRKernel.fingerprint = full
+        return uninstall
+
+
+def threefry_ops(blocks):
+    """Integer operations of ``blocks`` threefry2x32 hashes: 20 rounds
+    of add, rotate (two shifts and an or) and xor, 5 key injections of
+    3 adds, the 2 initial adds and the output xor."""
+    return blocks * (20 * 5 + 5 * 3 + 2 + 1)
+
+
+def check_hunt_kernels(rec):
+    """Phase 6a: K5 bit for bit against sim/rng.py on the recorded
+    hunt inputs, and K1/K2/K3 on the hunt's own batches; all timed."""
+    import torch
+    from tpuvsr_torch.engine import fpset as F
+    from tpuvsr_torch.sim import rng
+    out = []
+
+    # -- K5: lane choice
+    wkeys, d, en, lane_aid, wlogw = rec.calls["fleet_choose"][1]
+    W, L = en.shape
+    n_act = 0 if wlogw is None else wlogw.shape[1]
+    lk, ck = rng.choose_lanes(wkeys, d, en, lane_aid, wlogw)
+    lp, cp = rng.choose_lanes_plain(wkeys, d, en, lane_aid, wlogw)
+    err = max(max_abs(lk, lp), max_abs(ck, cp))
+    ms = cuda_ms(lambda: rng.choose_lanes(wkeys, d, en, lane_aid, wlogw))
+    plain_ms = cuda_ms(lambda: rng.choose_lanes_plain(
+        wkeys, d, en, lane_aid, wlogw), reps=5)
+    # what these inputs need: the enabled rows, log-weights, lane table,
+    # keys in, lanes and flags out; 3 key derivations a walker, one
+    # gumbel draw (two logs, ~60 float ops) per enabled action, one
+    # uniform a lane of the chosen action, 2 ops a lane to test it
+    aid = lane_aid.long()
+    if n_act:
+        act_en = torch.zeros((W, n_act), dtype=torch.int32,
+                             device=en.device).index_add_(
+            1, aid, en.to(torch.int32)) > 0
+        chosen = int((en & (aid[None, :] == aid[lk.long()][:, None]))
+                     .sum())
+        n_g = int(act_en.sum())
+        blocks = 3 * W + n_g + chosen
+        nops = threefry_ops(blocks) + 60 * n_g + 2 * W * L
+    else:
+        blocks = W + int(en.sum())
+        nops = threefry_ops(blocks) + 2 * W * L
+    nbytes = (W * L + W * n_act * 4 + L * 4 + W * 8 + W * 4 + W)
+    kernel_row(out, "fleet_choose", ms, plain_ms, err, nbytes, nops,
+               extra={"shape": [W, L], "n_act": n_act,
+                      "enabled": int(en.sum()), "blocks": blocks})
+
+    # -- K5: swarm noise (compared as float bits)
+    wk, logw, sigma = rec.calls["fleet_swarm_noise"][1]
+    W, n_act = wk.shape[0], logw.shape[0]
+    a = rng.swarm_noise(wk, logw, sigma)
+    b = rng.swarm_noise_plain(wk, logw, sigma)
+    err = max_abs(a.view(torch.int32), b.view(torch.int32))
+    ms = cuda_ms(lambda: rng.swarm_noise(wk, logw, sigma))
+    plain_ms = cuda_ms(lambda: rng.swarm_noise_plain(wk, logw, sigma),
+                       reps=5)
+    # a key derivation a walker, a uniform an entry, erf_inv (~40 float
+    # ops: log1p, its polynomial, 9 multiply-adds) and the scaling
+    kernel_row(out, "fleet_swarm_noise", ms, plain_ms, err,
+               W * 8 + n_act * 4 + W * n_act * 4,
+               threefry_ops(W + W * n_act) + 45 * W * n_act,
+               extra={"shape": [W, n_act], "sigma": sigma})
+
+    # -- K1 / K2 / K3 on the hunt's batches
+    fps, mask, table_fps, cap = rec.calls["fpset_insert"][1]
+    check_insert(out, fps, mask, table_fps, cap,
+                 label="fpset_insert (hunt)")
+    fps, mask = rec.calls["dedup_batch"][1]
+    n = fps.shape[0]
+    perm, keep = F.dedup_batch(fps, mask)
+    kp = torch.zeros_like(mask)
+    kp[perm] = keep
+    kernel_row(out, "dedup_batch",
+               cuda_ms(lambda: F.dedup_keep(fps, mask)),
+               cuda_ms(lambda: F.dedup_batch(fps, mask), reps=5),
+               max_abs(F.dedup_keep(fps, mask), kp), n * 16 + 2 * n, 0,
+               library_ms=cuda_ms(lambda: lexsort_keep(fps, mask)),
+               extra={"shape": [n, 4]}, label="dedup_batch (hunt)")
+    kern, flat = rec.calls["vsr_fp_full"][1]
+    B, L = flat.shape
+    cols = kern.R * kern.nrep + kern.M * kern.nmsg
+    kernel_row(out, "vsr_fp_full", cuda_ms(lambda: kern.fingerprint(flat)),
+               cuda_ms(lambda: kern.fingerprint_plain(flat), reps=5),
+               max_abs(kern.fingerprint(flat), kern.fingerprint_plain(flat)),
+               B * L * 4 + B * 16, B * cols * 4 * 2,
+               extra={"shape": [B, L]}, label="vsr_fp_full (hunt)")
+    torch.cuda.synchronize()
+    return out
+
+
+def check_replay(sim, trace):
+    """Every step of a reported trace is an enabled successor of the
+    state before it under the recorded action (the port's kernel,
+    step_all on the card; states compared by fingerprint, which does
+    not see the order of message slots); the first state passes the
+    invariant and the last one fails AcknowledgedWriteNotLost."""
+    import numpy as np
+    import torch
+    kern, codec, pk = sim.kern, sim.codec, sim.kern.pk
+    lane_action = torch.as_tensor(kern.lane_action, device=sim.device)
+
+    def dense(e):
+        return {k: torch.as_tensor(np.asarray(v))[None].to(sim.device)
+                for k, v in codec.encode(e.state).items()}
+    cur = dense(trace[0])
+    need(bool(kern.inv_acknowledged_write_not_lost(cur)[0]),
+         "the hunt trace's first state already violates the invariant")
+    for i, e in enumerate(trace[1:], 1):
+        nxt = dense(e)
+        succ, en = kern.step_all(cur)
+        lanes = {k: v[0] for k, v in succ.items()}
+        fps = kern.fingerprint(pk.flatten(lanes).contiguous())
+        want = kern.fingerprint(pk.flatten(nxt).contiguous())
+        aid = list(kern.action_names).index(e.action_name)
+        hit = en[0] & (lane_action == aid) & (fps == want).all(dim=1)
+        need(bool(hit.any()), f"hunt trace step {i} ({e.action_name}) is "
+             f"not an enabled successor")
+        cur = nxt
+    need(not bool(kern.inv_acknowledged_write_not_lost(cur)[0]),
+         "the hunt trace's last state does not violate "
+         "AcknowledgedWriteNotLost")
+
+
+def hunt_phase(args, doc):
+    """Phase 6: the hunt path.  Returns its kernels-line rows, with the
+    launch counts of the timed hunt (6c)."""
+    import numpy as np
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.sim import rng
+    from tpuvsr_torch.sim.defect_hunt import hunt, make_fleet
+    from tpuvsr_torch.testing import stub_fleet
+    H = HUNT
+    seeds = list(HUNT_RECORD)
+    run = lambda seed: hunt(H["walkers"], H["depth"], H["max_seconds"],
+                            seed, H["sigma"], H["mode"], device="cuda")
+
+    def same_as_record(seed, res, what):
+        want = HUNT_RECORD[seed]
+        got = {"ok": res.ok, "violated": res.violated_invariant,
+               "walks": res.walks, "steps": res.steps,
+               "trace_len": len(res.trace),
+               "actions": [e.action_name for e in res.trace[1:]]}
+        for k, v in got.items():
+            need(v == want[k], f"{what} seed {seed}: {k} {v!r}, the JAX "
+                 f"CPU record has {want[k]!r}")
+
+    print("phase 6a: hunt recording pass (its first round), K5 and the "
+          "hunt's K1/K2/K3", flush=True)
+    key = rng.prng_key(seeds[0], device="cuda")
+
+    def first_round(graphs):
+        sim = make_fleet(H["walkers"], H["sigma"], H["mode"],
+                         device="cuda")
+        sim.graphs = graphs
+        out = sim.run_round(base=0, active=H["walkers"], depth=H["depth"],
+                            key=key)
+        torch.cuda.synchronize()
+        return out
+
+    rec = HuntRecorder(H["walkers"])
+    uninstall = rec.install()
+    t0 = time.time()
+    # eager, so the recorder sees every call
+    violated, dead, hists, init, steps, done, _c = first_round(False)
+    uninstall()
+    doc["hunt_record_s"] = time.time() - t0
+    need(done and steps > 0, f"recording round: {steps} steps")
+    doc["hunt_recorded"] = {k: v[0] for k, v in rec.calls.items()}
+    rows = check_hunt_kernels(rec)
+    del rec
+    # the timed hunt replays a CUDA graph of each step: the same round
+    # through it must give the eager round's walks bit for bit
+    g_viol, g_dead, g_hists, g_init, g_steps, _d, _c = first_round(True)
+    need(g_steps == steps and np.array_equal(g_viol, violated)
+         and np.array_equal(g_dead, dead) and len(g_hists) == len(hists)
+         and all(torch.equal(a, b) for x, y in zip(hists, g_hists)
+                 for a, b in zip(x, y))
+         and all(np.array_equal(init[k], g_init[k]) for k in init),
+         "the graph path's first hunt round differs from the eager one")
+    print(f"  graph path equals the eager path on the first round "
+          f"({steps} steps)", flush=True)
+
+    print("phase 6b: counter-stub fleet", flush=True)
+    r = stub_fleet(walkers=64, inv_x_bound=2, device="cuda").run(
+        num=1024, depth=8, seed=7)
+    got = {"violated": r.violated_invariant, "walks": r.walks,
+           "steps": r.steps, "trace": [[e.action_name, e.state["x"],
+                                        e.state["y"]] for e in r.trace]}
+    need(got == STUB_FLEET, f"stub fleet: {got}")
+    print(f"  stub fleet: {r.violated_invariant} trace of "
+          f"{len(r.trace)} states, walks {r.walks}, steps {r.steps}",
+          flush=True)
+
+    print(f"phase 6c: guided defect hunt, {H['walkers']} walkers, depth "
+          f"{H['depth']}", flush=True)
+    doc["hunt"] = {}
+    counts = None
+    for seed in seeds:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        result, res, sim = run(seed)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if counts is None:
+            counts = kernels.launch_counts()
+        same_as_record(seed, res, "hunt")
+        h = {"seed": seed, "wall_s": wall, "walks": res.walks,
+             "steps": res.steps, "ok": res.ok,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "metrics": res.metrics, "launches": kernels.launch_counts()}
+        if result is not None:
+            need(sim.event["walk"] == HUNT_RECORD[seed]["walk"],
+                 f"hunt seed {seed}: violating walk {sim.event['walk']}, "
+                 f"the JAX CPU record has {HUNT_RECORD[seed]['walk']}")
+            check_replay(sim, res.trace)
+            h.update(result=result, event=sim.event)
+            print(f"  seed {seed}: {result['violated']}, trace replayed "
+                  f"on the card", flush=True)
+            print(f"time_to_violation_s {result['time_to_violation_s']}")
+            print(f"walks {res.walks}")
+            print(f"steps {res.steps}")
+            print(f"trace_len {len(res.trace)}")
+            print(f"final_action {res.trace[-1].action_name}")
+            print(f"violating_walk {sim.event['walk']}", flush=True)
+            print(f"  wall {wall:.3f}s, max_memory_allocated "
+                  f"{h['max_memory_allocated']}, {res.metrics['counters']}",
+                  flush=True)
+        else:
+            print(f"  seed {seed}: no violation in {res.walks} walks "
+                  f"({wall:.1f}s), as in the JAX record", flush=True)
+        doc["hunt"][str(seed)] = h
+    for k in rows:
+        k["launches"] = counts[k["kernel"]]
+        need(k["launches"] > 0, f"{k['name']} was not launched on the "
+             f"hunt path")
+
+    if args.profile:
+        # one steady round (the second of the hunt, graphs captured in
+        # the first): the profiler's CPU tracing would swamp a full hunt
+        from torch.profiler import ProfilerActivity, profile
+        sim = make_fleet(H["walkers"], H["sigma"], H["mode"], device="cuda")
+        sim.run(num=H["walkers"], depth=H["depth"], seed=seeds[0])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            sim.run_round(base=H["walkers"], active=H["walkers"],
+                          depth=H["depth"],
+                          key=rng.prng_key(seeds[0], device="cuda"))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        dev_us = device_us(prof)
+        doc["profile_hunt_round"] = {
+            "wall_s": wall, "device_s": dev_us / 1e6,
+            "device_busy_share": dev_us / 1e6 / wall,
+            "table": prof.key_averages().table(sort_by="cuda_time_total",
+                                               row_limit=40)}
+        print(f"  profiled hunt round: wall {wall:.3f}s, device busy "
+              f"{dev_us / 1e6:.3f}s", flush=True)
+    return rows
 
 
 def gpu_line():
@@ -443,7 +828,7 @@ def main(argv=None):
         print(f"  profiled depth 7: wall {wall7:.3f}s, device busy "
               f"{dev_us / 1e6:.3f}s", flush=True)
 
-    print(f"phase 5: main path, defect config to depth {args.depth}",
+    print(f"phase 5: BFS path, defect config to depth {args.depth}",
           flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -476,9 +861,10 @@ def main(argv=None):
           f"{main['max_memory_allocated']}", flush=True)
     print(f"  launches {counts}", flush=True)
     for k in rows:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = counts[k["kernel"]]
         need(k["launches"] > 0, f"{k['name']} was not launched on the "
-             f"main path")
+             f"BFS path")
+    rows += hunt_phase(args, doc)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
     if args.out:

@@ -202,7 +202,9 @@ def test_device_bfs_check_entry_point_on_cpu():
 # ----------------------------------------------------------------------
 def test_import_loads_no_jax():
     code = ("import sys, tpuvsr_torch, tpuvsr_torch.engine.device_bfs, "
-            "tpuvsr_torch.testing, tpuvsr_torch.engine.carry\n"
+            "tpuvsr_torch.testing, tpuvsr_torch.engine.carry, "
+            "tpuvsr_torch.sim.fleet, tpuvsr_torch.sim.splitting, "
+            "tpuvsr_torch.sim.defect_hunt, tpuvsr_torch.sim.rng\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuvsr' or "
             "m.startswith('tpuvsr.')]\n"
@@ -239,3 +241,9 @@ def test_entry_points_refuse_a_cpu_not_asked_for():
         stub_device_engine()
     with pytest.raises(RuntimeError, match="CUDA"):
         device_bfs_check(load_binding(DEFECT), max_depth=1)
+    from tpuvsr_torch.sim.defect_hunt import make_fleet
+    from tpuvsr_torch.testing import stub_fleet
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stub_fleet()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_fleet(walkers=8)

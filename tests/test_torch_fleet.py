@@ -1,0 +1,315 @@
+"""Parity of the port's walker fleet (tpuvsr_torch/sim) with the JAX
+package's (tpuvsr/sim) on the CPU.
+
+* the counter-stub fleet: clean-walk counts, the Bound violation trace
+  (identical across walker counts) and a guided run, against
+  ``tpuvsr.testing.stub_fleet``;
+* ``hunt_score`` on the 30 states of examples/found_violation_trace.txt;
+* one guided VSR fleet round on examples/VSR_defect.cfg (64 walkers,
+  depth 16, seed 2, the defect hunt's weights, swarm and splitter)
+  through both packages: histories, event arrays, steps, and the
+  splitter's fresh counts and novelty, compared exactly;
+* the novelty seen-set carried from JAX into the port.
+
+The JAX side binds the defect cfg through a constants-only shim spec (a
+VSR module that declares only the cfg's CONSTANTS, plus an Evaluator),
+which needs no reference corpus; its invariant check is the JAX
+kernel's own.  Everything compared is integer or float64 computed from
+integers: tolerance 0.
+
+Run as a script, this file prints the JAX CPU records that
+chip_smoke.py holds the card against:
+  python tests/test_torch_fleet.py hunt 4096 40 2    # the guided hunt
+  python tests/test_torch_fleet.py stub               # the stub fleet
+"""
+
+import json
+import os
+import sys
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if __name__ == "__main__":
+    sys.path.insert(0, ROOT)
+
+import jax  # noqa: E402
+
+from tpuvsr.frontend.cfg import parse_cfg_file as j_cfg  # noqa: E402
+from tpuvsr.frontend.parser import parse_module_text  # noqa: E402
+from tpuvsr.frontend.trace_parse import parse_trace_file  # noqa: E402
+from tpuvsr.interp.evalr import Evaluator  # noqa: E402
+from tpuvsr.models.registry import make_model as j_make_model  # noqa: E402
+from tpuvsr.obs import RunObserver  # noqa: E402
+from tpuvsr.sim.fleet import FleetSimulator as JFleet  # noqa: E402
+from tpuvsr.sim.splitting import NoveltySplitter as JSplitter  # noqa: E402
+from tpuvsr.testing import stub_fleet as j_stub_fleet  # noqa: E402
+
+from tpuvsr_torch.engine.carry import table_from_numpy  # noqa: E402
+from tpuvsr_torch.engine.spec import load_binding  # noqa: E402
+from tpuvsr_torch.models.registry import make_model  # noqa: E402
+from tpuvsr_torch.sim import NoveltySplitter, rng  # noqa: E402
+from tpuvsr_torch.sim.defect_hunt import WEIGHTS, make_fleet  # noqa: E402
+from tpuvsr_torch.sim.fleet import (FleetSimulator,  # noqa: E402
+                                    fleet_simulate)
+from tpuvsr_torch.testing import (counter_binding, stub_fleet,  # noqa: E402
+                                  stub_model_factory)
+
+DEFECT = os.path.join(ROOT, "examples", "VSR_defect.cfg")
+TRACE = os.path.join(ROOT, "examples", "found_violation_trace.txt")
+HUNT = dict(chunk_steps=8, max_msgs=48, action_weights=WEIGHTS,
+            swarm_sigma=1.0)
+SPLIT = dict(frac=0.25, decay=0.5, hunt_beta=1.5)
+
+
+def sig(res):
+    """Comparable identity of a violation trace."""
+    return [(e.position, e.action_name, tuple(sorted(e.state.items())))
+            for e in res.trace]
+
+
+def jax_shim():
+    """The defect cfg as a spec the JAX fleet can run: constants-only
+    module, init state = state 1 of the golden trace (VSR.tla's Init),
+    invariants checked by the JAX kernel."""
+    cfg = j_cfg(DEFECT)
+    mod = parse_module_text("---- MODULE VSR ----\nCONSTANTS "
+                            + ", ".join(cfg.constants) + "\n====\n")
+    shim = SimpleNamespace(cfg=cfg, module=mod,
+                           ev=Evaluator(mod, cfg.constants),
+                           symmetry_perms=[], actions=[])
+    entries = parse_trace_file(TRACE, shim)
+    codec, kern = j_make_model(shim, max_msgs=48, fold_symmetry=False)
+    inv = jax.jit(kern.invariant_fn(list(cfg.invariants)))
+    shim.init_states = lambda: [entries[0].state]
+    shim.check_invariants = lambda st: (
+        None if bool(inv(codec.encode(st))) else cfg.invariants[0])
+    return shim, entries, codec, kern
+
+
+# ----------------------------------------------------------------------
+# the counter stub
+# ----------------------------------------------------------------------
+def test_stub_clean_walks_match_jax():
+    want = j_stub_fleet(walkers=16, n_devices=1).run(num=32, depth=6,
+                                                     seed=0)
+    got = stub_fleet(walkers=16, device="cpu").run(num=32, depth=6, seed=0)
+    one = fleet_simulate(counter_binding(), num=32, depth=6, seed=0,
+                         walkers=16, chunk_steps=4, device="cpu",
+                         model_factory=stub_model_factory())
+    assert got.ok and want.ok and one.ok
+    assert (one.walks, one.steps) == (got.walks, got.steps)
+    assert (got.walks, got.steps, got.deadlocks, got.walkers) == \
+        (want.walks, want.steps, want.deadlocks, want.walkers) == \
+        (32, 32 * 6, 0, 16)
+
+
+@pytest.fixture(scope="module")
+def stub_violation():
+    res = j_stub_fleet(walkers=64, n_devices=1, inv_x_bound=2).run(
+        num=1024, depth=8, seed=7)
+    assert not res.ok and res.violated_invariant == "Bound"
+    return res
+
+
+@pytest.mark.parametrize("walkers", [64, 4096])
+def test_stub_violation_trace_matches_jax(stub_violation, walkers):
+    """Walk i is a pure function of (seed, i): the minimum violating
+    walk id, and so the trace, is the same at any walker count."""
+    res = stub_fleet(walkers=walkers, inv_x_bound=2, device="cpu").run(
+        num=65536, depth=8, seed=7)
+    assert not res.ok and res.violated_invariant == "Bound"
+    assert sig(res) == sig(stub_violation)
+    if walkers == 64:
+        assert (res.walks, res.steps) == (stub_violation.walks,
+                                          stub_violation.steps)
+
+
+def test_stub_guided_run_matches_jax():
+    want = j_stub_fleet(walkers=32, n_devices=1, inv_x_bound=2,
+                        split=JSplitter(frac=0.25, hunt_beta=1.0)).run(
+        num=64, depth=8, seed=1)
+    got = stub_fleet(walkers=32, inv_x_bound=2, device="cpu",
+                     split=NoveltySplitter(frac=0.25, hunt_beta=1.0)).run(
+        num=64, depth=8, seed=1)
+    assert not got.ok and got.violated_invariant == "Bound"
+    assert sig(got) == sig(want)
+    assert (got.walks, got.steps) == (want.walks, want.steps)
+    for g in ("novelty_best", "split_efficiency"):
+        assert got.metrics["gauges"][g] == want.metrics["gauges"][g]
+
+
+# ----------------------------------------------------------------------
+# the VSR kernel's hunt score
+# ----------------------------------------------------------------------
+def test_hunt_score_matches_jax_on_the_golden_trace():
+    _shim, entries, jcodec, jkern = jax_shim()
+    dense = [jcodec.encode(e.state) for e in entries]
+    batch = {k: np.stack([d[k] for d in dense]) for k in dense[0]}
+    want = np.asarray(jax.vmap(jkern.hunt_score)(batch))
+    _codec, kern = make_model(load_binding(DEFECT), max_msgs=48)
+    got = kern.hunt_score({k: torch.from_numpy(v)
+                           for k, v in batch.items()})
+    assert len(entries) == 30 and want.max() > 0
+    assert np.array_equal(want, got.numpy())
+
+
+# ----------------------------------------------------------------------
+# one guided VSR round through both packages
+# ----------------------------------------------------------------------
+class _RecordJ(JSplitter):
+    def resample(self, states, alive, violated_at, dead_at, hists,
+                 init_states, obs=None):
+        before = self.fresh_total
+        self.log = getattr(self, "log", [])
+        self.log.append({"alive": np.asarray(alive),
+                         "hists": [np.asarray(h) for pair in hists
+                                   for h in pair]})
+        out = super().resample(states, alive, violated_at, dead_at, hists,
+                               init_states, obs=obs)
+        self.log[-1].update(fresh=self.fresh_total - before,
+                            novelty=self.novelty.copy())
+        return out
+
+
+class _RecordP(NoveltySplitter):
+    def resample(self, states, alive, hists, init_states):
+        before = self.fresh_total
+        self.log = getattr(self, "log", [])
+        self.log.append({"alive": alive.numpy(),
+                         "hists": [h.numpy() for pair in hists
+                                   for h in pair]})
+        out = super().resample(states, alive, hists, init_states)
+        self.log[-1].update(fresh=self.fresh_total - before,
+                            novelty=self.novelty.copy())
+        return out
+
+
+@pytest.fixture(scope="module")
+def vsr_round():
+    shim, entries, _c, _k = jax_shim()
+    jsplit = _RecordJ(**SPLIT)
+    jsim = JFleet(shim, walkers=64, n_devices=1, split=jsplit, **HUNT)
+    jout = jsim.run_round(base=0, active=64, depth=16,
+                          key=jax.random.PRNGKey(2), obs=RunObserver())
+    psplit = _RecordP(**SPLIT)
+    psim = FleetSimulator(load_binding(DEFECT), walkers=64, split=psplit,
+                          device="cpu", **HUNT)
+    pout = psim.run_round(base=0, active=64, depth=16, key=rng.prng_key(2))
+    return SimpleNamespace(jout=jout, pout=pout, jsplit=jsplit,
+                           psplit=psplit, entries=entries, psim=psim)
+
+
+def test_guided_vsr_round_histories_match_jax(vsr_round):
+    jv, jd, jh, ji, jsteps, jdone, jchunks = vsr_round.jout
+    pv, pd, ph, pi, psteps, pdone, pchunks = vsr_round.pout
+    assert (psteps, pdone, pchunks) == (jsteps, jdone, jchunks) \
+        and jsteps > 0
+    assert len(ph) == len(jh) == 2
+    for (ja, jp), (pa, pp) in zip(jh, ph):
+        assert np.array_equal(np.asarray(ja), pa.numpy())
+        assert np.array_equal(np.asarray(jp), pp.numpy())
+    assert np.array_equal(jv, pv) and np.array_equal(jd, pd)
+    for k, v in ji.items():
+        assert np.array_equal(np.asarray(v), pi[k]), k
+
+
+def test_guided_vsr_round_splitter_matches_jax(vsr_round):
+    jl, pl = vsr_round.jsplit.log, vsr_round.psplit.log
+    assert len(jl) == len(pl) == 1
+    for j, p in zip(jl, pl):
+        assert np.array_equal(j["alive"], p["alive"])
+        for a, b in zip(j["hists"], p["hists"]):
+            assert np.array_equal(a, b)
+        assert j["fresh"] == p["fresh"] > 0
+        assert np.array_equal(j["novelty"], p["novelty"])
+    assert vsr_round.psplit.best == vsr_round.jsplit.best
+
+
+def test_make_fleet_is_the_hunt_configuration(vsr_round):
+    sim = make_fleet(walkers=64, device="cpu")
+    assert np.array_equal(sim.log_w, vsr_round.psim.log_w)
+    assert (sim.chunk, sim.codec.shape.MAX_MSGS, sim.swarm_sigma) == \
+        (8, 48, 1.0)
+    s = sim.splitter
+    assert (s.frac, s.decay, s.hunt_beta) == (0.25, 0.5, 1.5)
+
+
+def test_seen_set_carries_from_jax(vsr_round):
+    """A JAX splitter's seen-set loads into the port's through
+    carry.table_from_numpy; both then name the same fresh walkers on
+    one batch (the golden trace's states, each twice, half of them
+    masked)."""
+    slots = np.asarray(vsr_round.jsplit.state_arrays()["slots"])
+    _shim, entries, jcodec, jkern = jax_shim()
+    dense = [jcodec.encode(e.state) for e in entries] * 2
+    batch = {k: np.stack([d[k] for d in dense]) for k in dense[0]}
+    alive = np.arange(60) % 4 != 3
+    j = JSplitter(frac=0.0)         # observe only: novelty = fresh
+    j.bind(jkern)
+    j.reset(60)
+    j.table = {"slots": jax.numpy.asarray(slots)}
+    j.resample({k: jax.numpy.asarray(v) for k, v in batch.items()},
+               jax.numpy.asarray(alive), jax.numpy.full(60, -1),
+               jax.numpy.full(60, -1), [], {k: v for k, v in batch.items()})
+    p = NoveltySplitter()
+    _c, pk = make_model(load_binding(DEFECT), max_msgs=48)
+    p.bind(pk)
+    p.reset(60, "cpu")
+    p.table = table_from_numpy(slots, device="cpu")
+    fresh = p.observe(pk.pk.flatten({k: torch.from_numpy(v)
+                                     for k, v in batch.items()}),
+                      torch.from_numpy(alive))
+    assert np.array_equal(j.novelty, fresh.astype(np.float64))
+    assert 0 < fresh.sum() < alive.sum()
+
+
+def test_defect_hunt_cli_refuses_an_unknown_mode(capsys):
+    from tpuvsr_torch.sim import defect_hunt
+    assert defect_hunt.main(["defect_hunt", "8", "4", "1", "2", "1.0",
+                             "greedy"]) == 2
+    assert "unknown mode" in capsys.readouterr().err
+
+
+# ----------------------------------------------------------------------
+# the records chip_smoke.py holds the card against
+# ----------------------------------------------------------------------
+def _record_hunt(walkers, depth, seed):
+    """The JAX CPU record of the guided defect hunt (the run of
+    scripts/defect_hunt.py in guided mode, through the shim spec)."""
+    shim, _e, _c, _k = jax_shim()
+    sim = JFleet(shim, walkers=walkers, split=JSplitter(**SPLIT), **HUNT)
+    picked = {}
+    pick = sim._pick_event
+
+    def record(*a, **k):
+        picked["event"] = pick(*a, **k)
+        return picked["event"]
+    sim._pick_event = record
+    t0 = time.time()
+    res = sim.run(num=10**9, depth=depth, seed=seed)
+    return {"ok": res.ok, "violated": res.violated_invariant,
+            "walks": res.walks, "steps": res.steps,
+            "trace_len": len(res.trace),
+            "actions": [e.action_name for e in res.trace[1:]],
+            "event": picked.get("event"), "cpu_s": time.time() - t0}
+
+
+def _record_stub():
+    res = j_stub_fleet(walkers=64, inv_x_bound=2).run(num=1024, depth=8,
+                                                       seed=7)
+    return {"violated": res.violated_invariant, "walks": res.walks,
+            "steps": res.steps,
+            "trace": [[e.action_name, e.state["x"], e.state["y"]]
+                      for e in res.trace]}
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "hunt":
+        print(json.dumps(_record_hunt(*(int(a) for a in sys.argv[2:5]))))
+    else:
+        print(json.dumps(_record_stub()))

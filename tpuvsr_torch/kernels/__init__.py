@@ -9,10 +9,12 @@ never loaded), and bound with ``ctypes``.  ``build()`` starts one
 
 The wrappers that call these kernels live beside their plain PyTorch
 versions (``engine/fpset.py``, ``engine/pack.py``,
-``models/vsr_kernel.py``).  A wrapper sends a CPU tensor to the plain
-version and a CUDA tensor to ``launch()``, which raises when the C
-entry point reports a CUDA error and otherwise adds one to the kernel's
-launch count.
+``models/vsr_kernel.py``, ``sim/rng.py``).  A wrapper sends a CPU
+tensor to the plain version and a CUDA tensor to ``launch()``, which
+raises when the C entry point reports a CUDA error and otherwise adds
+one to the kernel's launch count.  A launch recorded into a CUDA graph
+runs only when the graph replays: ``capture()`` keeps those launches
+apart and counts them at each replay.
 """
 
 from __future__ import annotations
@@ -46,10 +48,15 @@ KERNELS = {
         "tpuvsr/models/vsr_kernel.py:1132 fingerprint_incremental"),
     "pack": ("pack", "tpuvsr/engine/pack.py:199 PackSpec.pack"),
     "unpack": ("pack", "tpuvsr/engine/pack.py:220 PackSpec.unpack"),
+    "fleet_choose": ("fleet_draw",
+                     "tpuvsr/sim/fleet.py:387 chunk_fn step draws"),
+    "fleet_swarm_noise": ("fleet_draw",
+                          "tpuvsr/sim/fleet.py:374 chunk_fn swarm noise"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
-# C entry point -> argument types ("p" pointer, "i" int, "q" long long)
+# C entry point -> argument types ("p" pointer, "i" int, "q" long long,
+# "f" float)
 _LAYOUT = "iiiiipppppp"
 _ENTRY = {
     "tpuvsr_fpset_insert": "pqppipp" + "p",
@@ -58,11 +65,15 @@ _ENTRY = {
     "tpuvsr_vsr_fp_incremental": _LAYOUT + "pippipppppp" + "p",
     "tpuvsr_pack": "piii" + "ppppppppp" + "p",
     "tpuvsr_unpack": "ppiiipppppp" + "p",
+    "tpuvsr_fleet_choose": "pppippiipp" + "p",
+    "tpuvsr_fleet_swarm_noise": "ppifip" + "p",
 }
-_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
+_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
+          "f": ctypes.c_float}
 
 _libs: dict = {}
 _launches = {name: 0 for name in KERNELS}
+_captured = None      # launches recorded by the capture in progress
 
 
 def _nvcc():
@@ -148,7 +159,36 @@ def launch(kernel: str, entry: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA error {rc} "
                            f"({torch.cuda.get_device_name()})")
-    _launches[kernel] += 1
+    if torch.cuda.is_current_stream_capturing():
+        if _captured is None:
+            raise RuntimeError(f"{kernel}: a CUDA graph that launches "
+                               "hand kernels is captured through "
+                               "kernels.capture()")
+        _captured[kernel] = _captured.get(kernel, 0) + 1
+    else:
+        _launches[kernel] += 1
+
+
+def capture(fn):
+    """Capture ``fn()`` into a CUDA graph on the current device.  Returns
+    the graph's replay function, which adds the kernel launches the
+    capture recorded to the launch counts at every replay (the capture
+    itself runs and counts nothing)."""
+    global _captured
+    graph = torch.cuda.CUDAGraph()
+    _captured = {}
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+        launched = _captured
+    finally:
+        _captured = None
+
+    def replay():
+        graph.replay()
+        for k, n in launched.items():
+            _launches[k] += n
+    return replay
 
 
 def launch_counts() -> dict:

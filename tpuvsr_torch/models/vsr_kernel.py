@@ -62,10 +62,26 @@ ALL_KEYS = REP_KEYS + MSG_KEYS + AUX_KEYS
 
 
 # ----------------------------------------------------------------------
-# batched index helpers: x is [B, n, ...], i (and j) are [B] indices
+# batched index helpers: x is [B, n, ...], i (and j) are [B] indices.
+# A Python int operand never becomes a tensor through a host-to-device
+# copy (which would stall the host on every call on the card, and which
+# a CUDA graph cannot capture): it is filled on the device or passed to
+# torch as a scalar.
 # ----------------------------------------------------------------------
+_ARANGE = {}
+
+
+def _iota(n, device):
+    """torch.arange(n) on ``device``, built once per (n, device); only
+    ever read."""
+    t = _ARANGE.get((n, device))
+    if t is None:
+        t = _ARANGE[(n, device)] = torch.arange(n, device=device)
+    return t
+
+
 def _ar(x):
-    return torch.arange(x.shape[0], device=x.device)
+    return _iota(x.shape[0], x.device)
 
 
 def _take(x, i):
@@ -78,35 +94,40 @@ def _take2(x, i, j):
     return x[_ar(x), i.long(), j.long()]
 
 
+def _val(v, x):
+    """v as a value to store into x (a Python int is filled on x's
+    device)."""
+    if isinstance(v, int):
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+    return v.to(x.dtype)
+
+
 def _put(x, i, v):
     """Copy of x with x[b, i[b]] = v[b] (v broadcasts per item)."""
     y = x.clone()
-    y[_ar(x), i.long()] = torch.as_tensor(v, dtype=x.dtype,
-                                          device=x.device)
+    y[_ar(x), i.long()] = _val(v, x)
     return y
 
 
 def _put2(x, i, j, v):
     y = x.clone()
-    y[_ar(x), i.long(), j.long()] = torch.as_tensor(v, dtype=x.dtype,
-                                                    device=x.device)
+    y[_ar(x), i.long(), j.long()] = _val(v, x)
     return y
 
 
 def _where(pred, a, b):
-    """torch.where with a [B] predicate broadcast over trailing axes."""
-    a = torch.as_tensor(a, dtype=I32, device=pred.device)
-    b = torch.as_tensor(b, dtype=I32, device=pred.device)
-    nd = max(a.dim(), b.dim())
-    return torch.where(pred.reshape((-1,) + (1,) * (nd - 1)), a, b)
+    """torch.where with a [B] predicate broadcast over trailing axes
+    (int32 result)."""
+    nd = max(a.dim() if isinstance(a, torch.Tensor) else 0,
+             b.dim() if isinstance(b, torch.Tensor) else 0)
+    return torch.where(pred.reshape((-1,) + (1,) * (nd - 1)), a, b).to(I32)
 
 
 def _first_true(x):
     """Index of the first True along the last axis (0 when none), the
     value jnp.argmax gives a bool vector."""
     n = x.shape[-1]
-    idx = torch.arange(n, device=x.device, dtype=torch.int64)
-    first = torch.where(x, idx, n).amin(dim=-1)
+    first = torch.where(x, _iota(n, x.device), n).amin(dim=-1)
     return torch.where(first == n, 0, first)
 
 
@@ -116,7 +137,9 @@ def _clip(x, lo, hi):
 
 def _col(v, B, device):
     """A scalar or [B] value as a [B] int32 column."""
-    return torch.as_tensor(v, dtype=I32, device=device).expand(B)
+    if isinstance(v, int):
+        return torch.full((B,), v, dtype=I32, device=device)
+    return v.to(I32).expand(B)
 
 
 def _lex_less(a, b):
@@ -302,7 +325,7 @@ class VSRKernel:
         for d in range(1, self.R + 1):
             rd = dict(row)
             hdr = row["hdr"].clone()
-            hdr[:, H_DEST] = d
+            hdr[:, H_DEST].fill_(d)
             rd["hdr"] = hdr
             st = self._bag_send(st, rd, pred=(src != d))
         return st
@@ -651,7 +674,7 @@ class VSRKernel:
         s2 = dict(st)
         s2["commit"] = _put(st["commit"], i, opn)
         ct = st["ct"].clone()
-        ct[_ar(ct), i.long(), 0, T_EXEC] = 1
+        ct[_ar(ct), i.long(), 0, T_EXEC] = _val(1, ct)
         s2["ct"] = ct
         s2["aux_acked"] = _put(st["aux_acked"],
                                _clip(entry[:, E_OPER] - 1, 0, self.V - 1),
@@ -751,7 +774,7 @@ class VSRKernel:
         s2["commit"] = _put(st["commit"], i, 0)
         s2["peer_op"] = _put(st["peer_op"], i, 0)
         empty_row = torch.zeros((self.shape.C, 3), dtype=I32, device=dev)
-        empty_row[:, T_EXEC] = 1
+        empty_row[:, T_EXEC].fill_(1)
         s2["ct"] = _put(st["ct"], i, empty_row)
         s2 = self._clear_vc(s2, i)
         s2 = self._reset_sent(s2, i)
@@ -1273,6 +1296,27 @@ class VSRKernel:
     def pred_all_replicas_same_view(self, st):
         return ((st["view"] == st["view"][:, :1]).all(dim=1)
                 & (st["status"] == NORMAL).all(dim=1))
+
+    def hunt_score(self, st):
+        """[B] int32 defect-proximity score for guided simulation (the
+        splitter's ``hunt_beta`` term): how close each state is to
+        losing an acknowledged write (AcknowledgedWriteNotLost,
+        VSR.tla:945-950).  0 while nothing is acked; afterwards
+        1 + 2 * (replicas missing the worst acked value) + 1 if some
+        Normal replica lags the max view while holding an acked value
+        + 1 if a GetState record is in the bag."""
+        acked = st["aux_acked"] == 2                          # [B, V]
+        has = self._replica_has_op(st)                        # [B, R, V]
+        missing = (~has).sum(dim=1)                           # [B, V]
+        worst = torch.where(acked, missing, -1).amax(dim=1)
+        vmax = st["view"].amax(dim=1, keepdim=True)
+        has_acked_val = (has & acked[:, None, :]).any(dim=2)  # [B, R]
+        lag = ((st["status"] == NORMAL) & (st["view"] < vmax)
+               & has_acked_val).any(dim=1)
+        gs = ((st["m_present"] == 1)
+              & (st["m_hdr"][:, :, H_TYPE] == M_GETSTATE)).any(dim=1)
+        score = 1 + 2 * worst + lag.to(torch.int64) + gs.to(torch.int64)
+        return torch.where(acked.any(dim=1), score, 0).to(I32)
 
     INVARIANT_FNS = {
         "AcknowledgedWriteNotLost": "inv_acknowledged_write_not_lost",

@@ -1,12 +1,14 @@
 """The counter stub: a two-counter spec as a torch codec and kernel.
 
-A port of ``tpuvsr/testing.py:stub_model_factory``.  It implements the
-kernel contract the device BFS consumes (``action_names``,
-``_lane_count``, ``_guard_fns``, ``_action_fns``, ``fingerprint``,
-``invariant_fns``/``invariant_fn``, ``pk``) over a state space of
-``STUB_DISTINCT`` = 16 states with level sizes ``STUB_LEVELS`` — small
-enough that every engine path (growth pauses, violation, deadlock,
-trace replay) runs in seconds.
+A port of ``tpuvsr/testing.py:stub_model_factory`` and ``stub_fleet``.
+It implements the kernel contract the device BFS and the walker fleet
+consume (``action_names``, ``_lane_count``, ``lane_action``,
+``lane_param``, ``_guard_fns``, ``_action_fns``, ``fingerprint``,
+``fingerprint_batch``, ``hunt_score``, ``invariant_fns``/
+``invariant_fn``, ``pk``) over a state space of ``STUB_DISTINCT`` = 16
+states with level sizes ``STUB_LEVELS`` — small enough that every
+engine path (growth pauses, violation, deadlock, trace replay) runs in
+seconds.
 """
 
 from __future__ import annotations
@@ -51,6 +53,10 @@ class StubCodec:
     def decode(self, d):
         return {"x": int(np.asarray(d["x"])), "y": int(np.asarray(d["y"]))}
 
+    def encode(self, st):
+        return {"status": np.int32(0), "x": np.int32(st["x"]),
+                "y": np.int32(st["y"]), "err": np.int32(0)}
+
     def pad_msgs(self, batch, old):
         return batch
 
@@ -58,10 +64,13 @@ class StubCodec:
 class StubKern:
     action_names = ("IncX", "IncY")
     n_lanes = 2
+    lane_action = np.array([0, 1], np.int32)
+    lane_param = np.array([0, 0], np.int32)
 
-    def __init__(self, codec, limit=3, inv_bound=None):
+    def __init__(self, codec, limit=3, inv_bound=None, inv_x_bound=None):
         self.limit = limit
         self.inv_bound = inv_bound
+        self.inv_x_bound = inv_x_bound
         self.pk = build_pack_spec(codec)
 
     def _lane_count(self, name):
@@ -94,8 +103,18 @@ class StubKern:
                                    torch.full_like(x, 99)], dim=1)
                       & 0xFFFFFFFF)
 
+    def fingerprint_batch(self, batch):
+        return self.fingerprint(self.pk.flatten(batch).contiguous())
+
+    def hunt_score(self, st):
+        """Deeper x = closer to the ``inv_x_bound`` violation."""
+        return st["x"].to(torch.float32)
+
     def invariant_fns(self, names):
-        if self.inv_bound is None:
+        if self.inv_x_bound is not None:
+            b = self.inv_x_bound
+            f = lambda st: st["x"] <= b
+        elif self.inv_bound is None:
             f = lambda st: torch.ones_like(st["x"], dtype=torch.bool)
         else:
             b = self.inv_bound
@@ -121,13 +140,14 @@ def counter_binding():
                        invariants=list(cfg.invariants))
 
 
-def stub_model_factory(limit=3, inv_bound=None):
+def stub_model_factory(limit=3, inv_bound=None, inv_x_bound=None):
     """A ``model_factory`` producing (codec, kernel) for the counter
     spec; ``inv_bound`` tightens Bound to x + y <= b (a reachable
-    violation)."""
+    violation), ``inv_x_bound`` to x <= b (the unique-witness variant:
+    the first violating state is (b + 1, 0))."""
     def make(binding, max_msgs=None):
         codec = StubCodec(limit)
-        return codec, StubKern(codec, limit, inv_bound)
+        return codec, StubKern(codec, limit, inv_bound, inv_x_bound)
     return make
 
 
@@ -142,3 +162,15 @@ def stub_device_engine(inv_bound=None, device=None, limit=3, **kw):
                      fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
                      next_capacity=kw.pop("next_capacity", 1 << 6),
                      device=device, **kw)
+
+
+def stub_fleet(inv_bound=None, inv_x_bound=None, walkers=64, device=None,
+               **kw):
+    """A small walker fleet over the counter stub (the counterpart of
+    ``tpuvsr/testing.py:stub_fleet``: chunks of 4 steps)."""
+    from .sim.fleet import FleetSimulator
+    return FleetSimulator(
+        counter_binding(), walkers=walkers,
+        model_factory=stub_model_factory(inv_bound=inv_bound,
+                                         inv_x_bound=inv_x_bound),
+        chunk_steps=kw.pop("chunk_steps", 4), device=device, **kw)
