@@ -13,10 +13,11 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
      same function in one call (K2: a torch.sort lexsort), that call;
   4. run the counter stub through DeviceBFS on the card (16 distinct,
      levels [1,2,3,4,3,2,1]; the Bound violation trace);
-  5. the BFS path: device_bfs_check on examples/VSR_defect.cfg to depth
-     10 (tile 128, 64 tiles a chunk, 2^26 FPSet slots), launch counts
-     reset just before and read just after; the level sizes must be the
-     JAX package's recorded ones;
+  5. the BFS path: DeviceBFS.run on examples/VSR_defect.cfg to depth
+     10 (tile 128, 64 tiles a chunk, 2^26 FPSet slots; K6 and K7 serve
+     its guard matrix and compaction), launch counts reset just before
+     and read just after; the level sizes must be the JAX package's
+     recorded ones; its trace-pointer tables are kept for phase 7;
   6. the hunt path (the walker fleet):
      a. an untimed recording pass of the guided defect hunt (its first
         round, kernel by kernel: every round has the same shapes); K5
@@ -32,13 +33,27 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         after; its trace is replayed through the port's kernel, and
         walks, steps, trace length and actions must be the JAX CPU
         record of the same run (HUNT_RECORD below);
-  7. print the kernels line, then the result line last.
+  7. the fused path (DeviceBFS.run_fused, the CUDA graph of a tile):
+     a. an untimed eager recording run_fused to depth 10 (tile 128,
+        2^26 FPSet slots) keeps the inputs of the K6, K7 and K8 calls
+        that did the most work;
+     b. K6 (guard matrix), K7 (work-queue compaction; torch.nonzero is
+        its library yardstick) and K8's commit_prefix, commit_finish and
+        level_step held bit for bit against their plain versions on
+        those inputs, each timed with its bound;
+     c. the timed run_fused to depth 10, launch counts reset just before
+        and read just after: its levels must be the recorded ones and
+        its trace-pointer tables those of phase 5's run(); it prints
+        wall time, distinct/s, host reads, tile replays (and those after
+        a stop), graph captures, growth pauses, launches and peak
+        memory;
+  8. print the kernels line, then the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
 ``--out FILE`` writes the measurements as JSON, ``--profile`` adds a
-torch.profiler table of a depth-7 BFS run and of one steady round of
-the hunt to that file, ``--depth N`` changes the BFS path's depth (10
-by default).
+torch.profiler table of a depth-7 BFS run, of one steady round of the
+hunt and of one quantum of the fused path to that file, ``--depth N``
+changes the BFS paths' depth (10 by default).
 """
 
 from __future__ import annotations
@@ -95,16 +110,18 @@ def need(cond, msg):
         raise SmokeError(msg)
 
 
-def device_us(prof):
+def device_us(prof, skip=None):
     """Microseconds of device activity (kernels, copies, memsets) in a
     torch.profiler trace: the device-side events only, since a CPU op's
-    device time repeats that of the kernels it launched."""
+    device time repeats that of the kernels it launched; events whose
+    name starts with ``skip`` are left out."""
     from torch.autograd import DeviceType
     return sum(e.device_time_total for e in prof.events()
-               if e.device_type != DeviceType.CPU)
+               if e.device_type != DeviceType.CPU
+               and not (skip and e.name.startswith(skip)))
 
 
-def cuda_ms(fn, reps=20, warm=3):
+def cuda_ms(fn, reps=20, warm=3, skip=None):
     """(device ms, issue ms) of one fn() call: the device time is the
     sum of the kernels, copies and memsets torch.profiler records over
     ``reps`` calls; the issue time is CUDA events around the same calls
@@ -129,7 +146,7 @@ def cuda_ms(fn, reps=20, warm=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev_us = device_us(prof)
+        dev_us = device_us(prof, skip)
         if dev_us > 0:
             return dev_us / reps / 1e3, issue
     raise SmokeError("torch.profiler recorded no device time")
@@ -739,6 +756,338 @@ def hunt_phase(args, doc):
     return rows
 
 
+class FusedRecorder:
+    """Keeps, during an eager run_fused, the inputs of the K6, K7 and K8
+    calls that did the most work (cloned before the call: K7 and K8
+    update their buffers and the carry in place).  Calls on a halted
+    carry are skipped: they commit nothing.  K8's level step keeps the
+    largest level's rows only, and commit_finish its small inputs (the
+    check scatters into fresh pointer columns)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def keep(self, name, size, snap):
+        if snap is not None and size > self.calls.get(name, (-1, None))[0]:
+            self.calls[name] = (size, snap)
+
+    def install(self):
+        import torch
+        from tpuvsr_torch.engine import device_bfs as D
+        from tpuvsr_torch.engine import tile as TL
+        from tpuvsr_torch.models.vsr_kernel import VSRKernel
+        rec = self
+        guards = VSRKernel.guard_matrix
+        comp, pre, fin, lvl = (D.compact, D.commit_prefix, D.commit_finish,
+                               D.level_step)
+        halted = lambda c: bool(c[TL.C_HALT] != 0)
+
+        def p_guards(self, flat, out=None, halt=None):
+            snap = None if halt is not None and bool(halt[0]) else \
+                (self, flat.clone())
+            r = guards(self, flat, out, halt)
+            rec.keep("vsr_guards", int(r[0].sum()), snap)
+            return r
+
+        def p_compact(en, valid, segs, q, carry=None):
+            snap = None if carry is not None and halted(carry) else (
+                en.clone(), valid.clone(), segs, q["pidx"].shape[0],
+                None if carry is None else carry.clone())
+            r = comp(en, valid, segs, q, carry)
+            rec.keep("compact", int(q["cnts"].sum()), snap)
+            return r
+
+        def p_prefix(carry, q, en2, iok, err, tile, mcommit):
+            if not halted(carry):
+                rec.keep("commit_prefix", int(en2.sum()), (
+                    carry.clone(), {k: v.clone() for k, v in q.items()},
+                    en2.clone(), iok.clone(), err.clone(), tile.shape[0]))
+            return pre(carry, q, en2, iok, err, tile, mcommit)
+
+        def p_finish(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
+                     dest):
+            if not halted(carry):
+                rec.keep("commit_finish", int(fresh.sum()), (
+                    carry.clone(), {k: v.clone() for k, v in q.items()},
+                    tile.clone(), fresh.clone(), ovf_i.clone(),
+                    en_any.clone(), valid.clone(), bufs.cap))
+            return fin(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
+                       dest)
+
+        def p_level(carry, bufs, front, tp, lvl_buf, T):
+            c = carry.tolist()
+            n = c[TL.C_NN]
+            if not c[TL.C_HALT] and c[TL.C_T] >= -(-c[TL.C_N_FRONT] // T):
+                rec.keep("level_step", n, (
+                    carry.clone(), bufs.nb[:n + 1].clone(),
+                    bufs.par[:n + 1].clone(), bufs.act[:n + 1].clone(),
+                    bufs.prm[:n + 1].clone(), tp[0].shape[0],
+                    lvl_buf.shape[0], T))
+            return lvl(carry, bufs, front, tp, lvl_buf, T)
+
+        VSRKernel.guard_matrix = p_guards
+        D.compact, D.commit_prefix, D.commit_finish, D.level_step = (
+            p_compact, p_prefix, p_finish, p_level)
+
+        def uninstall():
+            VSRKernel.guard_matrix = guards
+            D.compact, D.commit_prefix, D.commit_finish, D.level_step = (
+                comp, pre, fin, lvl)
+        return uninstall
+
+
+def restored_ms(fn, carry, saved, reps=20, warm=3, evict=None):
+    """cuda_ms of ``fn()`` on a carry restored from ``saved`` before
+    every call (the kernel steps the carry), after a copy of ``evict``
+    (two equal tensors larger than the 50 MB L2) where the call would
+    otherwise find its rows in L2; those device-to-device copies are
+    left out of the device time (the issue time keeps them)."""
+    def call():
+        if evict is not None:
+            evict[0].copy_(evict[1])
+        carry.copy_(saved)
+        fn()
+    return cuda_ms(call, reps=reps, warm=warm, skip="Memcpy DtoD")
+
+
+def check_fused_kernels(rec):
+    """Phase 7b: K6, K7 and K8 against their plain versions on the
+    recorded inputs, bit for bit; each timed with its bound."""
+    import torch
+    from tpuvsr_torch.engine import tile as TL
+    from tpuvsr_torch.engine.device_bfs import _Bufs
+    from tpuvsr_torch.models.vsr_kernel import GUARD_PLANES
+    out = []
+
+    # -- K6: the guard matrix of the tile with the most enabled lanes
+    kern, flat = rec.calls["vsr_guards"][1]
+    dev = flat.device
+    B = flat.shape[0]
+    a, p = kern.guard_matrix(flat), kern.guard_matrix_plain(flat)
+    err = max(max_abs(a[0], p[0]), max_abs(a[1], p[1]))
+    span = {k: e - s for k, _sh, s, e in kern.pk._splits}
+    lanes_read = sum(span[k] for k in GUARD_PLANES)
+    sgs = kern.lane_action == kern.action_names.index("SendGetState")
+    n_scan = int(a[0][:, torch.as_tensor(sgs, device=dev)].sum())
+    kernel_row(out, "vsr_guards", cuda_ms(lambda: kern.guard_matrix(flat)),
+               cuda_ms(lambda: kern.guard_matrix_plain(flat), reps=5), err,
+               B * lanes_read * 4 + B * kern.n_lanes + B,
+               10 * B * kern.n_lanes + 20 * kern.M * n_scan,
+               extra={"shape": [B, kern.pk.lanes], "n_lanes": kern.n_lanes,
+                      "enabled": int(a[0].sum())})
+
+    # -- K7: the work queue of the tile with the most enabled items
+    en, valid, segs, total, carry = rec.calls["compact"][1]
+    n_act = len(segs.host)
+    qa, qb = (TL.queue_buffers(total, n_act, dev) for _ in range(2))
+    ca, cb = carry.clone(), carry.clone()
+    TL.compact(en, valid, segs, qa, ca)
+    TL.compact_plain(en, valid, segs, qb, cb)
+    err = max([max_abs(qa[k], qb[k]) for k in qa] + [max_abs(ca, cb)])
+    T, n_lanes = en.shape
+    m = en & valid[:, None]
+    kernel_row(out, "compact",
+               cuda_ms(lambda: TL.compact(en, valid, segs, qa, ca)),
+               cuda_ms(lambda: TL.compact_plain(en, valid, segs, qb, cb),
+                       reps=5), err,
+               T * n_lanes + T + 16 * n_act + 13 * total + 9 * n_act,
+               2 * T * n_lanes,
+               library_ms=cuda_ms(lambda: torch.nonzero(m)),
+               extra={"shape": [T, n_lanes], "queue": total,
+                      "enabled": int(qa["cnts"].sum()),
+                      "library": "torch.nonzero of the masked matrix"})
+
+    # -- K8: commit_prefix
+    carry, q, en2, iok, errv, tlen = rec.calls["commit_prefix"][1]
+    total = en2.shape[0]
+    ta, tb = (torch.zeros((tlen,), dtype=torch.int64, device=dev)
+              for _ in range(2))
+    ma, mb = (torch.zeros((total,), dtype=torch.bool, device=dev)
+              for _ in range(2))
+    TL.commit_prefix(carry, q, en2, iok, errv, ta, ma)
+    TL.commit_prefix_plain(carry, q, en2, iok, errv, tb, mb)
+    n_ok = int((en2 & q["ok"]).sum())
+    kernel_row(out, "commit_prefix",
+               cuda_ms(lambda: TL.commit_prefix(carry, q, en2, iok, errv,
+                                                ta, ma)),
+               cuda_ms(lambda: TL.commit_prefix_plain(
+                   carry, q, en2, iok, errv, tb, mb), reps=5),
+               max(max_abs(ta, tb), max_abs(ma, mb)),
+               6 * total + 5 * n_ok + q["ovf"].numel() + 32 + total
+               + 8 * tlen, 6 * total,
+               extra={"shape": [total], "enabled": n_ok,
+                      "mcommit": int(ma.sum())})
+
+    # -- K8: commit_finish, into fresh pointer columns
+    (carry, q, tile, fresh, ovf_i, en_any, valid,
+     cap) = rec.calls["commit_finish"][1]
+    total = fresh.shape[0]
+    ca, cb = carry.clone(), carry.clone()
+    ba, bb = _Bufs(cap, 1, dev), _Bufs(cap, 1, dev)
+    da, db = (torch.zeros((total,), dtype=torch.int32, device=dev)
+              for _ in range(2))
+    TL.commit_finish(ca, q, tile, fresh, ovf_i, en_any, valid, ba, da)
+    TL.commit_finish_plain(cb, q, tile, fresh, ovf_i, en_any, valid, bb, db)
+    err = max(max_abs(ca, cb), max_abs(da, db),
+              *(max_abs(getattr(ba, k), getattr(bb, k))
+                for k in ("par", "act", "prm")))
+    n_fresh = int(fresh.sum())
+    T = valid.shape[0]
+    kernel_row(out, "commit_finish",
+               restored_ms(lambda: TL.commit_finish(
+                   ca, q, tile, fresh, ovf_i, en_any, valid, ba, da),
+                   ca, carry),
+               restored_ms(lambda: TL.commit_finish_plain(
+                   cb, q, tile, fresh, ovf_i, en_any, valid, bb, db),
+                   cb, carry, reps=5),
+               err, total + 12 * n_fresh + 2 * T + 8 * n_act
+               + 8 * (carry.numel() + tile.numel())
+               + 4 * total + 12 * n_fresh, 2 * total,
+               extra={"shape": [total], "fresh": n_fresh})
+
+    # -- K8: level_step at the largest level's end
+    carry, nb, par, act, prm, tp_len, lvl_len, T = rec.calls["level_step"][1]
+    n, words = nb.shape[0] - 1, nb.shape[1]
+    outs = []
+    for step in (TL.level_step, TL.level_step_plain):
+        bufs = _Bufs.__new__(_Bufs)
+        bufs.cap, bufs.nb, bufs.par, bufs.act, bufs.prm = n, nb, par, act, prm
+        c = carry.clone()
+        front = torch.zeros((n + 1, words), dtype=torch.int32, device=dev)
+        tp = tuple(torch.full((tp_len,), -1, dtype=torch.int32, device=dev)
+                   for _ in range(3))
+        lv = torch.zeros((lvl_len,), dtype=torch.int64, device=dev)
+        step(c, bufs, front, tp, lv, T)
+        outs.append((c, front, tp, lv, bufs))
+    (ca, fa, tpa, la, bufs_a), (cb, fb, tpb, lb, bufs_b) = outs
+    err = max(max_abs(ca, cb), max_abs(fa, fb), max_abs(la, lb),
+              *(max_abs(x, y) for x, y in zip(tpa, tpb)))
+    evict = [torch.zeros((1 << 26,), dtype=torch.int32, device=dev)
+             for _ in range(2)]                        # 2 x 256 MB
+    kernel_row(out, "level_step",
+               restored_ms(lambda: TL.level_step(ca, bufs_a, fa, tpa, la, T),
+                           ca, carry, evict=evict),
+               restored_ms(lambda: TL.level_step_plain(
+                   cb, bufs_b, fb, tpb, lb, T), cb, carry, reps=5,
+                   evict=evict),
+               err, 2 * n * (words * 4 + 12) + 16 * carry.numel(), 0,
+               extra={"shape": [n, words], "rows": n})
+    torch.cuda.synchronize()
+    return out
+
+
+def fused_phase(args, doc, binding, run_pointers):
+    """Phase 7: the fused path.  Returns its kernels-line rows, with the
+    launch counts of the timed run_fused (7c)."""
+    import numpy as np
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS
+    levels = LEVELS[:args.depth + 1]
+
+    def engine():
+        return DeviceBFS(binding, tile_size=128, fpset_capacity=1 << 26,
+                         device="cuda")
+
+    print(f"phase 7a: fused recording pass (eager), depth {args.depth}",
+          flush=True)
+    rec = FusedRecorder()
+    uninstall = rec.install()
+    eng = engine()
+    eng.graphs = False
+    t0 = time.time()
+    res = eng.run_fused(max_depth=args.depth)
+    uninstall()
+    doc["fused_record_s"] = time.time() - t0
+    need(res.levels == levels, f"fused recording levels {res.levels}")
+    doc["fused_recorded"] = {k: v[0] for k, v in rec.calls.items()}
+    del eng
+    print("phase 7b: K6, K7, K8 against their plain versions", flush=True)
+    rows = check_fused_kernels(rec)
+    del rec
+
+    print(f"phase 7c: run_fused, defect config to depth {args.depth}",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    eng = engine()
+    t0 = time.time()
+    res = eng.run_fused(max_depth=args.depth)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    need(res.ok, f"fused path: {res.violated_invariant} {res.error}")
+    need(res.levels == levels, f"fused path levels {res.levels}")
+    need(res.distinct_states == sum(levels),
+         f"fused path distinct {res.distinct_states}")
+    ptrs = [np.concatenate(getattr(eng, k))
+            for k in ("_h_parent", "_h_action", "_h_param")]
+    need(all(np.array_equal(a, b) for a, b in zip(ptrs, run_pointers)),
+         "fused path trace-pointer tables differ from run()'s")
+    c = res.metrics["counters"]
+    fused = {"depth": args.depth, "levels": res.levels,
+             "distinct": res.distinct_states,
+             "generated": res.states_generated, "wall_s": wall,
+             "distinct_per_s": res.distinct_states / wall,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "launches": counts, "metrics": res.metrics}
+    doc["fused"] = fused
+    print(f"  levels {res.levels}, pointer tables equal to run()'s",
+          flush=True)
+    print(f"  distinct {res.distinct_states} generated "
+          f"{res.states_generated} wall {wall:.3f}s distinct/s "
+          f"{fused['distinct_per_s']:.1f} max_memory_allocated "
+          f"{fused['max_memory_allocated']}", flush=True)
+    need(c["host_reads"] == c["quanta"] + c.get("level_fits", 0),
+         f"fused path host reads {c}")
+    print(f"  host_reads {c.get('host_reads')} (quanta {c.get('quanta')}, "
+          f"level fits {c.get('level_fits', 0)}) graph_replays "
+          f"{c.get('graph_replays')} replays_after_stop "
+          f"{c.get('replays_after_stop')} graph_captures "
+          f"{c.get('graph_captures')} growth_pauses "
+          f"{c.get('growth_pauses', 0)} tiles {c.get('tiles')}", flush=True)
+    print(f"  launches {counts}", flush=True)
+    for k in rows:
+        k["launches"] = counts[k["kernel"]]
+        need(k["launches"] > 0, f"{k['name']} was not launched on the "
+             f"fused path")
+    del eng
+
+    if args.profile:
+        # the first quantum of the graph path at its full size
+        # (REPLAYS_CAP tile replays between two host reads)
+        from torch.profiler import ProfilerActivity, profile
+        from tpuvsr_torch.engine.device_bfs import REPLAYS_CAP
+        eng = engine()
+        replay, seen = eng._replay, []
+
+        def profiled(run_tile, n):
+            if seen or n < REPLAYS_CAP:
+                return replay(run_tile, n)
+            seen.append(n)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.time()
+                h = replay(run_tile, n)
+                wall_q = time.time() - t1
+            dev_us = device_us(prof)
+            doc["profile_fused_quantum"] = {
+                "replays": n, "wall_s": wall_q, "device_s": dev_us / 1e6,
+                "device_busy_share": dev_us / 1e6 / wall_q,
+                "table": prof.key_averages().table(
+                    sort_by="cuda_time_total", row_limit=40)}
+            print(f"  profiled fused quantum ({n} tiles): wall "
+                  f"{wall_q:.3f}s, device busy {dev_us / 1e6:.3f}s "
+                  f"({dev_us / 1e6 / wall_q:.1%})", flush=True)
+            return h
+        eng._replay = profiled
+        eng.run_fused(max_depth=min(args.depth, 9))
+        del eng
+    return rows
+
+
 def gpu_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -762,6 +1111,7 @@ def main(argv=None):
               "(tpuvsr_torch/ is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import numpy as np
     from tpuvsr_torch import kernels
     from tpuvsr_torch.engine.device_bfs import DeviceBFS, device_bfs_check
     from tpuvsr_torch.engine.spec import load_binding
@@ -834,12 +1184,15 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.time()
-    res = device_bfs_check(binding, max_depth=args.depth, tile_size=128,
-                           chunk_tiles=64, fpset_capacity=1 << 26,
-                           device="cuda")
+    eng = DeviceBFS(binding, tile_size=128, chunk_tiles=64,
+                    fpset_capacity=1 << 26, device="cuda")
+    res = eng.run(max_depth=args.depth)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernels.launch_counts()
+    run_pointers = [np.concatenate(getattr(eng, k))
+                    for k in ("_h_parent", "_h_action", "_h_param")]
+    del eng
     need(res.ok, f"main path: {res.violated_invariant} {res.error}")
     need(res.levels == LEVELS[:args.depth + 1],
          f"main path levels {res.levels}")
@@ -865,6 +1218,7 @@ def main(argv=None):
         need(k["launches"] > 0, f"{k['name']} was not launched on the "
              f"BFS path")
     rows += hunt_phase(args, doc)
+    rows += fused_phase(args, doc, binding, run_pointers)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
     if args.out:

@@ -241,6 +241,10 @@ def test_entry_points_refuse_a_cpu_not_asked_for():
         stub_device_engine()
     with pytest.raises(RuntimeError, match="CUDA"):
         device_bfs_check(load_binding(DEFECT), max_depth=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceBFS(load_binding(DEFECT)).run_fused(max_depth=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stub_device_engine().run_fused()
     from tpuvsr_torch.sim.defect_hunt import make_fleet
     from tpuvsr_torch.testing import stub_fleet
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -4,8 +4,9 @@
 // takes device pointers, sizes and the caller's CUDA stream, launches
 // on that stream without synchronising, and returns the value of
 // cudaGetLastError() so the Python wrapper can raise on a refused
-// launch.  KLAUNCH wraps the launch syntax so the same source reads as
-// one kernel call per launch site.
+// launch.  KLAUNCH (KLAUNCH_SMEM with dynamic shared memory) wraps the
+// launch syntax so the same source reads as one kernel call per launch
+// site.
 #pragma once
 
 #include <cstdint>
@@ -13,6 +14,8 @@
 
 #define KLAUNCH(kernel, grid, block, stream, ...) \
     kernel<<<(grid), (block), 0, (stream)>>>(__VA_ARGS__)
+#define KLAUNCH_SMEM(kernel, grid, block, smem, stream, ...) \
+    kernel<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
 
 #define TPUVSR_EXPORT extern "C" __attribute__((visibility("default")))
 

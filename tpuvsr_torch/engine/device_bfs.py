@@ -1,21 +1,20 @@
 """Device-resident breadth-first model checking engine (PyTorch/CUDA).
 
-The counterpart of ``tpuvsr/engine/device_bfs.py`` for the chunked
-level pass with the fused commit (``commit="fused"``), packing on.  A
-BFS level runs as chunks of ``chunk_tiles`` tiles of ``tile_size``
-frontier states; each tile flows through the same three stages:
+The counterpart of ``tpuvsr/engine/device_bfs.py`` for the fused
+commit (``commit="fused"``), packing on, through two entry points that
+give the same results: ``run``, the chunked level pass, and
+``run_fused``, the fused pass.  A frontier tile flows through the same
+three stages in both:
 
-  chunk --guard matrix--> every action's guard over every lane of the
-                          chunk (K4 unpack of the packed frontier,
-                          then one batched pass): exact per-action
-                          enabled counts per tile
-  tile  --work queue  --> the enabled (state, lane) items of each
-                          action are compacted (stable, cumsum-and-
-                          scatter) and only they are expanded,
-                          fingerprinted (K3, incremental from the
-                          parents' parts) and invariant-checked
-  tile  --single commit-> one dedup (K2), one FPSet insert (K1) and one
-                          pack-scatter (K4) into the next buffer
+  guard matrix  --> every action's guard over every lane of the tile
+                    (kernel K6 on the VSR model, after K4 unpacks the
+                    packed rows): exact per-action enabled counts
+  work queue    --> the enabled (state, lane) items of each action are
+                    compacted in order (K7) and only they are expanded,
+                    fingerprinted (K3, incremental from the parents'
+                    parts) and invariant-checked
+  single commit --> one dedup (K2), one FPSet insert (K1) and one
+                    pack-scatter (K4) into the next buffer
 
 The pause protocol is the JAX engine's: a tile that meets a violation,
 a slot error, a full message table, an expansion cap overflow, a probe
@@ -25,21 +24,37 @@ the host grows the structure and re-enters at that tile; its inserts
 persist and resolve as duplicates on re-entry.  Counts, level sizes and
 traces are those of the JAX engine.
 
-Host synchronisation: one device->host read per chunk (the per-tile
-per-action enabled counts, which also size each compaction exactly, so
-actions with no enabled item in a tile are skipped) and one per tile
-(the tile's reason flags and fresh count).  The JAX engine reads the
-host once per chunk; this port runs tiles from the host loop and reads
-their outcome before the next tile, which keeps the pause protocol
-exact without masking later tiles.
+``run`` evaluates the guard matrix chunk-wide and reads the host once
+per chunk (the per-tile per-action counts, which size each compaction
+exactly) and once per tile (its reason flags and fresh count).
+
+``run_fused`` keeps the whole loop state on the device (the carry of
+``engine/tile.py``): each tile runs at the JAX body's fixed caps
+``E_a``, the commit (K8 ``commit_prefix``, ``commit_finish``) steps the
+carry, and at the end of a level K8 ``level_step`` appends the trace
+pointers, records the level's size and makes the next buffer the
+frontier, as ``_make_multilevel`` does.  On the card one tile is
+captured as a CUDA graph and replayed a quantum of tiles at a time
+(4, then four times more each read up to ``REPLAYS_CAP``, and 4 again
+after a growth pause) with one host read of the carry after each
+quantum; on a stop the host grows
+what the reason names, captures the graph again and re-enters mid-level
+with the partial level kept on the device.  A replay after a stop
+commits nothing but costs a tile's device time, so the host sizes each
+large level (at least four tiles) before it runs: K6 over the level's
+rows gives its exact per-tile need, the caps are fitted to it and the
+next buffer grown to hold every enabled item, and the quantum ends with
+the level.  Small levels keep the JAX pause protocol.  On the CPU the
+same loop runs eagerly on the plain versions.
 
 Left out of this port (see ROADMAP.md): the interpreter checks (preflight,
 and the violation cross-check is done with the kernel's own invariant
 functions on the state rebuilt on the host), bounds facts, partial-order
-reduction, symmetry, the dispatch window, ``run_fused``/``run_chained``,
-checkpoints and the per-action commit.  Results match the JAX engine
-with bounds off, POR off and a window of 1, which its own tests show
-give the same results as the defaults.
+reduction, symmetry, the dispatch window, ``run_chained``, checkpoints,
+the fused pass's checkpoint and rescue seams and wall-clock budget, and
+the per-action commit.  Results match the JAX engine with bounds off,
+POR off and a window of 1, which its own tests show give the same
+results as the defaults.
 """
 
 from __future__ import annotations
@@ -53,36 +68,28 @@ from ..core.values import TLAError
 from ..device import resolve_device
 from ..models import registry
 from ..models.vsr import ERR_BAG_OVERFLOW
+from .. import kernels
 from .bfs import CheckResult
 from .fpset import dedup_keep, empty_table, grow, insert_core
+from .tile import (C_DEAD, C_DEPTH, C_FP_COUNT, C_GEN, C_HALT, C_IDLE,
+                   C_LEVEL_BASE, C_LVL_CUR, C_NEED, C_NEXT_CAP, C_N_FRONT,
+                   C_NN, C_REASON, C_STOP, C_T, C_TILES, C_TP_CAP,
+                   C_VIOL_AID, C_VIOL_LANE, C_VIOL_ROW, C_GROW_AID,
+                   CARRY_FIELDS, F_AFLAGS, R_BAG_GROW, R_DEADLOCK,
+                   R_EXPAND_GROW, R_FPSET_GROW, R_NEXT_GROW, R_SLOT_ERR,
+                   R_VIOLATION, RUNNING, Segments, commit_finish,
+                   commit_prefix, compact, level_step, new_carry,
+                   queue_buffers)
 from .trace import TraceEntry
 
 I32 = torch.int32
-
-# level-pass stop reasons (the JAX engine's codes)
-RUNNING = 0
-R_VIOLATION = 2      # an invariant failed on a generated state
-R_BAG_GROW = 3       # a successor needs more message-table slots
-R_FPSET_GROW = 4     # fingerprint probing exhausted (table too full)
-R_NEXT_GROW = 5      # next-frontier buffer out of capacity
-R_SLOT_ERR = 6       # dense-layout slot collision (config limitation)
-R_DEADLOCK = 7       # a frontier state has no enabled successor
-R_EXPAND_GROW = 8    # per-action compaction buffer too small
+I64 = torch.int64
+REPLAYS_CAP = 64      # tile replays per host read in the fused pass
+_UNBOUNDED = 1 << 62
 
 
 def _align8(n):
     return ((int(n) + 7) // 8) * 8
-
-
-def _compact(en_f, n):
-    """Indices of the first ``n`` True entries of ``en_f``, in order,
-    without a host sync (the stable counterpart of
-    ``jnp.nonzero(size=n)``)."""
-    pos = torch.cumsum(en_f, 0) - 1
-    dest = torch.where(en_f & (pos < n), pos, n)
-    out = torch.empty((n + 1,), dtype=torch.int64, device=en_f.device)
-    out.scatter_(0, dest, torch.arange(en_f.shape[0], device=en_f.device))
-    return out[:n]
 
 
 class _Bufs:
@@ -127,6 +134,10 @@ class DeviceBFS:
         self._need_seen = None
         self.level_sizes = []
         self.counters = {}
+        # on the card run_fused replays a CUDA graph of one tile; a
+        # caller that must see every kernel call as it happens turns
+        # this off
+        self.graphs = self.device.type == "cuda"
         self._build(max_msgs)
 
     # ------------------------------------------------------------------
@@ -149,6 +160,11 @@ class DeviceBFS:
             self._need_seen = np.zeros(len(names), np.int64)
         self._inv = kern.invariant_fn(self.inv_names)
         self._incremental = hasattr(kern, "parent_parts")
+        self._lanes = [kern._lane_count(n) for n in names]
+        self._lane_off = [int(x) for x in
+                          np.concatenate([[0], np.cumsum(self._lanes)[:-1]])]
+        self._lane_aid = torch.as_tensor(
+            np.repeat(np.arange(len(names)), self._lanes), device=self.device)
 
     def _expand_caps(self):
         kern, T = self.kern, self.tile
@@ -157,6 +173,21 @@ class DeviceBFS:
 
     def _count(self, what, by=1):
         self.counters[what] = self.counters.get(what, 0) + by
+
+    def _guards(self, flat, out=None, halt=None):
+        """(en [B, n_lanes], en_any [B]) of flat rows: K6 where the model
+        has it (``guard_matrix``), else the loop over its guards (which
+        ignores ``halt``: a halted tile commits nothing anyway)."""
+        kern = self.kern
+        if hasattr(kern, "guard_matrix"):
+            return kern.guard_matrix(flat, out, halt)
+        st = self._pk.unflatten(flat)
+        en = torch.cat([g(st) for g in kern._guard_fns()], dim=1)
+        if out is None:
+            return en, en.any(dim=1)
+        out[0].copy_(en)
+        out[1].copy_(en.any(dim=1))
+        return out
 
     # ------------------------------------------------------------------
     # one chunk of tiles (the body of the JAX level pass)
@@ -183,23 +214,22 @@ class DeviceBFS:
         cidx = start_t * T + torch.arange(kk * T, device=dev)
         cvalid = cidx < n_front
         cflat = pk.unpack(front.nb, torch.clamp(cidx, 0, front.cap - 1))
-        cstates = pk.unflatten(cflat)
-        csegs = [g(cstates) & cvalid[:, None] for g in kern._guard_fns()]
-        en_any = torch.zeros((kk * T,), dtype=torch.bool, device=dev)
-        for s in csegs:
-            en_any |= s.any(dim=1)
-        counts = torch.stack([s.reshape(kk, -1).sum(dim=1) for s in csegs],
-                             dim=1).cpu().numpy()              # [kk, n_act]
+        en, en_any = self._guards(cflat)
+        en = en & cvalid[:, None]
+        en_any = en_any & cvalid
+        lane_sum = en.reshape(kk, T, -1).sum(dim=1)            # [kk, lanes]
+        counts = torch.zeros((kk, n_act), dtype=I64, device=dev).index_add_(
+            1, self._lane_aid, lane_sum).cpu().numpy()         # [kk, n_act]
         out["need"] = counts.max(axis=0)
         while out["t"] < n_tiles and out["t"] < start_t + K:
             self._count("tiles")
-            self._tile(out, table, bufs, cflat, csegs, en_any, cvalid,
+            self._tile(out, table, bufs, cflat, en, en_any, cvalid,
                        counts, start_t, caps, total_E, want_deadlock)
             if out["reason"] != RUNNING:
                 break
         return out
 
-    def _tile(self, out, table, bufs, cflat, csegs, en_any, cvalid, counts,
+    def _tile(self, out, table, bufs, cflat, en, en_any, cvalid, counts,
               start_t, caps, total_E, want_deadlock):
         T = self.tile
         pk, kern, dev = self._pk, self.kern, self.device
@@ -218,17 +248,21 @@ class DeviceBFS:
             return
         tile_flat = cflat[off:off + T]
         parts = kern.parent_parts(tile_flat) if self._incremental else None
+        # the work queue, sized exactly from the chunk's counts (K7)
+        sizes = [int(min(c, e)) for c, e in zip(cnts, caps)]
+        segs = Segments(self._lane_off, self._lanes, sizes, dev)
+        q = queue_buffers(segs.total, n_act, dev)
+        if segs.total:
+            compact(en[off:off + T], cvalid[off:off + T], segs, q)
         q_succ, q_fp, q_en, q_pidx, q_lane, q_aid, flags = \
             [], [], [], [], [], [], []
         for aid, (name, fn) in enumerate(zip(kern.action_names,
                                              kern._action_fns())):
-            n_a = int(min(cnts[aid], caps[aid]))
+            _lo, _L, n_a, qo = segs.host[aid]
             if n_a == 0:
                 continue
-            L_a = kern._lane_count(name)
-            sel = _compact(csegs[aid][off:off + T].reshape(-1), n_a)
-            pidx = torch.div(sel, L_a, rounding_mode="floor")
-            lane = torch.remainder(sel, L_a)
+            pidx = q["pidx"][qo:qo + n_a].long()
+            lane = q["lane"][qo:qo + n_a].long()
             st_flat = tile_flat[pidx]
             st_sel = pk.unflatten(st_flat)
             if self._incremental:
@@ -584,6 +618,355 @@ class DeviceBFS:
                 emit(f"FPSet grown to {table['slots'].shape[0]} slots")
         res.diameter = depth
         return self._finish(res, fp_count, table, t0)
+
+    # ------------------------------------------------------------------
+    # fused run: the tile loop on the device, one host read a quantum
+    # ------------------------------------------------------------------
+    def _fused_state(self, front, bufs, table, tp, lvl_buf, carry):
+        """The tensors one fused tile reads and writes, for the current
+        kernel and caps: the CUDA graph of a tile holds their addresses,
+        so they stay while it does."""
+        kern, T, dev = self.kern, self.tile, self.device
+        n_act = len(kern.action_names)
+        segs = Segments(self._lane_off, self._lanes, self._expand_caps(),
+                        dev)
+        z = lambda *shape, dtype=torch.bool: torch.zeros(
+            shape, dtype=dtype, device=dev)
+        return {"front": front, "bufs": bufs, "table": table, "tp": tp,
+                "lvl": lvl_buf, "carry": carry, "segs": segs,
+                "q": queue_buffers(segs.total, n_act, dev),
+                "en": z(T, sum(self._lanes)), "en_any": z(T),
+                "tile": z(F_AFLAGS + n_act, dtype=I64),
+                "mcommit": z(segs.total), "dest": z(segs.total, dtype=I32),
+                "ar": torch.arange(T, device=dev)}
+
+    def _fused_tile(self, S):
+        """One tile of the fused pass, with no host sync (the body the
+        CUDA graph captures): the tile at the carry's ``t`` of the
+        frontier through K6, K7, the actions at the fixed caps, K8's
+        commit around K2/K1/K4, and K8's level step."""
+        T, kern, pk = self.tile, self.kern, self._pk
+        carry, front, bufs, q = S["carry"], S["front"], S["bufs"], S["q"]
+        sidx = carry[C_T] * T + S["ar"]
+        valid = sidx < carry[C_N_FRONT]
+        tile_flat = pk.unpack(front.nb, torch.clamp(sidx, 0, front.cap - 1))
+        en, en_any = self._guards(tile_flat, (S["en"], S["en_any"]),
+                                  carry[C_HALT:C_HALT + 1])
+        compact(en, valid, S["segs"], q, carry)
+        parts = kern.parent_parts(tile_flat) if self._incremental else None
+        succs, fps, en2s, ioks, errs = [], [], [], [], []
+        for aid, (name, fn) in enumerate(zip(kern.action_names,
+                                             kern._action_fns())):
+            _lo, _L, E, qo = S["segs"].host[aid]
+            pidx = q["pidx"][qo:qo + E]
+            lane = q["lane"][qo:qo + E]
+            st_sel = pk.unflatten(tile_flat[pidx.long()])
+            if self._incremental:
+                succ, en2 = fn(kern.seed_touch(st_sel), lane)
+                clean = {k: v for k, v in succ.items()
+                         if not k.startswith("_")}
+                succ_flat = pk.flatten(clean)
+                ri = kern.lane_replica(name, st_sel, lane).to(I32)
+                fp = kern.fingerprint_incremental(
+                    succ_flat, ri, succ["_ts"].contiguous(), pidx,
+                    tile_flat, parts)
+            else:
+                succ, en2 = fn(st_sel, lane)
+                clean = {k: v for k, v in succ.items()
+                         if not k.startswith("_")}
+                succ_flat = pk.flatten(clean)
+                fp = kern.fingerprint(succ_flat)
+            succs.append(succ_flat)
+            fps.append(fp)
+            en2s.append(en2)
+            ioks.append(self._inv(clean))
+            errs.append(clean["err"].to(I32))
+        succ_q = torch.cat(succs)
+        fp_q = torch.cat(fps).contiguous()
+        commit_prefix(carry, q, torch.cat(en2s), torch.cat(ioks),
+                      torch.cat(errs), S["tile"], S["mcommit"])
+        keep = dedup_keep(fp_q, S["mcommit"])
+        _tbl, fresh, ovf_i = insert_core(S["table"], fp_q, keep)
+        if not isinstance(ovf_i, torch.Tensor):
+            ovf_i = torch.tensor(int(ovf_i), dtype=I32)
+        commit_finish(carry, q, S["tile"], fresh, ovf_i, en_any, valid,
+                      bufs, S["dest"])
+        pk.pack(succ_q, out=bufs.nb, dest=S["dest"])
+        level_step(carry, bufs, front.nb, S["tp"], S["lvl"], T)
+
+    def _tile_runner(self, S):
+        """A function that runs one fused tile on ``S``: on the card the
+        replay of a CUDA graph of ``_fused_tile`` (captured through
+        ``kernels.capture``, after a warm-up on a halted copy of the
+        carry, which commits nothing and fills the kernels' caches),
+        else the eager call.  The warm-up runs on the current stream:
+        run first on a side stream, as the fleet's is, the graph of a
+        fresh process hit an out-of-range index on the card (PERF.md)."""
+        if not self.graphs:
+            return lambda: self._fused_tile(S)
+        t0 = time.time()
+        warm = dict(S)
+        warm["carry"] = S["carry"].clone()
+        warm["carry"][C_HALT] = 1
+        self._fused_tile(warm)
+        self._count("graph_captures")
+        replay = kernels.capture(lambda: self._fused_tile(S))
+        self._capture_s += time.time() - t0
+        return replay
+
+    def _replay(self, run_tile, n):
+        """``n`` tiles, then the one host read of the quantum: the carry
+        and the level-size buffer in one copy."""
+        for _ in range(n):
+            run_tile()
+        self._count("graph_replays", n)
+        self._count("quanta")
+        self._count("host_reads")
+        return torch.cat([self._fz_carry, self._fz_lvl]).cpu().tolist()
+
+    def _level_need(self, front, t0, n_front):
+        """The exact per-action maxima over tiles ``t0..`` of the level in
+        ``front`` and their total enabled count (K4 and K6 over the rows,
+        ``chunk_tiles`` tiles at a time, one host read at the end)."""
+        T, dev = self.tile, self.device
+        n_act = len(self.kern.action_names)
+        need = torch.zeros((n_act,), dtype=I64, device=dev)
+        total = torch.zeros((1,), dtype=I64, device=dev)
+        step = T * self.chunk_tiles
+        for lo in range(t0 * T, n_front, step):
+            k = -(-min(step, n_front - lo) // T)
+            idx = lo + torch.arange(k * T, device=dev)
+            flat = self._pk.unpack(front.nb, torch.clamp(idx, 0, front.cap - 1))
+            en, _any = self._guards(flat)
+            en = en & (idx < n_front)[:, None]
+            per = torch.zeros((k, n_act), dtype=I64, device=dev).index_add_(
+                1, self._lane_aid, en.reshape(k, T, -1).sum(dim=1))
+            torch.maximum(need, per.amax(dim=0), out=need)
+            total += per.sum()
+        h = torch.cat([need, total]).cpu().tolist()
+        self._count("level_fits")
+        self._count("host_reads")
+        return h[:n_act], h[n_act]
+
+    def _fit_level(self, front, bufs, h, emit):
+        """Size the rest of a large level before it runs (the fused
+        pass's calibration): expansion caps onto its exact per-tile
+        maxima (grown where short, shrunk when that saves >= 20% of the
+        lanes), and the next buffer (x4 steps) so its headroom gate
+        cannot fail, since the level adds at most its enabled count.
+        Returns the buffers and whether anything changed."""
+        kern, T = self.kern, self.tile
+        need, gen_ub = self._level_need(front, h[C_T], h[C_N_FRONT])
+        self._need_seen = np.maximum(self._need_seen, need)
+        tgt = [min(T * kern._lane_count(n), max(8, _align8(max(x, 1))))
+               for n, x in zip(kern.action_names, need)]
+        cur = self._expand_caps()
+        changed = False
+        if any(a > b for a, b in zip(tgt, cur)) or \
+                sum(tgt) * 5 <= sum(cur) * 4:
+            self.expand_caps = tgt
+            changed = tgt != cur
+            self._count("fit_expand_caps")
+            emit(f"expand caps fitted to the level's exact maxima "
+                 f"({sum(cur)} -> {sum(tgt)} lanes/tile)")
+        while bufs.cap < h[C_NN] + gen_ub + sum(self._expand_caps()):
+            front, bufs = front.grown(), bufs.grown()
+            changed = True
+            self._count("grow_next_buffer")
+            emit(f"frontier buffers grown to {bufs.cap}")
+        return front, bufs, changed
+
+    def run_fused(self, max_states=None, max_depth=None,
+                  check_deadlock=False, log=None,
+                  levels_per_dispatch=256) -> CheckResult:
+        """Like run(), through the fused pass (module docstring): the
+        tile loop, the commit and the level step stay on the device, and
+        the host reads the carry once per quantum of tiles.  Levels per
+        host read are at most ``levels_per_dispatch``.  Counts, level
+        sizes, traces and trace-pointer tables are those of run() and of
+        the JAX package's run_fused."""
+        emit = log or (lambda msg: None)
+        kern, T, dev = self.kern, self.tile, self.device
+        n_act = len(kern.action_names)
+        self._act_counts = np.zeros(n_act, np.int64)
+        self._lanes_disp = 0
+        self._capture_s = 0.0
+        self.counters = {}
+        res = CheckResult()
+        t0 = time.time()
+        self.level_sizes = []
+        table, n0, viol = self._register_init(res)
+        if viol is not None:
+            return self._finish(res, n0, table, t0)
+        gen0 = res.states_generated
+        f_cap = max(self.next_cap, n0)
+        front = _Bufs(f_cap, self._pk.words, dev)
+        front.nb[:n0] = self._pk.pack(self._init_flat)
+        bufs = _Bufs(f_cap, self._pk.words, dev)
+        tp_cap = max(4 * f_cap, 1 << 16)
+        tp = (torch.full((tp_cap,), -1, dtype=I32, device=dev),
+              torch.full((tp_cap,), -1, dtype=I32, device=dev),
+              torch.zeros((tp_cap,), dtype=I32, device=dev))
+        self._fz_lvl = torch.zeros((levels_per_dispatch,), dtype=I64,
+                                   device=dev)
+        md = _UNBOUNDED if max_depth is None else int(max_depth)
+        ms = int(max_states) if max_states else _UNBOUNDED
+        self._fz_carry = carry = new_carry(
+            n_act, dev, n_front=n0, fp_count=n0,
+            want_deadlock=bool(check_deadlock), max_depth=md,
+            max_states=ms, max_lvls=levels_per_dispatch, next_cap=f_cap,
+            tp_cap=tp_cap)
+        h = carry.tolist()
+        self.level_sizes = [n0]
+        run_tile, quantum, tiles_seen = None, 4, 0
+
+        def set_pointers(n):
+            self._h_parent = [tp[0][:n].cpu().numpy().astype(np.int64)]
+            self._h_action = [tp[1][:n].cpu().numpy()]
+            self._h_param = [tp[2][:n].cpu().numpy()]
+
+        def finish():
+            res.states_generated = gen0 + h[C_GEN]
+            self._count("tiles", h[C_TILES])
+            self._count("replays_after_stop", h[C_IDLE])
+            self._finish(res, h[C_FP_COUNT], table, t0)
+            res.metrics["gauges"]["graph_capture_s"] = self._capture_s
+            return res
+
+        def ocond():
+            return (h[C_N_FRONT] > 0 and h[C_DEPTH] < md
+                    and h[C_FP_COUNT] < ms
+                    and h[C_LEVEL_BASE] + h[C_N_FRONT] + f_cap <= tp_cap)
+
+        def grow_tp():
+            nonlocal tp, tp_cap
+            grown = False
+            while h[C_LEVEL_BASE] + h[C_N_FRONT] + f_cap > tp_cap:
+                tp = (torch.cat([tp[0], torch.full_like(tp[0], -1)]),
+                      torch.cat([tp[1], torch.full_like(tp[1], -1)]),
+                      torch.cat([tp[2], torch.zeros_like(tp[2])]))
+                tp_cap *= 2
+                grown = True
+                self._count("grow_trace_pointers")
+                emit(f"trace-pointer store grown to {tp_cap}")
+            return grown
+
+        entry, at_boundary, fitted = True, False, -1
+        while True:
+            if entry and (at_boundary or not ocond()):
+                # where the JAX host lands when a dispatch returns
+                # RUNNING: a level boundary
+                at_boundary = False
+                if h[C_N_FRONT] == 0:
+                    break
+                if max_depth is not None and h[C_DEPTH] >= max_depth:
+                    res.error = f"depth limit {max_depth} reached"
+                    break
+                if max_states and h[C_FP_COUNT] >= max_states:
+                    res.error = f"state limit {max_states} reached"
+                    break
+            # a large level is sized before its tiles run, and a quantum
+            # ends with it, so the next one is sized too
+            large = h[C_N_FRONT] >= 4 * T
+            if large and fitted != h[C_DEPTH]:
+                fitted = h[C_DEPTH]
+                front, bufs, changed = self._fit_level(front, bufs, h, emit)
+                f_cap = bufs.cap
+                if changed:
+                    run_tile, entry = None, True
+            if grow_tp():
+                run_tile, entry = None, True
+            if entry:
+                h[C_REASON] = h[C_HALT] = h[C_STOP] = h[C_LVL_CUR] = 0
+                h[C_NEXT_CAP], h[C_TP_CAP] = f_cap, tp_cap
+                carry.copy_(torch.tensor(h, dtype=I64))
+                if run_tile is None:
+                    run_tile = self._tile_runner(self._fused_state(
+                        front, bufs, table, tp, self._fz_lvl, carry))
+                entry = False
+            n = quantum
+            if large or h[C_DEPTH] + 1 >= md or 1 >= levels_per_dispatch:
+                left = -(-h[C_N_FRONT] // T) - h[C_T]
+                n = max(1, min(n, left))
+            quantum = min(quantum * 4, REPLAYS_CAP)
+            h = self._replay(run_tile, n)
+            lv, h = h[len(CARRY_FIELDS) + 2 * n_act:], \
+                h[:len(CARRY_FIELDS) + 2 * n_act]
+            for x in lv[:h[C_LVL_CUR]]:
+                self.level_sizes.append(int(x))
+            if h[C_LVL_CUR]:
+                carry[C_LVL_CUR] = 0
+                h[C_LVL_CUR] = 0
+            self._need_seen = np.maximum(
+                self._need_seen, h[C_NEED:C_NEED + n_act])
+            self._act_counts = np.asarray(
+                h[C_NEED + n_act:C_NEED + 2 * n_act], np.int64)
+            self._lanes_disp += (h[C_TILES] - tiles_seen) * sum(
+                self._expand_caps())
+            tiles_seen = h[C_TILES]
+            reason = h[C_REASON]
+            if reason == RUNNING:
+                if h[C_STOP]:
+                    entry = at_boundary = True
+                continue
+            level_base, n_front = h[C_LEVEL_BASE], h[C_N_FRONT]
+            if reason == R_VIOLATION:
+                vp, va, vprm = h[C_VIOL_ROW], h[C_VIOL_AID], h[C_VIOL_LANE]
+                parent = self._pk.unpack(front.nb,
+                                         torch.tensor([vp], device=dev))
+                bad = self._first_failing(
+                    self._materialize_one(parent, va, vprm))
+                if bad is None:
+                    raise TLAError(
+                        "device invariant pass reported a violation the "
+                        f"rebuilt state does not show (parent gid "
+                        f"{level_base + vp}, action "
+                        f"{self.kern.action_names[va]})")
+                set_pointers(level_base + n_front)
+                res.ok = False
+                res.violated_invariant = bad
+                res.trace = self._trace(level_base + vp, extra=(va, vprm))
+                res.diameter = h[C_DEPTH] + 1
+                return finish()
+            if reason == R_DEADLOCK:
+                di = h[C_DEAD]
+                set_pointers(level_base + n_front)
+                res.ok = False
+                res.error = "deadlock"
+                row = self._pk.unpack(front.nb,
+                                      torch.tensor([di], device=dev))
+                res.deadlock_state = self._decode(row)
+                res.trace = self._trace(level_base + di)
+                res.diameter = h[C_DEPTH] + 1
+                return finish()
+            self._count("growth_pauses")
+            if reason == R_BAG_GROW:
+                self._grow_msgs([front, bufs])
+                self._count("grow_message_table")
+                emit(f"message table grown to "
+                     f"{self.codec.shape.MAX_MSGS} slots")
+            elif reason == R_FPSET_GROW:
+                table = grow(table)
+                self._count("grow_fpset")
+                emit(f"FPSet grown to {table['slots'].shape[0]} slots")
+            elif reason == R_NEXT_GROW:
+                front, bufs = front.grown(), bufs.grown()
+                f_cap = bufs.cap
+                self._count("grow_next_buffer")
+                emit(f"frontier buffers grown to {f_cap}")
+            elif reason == R_EXPAND_GROW:
+                self._grow_expand(h[C_GROW_AID], emit)
+            elif reason == R_SLOT_ERR:
+                raise TLAError(
+                    "dense-layout slot collision (a second DVC or "
+                    "recovery response from one source in one view): "
+                    "this interleaving needs the multi-slot layout")
+            run_tile, entry = None, True
+            quantum = 4          # the next stop may be as near
+        set_pointers(h[C_FP_COUNT] if h[C_N_FRONT] == 0
+                     else h[C_LEVEL_BASE] + h[C_N_FRONT])
+        res.diameter = h[C_DEPTH]
+        return finish()
 
     def _finish(self, res, fp_count, table, t0):
         self.table = table          # the run's FPSet, kept for callers

@@ -1,0 +1,428 @@
+"""The fused BFS's tile pipeline on the device: kernels K7 (work-queue
+compaction) and K8 (the tile commit and the level step), and the carry
+they share.
+
+The counterpart of the device code of ``tpuvsr/engine/device_bfs.py``
+that ``run_fused`` runs: the per-action ``jnp.nonzero(size=E_a)``
+compaction of ``_fused_body_factory`` (:838), its committed-action
+prefix and headroom gate (:806-931), the rank scatter, commit flag and
+reason priority (:942-985), and the tail of ``_make_multilevel``'s
+``obody`` (:1231-1300) that appends a finished level's trace pointers,
+records its size and makes the next buffer the frontier.
+
+**The carry** is one int64 vector on the device that holds the whole
+loop state of the fused pass (``C_*`` below, then ``need`` and ``act``,
+one entry per action).  The kernels read it and update it in place, so
+a tile needs no host read: the host reads the carry once per quantum
+of tiles.  ``halt`` is set when a tile stops with a reason or a level
+step meets a stop condition (``stop``); from then on K6 and K7 do
+nothing, ``commit_prefix`` masks every item out, ``commit_finish``
+scatters nothing (it counts the replay in ``idle``) and ``level_step``
+does nothing, so a tile replayed after the stop commits nothing.  The
+layout is ``enum Carry`` of ``csrc/tile_commit.cu``.
+
+Each wrapper sends CPU tensors to its plain PyTorch version (in this
+module) and CUDA tensors to its kernel (``csrc/compact.cu``,
+``csrc/tile_commit.cu``).  Both write their outputs into the buffers
+they are given, so a CUDA graph can hold them; the plain versions read
+values to the host where that is simpler and never run inside a graph.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..models.vsr import ERR_BAG_OVERFLOW
+
+I64 = torch.int64
+I32 = torch.int32
+
+# level-pass stop reasons (the JAX engine's codes)
+RUNNING = 0
+R_VIOLATION = 2      # an invariant failed on a generated state
+R_BAG_GROW = 3       # a successor needs more message-table slots
+R_FPSET_GROW = 4     # fingerprint probing exhausted (table too full)
+R_NEXT_GROW = 5      # next-frontier buffer out of capacity
+R_SLOT_ERR = 6       # dense-layout slot collision (config limitation)
+R_DEADLOCK = 7       # a frontier state has no enabled successor
+R_EXPAND_GROW = 8    # per-action compaction buffer too small
+
+# carry layout (csrc/tile_commit.cu enum Carry)
+CARRY_FIELDS = (
+    "t", "reason", "halt", "stop", "nn", "n_front", "depth", "level_base",
+    "fp_count", "gen", "tiles", "lvl_cur", "viol_row", "viol_aid",
+    "viol_lane", "dead", "grow_aid", "idle", "want_deadlock", "max_depth",
+    "max_states", "max_lvls", "next_cap", "tp_cap")
+(C_T, C_REASON, C_HALT, C_STOP, C_NN, C_N_FRONT, C_DEPTH, C_LEVEL_BASE,
+ C_FP_COUNT, C_GEN, C_TILES, C_LVL_CUR, C_VIOL_ROW, C_VIOL_AID, C_VIOL_LANE,
+ C_DEAD, C_GROW_AID, C_IDLE, C_WANT_DEADLOCK, C_MAX_DEPTH, C_MAX_STATES,
+ C_MAX_LVLS, C_NEXT_CAP, C_TP_CAP) = range(len(CARRY_FIELDS))
+C_NEED = len(CARRY_FIELDS)          # need[n_act], then act[n_act]
+
+# the tile's verdict, written by commit_prefix and read by commit_finish
+# (csrc/tile_commit.cu enum Tile), then one flag word per action
+# (1 violation, 2 bag overflow, 4 slot error)
+TILE_FIELDS = ("first_bad", "room", "viol", "slot", "bag", "ovf",
+               "grow_aid", "vrow", "vaid", "vlane")
+(F_FIRST_BAD, F_ROOM, F_VIOL, F_SLOT, F_BAG, F_OVF, F_GROW_AID, F_VROW,
+ F_VAID, F_VLANE) = range(len(TILE_FIELDS))
+F_AFLAGS = len(TILE_FIELDS)
+
+MAX_ACTIONS = 64     # the kernels' per-action shared arrays
+
+
+def new_carry(n_act, device, **vals):
+    """A carry vector with every field 0 except ``vals`` (by name) and
+    the "none yet" markers (-1) of viol, dead and grow_aid."""
+    c = [0] * (C_NEED + 2 * n_act)
+    for k in ("viol_row", "viol_aid", "viol_lane", "dead", "grow_aid"):
+        c[CARRY_FIELDS.index(k)] = -1
+    for k, v in vals.items():
+        c[CARRY_FIELDS.index(k)] = int(v)
+    return torch.tensor(c, dtype=I64, device=device)
+
+
+class Segments:
+    """The work queue's segment table: for each action its first lane
+    in the guard matrix, its lane count L_a, its cap E_a and its offset
+    in the queue (``host`` as Python ints, ``dev`` as an int32 tensor
+    ``[n_act, 4]``)."""
+
+    def __init__(self, lane_off, lanes, caps, device):
+        qoff, self.host = 0, []
+        for lo, L, E in zip(lane_off, lanes, caps):
+            self.host.append((int(lo), int(L), int(E), qoff))
+            qoff += int(E)
+        self.total = qoff
+        self.dev = torch.tensor(self.host, dtype=I32,
+                                device=device).reshape(-1, 4)
+
+
+def queue_buffers(total, n_act, device):
+    """The work queue's output buffers (zero: every index in range)."""
+    z = lambda n, dt: torch.zeros((n,), dtype=dt, device=device)
+    return {"pidx": z(total, I32), "lane": z(total, I32),
+            "aid": z(total, I32), "ok": z(total, torch.bool),
+            "cnts": z(n_act, I64), "ovf": z(n_act, torch.bool)}
+
+
+# ----------------------------------------------------------------------
+# K7: work-queue compaction
+# ----------------------------------------------------------------------
+def compact(en, valid, segs, q, carry=None):
+    """K7 wrapper.  ``en`` [T, n_lanes] bool guard matrix of a tile,
+    ``valid`` [T] bool rows in the frontier, ``segs`` a ``Segments``.
+    Writes into the queue buffers ``q`` (``queue_buffers``): for action
+    a, entries ``qoff .. qoff + E_a`` hold the first E_a enabled (row,
+    lane) items of valid rows in (row, lane) order, then fill entries
+    (row T-1, lane 0, ok False) — ``jnp.nonzero(en_f, size=E_a,
+    fill_value=T*L_a)`` split into row and lane; ``aid`` the action;
+    ``cnts`` the exact enabled count, ``ovf`` count > E_a.  With a
+    ``carry`` it does nothing once the carry is halted and otherwise
+    raises ``need`` to the counts."""
+    if en.device.type == "cpu":
+        return compact_plain(en, valid, segs, q, carry)
+    return _compact_kernel(en, valid, segs, q, carry)
+
+
+def _select(m, cap, fill):
+    pos = torch.cumsum(m, 0) - 1
+    dest = torch.where(m & (pos < cap), pos, cap)
+    out = torch.full((cap + 1,), fill, dtype=I64, device=m.device)
+    out.scatter_(0, dest, torch.arange(m.shape[0], device=m.device))
+    return out[:cap]
+
+
+def compact_plain(en, valid, segs, q, carry=None):
+    if carry is not None and bool(carry[C_HALT] != 0):
+        return q
+    T = en.shape[0]
+    n_act = len(segs.host)
+    for a, (lo, L, E, qo) in enumerate(segs.host):
+        TL = T * L
+        en_f = (en[:, lo:lo + L] & valid[:, None]).reshape(TL)
+        sel = _select(en_f, E, TL)
+        q["pidx"][qo:qo + E] = torch.clamp(sel // L, 0, T - 1)
+        q["lane"][qo:qo + E] = sel % L
+        q["aid"][qo:qo + E] = a
+        q["ok"][qo:qo + E] = sel < TL
+        q["cnts"][a] = en_f.sum()
+    q["ovf"].copy_(q["cnts"] > torch.tensor([E for _l, _L, E, _q in
+                                             segs.host], device=en.device))
+    if carry is not None:
+        need = carry[C_NEED:C_NEED + n_act]
+        torch.maximum(need, q["cnts"], out=need)
+    return q
+
+
+def _compact_kernel(en, valid, segs, q, carry):
+    T, n_lanes = en.shape
+    n_act = len(segs.host)
+    ck = kernels.check
+    total = segs.total
+    kernels.launch(
+        "compact", "tpuvsr_compact",
+        ck(en, "en", torch.bool, (T, n_lanes)), ck(valid, "valid",
+                                                   torch.bool, (T,)),
+        T, n_lanes, ck(segs.dev, "segs", I32, (n_act, 4)), n_act,
+        ck(q["pidx"], "pidx", I32, (total,)),
+        ck(q["lane"], "lane", I32, (total,)),
+        ck(q["aid"], "aid", I32, (total,)),
+        ck(q["ok"], "ok", torch.bool, (total,)),
+        ck(q["cnts"], "cnts", I64, (n_act,)),
+        ck(q["ovf"], "ovf", torch.bool, (n_act,)),
+        None if carry is None else ck(carry, "carry", I64),
+        C_HALT, C_NEED, kernels.stream_of(en))
+    return q
+
+
+# ----------------------------------------------------------------------
+# K8: commit_prefix
+# ----------------------------------------------------------------------
+def commit_prefix(carry, q, en2, iok, err, tile, mcommit):
+    """K8 wrapper, first entry: the tile's verdict before the insert.
+    ``en2`` [total] bool successors enabled, ``iok`` [total] bool
+    invariants hold, ``err`` [total] int32 error flags of the queue
+    ``q``.  Writes ``tile`` (int64 ``[F_AFLAGS + n_act]``: the first
+    failing action, the headroom gate ``nn + total <= next_cap``, the
+    violation/slot/bag/overflow flags, the overflowing action, the first
+    violating item's (row, action, lane), per-action flags) and
+    ``mcommit`` [total] bool: the enabled items of actions before the
+    first failing one, none when the gate fails or the carry is
+    halted."""
+    if en2.device.type == "cpu":
+        return commit_prefix_plain(carry, q, en2, iok, err, tile, mcommit)
+    return _prefix_kernel(carry, q, en2, iok, err, tile, mcommit)
+
+
+def commit_prefix_plain(carry, q, en2, iok, err, tile, mcommit):
+    n_act = q["cnts"].shape[0]
+    total = en2.shape[0]
+    ok = en2 & q["ok"]
+    errv = torch.where(ok, err, 0)
+    viol = ok & ~iok & (errv == 0)
+    aid = q["aid"].long()
+    per = lambda m: torch.zeros((n_act,), dtype=I64, device=en2.device
+                                ).index_add_(0, aid, m.long()) > 0
+    v_a = per(viol)
+    b_a = per((errv & ERR_BAG_OVERFLOW) != 0)
+    s_a = per((errv & ~ERR_BAG_OVERFLOW) != 0)
+    ovf = q["ovf"]
+    bad = (v_a | b_a | s_a | ovf).tolist()
+    first_bad = bad.index(True) if True in bad else n_act
+    c = carry.tolist()
+    room = c[C_NEXT_CAP] - c[C_NN] >= total
+    vrow = vaid = vlane = -1
+    if bool(v_a.any()):
+        vaid = v_a.tolist().index(True)
+        items = torch.nonzero(viol & (aid == vaid))[:, 0]
+        i = int(items.min())
+        vrow, vlane = int(q["pidx"][i]), int(q["lane"][i])
+    ovl = ovf.tolist()
+    flags = [first_bad, int(room), int(v_a.any()), int(s_a.any()),
+             int(b_a.any()), int(ovf.any()),
+             ovl.index(True) if True in ovl else -1, vrow, vaid, vlane]
+    aflags = v_a.long() | (b_a.long() << 1) | (s_a.long() << 2)
+    tile.copy_(torch.cat([torch.tensor(flags, dtype=I64,
+                                       device=tile.device), aflags]))
+    mcommit.copy_(ok & (aid < first_bad) & room & (c[C_HALT] == 0))
+    return tile, mcommit
+
+
+def _prefix_kernel(carry, q, en2, iok, err, tile, mcommit):
+    total = en2.shape[0]
+    n_act = q["cnts"].shape[0]
+    if n_act > MAX_ACTIONS:
+        raise ValueError(f"commit_prefix: {n_act} actions, the kernel "
+                         f"takes at most {MAX_ACTIONS}")
+    ck = kernels.check
+    kernels.launch(
+        "commit_prefix", "tpuvsr_commit_prefix",
+        ck(carry, "carry", I64), ck(en2, "en2", torch.bool, (total,)),
+        ck(iok, "iok", torch.bool, (total,)),
+        ck(err, "err", I32, (total,)),
+        ck(q["pidx"], "pidx", I32, (total,)),
+        ck(q["lane"], "lane", I32, (total,)),
+        ck(q["aid"], "aid", I32, (total,)),
+        ck(q["ok"], "ok", torch.bool, (total,)),
+        ck(q["ovf"], "ovf", torch.bool, (n_act,)), total, n_act,
+        ck(mcommit, "mcommit", torch.bool, (total,)),
+        ck(tile, "tile", I64, (F_AFLAGS + n_act,)),
+        kernels.stream_of(en2))
+    return tile, mcommit
+
+
+# ----------------------------------------------------------------------
+# K8: commit_finish
+# ----------------------------------------------------------------------
+def commit_finish(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
+                  dest):
+    """K8 wrapper, second entry: after the insert (K1's ``fresh`` [total]
+    bool and its overflow flag ``ovf_i``, a 0-dim int32 tensor).  Writes
+    ``dest`` [total] int32 = ``nn + cumsum(fresh) - 1`` for fresh items
+    and -1 for the rest (K4's pack-scatter rows), scatters each fresh
+    item's (tile base + row, action, lane) into ``bufs`` (``par``,
+    ``act``, ``prm``) at ``dest``, and steps the carry as the JAX body
+    does: ``nn``, ``fp_count`` by the fresh count; the reason by the
+    priority next-buffer gate > violation > slot > bag > expand >
+    fpset, then deadlock (a valid row of ``en_any`` [T] with nothing
+    enabled, when the carry asks for it); on a commit ``gen`` and
+    ``act`` by the tile's counts; ``t`` and ``tiles`` by one when the
+    tile commits and the reason stays RUNNING; ``halt`` on any reason.
+    A halted carry gets ``dest`` all -1 and one more ``idle`` replay."""
+    if fresh.device.type == "cpu":
+        return commit_finish_plain(carry, q, tile, fresh, ovf_i, en_any,
+                                   valid, bufs, dest)
+    return _finish_kernel(carry, q, tile, fresh, ovf_i, en_any, valid,
+                          bufs, dest)
+
+
+def commit_finish_plain(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
+                        dest):
+    c = carry.tolist()
+    if c[C_HALT]:
+        dest.fill_(-1)
+        carry[C_IDLE] += 1
+        return dest
+    n_act = q["cnts"].shape[0]
+    T = valid.shape[0]
+    t, nn = c[C_T], c[C_NN]
+    rank = torch.cumsum(fresh.long(), 0) - 1 + nn
+    dest.copy_(torch.where(fresh, rank, -1))
+    idx = torch.nonzero(fresh)[:, 0]
+    rows = rank[idx]
+    bufs.par[rows] = (t * T + q["pidx"][idx]).to(I32)
+    bufs.act[rows] = q["aid"][idx]
+    bufs.prm[rows] = q["lane"][idx]
+    nfi = int(fresh.sum())
+    f = tile.tolist()
+    oi = bool(ovf_i)
+    commit = f[F_ROOM] and f[F_FIRST_BAD] >= n_act and not oi
+    if not f[F_ROOM]:
+        reason = R_NEXT_GROW
+    elif f[F_VIOL]:
+        reason = R_VIOLATION
+    elif f[F_SLOT]:
+        reason = R_SLOT_ERR
+    elif f[F_BAG]:
+        reason = R_BAG_GROW
+    elif f[F_OVF]:
+        reason = R_EXPAND_GROW
+    elif oi:
+        reason = R_FPSET_GROW
+    else:
+        reason = RUNNING
+    dead = (valid & ~en_any).tolist()
+    if reason == RUNNING and c[C_WANT_DEADLOCK] and commit and any(dead):
+        reason = R_DEADLOCK
+        c[C_DEAD] = t * T + dead.index(True)
+    if reason == R_VIOLATION:
+        c[C_VIOL_ROW] = t * T + f[F_VROW]
+        c[C_VIOL_AID], c[C_VIOL_LANE] = f[F_VAID], f[F_VLANE]
+    if f[F_OVF]:
+        c[C_GROW_AID] = f[F_GROW_AID]
+    c[C_NN] = nn + nfi
+    c[C_FP_COUNT] += nfi
+    if commit:
+        cnts = q["cnts"].tolist()
+        c[C_GEN] += sum(cnts)
+        for a in range(n_act):
+            c[C_NEED + n_act + a] += cnts[a]
+        if reason == RUNNING:
+            c[C_T] = t + 1
+            c[C_TILES] += 1
+    c[C_REASON] = reason
+    if reason != RUNNING:
+        c[C_HALT] = 1
+    carry.copy_(torch.tensor(c, dtype=I64, device=carry.device))
+    return dest
+
+
+def _finish_kernel(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
+                   dest):
+    total = fresh.shape[0]
+    n_act = q["cnts"].shape[0]
+    T = valid.shape[0]
+    ck = kernels.check
+    kernels.launch(
+        "commit_finish", "tpuvsr_commit_finish",
+        ck(carry, "carry", I64), ck(tile, "tile", I64,
+                                    (F_AFLAGS + n_act,)),
+        ck(fresh, "fresh", torch.bool, (total,)),
+        ck(ovf_i, "ovf_i", I32, ()),
+        ck(q["pidx"], "pidx", I32, (total,)),
+        ck(q["lane"], "lane", I32, (total,)),
+        ck(q["aid"], "aid", I32, (total,)), total,
+        ck(q["cnts"], "cnts", I64, (n_act,)), n_act,
+        ck(en_any, "en_any", torch.bool, (T,)),
+        ck(valid, "valid", torch.bool, (T,)), T,
+        ck(bufs.par, "par", I32), ck(bufs.act, "act", I32),
+        ck(bufs.prm, "prm", I32), ck(dest, "dest", I32, (total,)),
+        kernels.stream_of(fresh))
+    return dest
+
+
+# ----------------------------------------------------------------------
+# K8: level_step
+# ----------------------------------------------------------------------
+def level_step(carry, bufs, front, tp, lvl_buf, tile_size):
+    """K8 wrapper, third entry: when the tile loop of a level is done
+    (halt clear and ``t`` past the level's last tile), append the
+    level's trace pointers (``bufs.par + level_base``, ``bufs.act``,
+    ``bufs.prm`` of its ``nn`` rows) at ``level_base + n_front`` of
+    ``tp`` = (tpp, tpa, tpm), record a non-empty level's size in
+    ``lvl_buf[lvl_cur]``, copy the ``nn`` packed rows of ``bufs.nb`` to
+    ``front`` (the next level's frontier), advance ``depth``,
+    ``level_base`` and ``n_front``, reset ``t`` and ``nn``, and set
+    ``stop`` and ``halt`` on the JAX ``ocond`` terms: an empty
+    frontier, ``max_depth``, ``max_states``, ``max_lvls`` levels
+    recorded, or trace-pointer headroom for one more level."""
+    if carry.device.type == "cpu":
+        return level_step_plain(carry, bufs, front, tp, lvl_buf, tile_size)
+    return _level_kernel(carry, bufs, front, tp, lvl_buf, tile_size)
+
+
+def level_step_plain(carry, bufs, front, tp, lvl_buf, tile_size):
+    c = carry.tolist()
+    T = tile_size
+    nf = c[C_N_FRONT]
+    if c[C_HALT] or c[C_T] < (nf + T - 1) // T:
+        return carry
+    n, lb = c[C_NN], c[C_LEVEL_BASE]
+    tpp, tpa, tpm = tp
+    lo = lb + nf
+    tpp[lo:lo + n] = bufs.par[:n] + lb
+    tpa[lo:lo + n] = bufs.act[:n]
+    tpm[lo:lo + n] = bufs.prm[:n]
+    front[:n] = bufs.nb[:n]
+    if n > 0:
+        if c[C_LVL_CUR] < lvl_buf.shape[0]:
+            lvl_buf[c[C_LVL_CUR]] = n
+        c[C_LVL_CUR] += 1
+    c[C_LEVEL_BASE] = lb + nf
+    c[C_N_FRONT] = n
+    c[C_T] = c[C_NN] = 0
+    c[C_DEPTH] += 1
+    if (n == 0 or c[C_DEPTH] >= c[C_MAX_DEPTH]
+            or c[C_FP_COUNT] >= c[C_MAX_STATES]
+            or c[C_LVL_CUR] >= c[C_MAX_LVLS]
+            or c[C_LEVEL_BASE] + n + c[C_NEXT_CAP] > c[C_TP_CAP]):
+        c[C_STOP] = c[C_HALT] = 1
+    carry.copy_(torch.tensor(c, dtype=I64, device=carry.device))
+    return carry
+
+
+def _level_kernel(carry, bufs, front, tp, lvl_buf, tile_size):
+    words = bufs.nb.shape[1]
+    tpp, tpa, tpm = tp
+    ck = kernels.check
+    kernels.launch(
+        "level_step", "tpuvsr_level_step",
+        ck(carry, "carry", I64), ck(bufs.nb, "nb", I32),
+        ck(bufs.par, "par", I32), ck(bufs.act, "act", I32),
+        ck(bufs.prm, "prm", I32), ck(front, "front", I32), words,
+        ck(tpp, "tpp", I32), ck(tpa, "tpa", I32), ck(tpm, "tpm", I32),
+        ck(lvl_buf, "lvl_buf", I64), lvl_buf.shape[0], tile_size,
+        kernels.stream_of(carry))
+    return carry

@@ -8,7 +8,7 @@ never loaded), and bound with ``ctypes``.  ``build()`` starts one
 ``nvcc`` per source, all at once.
 
 The wrappers that call these kernels live beside their plain PyTorch
-versions (``engine/fpset.py``, ``engine/pack.py``,
+versions (``engine/fpset.py``, ``engine/pack.py``, ``engine/tile.py``,
 ``models/vsr_kernel.py``, ``sim/rng.py``).  A wrapper sends a CPU
 tensor to the plain version and a CUDA tensor to ``launch()``, which
 raises when the C entry point reports a CUDA error and otherwise adds
@@ -52,6 +52,18 @@ KERNELS = {
                      "tpuvsr/sim/fleet.py:387 chunk_fn step draws"),
     "fleet_swarm_noise": ("fleet_draw",
                           "tpuvsr/sim/fleet.py:374 chunk_fn swarm noise"),
+    "vsr_guards": ("vsr_guards",
+                   "tpuvsr/engine/device_bfs.py:398 _guard_matrix"),
+    "compact": ("compact", "tpuvsr/engine/device_bfs.py:838 "
+                "_fused_body_factory work-queue compaction"),
+    "commit_prefix": ("tile_commit", "tpuvsr/engine/device_bfs.py:806 "
+                      "_fused_body_factory headroom gate and "
+                      "committed-action prefix (:806-931)"),
+    "commit_finish": ("tile_commit", "tpuvsr/engine/device_bfs.py:942 "
+                      "_fused_body_factory rank scatter, commit and "
+                      "reason (:942-985)"),
+    "level_step": ("tile_commit", "tpuvsr/engine/device_bfs.py:1191 "
+                   "_make_multilevel obody level step (:1231-1300)"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -67,6 +79,11 @@ _ENTRY = {
     "tpuvsr_unpack": "ppiiipppppp" + "p",
     "tpuvsr_fleet_choose": "pppippiipp" + "p",
     "tpuvsr_fleet_swarm_noise": "ppifip" + "p",
+    "tpuvsr_vsr_guards": "piii" + "iiiiiiiii" + "ppp" + "ppp" + "p",
+    "tpuvsr_compact": "ppiipi" + "pppppp" + "pii" + "p",
+    "tpuvsr_commit_prefix": "ppppppppp" + "ii" + "pp" + "p",
+    "tpuvsr_commit_finish": "ppppppp" + "ipi" + "ppi" + "pppp" + "p",
+    "tpuvsr_level_step": "pppppp" + "i" + "pppp" + "ii" + "p",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
           "f": ctypes.c_float}

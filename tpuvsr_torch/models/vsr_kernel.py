@@ -20,6 +20,10 @@ send CUDA tensors to ``csrc/vsr_fingerprint.cu`` and CPU tensors to
 their plain versions in this module.  The engine builds the kernel with
 an identity-only permutation table (``fold_symmetry=False``), which is
 the only table the port supports.
+
+K6: ``guard_matrix`` evaluates all 19 guards over every lane of flat
+rows in one launch (``csrc/vsr_guards.cu``); its plain version is the
+loop over ``_guard_fns``.
 """
 
 from __future__ import annotations
@@ -59,6 +63,12 @@ MSG_KEYS = ("m_present", "m_count", "m_hdr", "m_entry", "m_log",
             "m_log_len", "m_has_log")
 AUX_KEYS = ("aux_svc", "aux_restart", "aux_acked", "err")
 ALL_KEYS = REP_KEYS + MSG_KEYS + AUX_KEYS
+# the planes K6 reads, in the order of csrc/vsr_guards.cu enum Plane
+GUARD_PLANES = ("status", "view", "op", "commit", "log_len", "peer_op",
+                "ct", "svc", "dvc", "sent_dvc", "sent_sv", "rec_number",
+                "rec", "rec_has_log", "m_present", "m_count", "m_hdr",
+                "m_entry", "m_log", "m_log_len", "m_has_log", "aux_svc",
+                "aux_restart", "aux_acked")
 
 
 # ----------------------------------------------------------------------
@@ -1033,6 +1043,67 @@ class VSRKernel:
             self.guard_receive_recovery, self.guard_receive_recovery_response,
             self.guard_complete_recovery,
         ]
+
+    # -- K6: the guard matrix --------------------------------------------
+    def guard_matrix(self, flat, out=None, halt=None):
+        """K6 wrapper: every action's guard over every lane of flat rows
+        ``flat`` [B, lanes] -> (en [B, n_lanes] bool in lane-table
+        order, en_any [B] bool), written into ``out`` when given.  With
+        ``halt`` (a one-element int64 tensor) it does nothing while
+        ``halt[0]`` is not 0."""
+        if flat.device.type == "cpu":
+            return self.guard_matrix_plain(flat, out, halt)
+        return self._guards_kernel(flat, out, halt)
+
+    def _guard_out(self, flat, out):
+        if out is not None:
+            return out
+        B, dev = flat.shape[0], flat.device
+        return (torch.zeros((B, self.n_lanes), dtype=torch.bool, device=dev),
+                torch.zeros((B,), dtype=torch.bool, device=dev))
+
+    def guard_matrix_plain(self, flat, out=None, halt=None):
+        out = self._guard_out(flat, out)
+        if halt is not None and bool(halt[0] != 0):
+            return out
+        st = self.pk.unflatten(flat)
+        en = torch.cat([g(st) for g in self._guard_fns()], dim=1)
+        out[0].copy_(en)
+        out[1].copy_(en.any(dim=1))
+        return out
+
+    def guard_tables(self, device):
+        """The planes' first lanes in a flat row (``GUARD_PLANES``
+        order) and the lane -> (action, param) tables, on ``device``."""
+        key = ("guards", str(torch.device(device)))
+        t = self._fp_tables.get(key)
+        if t is None:
+            start = {k: a for k, _s, a, _e in self.pk._splits}
+            t = {"planes": torch.tensor([start[k] for k in GUARD_PLANES],
+                                        dtype=I32),
+                 "lane_action": torch.as_tensor(self.lane_action),
+                 "lane_param": torch.as_tensor(self.lane_param)}
+            t = {k: v.to(device) for k, v in t.items()}
+            self._fp_tables[key] = t
+        return t
+
+    def _guards_kernel(self, flat, out, halt):
+        out = self._guard_out(flat, out)
+        B, lanes = flat.shape
+        t = self.guard_tables(flat.device)
+        s = self.shape
+        ck = kernels.check
+        kernels.launch(
+            "vsr_guards", "tpuvsr_vsr_guards",
+            ck(flat, "flat", I32, (B, self.pk.lanes)), B, lanes,
+            self.n_lanes, self.R, self.V, self.M, s.C, self.MAX_OPS,
+            self.NHDR, NENT, s.timer_limit, s.restart_limit,
+            t["planes"].data_ptr(), t["lane_action"].data_ptr(),
+            t["lane_param"].data_ptr(),
+            None if halt is None else ck(halt, "halt", torch.int64, (1,)),
+            ck(out[0], "en", torch.bool, (B, self.n_lanes)),
+            ck(out[1], "en_any", torch.bool, (B,)), kernels.stream_of(flat))
+        return out
 
     def _action_fns(self):
         return [
