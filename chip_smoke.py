@@ -47,13 +47,31 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         wall time, distinct/s, host reads, tile replays (and those after
         a stop), graph captures, growth pauses, launches and peak
         memory;
-  8. print the kernels line, then the result line last.
+     K9 (orbit canonicalization) must launch 0 times in phases 5, 6c
+     and 7c: the defect config declares no SYMMETRY;
+  8. the symmetric model, tpuvsr_torch/configs/VSR_shipped.cfg (the
+     reference's shipped VSR.cfg, SYMMETRY symmValues), symmetry on:
+     a. an untimed recording run() to depth 12 (tile 128, 64 tiles a
+        chunk, 2^26 FPSet slots): its levels must be the record's
+        (SHIPPED_LEVELS) and K9 must relabel some rows; K9 held bit for
+        bit against its plain version on the largest batch it met, K9's
+        images invariant under every group row, K9 and K3 (full, on the
+        canonical images) timed; its trace-pointer tables are kept;
+     b. the timed run_fused to depth 16, launch counts reset just before
+        and read just after: its levels must be the record's and its
+        trace-pointer tables through level 12 those of 8a; K9 launched,
+        the incremental fingerprint (vsr_fp_parts, vsr_fp_incremental)
+        not; it prints what 7c prints and the orbit ratio;
+     c. the A/B leg: run_fused with symmetry off to depth 9, its levels
+        those of the JAX package's symmetry-off BFS (SHIPPED_OFF_LEVELS);
+  9. print the kernels line, then the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
 ``--out FILE`` writes the measurements as JSON, ``--profile`` adds a
 torch.profiler table of a depth-7 BFS run, of one steady round of the
-hunt and of one quantum of the fused path to that file, ``--depth N``
-changes the BFS paths' depth (10 by default).
+hunt and of one quantum of each fused path (phases 7 and 8) to that
+file, ``--depth N`` changes the defect config's BFS depth in phases 3,
+5 and 7 (10 by default).
 """
 
 from __future__ import annotations
@@ -67,7 +85,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEFECT = os.path.join(ROOT, "examples", "VSR_defect.cfg")
+SHIPPED = os.path.join(ROOT, "tpuvsr_torch", "configs", "VSR_shipped.cfg")
 LEVELS = [1, 5, 18, 62, 226, 833, 2950, 10048, 32805, 101949, 299683]
+# the shipped model with symmetry on: levels 0-10 from the JAX package's
+# CanonSpec level BFS on the CPU (python tests/test_torch_symmetry_bfs.py
+# 10), 11-16 from the JAX package's at-scale record
+# scripts/shipped_pin.json (level_sizes_tail; its distinct_states less
+# the tail is the sum of levels 0-10)
+SHIPPED_LEVELS = [1, 3, 10, 35, 124, 403, 1200, 3319, 8500, 20030, 43306,
+                  86415, 161457, 287614, 496278, 838162, 1393641]
+SHIPPED_OFF_LEVELS = [1, 4, 14, 48, 168, 558, 1713, 4877, 12868, 31370]
+SYM = {"record_depth": 12, "depth": 16, "off_depth": 9}
 STUB_TRACE = [(None, {"x": 0, "y": 0}), ("IncY", {"x": 0, "y": 1}),
               ("IncY", {"x": 0, "y": 2}), ("IncX", {"x": 1, "y": 2}),
               ("IncX", {"x": 2, "y": 2}), ("IncX", {"x": 3, "y": 2})]
@@ -730,6 +758,7 @@ def hunt_phase(args, doc):
         k["launches"] = counts[k["kernel"]]
         need(k["launches"] > 0, f"{k['name']} was not launched on the "
              f"hunt path")
+    need(counts["vsr_canon"] == 0, "K9 was launched on the hunt path")
 
     if args.profile:
         # one steady round (the second of the hunt, graphs captured in
@@ -1052,39 +1081,250 @@ def fused_phase(args, doc, binding, run_pointers):
         k["launches"] = counts[k["kernel"]]
         need(k["launches"] > 0, f"{k['name']} was not launched on the "
              f"fused path")
+    need(counts["vsr_canon"] == 0, "K9 was launched on the fused path")
     del eng
 
     if args.profile:
-        # the first quantum of the graph path at its full size
-        # (REPLAYS_CAP tile replays between two host reads)
-        from torch.profiler import ProfilerActivity, profile
-        from tpuvsr_torch.engine.device_bfs import REPLAYS_CAP
-        eng = engine()
-        replay, seen = eng._replay, []
+        profile_quantum(doc, "profile_fused_quantum", engine(),
+                        min(args.depth, 9))
+    return rows
 
-        def profiled(run_tile, n):
-            if seen or n < REPLAYS_CAP:
-                return replay(run_tile, n)
-            seen.append(n)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t1 = time.time()
-                h = replay(run_tile, n)
-                wall_q = time.time() - t1
-            dev_us = device_us(prof)
-            doc["profile_fused_quantum"] = {
-                "replays": n, "wall_s": wall_q, "device_s": dev_us / 1e6,
-                "device_busy_share": dev_us / 1e6 / wall_q,
-                "table": prof.key_averages().table(
-                    sort_by="cuda_time_total", row_limit=40)}
-            print(f"  profiled fused quantum ({n} tiles): wall "
-                  f"{wall_q:.3f}s, device busy {dev_us / 1e6:.3f}s "
-                  f"({dev_us / 1e6 / wall_q:.1%})", flush=True)
-            return h
-        eng._replay = profiled
-        eng.run_fused(max_depth=min(args.depth, 9))
-        del eng
+
+def profile_quantum(doc, key, eng, depth):
+    """torch.profiler over the first quantum of ``eng.run_fused`` at its
+    full size (REPLAYS_CAP tile replays between two host reads), into
+    ``doc[key]``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tpuvsr_torch.engine.device_bfs import REPLAYS_CAP
+    replay, seen = eng._replay, []
+
+    def profiled(run_tile, n):
+        if seen or n < REPLAYS_CAP:
+            return replay(run_tile, n)
+        seen.append(n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            h = replay(run_tile, n)
+            wall_q = time.time() - t1
+        dev_us = device_us(prof)
+        doc[key] = {
+            "replays": n, "wall_s": wall_q, "device_s": dev_us / 1e6,
+            "device_busy_share": dev_us / 1e6 / wall_q,
+            "table": prof.key_averages().table(
+                sort_by="cuda_time_total", row_limit=40)}
+        print(f"  profiled fused quantum ({n} tiles): wall "
+              f"{wall_q:.3f}s, device busy {dev_us / 1e6:.3f}s "
+              f"({dev_us / 1e6 / wall_q:.1%})", flush=True)
+        return h
+    eng._replay = profiled
+    eng.run_fused(max_depth=depth)
+    del eng._replay      # the closure refers to eng: free it without gc
+
+
+class CanonRecorder:
+    """Keeps, during a symmetric run, the inputs of the largest K9 call
+    and of the largest full K3 call (the canonical images), and counts
+    the rows K9 met and those whose image differs from the row."""
+
+    def __init__(self):
+        self.calls = {}
+        self.rows = self.relabelled = 0
+
+    keep = Recorder.keep
+
+    def install(self):
+        from tpuvsr_torch.engine.canon import CanonSpec
+        from tpuvsr_torch.models.vsr_kernel import VSRKernel
+        rec = self
+        canon, full = CanonSpec.canonicalize, VSRKernel.fingerprint
+
+        def p_canon(self, rows, out=None):
+            rec.keep("vsr_canon", rows.shape[0],
+                     lambda: (self, rows.clone()))
+            img = canon(self, rows, out)
+            rec.rows += rows.shape[0]
+            rec.relabelled += int((img != rows).any(dim=1).sum())
+            return img
+
+        def p_full(self, flat):
+            rec.keep("vsr_fp_full", flat.shape[0],
+                     lambda: (self, flat.clone()))
+            return full(self, flat)
+        CanonSpec.canonicalize, VSRKernel.fingerprint = p_canon, p_full
+
+        def uninstall():
+            CanonSpec.canonicalize, VSRKernel.fingerprint = canon, full
+        return uninstall
+
+
+def check_canon_kernels(rec):
+    """Phase 8a: K9 bit for bit against its plain version, its images
+    invariant under every group row, and K3's full fingerprint of the
+    canonical images; each timed with its bound."""
+    import torch
+    out = []
+    canon, rows = rec.calls["vsr_canon"][1]
+    kern, pk = canon.kern, canon.kern.pk
+    n, L = rows.shape
+    got = canon.canonicalize(rows)
+    err = max_abs(got, canon.canonicalize_plain(rows))
+    for g in canon.tables(rows.device)["group"]:
+        moved = pk.flatten(kern._permuted(pk.unflatten(rows), g))
+        need(torch.equal(canon.canonicalize(moved), got),
+             "K9's images are not invariant under the group")
+    dst = torch.empty_like(rows)
+    kernel_row(out, "vsr_canon",
+               cuda_ms(lambda: canon.canonicalize(rows, dst)),
+               cuda_ms(lambda: canon.canonicalize_plain(rows), reps=5), err,
+               2 * n * L * 4, 0,
+               extra={"shape": [n, L], "perms": canon.perms,
+                      "key_lanes": int(canon.pos.shape[0])})
+    kern, flat = rec.calls["vsr_fp_full"][1]
+    B, L = flat.shape
+    cols = kern.R * kern.nrep + kern.M * kern.nmsg
+    kernel_row(out, "vsr_fp_full", cuda_ms(lambda: kern.fingerprint(flat)),
+               cuda_ms(lambda: kern.fingerprint_plain(flat), reps=5),
+               max_abs(kern.fingerprint(flat), kern.fingerprint_plain(flat)),
+               B * L * 4 + B * 16, B * cols * 4 * 2,
+               extra={"shape": [B, L]},
+               label="vsr_fp_full (symmetric, canonical images)")
+    torch.cuda.synchronize()
+    return out
+
+
+def symmetric_phase(args, doc):
+    """Phase 8: the shipped model with symmetry on.  Returns its
+    kernels-line rows, with the launch counts of the timed run_fused
+    (8b)."""
+    import numpy as np
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS
+    from tpuvsr_torch.engine.spec import load_binding
+    binding = load_binding(SHIPPED)
+
+    def engine(symmetry="auto"):
+        return DeviceBFS(binding, tile_size=128, chunk_tiles=64,
+                         fpset_capacity=1 << 26, device="cuda",
+                         symmetry=symmetry)
+
+    def pointers(eng):
+        return [np.concatenate(getattr(eng, k))
+                for k in ("_h_parent", "_h_action", "_h_param")]
+
+    def no_incremental(counts, what):
+        need(counts["vsr_canon"] > 0, f"K9 was not launched on {what}")
+        need(counts["vsr_fp_parts"] == 0
+             and counts["vsr_fp_incremental"] == 0,
+             f"the incremental fingerprint was launched on {what}")
+
+    d = SYM["record_depth"]
+    print(f"phase 8a: shipped model, symmetry on, recording run() to depth "
+          f"{d}", flush=True)
+    rec = CanonRecorder()
+    uninstall = rec.install()
+    kernels.reset_launch_counts()
+    eng = engine()
+    t0 = time.time()
+    res = eng.run(max_depth=d)
+    torch.cuda.synchronize()
+    uninstall()
+    counts = kernels.launch_counts()
+    doc["sym_record"] = {"wall_s": time.time() - t0, "levels": res.levels,
+                         "launches": counts, "metrics": res.metrics,
+                         "recorded": {k: v[0] for k, v in rec.calls.items()},
+                         "canon_rows": rec.rows,
+                         "canon_relabelled": rec.relabelled}
+    need(res.ok and res.levels == SHIPPED_LEVELS[:d + 1],
+         f"symmetric recording run levels {res.levels}")
+    no_incremental(counts, "the symmetric run()")
+    need(rec.relabelled > 0, "K9 relabelled no row in the recording run")
+    run_pointers = pointers(eng)
+    print(f"  levels {res.levels} in {doc['sym_record']['wall_s']:.3f}s; "
+          f"K9 relabelled {rec.relabelled} of {rec.rows} rows", flush=True)
+    del eng
+    rows = check_canon_kernels(rec)
+    del rec
+
+    d = SYM["depth"]
+    print(f"phase 8b: run_fused, shipped model, symmetry on, to depth {d}",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    eng = engine()
+    t0 = time.time()
+    res = eng.run_fused(max_depth=d)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    need(res.ok, f"symmetric path: {res.violated_invariant} {res.error}")
+    need(res.levels == SHIPPED_LEVELS[:d + 1],
+         f"symmetric path levels {res.levels}")
+    need(res.distinct_states == sum(SHIPPED_LEVELS[:d + 1]),
+         f"symmetric path distinct {res.distinct_states}")
+    n12 = sum(SHIPPED_LEVELS[:SYM["record_depth"] + 1])
+    need(all(np.array_equal(a[:n12], b) for a, b in
+             zip(pointers(eng), run_pointers)),
+         "symmetric run_fused trace-pointer tables differ from run()'s")
+    no_incremental(counts, "the symmetric run_fused")
+    c, g = res.metrics["counters"], res.metrics["gauges"]
+    need(c["host_reads"] == c["quanta"] + c.get("level_fits", 0),
+         f"symmetric path host reads {c}")
+    need(g["symmetry_perms"] == 2, f"symmetry_perms {g['symmetry_perms']}")
+    sym = {"depth": d, "levels": res.levels,
+           "distinct": res.distinct_states,
+           "generated": res.states_generated, "wall_s": wall,
+           "distinct_per_s": res.distinct_states / wall,
+           "orbit_ratio": g["orbit_ratio"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": counts, "metrics": res.metrics}
+    doc["symmetric"] = sym
+    print(f"  levels {res.levels}, pointer tables through level "
+          f"{SYM['record_depth']} equal to run()'s", flush=True)
+    print(f"  distinct {res.distinct_states} generated "
+          f"{res.states_generated} wall {wall:.3f}s distinct/s "
+          f"{sym['distinct_per_s']:.1f} orbit_ratio {g['orbit_ratio']} "
+          f"max_memory_allocated {sym['max_memory_allocated']}", flush=True)
+    print(f"  host_reads {c.get('host_reads')} (quanta {c.get('quanta')}, "
+          f"level fits {c.get('level_fits', 0)}) graph_replays "
+          f"{c.get('graph_replays')} replays_after_stop "
+          f"{c.get('replays_after_stop')} graph_captures "
+          f"{c.get('graph_captures')} growth_pauses "
+          f"{c.get('growth_pauses', 0)} tiles {c.get('tiles')}", flush=True)
+    print(f"  launches {counts}", flush=True)
+    for k in rows:
+        k["launches"] = counts[k["kernel"]]
+    del eng
+    if args.profile:
+        profile_quantum(doc, "profile_symmetric_quantum", engine(), 12)
+
+    d = SYM["off_depth"]
+    print(f"phase 8c: run_fused, shipped model, symmetry off, to depth {d}",
+          flush=True)
+    kernels.reset_launch_counts()
+    eng = engine(symmetry=False)
+    t0 = time.time()
+    res = eng.run_fused(max_depth=d)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    need(res.ok and res.levels == SHIPPED_OFF_LEVELS[:d + 1],
+         f"symmetry-off levels {res.levels}")
+    need(counts["vsr_canon"] == 0 and counts["vsr_fp_incremental"] > 0,
+         f"symmetry-off launches {counts}")
+    doc["symmetric_off"] = {"depth": d, "levels": res.levels,
+                            "distinct": res.distinct_states,
+                            "generated": res.states_generated,
+                            "wall_s": wall, "launches": counts,
+                            "metrics": res.metrics}
+    print(f"  levels {res.levels} distinct {res.distinct_states} wall "
+          f"{wall:.3f}s orbit_ratio {res.metrics['gauges']['orbit_ratio']}",
+          flush=True)
+    del eng
     return rows
 
 
@@ -1217,8 +1457,10 @@ def main(argv=None):
         k["launches"] = counts[k["kernel"]]
         need(k["launches"] > 0, f"{k['name']} was not launched on the "
              f"BFS path")
+    need(counts["vsr_canon"] == 0, "K9 was launched on the BFS path")
     rows += hunt_phase(args, doc)
     rows += fused_phase(args, doc, binding, run_pointers)
+    rows += symmetric_phase(args, doc)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
     if args.out:

@@ -12,7 +12,9 @@ three stages in both:
   work queue    --> the enabled (state, lane) items of each action are
                     compacted in order (K7) and only they are expanded,
                     fingerprinted (K3, incremental from the parents'
-                    parts) and invariant-checked
+                    parts; with symmetry on, K9 first maps each to the
+                    least element of its orbit and K3 hashes that image
+                    in full) and invariant-checked
   single commit --> one dedup (K2), one FPSet insert (K1) and one
                     pack-scatter (K4) into the next buffer
 
@@ -47,10 +49,17 @@ next buffer grown to hold every enabled item, and the quantum ends with
 the level.  Small levels keep the JAX pause protocol.  On the CPU the
 same loop runs eagerly on the plain versions.
 
+Symmetry (``symmetry="auto" | True | False``) has the JAX engine's
+meaning: auto is on iff the cfg declares SYMMETRY.  When it is on, the
+fingerprint of a successor (and of an initial state) is that of its
+orbit's least element (``engine/canon.py``), the incremental hash is
+off, and the frontier keeps the generated successor, so traces replay
+real states.
+
 Left out of this port (see ROADMAP.md): the interpreter checks (preflight,
 and the violation cross-check is done with the kernel's own invariant
 functions on the state rebuilt on the host), bounds facts, partial-order
-reduction, symmetry, the dispatch window, ``run_chained``, checkpoints,
+reduction, the dispatch window, ``run_chained``, checkpoints,
 the fused pass's checkpoint and rescue seams and wall-clock budget, and
 the per-action commit.  Results match the JAX engine with bounds off,
 POR off and a window of 1, which its own tests show give the same
@@ -70,6 +79,7 @@ from ..models import registry
 from ..models.vsr import ERR_BAG_OVERFLOW
 from .. import kernels
 from .bfs import CheckResult
+from .canon import build_canon_spec, kernel_fold_order
 from .fpset import dedup_keep, empty_table, grow, insert_core
 from .tile import (C_DEAD, C_DEPTH, C_FP_COUNT, C_GEN, C_HALT, C_IDLE,
                    C_LEVEL_BASE, C_LVL_CUR, C_NEED, C_NEXT_CAP, C_N_FRONT,
@@ -121,9 +131,10 @@ class DeviceBFS:
     def __init__(self, spec, max_msgs=None, tile_size=128,
                  fpset_capacity=1 << 20,
                  next_capacity=1 << 14, chunk_tiles=64,
-                 model_factory=None, device=None):
+                 model_factory=None, device=None, symmetry="auto"):
         self.device = resolve_device(device)
         self.spec = spec
+        self._symmetry_req = symmetry
         self.tile = int(tile_size)
         self.fpset_capacity = int(fpset_capacity)
         self.next_cap = int(next_capacity)
@@ -159,7 +170,13 @@ class DeviceBFS:
         if self._need_seen is None or len(self._need_seen) != len(names):
             self._need_seen = np.zeros(len(names), np.int64)
         self._inv = kern.invariant_fn(self.inv_names)
-        self._incremental = hasattr(kern, "parent_parts")
+        # rebuilt with the codec: the group table depends on V, the
+        # key positions on the layout (MAX_MSGS)
+        self._canon = build_canon_spec(self.spec, self.codec, kern,
+                                       self._symmetry_req)
+        # the least image's hash cannot come from the parent's parts
+        self._incremental = (hasattr(kern, "parent_parts")
+                             and self._canon is None)
         self._lanes = [kern._lane_count(n) for n in names]
         self._lane_off = [int(x) for x in
                           np.concatenate([[0], np.cumsum(self._lanes)[:-1]])]
@@ -170,6 +187,14 @@ class DeviceBFS:
         kern, T = self.kern, self.tile
         return [min(T * kern._lane_count(n), max(8, int(c)))
                 for n, c in zip(kern.action_names, self.expand_caps)]
+
+    def _fp(self, flat, out=None):
+        """Fingerprints of flat rows as the FPSet stores them: of the
+        orbit's least element (K9 into ``out``, then K3) when symmetry is
+        on."""
+        if self._canon is not None:
+            flat = self._canon.canonicalize(flat, out)
+        return self.kern.fingerprint(flat)
 
     def _count(self, what, by=1):
         self.counters[what] = self.counters.get(what, 0) + by
@@ -271,15 +296,14 @@ class DeviceBFS:
                          if not k.startswith("_")}
                 succ_flat = pk.flatten(clean)
                 ri = kern.lane_replica(name, st_sel, lane).to(I32)
-                fp = kern.fingerprint_incremental(
+                q_fp.append(kern.fingerprint_incremental(
                     succ_flat, ri, succ["_ts"].contiguous(), pidx.to(I32),
-                    tile_flat, parts)
+                    tile_flat, parts))
             else:
                 succ, en2 = fn(st_sel, lane)
                 clean = {k: v for k, v in succ.items()
                          if not k.startswith("_")}
                 succ_flat = pk.flatten(clean)
-                fp = kern.fingerprint(succ_flat)
             iok = self._inv(clean)
             errv = torch.where(en2, clean["err"], 0)
             viol_l = en2 & ~iok & (errv == 0)
@@ -291,7 +315,6 @@ class DeviceBFS:
                 pidx[vidx], lane[vidx],
                 torch.tensor(aid, device=dev)]))
             q_succ.append(succ_flat)
-            q_fp.append(fp)
             q_en.append(en2)
             q_pidx.append(pidx)
             q_lane.append(lane)
@@ -306,7 +329,8 @@ class DeviceBFS:
             first_bad = torch.clamp(
                 torch.where(bad, fl[:, 5], n_act).min(), max=ovf_first)
             succ_q = torch.cat(q_succ)
-            fp_q = torch.cat(q_fp).contiguous()
+            fp_q = (torch.cat(q_fp).contiguous() if self._incremental
+                    else self._fp(succ_q))
             aid_q = torch.cat(q_aid)
             mcommit = torch.cat(q_en) & (aid_q < first_bad)
             # -- stage 3: one dedup, one insert, one scatter -----------
@@ -440,7 +464,7 @@ class DeviceBFS:
                                     device=self.device)
                  for k in init[0]}
         flat = pk.flatten(batch).contiguous()
-        fps = self.kern.fingerprint(flat).cpu().numpy()
+        fps = self._fp(flat).cpu().numpy()
         keep, seen = [], set()
         for i in range(len(init)):
             key = tuple(fps[i])
@@ -635,6 +659,9 @@ class DeviceBFS:
         return {"front": front, "bufs": bufs, "table": table, "tp": tp,
                 "lvl": lvl_buf, "carry": carry, "segs": segs,
                 "q": queue_buffers(segs.total, n_act, dev),
+                # K9's output: the canonical images of the queue's rows
+                "canon": (None if self._canon is None else
+                          z(segs.total, self._pk.lanes, dtype=I32)),
                 "en": z(T, sum(self._lanes)), "en_any": z(T),
                 "tile": z(F_AFLAGS + n_act, dtype=I64),
                 "mcommit": z(segs.total), "dest": z(segs.total, dtype=I32),
@@ -667,22 +694,21 @@ class DeviceBFS:
                          if not k.startswith("_")}
                 succ_flat = pk.flatten(clean)
                 ri = kern.lane_replica(name, st_sel, lane).to(I32)
-                fp = kern.fingerprint_incremental(
+                fps.append(kern.fingerprint_incremental(
                     succ_flat, ri, succ["_ts"].contiguous(), pidx,
-                    tile_flat, parts)
+                    tile_flat, parts))
             else:
                 succ, en2 = fn(st_sel, lane)
                 clean = {k: v for k, v in succ.items()
                          if not k.startswith("_")}
                 succ_flat = pk.flatten(clean)
-                fp = kern.fingerprint(succ_flat)
             succs.append(succ_flat)
-            fps.append(fp)
             en2s.append(en2)
             ioks.append(self._inv(clean))
             errs.append(clean["err"].to(I32))
         succ_q = torch.cat(succs)
-        fp_q = torch.cat(fps).contiguous()
+        fp_q = (torch.cat(fps).contiguous() if self._incremental
+                else self._fp(succ_q, S["canon"]))
         commit_prefix(carry, q, torch.cat(en2s), torch.cat(ioks),
                       torch.cat(errs), S["tile"], S["mcommit"])
         keep = dedup_keep(fp_q, S["mcommit"])
@@ -978,7 +1004,15 @@ class DeviceBFS:
         gauges = {"fpset_capacity": int(table["slots"].shape[0]),
                   "fpset_occupancy": fp_count / table["slots"].shape[0],
                   "inserts_per_tile": 1, "commit_mode": "fused",
-                  "max_msgs": int(self.codec.shape.MAX_MSGS)}
+                  "max_msgs": int(self.codec.shape.MAX_MSGS),
+                  # the group order this run reduced by (1 = off), and
+                  # generated / distinct, which folds the orbit factor
+                  # in when symmetry is on
+                  "symmetry_perms": (self._canon.perms
+                                     if self._canon is not None
+                                     else kernel_fold_order(self.kern))}
+        if res.states_generated and fp_count:
+            gauges["orbit_ratio"] = round(res.states_generated / fp_count, 4)
         if acts is not None:
             gauges["action_expansions"] = {
                 n: int(c) for n, c in zip(self.kern.action_names, acts)}

@@ -2,17 +2,25 @@
 ``tpuvsr/engine/spec.py:SpecModel``).
 
 The port has no TLA+ frontend: a binding is read from a cfg file and
-holds the module name, the cfg, the invariant names in cfg order and a
+holds the module name, the cfg, the invariant names in cfg order, a
 function that builds the dense initial states for a codec (VSR.tla's
-``Init`` through ``VSRCodec.init_dense``).
+``Init`` through ``VSRCodec.init_dense``) and the evaluated SYMMETRY
+set.  Of the definitions a cfg may name, the binding knows the one the
+VSR module's cfgs use: ``symmValues == Permutations(Values)``
+(VSR.tla:151).
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import Callable
 
+from ..core.values import FnVal, TLAError, value_key
 from ..frontend.cfg import CfgModel, parse_cfg_file
+
+# (module, SYMMETRY name) -> the constant whose Permutations it is
+_SYMMETRY_DEFS = {("VSR", "symmValues"): "Values"}
 
 
 @dataclass
@@ -21,9 +29,42 @@ class SpecBinding:
     cfg: CfgModel
     init: Callable            # codec -> list of dense state dicts
     invariants: list = field(default_factory=list)
+    # the SYMMETRY set as ModelValue -> ModelValue maps, identity dropped
+    symmetry_perms: list = field(default_factory=list)
 
     def init_dense(self, codec):
         return list(self.init(codec))
+
+
+def permutations(values) -> list:
+    """TLC's ``Permutations(values)`` as maps with the identity pairs (and
+    the identity map) dropped, in the order ``SpecModel._symmetry_perms``
+    of ``tpuvsr/engine/spec.py`` yields them: the iteration order of the
+    frozenset the interpreter's ``Permutations`` builds
+    (``tpuvsr/interp/evalr.py:_permutations``), which the values' hashes
+    decide."""
+    elems = sorted(values, key=value_key)
+    perms = frozenset(FnVal(zip(elems, p))
+                      for p in itertools.permutations(elems))
+    out = []
+    for p in perms:
+        mapping = {k: v for k, v in p.items if k is not v}
+        if mapping:
+            out.append(mapping)
+    return out
+
+
+def symmetry_perms(module: str, cfg: CfgModel) -> list:
+    """The cfg's SYMMETRY set evaluated for ``module`` ([] without one);
+    a definition the port does not know is a loud error."""
+    if not cfg.symmetry:
+        return []
+    const = _SYMMETRY_DEFS.get((module, cfg.symmetry))
+    if const is None:
+        raise TLAError(f"SYMMETRY {cfg.symmetry} not defined for module "
+                       f"{module} (the port knows "
+                       f"{sorted(n for m, n in _SYMMETRY_DEFS if m == module)})")
+    return permutations(cfg.constants[const])
 
 
 def load_binding(cfg_path: str) -> SpecBinding:
@@ -32,4 +73,5 @@ def load_binding(cfg_path: str) -> SpecBinding:
     cfg = parse_cfg_file(cfg_path)
     return SpecBinding(module="VSR", cfg=cfg,
                        init=lambda codec: [codec.init_dense()],
-                       invariants=list(cfg.invariants))
+                       invariants=list(cfg.invariants),
+                       symmetry_perms=symmetry_perms("VSR", cfg))

@@ -9,10 +9,10 @@ never loaded), and bound with ``ctypes``.  ``build()`` starts one
 
 The wrappers that call these kernels live beside their plain PyTorch
 versions (``engine/fpset.py``, ``engine/pack.py``, ``engine/tile.py``,
-``models/vsr_kernel.py``, ``sim/rng.py``).  A wrapper sends a CPU
-tensor to the plain version and a CUDA tensor to ``launch()``, which
-raises when the C entry point reports a CUDA error and otherwise adds
-one to the kernel's launch count.  A launch recorded into a CUDA graph
+``engine/canon.py``, ``models/vsr_kernel.py``, ``sim/rng.py``).  A
+wrapper sends a CPU tensor to the plain version and a CUDA tensor to
+``launch()``, which raises when the C entry point reports a CUDA error
+and otherwise adds one to the kernel's launch count.  A launch recorded into a CUDA graph
 runs only when the graph replays: ``capture()`` keeps those launches
 apart and counts them at each replay.
 """
@@ -64,6 +64,8 @@ KERNELS = {
                       "reason (:942-985)"),
     "level_step": ("tile_commit", "tpuvsr/engine/device_bfs.py:1191 "
                    "_make_multilevel obody level step (:1231-1300)"),
+    "vsr_canon": ("canon", "tpuvsr/engine/canon.py:202 "
+                  "CanonSpec.canonicalize"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -84,6 +86,7 @@ _ENTRY = {
     "tpuvsr_commit_prefix": "ppppppppp" + "ii" + "pp" + "p",
     "tpuvsr_commit_finish": "ppppppp" + "ipi" + "ppi" + "pppp" + "p",
     "tpuvsr_level_step": "pppppp" + "i" + "pppp" + "ii" + "p",
+    "tpuvsr_canon": "pii" + "pii" + "pi" + "p" + "p",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
           "f": ctypes.c_float}

@@ -3,9 +3,10 @@ and how to build (codec, kernel) for a binding.
 
 The counterpart of ``tpuvsr/models/registry.py`` for the ``VSR`` module
 only, with an identity-only permutation table (``fold_symmetry=False``,
-what the device BFS asks for).  The kernel carries the binding's pack
-spec: the port's fingerprint kernel reads states in the packed layout's
-flat lane order.
+what the device BFS asks for: symmetry is reduced by
+``engine/canon.py``, not folded into the fingerprint).  The kernel
+carries the binding's pack spec: the port's fingerprint kernel reads
+states in the packed layout's flat lane order.
 """
 
 from __future__ import annotations
@@ -14,6 +15,23 @@ import numpy as np
 
 from ..analysis.widths import derive_ranges_from
 from ..engine.pack import build_pack_spec
+
+
+def value_perm_table(binding, codec, fold_symmetry=False):
+    """``binding.symmetry_perms`` (ModelValue maps) -> ``[P, V+1]`` value-id
+    table, the identity first and padding 0 fixed (a copy of
+    ``tpuvsr/models/registry.py:value_perm_table``).  Without
+    ``fold_symmetry`` only the identity row is emitted: the table a
+    kernel whose fingerprint is not folded takes."""
+    V = codec.shape.V
+    rows = [np.arange(V + 1, dtype=np.int32)]
+    if fold_symmetry:
+        for p in binding.symmetry_perms:
+            row = np.arange(V + 1, dtype=np.int32)
+            for mv_from, mv_to in p.items():
+                row[codec.value_id[mv_from]] = codec.value_id[mv_to]
+            rows.append(row)
+    return np.stack(rows)
 
 
 def make_model(binding, max_msgs=None):
@@ -26,5 +44,5 @@ def make_model(binding, max_msgs=None):
     constants = binding.cfg.constants
     codec = VSRCodec(constants, max_msgs=max_msgs)
     pk = build_pack_spec(codec, ranges=derive_ranges_from(constants, "VSR"))
-    perms = np.arange(codec.shape.V + 1, dtype=np.int32)[None, :]
-    return codec, VSRKernel(codec, perms=perms, pack_spec=pk)
+    return codec, VSRKernel(codec, perms=value_perm_table(binding, codec),
+                            pack_spec=pk)

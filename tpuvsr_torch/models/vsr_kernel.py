@@ -19,7 +19,9 @@ K3: ``fingerprint``, ``parent_parts`` and ``fingerprint_incremental``
 send CUDA tensors to ``csrc/vsr_fingerprint.cu`` and CPU tensors to
 their plain versions in this module.  The engine builds the kernel with
 an identity-only permutation table (``fold_symmetry=False``), which is
-the only table the port supports.
+the only table the port supports: symmetry is reduced before the
+fingerprint, by ``engine/canon.py`` through ``SYM_PLANES`` and
+``_permuted``.
 
 K6: ``guard_matrix`` evaluates all 19 guards over every lane of flat
 rows in one launch (``csrc/vsr_guards.cu``); its plain version is the
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..engine.canon import relabel
 from ..engine.fpset import mul32
 from ..engine.pack import MASK32, to_i32, to_u32
 from .vsr import (E_CLIENT, E_OPER, E_REQ, E_VIEW, ERR_BAG_OVERFLOW,
@@ -176,6 +179,12 @@ class VSRKernel:
     REP_KEYS = REP_KEYS
     MSG_KEYS = MSG_KEYS
     AUX_KEYS = AUX_KEYS
+    # plane -> orbit table (tpuvsr/models/vsr_kernel.py:115): a value
+    # permutation relabels the operation column of every log-entry row;
+    # _permuted applies exactly this, and engine/canon.py reads it
+    SYM_PLANES = {"log": ("col", E_OPER), "dvc_log": ("col", E_OPER),
+                  "rec_log": ("col", E_OPER), "m_log": ("col", E_OPER),
+                  "m_entry": ("col", E_OPER)}
 
     def __init__(self, codec: VSRCodec, perms: np.ndarray = None,
                  pack_spec=None):
@@ -220,6 +229,18 @@ class VSRKernel:
         self._fp_tables = {}
         if pack_spec is not None:
             self._build_row_tables(pack_spec)
+
+    def _permuted(self, st, perm):
+        """Remap the value ids of a batch through one symmetry permutation
+        (``perm`` [V+1], 0 -> 0): the operation column of every log-entry
+        row (rep/dvc/rec logs, message entry and payload logs), as
+        ``tpuvsr/models/vsr_kernel.py:_permuted`` does for one state."""
+        st = dict(st)
+        for k in self.SYM_PLANES:
+            v = st[k].clone()
+            v[..., E_OPER] = relabel(perm, v[..., E_OPER])
+            st[k] = v
+        return st
 
     def _rep_shape(self, k):
         s = self.shape

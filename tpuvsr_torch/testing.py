@@ -1,6 +1,7 @@
-"""The counter stub: a two-counter spec as a torch codec and kernel.
+"""The counter stub and the SymPair stub, as torch codecs and kernels.
 
-A port of ``tpuvsr/testing.py:stub_model_factory`` and ``stub_fleet``.
+A port of ``tpuvsr/testing.py:stub_model_factory``, ``stub_fleet``,
+``stub_sym_factory`` and ``stub_sym_engine``.
 It implements the kernel contract the device BFS and the walker fleet
 consume (``action_names``, ``_lane_count``, ``lane_action``,
 ``lane_param``, ``_guard_fns``, ``_action_fns``, ``fingerprint``,
@@ -8,7 +9,10 @@ consume (``action_names``, ``_lane_count``, ``lane_action``,
 ``invariant_fn``, ``pk``) over a state space of ``STUB_DISTINCT`` = 16
 states with level sizes ``STUB_LEVELS`` — small enough that every
 engine path (growth pauses, violation, deadlock, trace replay) runs in
-seconds.
+seconds.  SymPair (two write-once registers over a symmetric set of
+three model values, SYMMETRY ``Permutations(Vals)``) has 16 states in 5
+orbits; its kernel declares ``SYM_PLANES`` and no ``_permuted``, so it
+drives the table action of ``engine/canon.py``.
 """
 
 from __future__ import annotations
@@ -16,8 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.values import ModelValue
 from .engine.pack import build_pack_spec, to_i32
-from .engine.spec import SpecBinding
+from .engine.spec import SpecBinding, permutations
 from .frontend.cfg import parse_cfg_text
 
 COUNTER_CFG = ("CONSTANTS\n    Limit = 3\n"
@@ -174,3 +179,148 @@ def stub_fleet(inv_bound=None, inv_x_bound=None, walkers=64, device=None,
         model_factory=stub_model_factory(inv_bound=inv_bound,
                                          inv_x_bound=inv_x_bound),
         chunk_steps=kw.pop("chunk_steps", 4), device=device, **kw)
+
+
+# ---------------------------------------------------------------------
+# SymPair: the symmetric fixture (tpuvsr/testing.py:403-470)
+# ---------------------------------------------------------------------
+SYMPAIR_CFG = ("CONSTANTS\n    Vals = {v1, v2, v3}\n"
+               "INIT Init\nNEXT Next\nSYMMETRY Symm\nINVARIANT {inv}\n")
+
+#: exact fixpoints of SymPair: symmetry off (every orbit member) and on
+SYMPAIR_DISTINCT = 16
+SYMPAIR_ORBITS = 5
+SYMPAIR_LEVELS = [1, 6, 9]
+SYMPAIR_ORBIT_LEVELS = [1, 2, 2]
+
+
+def sympair_binding(inv_pair=False, symmetry=True):
+    """SymPair's binding, made directly (the port has no .tla): Init is
+    a = b = 0 and ``Symm == Permutations(Vals)``.  ``inv_pair`` checks
+    NoPair (a = 0 or b = 0; violated at depth 2) instead of AllOk;
+    ``symmetry=False`` drops the SYMMETRY declaration."""
+    text = SYMPAIR_CFG.replace("{inv}", "NoPair" if inv_pair else "AllOk")
+    if not symmetry:
+        text = text.replace("SYMMETRY Symm\n", "")
+    cfg = parse_cfg_text(text)
+    return SpecBinding(
+        module="ObsSymPair", cfg=cfg,
+        init=lambda codec: [codec.init_dense()],
+        invariants=list(cfg.invariants),
+        symmetry_perms=(permutations(cfg.constants["Vals"])
+                        if cfg.symmetry else []))
+
+
+class _SymShape:
+    MAX_MSGS = 4
+    V = 3
+
+
+class SymCodec:
+    """The registers ``a``/``b`` hold value ids (0 = unset)."""
+    MSG_KEYS = ()
+
+    def __init__(self, values):
+        self.shape = _SymShape()
+        self.values = values                   # id - 1 -> ModelValue
+        self.value_id = {v: i + 1 for i, v in enumerate(values)}
+
+    def zero_state(self):
+        z = np.zeros((), np.int32)
+        return {"status": z, "a": z.copy(), "b": z.copy(), "err": z.copy()}
+
+    def plane_bounds(self, ranges):
+        V = self.shape.V
+        return {"status": (0, 1), "a": (0, V), "b": (0, V), "err": (0, 1)}
+
+    def init_dense(self):
+        return self.zero_state()
+
+    def decode(self, d):
+        def dec(x):
+            i = int(np.asarray(x))
+            return self.values[i - 1] if i else 0
+        return {"a": dec(d["a"]), "b": dec(d["b"])}
+
+    def pad_msgs(self, batch, old):
+        return batch
+
+
+class SymKern:
+    action_names = ("WriteA", "WriteB")
+    V = 3
+    # both registers hold bare value ids: a permutation remaps every lane
+    SYM_PLANES = {"a": "all", "b": "all"}
+
+    def __init__(self, codec, inv_pair=False):
+        self.inv_pair = inv_pair
+        self.pk = build_pack_spec(codec)
+
+    def _lane_count(self, name):
+        return self.V
+
+    def _guard_fns(self):
+        V = self.V
+        return [lambda st: (st["a"] == 0)[:, None].expand(-1, V),
+                lambda st: (st["b"] == 0)[:, None].expand(-1, V)]
+
+    def _action_fns(self):
+        def wa(st, lane):
+            return ({"status": st["status"], "a": (lane + 1).to(torch.int32),
+                     "b": st["b"], "err": torch.zeros_like(st["err"])},
+                    st["a"] == 0)
+
+        def wb(st, lane):
+            return ({"status": st["status"], "a": st["a"],
+                     "b": (lane + 1).to(torch.int32),
+                     "err": torch.zeros_like(st["err"])},
+                    st["b"] == 0)
+        return [wa, wb]
+
+    def fingerprint(self, flat):
+        st = self.pk.unflatten(flat)
+        a = st["a"].to(torch.int64)
+        b = st["b"].to(torch.int64)
+        return to_i32(torch.stack([a * 8 + b + 1, a + 1, b + 1,
+                                   torch.full_like(a, 77)], dim=1))
+
+    def invariant_fns(self, names):
+        if self.inv_pair:
+            f = lambda st: (st["a"] == 0) | (st["b"] == 0)
+        else:
+            f = lambda st: torch.ones_like(st["a"], dtype=torch.bool)
+        return [(n, f) for n in names]
+
+    def invariant_fn(self, names):
+        fns = self.invariant_fns(names)
+
+        def check(st):
+            ok = torch.ones_like(st["a"], dtype=torch.bool)
+            for _n, f in fns:
+                ok = ok & f(st)
+            return ok
+        return check
+
+
+def stub_sym_factory(inv_pair=False):
+    """``model_factory`` for SymPair: the value ids follow the names of
+    ``Vals``."""
+    def make(binding, max_msgs=None):
+        values = sorted((v for v in binding.cfg.constants["Vals"]
+                         if isinstance(v, ModelValue)),
+                        key=lambda v: v.name)
+        codec = SymCodec(values)
+        return codec, SymKern(codec, inv_pair)
+    return make
+
+
+def stub_sym_engine(symmetry="auto", inv_pair=False, device=None, **kw):
+    """A small DeviceBFS over SymPair (the JAX harness's defaults: tile 4,
+    FPSet 2^8 slots, next buffer 2^6 rows)."""
+    from .engine.device_bfs import DeviceBFS
+    return DeviceBFS(sympair_binding(inv_pair=inv_pair),
+                     model_factory=stub_sym_factory(inv_pair=inv_pair),
+                     symmetry=symmetry, tile_size=kw.pop("tile_size", 4),
+                     fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
+                     next_capacity=kw.pop("next_capacity", 1 << 6),
+                     device=device, **kw)
