@@ -23,7 +23,9 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         round, kernel by kernel: every round has the same shapes); K5
         (lane choice and swarm noise) held bit for bit against its plain
         version (sim/rng.py) on the largest inputs the pass met, and K1,
-        K2 and K3 on the hunt's own batches; each timed; then the same
+        K2 and K3 on the hunt's own batches; each timed; K10 on the
+        hunt step's queue widened to MAX_MSGS 448 (a row past 48 KB of
+        shared memory) against its plain version; then the same
         round through the CUDA graph of a step that the hunt replays
         must give the same walks bit for bit;
      b. the counter-stub fleet on the card: its Bound violation trace
@@ -32,7 +34,12 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         max_seconds 600), launch counts reset just before and read just
         after; its trace is replayed through the port's kernel, and
         walks, steps, trace length and actions must be the JAX CPU
-        record of the same run (HUNT_RECORD below);
+        record of the same run (HUNT_RECORD below); K6 and K10 must
+        have launched;
+     d. one guided round on the shipped model (SYMMETRY symmValues, 64
+        walkers, depth 16, seed 2): its digest must be the JAX CPU
+        record's (SHIPPED_ROUND), which only a seen-set of canonical
+        fingerprints gives;
   7. the fused path (DeviceBFS.run_fused, the CUDA graph of a tile):
      a. an untimed eager recording run_fused to depth 10 (tile 128,
         2^26 FPSet slots) keeps the inputs of the K6, K7 and K8 calls
@@ -49,6 +56,15 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         memory;
      K9 (orbit canonicalization) must launch 0 times in phases 5, 6c
      and 7c: the defect config declares no SYMMETRY;
+     K10 (the VSR successors and invariants) is held bit for bit
+     against its plain version on the largest work queue of each
+     recording pass (7a's fused queue on the defect config, 8a's run()
+     queue on the shipped model, 6a's hunt step), on the entries the
+     queue filled, and timed (each call after an L2 flush) with its
+     bound; the plain version's device
+     time per action (its profiler ranges) is kept; in phases 5, 6c,
+     7c and 8a-8c K10 must launch and the plain action functions must
+     not run at all (models/vsr_kernel.PLAIN_CALLS);
   8. the symmetric model, tpuvsr_torch/configs/VSR_shipped.cfg (the
      reference's shipped VSR.cfg, SYMMETRY symmValues), symmetry on:
      a. an untimed recording run() to depth 12 (tile 128, 64 tiles a
@@ -64,14 +80,14 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         not; it prints what 7c prints and the orbit ratio;
      c. the A/B leg: run_fused with symmetry off to depth 9, its levels
         those of the JAX package's symmetry-off BFS (SHIPPED_OFF_LEVELS);
-  9. print the kernels line, then the result line last.
+  then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
 ``--out FILE`` writes the measurements as JSON, ``--profile`` adds a
 torch.profiler table of a depth-7 BFS run, of one steady round of the
 hunt and of one quantum of each fused path (phases 7 and 8) to that
-file, ``--depth N`` changes the defect config's BFS depth in phases 3,
-5 and 7 (10 by default).
+file; ``--depth N`` changes the defect config's BFS depth in phases 3, 5 and
+7 (10 by default).
 """
 
 from __future__ import annotations
@@ -125,6 +141,13 @@ HUNT_RECORD = {2: {
         "ReceiveMatchingSVC", "ReceiveMatchingSVC",
         "ReceiveMatchingSVC", "ReceiveMatchingDVC", "SendSV",
         "ReceiveSV", "ReceiveSV"]}}
+# the JAX package's guided round on the shipped model on the CPU: 64
+# walkers, depth 16, seed 2, the hunt's parameters, symmetry auto
+# (python tests/test_torch_fleet.py shipped; digests of its int32 event
+# arrays and histories and of the splitter's float64 novelty)
+SHIPPED_ROUND = {"steps": 1024, "chunks": 2, "events": "9f56cda75fefeab9",
+                 "hists": "456ecaa59e53392b", "fresh": 61,
+                 "novelty": "e31bedb0d9a84d33"}
 MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
 OPS_RATE = 67e12             # H100 SXM float32 outside the tensor cores
 
@@ -141,23 +164,68 @@ def need(cond, msg):
 def device_us(prof, skip=None):
     """Microseconds of device activity (kernels, copies, memsets) in a
     torch.profiler trace: the device-side events only, since a CPU op's
-    device time repeats that of the kernels it launched; events whose
-    name starts with ``skip`` are left out."""
+    device time repeats that of the kernels it launched, and no
+    profiler range (its span on the device timeline includes idle gaps);
+    events whose name starts with ``skip`` are left out."""
     from torch.autograd import DeviceType
     return sum(e.device_time_total for e in prof.events()
                if e.device_type != DeviceType.CPU
+               and not getattr(e, "is_user_annotation", False)
                and not (skip and e.name.startswith(skip)))
 
 
-def cuda_ms(fn, reps=20, warm=3, skip=None):
+def same_pointers(got, want, levels, what, args):
+    """Fail unless two runs' trace-pointer tables (parent, action, lane)
+    are equal; on a difference, say where it starts and whether each
+    level holds the same entries in another order, and keep both tables
+    beside ``--out``."""
+    import numpy as np
+    n = min(len(got[0]), len(want[0]))
+    if all(np.array_equal(a[:n], b[:n]) for a, b in zip(got, want)) \
+            and len(got[0]) >= n:
+        return
+    diff = np.zeros(n, bool)
+    for a, b in zip(got, want):
+        diff |= a[:n] != b[:n]
+    first = int(np.argmax(diff)) if diff.any() else n
+    ends = np.cumsum(levels)
+    lvl = int(np.searchsorted(ends, first, side="right"))
+    lo = int(ends[lvl - 1]) if lvl else 0
+    hi = min(int(ends[lvl]) if lvl < len(ends) else n, n)
+    perm = (sorted(zip(*(t[lo:hi] for t in got)))
+            == sorted(zip(*(t[lo:hi] for t in want))))
+    if args.out:
+        np.savez(os.path.join(os.path.dirname(os.path.abspath(args.out)),
+                              what.replace(" ", "_") + "_pointers.npz"),
+                 got_parent=got[0], got_action=got[1], got_param=got[2],
+                 want_parent=want[0], want_action=want[1],
+                 want_param=want[2])
+    raise SmokeError(
+        f"{what} trace-pointer tables differ from run()'s: {int(diff.sum())}"
+        f" of {n} entries, the first at {first} (level {lvl}, entries "
+        f"{lo}..{hi}); that level holds the same entries in another "
+        f"order: {perm}; lengths {len(got[0])} and {len(want[0])}")
+
+
+def cuda_ms(fn, reps=20, warm=3, skip=None, evict=None):
     """(device ms, issue ms) of one fn() call: the device time is the
     sum of the kernels, copies and memsets torch.profiler records over
     ``reps`` calls; the issue time is CUDA events around the same calls
     back to back, which the host's launch rate bounds when the kernels
-    are short.  The profiled calls are made again once if the profiler
-    records no device time; a second miss fails the phase."""
+    are short.  With ``evict`` (``l2_evict()``), each call comes after a
+    device-to-device copy that flushes the 50 MB L2, so that fn reads
+    its inputs from HBM; all such copies are left out of the device
+    time (the issue time keeps them), so fn must make none of its own.
+    The profiled calls are made again once if the profiler records no
+    device time; a second miss fails the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if evict is not None:
+        inner, skip = fn, "Memcpy DtoD"
+
+        def fn():
+            evict[0].copy_(evict[1])
+            inner()
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -204,6 +272,106 @@ def lexsort_keep(fps, mask):
     keep = torch.zeros_like(mask)
     keep[perm] = first & mask[perm]
     return keep
+
+
+def plain_calls():
+    """Calls of the plain action functions so far (their one door,
+    VSRKernel._action_fns)."""
+    from tpuvsr_torch.models.vsr_kernel import PLAIN_CALLS
+    return PLAIN_CALLS["actions"]
+
+
+def k10_only(counts, before, what):
+    """K10 launched on a path and the plain action functions did not
+    run there."""
+    need(counts["vsr_actions"] > 0, f"K10 was not launched on {what}")
+    need(plain_calls() == before, f"the plain action functions ran "
+         f"{plain_calls() - before} times on {what}")
+
+
+def record_actions(rec):
+    """Keep, in ``rec``, the inputs of the K10 call of the BFS engine
+    with the most filled queue entries (the queue's ok column), skipping
+    halted calls; returns the uninstall function."""
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS
+    succ = DeviceBFS._successors
+
+    def p_succ(self, flat, q, segs, out=None, halt=None):
+        if hasattr(self.kern, "successors") and not (
+                halt is not None and bool(halt[0])):
+            size = int(q["ok"].sum())
+            if size > rec.calls.get("vsr_actions", (-1, None))[0]:
+                rec.calls["vsr_actions"] = (size, (
+                    self.kern, flat.clone(), q["pidx"].clone(),
+                    q["aid"].clone(), q["lane"].clone(), self._inv_mask,
+                    q["ok"].clone()))
+        return succ(self, flat, q, segs, out, halt)
+    DeviceBFS._successors = p_succ
+
+    def uninstall():
+        DeviceBFS._successors = succ
+    return uninstall
+
+
+def range_ms(prof):
+    """Device ms under each action's profiler range in a trace (the
+    plain action code's ranges: the kernels each action launched)."""
+    from torch.autograd import DeviceType
+    from tpuvsr_torch.models.vsr_kernel import ACTION_NAMES
+    per = {}
+    for e in prof.events():
+        if e.name in ACTION_NAMES and e.device_type == DeviceType.CPU:
+            per[e.name] = per.get(e.name, 0.0) + e.device_time_total / 1e3
+    return per
+
+
+def action_profile(fn):
+    """Device ms of each action's profiler range in one ``fn()`` call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return range_ms(prof)
+
+
+def check_actions(out, call, label=None):
+    """K10 bit for bit against its plain version on a recorded work
+    queue (the entries the queue filled), timed with its bound, and the
+    plain version's device time per action."""
+    import torch
+    kern, flat, pidx, aid, lane, mask, ok = call
+    n, lanes = pidx.shape[0], flat.shape[1]
+    if ok is None:
+        ok = torch.ones((n,), dtype=torch.bool, device=flat.device)
+    a = kern.successors(flat, pidx, aid, lane, mask)
+    p = kern.successors_plain(flat, pidx, aid, lane, mask)
+    torch.cuda.synchronize()
+    err = max(max_abs(a[k][ok], p[k][ok]) for k in a)
+    buf = kern.successor_buffers(n, flat.device)
+    # the queue's parents and outputs (up to 14 MB) would stay in L2
+    # from one call to the next: each call starts from an evicted L2
+    ms = cuda_ms(lambda: kern.successors(flat, pidx, aid, lane, mask, buf),
+                 evict=l2_evict(flat.device))
+    plain = lambda: kern.successors_plain(flat, pidx, aid, lane, mask)
+    plain_ms = cuda_ms(plain, reps=3, warm=1)
+    per_action = action_profile(plain)
+    parents = int(torch.unique(pidx).numel())
+    # each parent row read once, each successor row written once, the
+    # queue's three int32 columns in, the small outputs out
+    nbytes = (parents + n) * lanes * 4 + n * 12 + n * (4 * (kern.R + 1)
+                                                      + 3 * 4 + 2)
+    kernel_row(out, "vsr_actions", ms, plain_ms, err, nbytes, 0,
+               extra={"shape": [n, lanes], "filled": int(ok.sum()),
+                      "parents": parents, "max_msgs": kern.M,
+                      "enabled": int(a["en2"][ok].sum()),
+                      "plain_action_ms": per_action}, label=label)
+    print(f"    plain version by action (device ms): "
+          f"{ {k: round(v, 4) for k, v in per_action.items()} }",
+          flush=True)
 
 
 def max_abs(a, b):
@@ -460,8 +628,8 @@ def check_kernels(rec):
 
 class HuntRecorder:
     """Keeps, during a hunt run, the inputs of the K5 call with the most
-    enabled lanes, the swarm-noise call, and the splitter's K1/K2/K3
-    calls on walker batches with the most live walkers."""
+    enabled lanes, the swarm-noise call, the splitter's K1/K2/K3 calls on
+    walker batches with the most live walkers, and a K10 step."""
 
     def __init__(self, walkers):
         self.walkers = walkers
@@ -470,6 +638,7 @@ class HuntRecorder:
     keep = Recorder.keep
 
     def install(self):
+        import torch
         from tpuvsr_torch.engine import fpset as F
         from tpuvsr_torch.models.vsr_kernel import VSRKernel
         from tpuvsr_torch.sim import rng
@@ -509,14 +678,27 @@ class HuntRecorder:
                      lambda: (self, flat.clone()))
             return full(self, flat)
 
+        succ = VSRKernel.successors
+
+        def p_succ(self, flat, pidx, aid, lane, inv_mask, out=None,
+                   halt=None):
+            r = succ(self, flat, pidx, aid, lane, inv_mask, out, halt)
+            # every step has W items: keep one that runs the most
+            # actions (the first steps run two), then the most enabled
+            n_act = int(torch.unique(aid[r["en2"]]).numel())
+            rec.keep("vsr_actions", n_act * W + int(r["en2"].sum()), lambda: (
+                self, flat.clone(), pidx.clone(), aid.clone(), lane.clone(),
+                inv_mask, None))
+            return r
+
         rng.choose_lanes, rng.swarm_noise = p_choose, p_swarm
         F.insert_core, F.dedup_keep = p_insert, p_dedup
-        VSRKernel.fingerprint = p_full
+        VSRKernel.fingerprint, VSRKernel.successors = p_full, p_succ
 
         def uninstall():
             rng.choose_lanes, rng.swarm_noise = choose, swarm
             F.insert_core, F.dedup_keep = ins, ded
-            VSRKernel.fingerprint = full
+            VSRKernel.fingerprint, VSRKernel.successors = full, succ
         return uninstall
 
 
@@ -606,41 +788,125 @@ def check_hunt_kernels(rec):
                max_abs(kern.fingerprint(flat), kern.fingerprint_plain(flat)),
                B * L * 4 + B * 16, B * cols * 4 * 2,
                extra={"shape": [B, L]}, label="vsr_fp_full (hunt)")
+    check_actions(out, rec.calls["vsr_actions"][1],
+                  label="vsr_actions (hunt step)")
+    check_wide_actions(rec.calls["vsr_actions"][1])
     torch.cuda.synchronize()
     return out
 
 
+def check_wide_actions(call, max_msgs=448):
+    """K10 on a message table grown until a row no longer fits the 48 KB
+    of shared memory a block has by default (the kernel then opts in to
+    more): bit for bit against its plain version on the hunt step's
+    queue, its rows padded with empty slots to ``max_msgs``."""
+    import torch
+    from tpuvsr_torch.engine.spec import load_binding
+    from tpuvsr_torch.models.registry import make_model
+    kern, flat, pidx, aid, lane, mask, ok = call
+    codec, wide = make_model(load_binding(DEFECT, "VSR"), max_msgs=max_msgs)
+    need(wide.pk.lanes * 4 > 48 * 1024, f"MAX_MSGS {max_msgs} gives "
+         f"{wide.pk.lanes} lanes, which fit in 48 KB")
+    rows = wide.pk.flatten(codec.pad_msgs(kern.pk.unflatten(flat),
+                                          kern.M)).contiguous()
+    if ok is None:
+        ok = torch.ones((pidx.shape[0],), dtype=torch.bool,
+                        device=flat.device)
+    a = wide.successors(rows, pidx, aid, lane, mask)
+    p = wide.successors_plain(rows, pidx, aid, lane, mask)
+    err = max(max_abs(a[k][ok], p[k][ok]) for k in a)
+    need(err == 0, f"K10 at MAX_MSGS {max_msgs} differs from its plain "
+         f"version by {err}")
+    print(f"  vsr_actions at MAX_MSGS {max_msgs} ({wide.pk.lanes} lanes, "
+          f"over 48 KB a row): equal to its plain version", flush=True)
+
+
 def check_replay(sim, trace):
     """Every step of a reported trace is an enabled successor of the
-    state before it under the recorded action (the port's kernel,
-    step_all on the card; states compared by fingerprint, which does
-    not see the order of message slots); the first state passes the
-    invariant and the last one fails AcknowledgedWriteNotLost."""
+    state before it under the recorded action (K10 over every lane of
+    the state before; states compared by fingerprint, which does not see
+    the order of message slots); the first state passes the invariant
+    and the last one fails AcknowledgedWriteNotLost."""
     import numpy as np
     import torch
     kern, codec, pk = sim.kern, sim.codec, sim.kern.pk
     lane_action = torch.as_tensor(kern.lane_action, device=sim.device)
+    lane_param = torch.as_tensor(kern.lane_param, device=sim.device)
+    zeros = torch.zeros_like(lane_action)
+    mask = kern.invariant_mask(["AcknowledgedWriteNotLost"])
 
     def dense(e):
         return {k: torch.as_tensor(np.asarray(v))[None].to(sim.device)
                 for k, v in codec.encode(e.state).items()}
-    cur = dense(trace[0])
-    need(bool(kern.inv_acknowledged_write_not_lost(cur)[0]),
+    def holds(flat):
+        # the invariant of the trace's own rows (a check off the path)
+        return bool(kern.invariant_fns(["AcknowledgedWriteNotLost"])[0][1](
+            pk.unflatten(flat))[0])
+    cur = pk.flatten(dense(trace[0])).contiguous()
+    need(holds(cur),
          "the hunt trace's first state already violates the invariant")
+    last_ok = None
     for i, e in enumerate(trace[1:], 1):
-        nxt = dense(e)
-        succ, en = kern.step_all(cur)
-        lanes = {k: v[0] for k, v in succ.items()}
-        fps = kern.fingerprint(pk.flatten(lanes).contiguous())
-        want = kern.fingerprint(pk.flatten(nxt).contiguous())
+        nxt = pk.flatten(dense(e)).contiguous()
+        o = kern.successors(cur, zeros, lane_action, lane_param, mask)
+        fps = kern.fingerprint(o["succ"])
+        want = kern.fingerprint(nxt)
         aid = list(kern.action_names).index(e.action_name)
-        hit = en[0] & (lane_action == aid) & (fps == want).all(dim=1)
+        hit = o["en2"] & (lane_action == aid) & (fps == want).all(dim=1)
         need(bool(hit.any()), f"hunt trace step {i} ({e.action_name}) is "
              f"not an enabled successor")
+        last_ok = bool(o["iok"][hit][0])
         cur = nxt
-    need(not bool(kern.inv_acknowledged_write_not_lost(cur)[0]),
+    need(last_ok is False and not holds(cur),
          "the hunt trace's last state does not violate "
          "AcknowledgedWriteNotLost")
+
+
+def round_digest(violated, dead, hists, steps, chunks, fresh, novelty):
+    """The comparable record of one guided round (the digest
+    tests/test_torch_fleet.py:round_digest computes for the JAX round)."""
+    import hashlib
+    import numpy as np
+
+    def sha(*arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+        return h.hexdigest()[:16]
+    return {"steps": int(steps), "chunks": int(chunks),
+            "events": sha(np.asarray(violated, np.int32),
+                          np.asarray(dead, np.int32)),
+            "hists": sha(*[np.asarray(h, np.int32) for pair in hists
+                           for h in pair]),
+            "fresh": int(fresh),
+            "novelty": sha(np.asarray(novelty, np.float64))}
+
+
+def shipped_round(doc):
+    """Phase 6d: one guided round on the shipped model against the JAX
+    CPU record (the splitter's seen-set holds canonical fingerprints)."""
+    import torch
+    from tpuvsr_torch.engine.spec import load_binding
+    from tpuvsr_torch.sim import NoveltySplitter, rng
+    from tpuvsr_torch.sim.defect_hunt import WEIGHTS
+    from tpuvsr_torch.sim.fleet import FleetSimulator
+    print("phase 6d: guided round on the shipped model (symmetry on)",
+          flush=True)
+    split = NoveltySplitter(frac=0.25, decay=0.5, hunt_beta=1.5)
+    sim = FleetSimulator(load_binding(SHIPPED, "VSR"), walkers=64,
+                         chunk_steps=8, max_msgs=48, action_weights=WEIGHTS,
+                         swarm_sigma=1.0, split=split, device="cuda")
+    need(sim._canon is not None, "the shipped round has no CanonSpec")
+    v, d, h, _i, steps, _done, chunks = sim.run_round(
+        base=0, active=64, depth=16, key=rng.prng_key(2, device="cuda"))
+    torch.cuda.synchronize()
+    got = round_digest(v, d, [(a.cpu().numpy(), p.cpu().numpy())
+                              for a, p in h], steps, chunks,
+                       split.fresh_total, split.novelty)
+    doc["shipped_round"] = got
+    need(got == SHIPPED_ROUND, f"shipped round {got}, the JAX CPU record "
+         f"has {SHIPPED_ROUND}")
+    print(f"  shipped round equals the JAX record: {got}", flush=True)
 
 
 def hunt_phase(args, doc):
@@ -722,12 +988,18 @@ def hunt_phase(args, doc):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
+        plain0 = plain_calls()
         t0 = time.time()
         result, res, sim = run(seed)
         torch.cuda.synchronize()
         wall = time.time() - t0
         if counts is None:
             counts = kernels.launch_counts()
+            k10_only(counts, plain0, "the hunt path")
+            need(counts["vsr_guards"] > 0, "K6 was not launched on the "
+                 "hunt path")
+            need("grow_dispatch_group" not in res.metrics["counters"],
+                 "the hunt grew dispatch caps on the card")
         same_as_record(seed, res, "hunt")
         h = {"seed": seed, "wall_s": wall, "walks": res.walks,
              "steps": res.steps, "ok": res.ok,
@@ -759,6 +1031,7 @@ def hunt_phase(args, doc):
         need(k["launches"] > 0, f"{k['name']} was not launched on the "
              f"hunt path")
     need(counts["vsr_canon"] == 0, "K9 was launched on the hunt path")
+    shipped_round(doc)
 
     if args.profile:
         # one steady round (the second of the hunt, graphs captured in
@@ -865,18 +1138,27 @@ class FusedRecorder:
         return uninstall
 
 
+def l2_evict(dev):
+    """Two equal int32 tensors of 256 MB each, five times the H100's
+    50 MB L2: a copy of one into the other leaves none of a timed
+    call's inputs in L2."""
+    import torch
+    return [torch.zeros((1 << 26,), dtype=torch.int32, device=dev)
+            for _ in range(2)]
+
+
 def restored_ms(fn, carry, saved, reps=20, warm=3, evict=None):
     """cuda_ms of ``fn()`` on a carry restored from ``saved`` before
     every call (the kernel steps the carry), after a copy of ``evict``
-    (two equal tensors larger than the 50 MB L2) where the call would
-    otherwise find its rows in L2; those device-to-device copies are
-    left out of the device time (the issue time keeps them)."""
+    (``l2_evict()``) where the call would otherwise find its rows in
+    L2; those device-to-device copies are left out of the device time
+    (the issue time keeps them)."""
     def call():
-        if evict is not None:
-            evict[0].copy_(evict[1])
         carry.copy_(saved)
         fn()
-    return cuda_ms(call, reps=reps, warm=warm, skip="Memcpy DtoD")
+    if evict is None:
+        return cuda_ms(call, reps=reps, warm=warm, skip="Memcpy DtoD")
+    return cuda_ms(call, reps=reps, warm=warm, evict=evict)
 
 
 def check_fused_kernels(rec):
@@ -991,8 +1273,7 @@ def check_fused_kernels(rec):
     (ca, fa, tpa, la, bufs_a), (cb, fb, tpb, lb, bufs_b) = outs
     err = max(max_abs(ca, cb), max_abs(fa, fb), max_abs(la, lb),
               *(max_abs(x, y) for x, y in zip(tpa, tpb)))
-    evict = [torch.zeros((1 << 26,), dtype=torch.int32, device=dev)
-             for _ in range(2)]                        # 2 x 256 MB
+    evict = l2_evict(dev)
     kernel_row(out, "level_step",
                restored_ms(lambda: TL.level_step(ca, bufs_a, fa, tpa, la, T),
                            ca, carry, evict=evict),
@@ -1022,17 +1303,21 @@ def fused_phase(args, doc, binding, run_pointers):
           flush=True)
     rec = FusedRecorder()
     uninstall = rec.install()
+    un_actions = record_actions(rec)
     eng = engine()
     eng.graphs = False
     t0 = time.time()
     res = eng.run_fused(max_depth=args.depth)
     uninstall()
+    un_actions()
     doc["fused_record_s"] = time.time() - t0
     need(res.levels == levels, f"fused recording levels {res.levels}")
     doc["fused_recorded"] = {k: v[0] for k, v in rec.calls.items()}
     del eng
-    print("phase 7b: K6, K7, K8 against their plain versions", flush=True)
+    print("phase 7b: K6, K7, K8, K10 against their plain versions",
+          flush=True)
     rows = check_fused_kernels(rec)
+    check_actions(rows, rec.calls["vsr_actions"][1])
     del rec
 
     print(f"phase 7c: run_fused, defect config to depth {args.depth}",
@@ -1040,20 +1325,21 @@ def fused_phase(args, doc, binding, run_pointers):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    plain0 = plain_calls()
     eng = engine()
     t0 = time.time()
     res = eng.run_fused(max_depth=args.depth)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernels.launch_counts()
+    k10_only(counts, plain0, "the fused path")
     need(res.ok, f"fused path: {res.violated_invariant} {res.error}")
     need(res.levels == levels, f"fused path levels {res.levels}")
     need(res.distinct_states == sum(levels),
          f"fused path distinct {res.distinct_states}")
     ptrs = [np.concatenate(getattr(eng, k))
             for k in ("_h_parent", "_h_action", "_h_param")]
-    need(all(np.array_equal(a, b) for a, b in zip(ptrs, run_pointers)),
-         "fused path trace-pointer tables differ from run()'s")
+    same_pointers(ptrs, run_pointers, res.levels, "fused path", args)
     c = res.metrics["counters"]
     fused = {"depth": args.depth, "levels": res.levels,
              "distinct": res.distinct_states,
@@ -1115,8 +1401,8 @@ def profile_quantum(doc, key, eng, depth):
             "device_busy_share": dev_us / 1e6 / wall_q,
             "table": prof.key_averages().table(
                 sort_by="cuda_time_total", row_limit=40)}
-        print(f"  profiled fused quantum ({n} tiles): wall "
-              f"{wall_q:.3f}s, device busy {dev_us / 1e6:.3f}s "
+        print(f"  profiled fused quantum ({n} tiles): wall {wall_q:.3f}s, "
+              f"device busy {dev_us / 1e6:.3f}s "
               f"({dev_us / 1e6 / wall_q:.1%})", flush=True)
         return h
     eng._replay = profiled
@@ -1204,7 +1490,7 @@ def symmetric_phase(args, doc):
     from tpuvsr_torch import kernels
     from tpuvsr_torch.engine.device_bfs import DeviceBFS
     from tpuvsr_torch.engine.spec import load_binding
-    binding = load_binding(SHIPPED)
+    binding = load_binding(SHIPPED, "VSR")
 
     def engine(symmetry="auto"):
         return DeviceBFS(binding, tile_size=128, chunk_tiles=64,
@@ -1226,13 +1512,17 @@ def symmetric_phase(args, doc):
           f"{d}", flush=True)
     rec = CanonRecorder()
     uninstall = rec.install()
+    un_actions = record_actions(rec)
     kernels.reset_launch_counts()
+    plain0 = plain_calls()
     eng = engine()
     t0 = time.time()
     res = eng.run(max_depth=d)
     torch.cuda.synchronize()
     uninstall()
+    un_actions()
     counts = kernels.launch_counts()
+    k10_only(counts, plain0, "the symmetric run()")
     doc["sym_record"] = {"wall_s": time.time() - t0, "levels": res.levels,
                          "launches": counts, "metrics": res.metrics,
                          "recorded": {k: v[0] for k, v in rec.calls.items()},
@@ -1247,6 +1537,8 @@ def symmetric_phase(args, doc):
           f"K9 relabelled {rec.relabelled} of {rec.rows} rows", flush=True)
     del eng
     rows = check_canon_kernels(rec)
+    check_actions(rows, rec.calls["vsr_actions"][1],
+                  label="vsr_actions (shipped model, run() queue)")
     del rec
 
     d = SYM["depth"]
@@ -1255,21 +1547,23 @@ def symmetric_phase(args, doc):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    plain0 = plain_calls()
     eng = engine()
     t0 = time.time()
     res = eng.run_fused(max_depth=d)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernels.launch_counts()
+    k10_only(counts, plain0, "the symmetric run_fused")
     need(res.ok, f"symmetric path: {res.violated_invariant} {res.error}")
     need(res.levels == SHIPPED_LEVELS[:d + 1],
          f"symmetric path levels {res.levels}")
     need(res.distinct_states == sum(SHIPPED_LEVELS[:d + 1]),
          f"symmetric path distinct {res.distinct_states}")
     n12 = sum(SHIPPED_LEVELS[:SYM["record_depth"] + 1])
-    need(all(np.array_equal(a[:n12], b) for a, b in
-             zip(pointers(eng), run_pointers)),
-         "symmetric run_fused trace-pointer tables differ from run()'s")
+    same_pointers([a[:n12] for a in pointers(eng)], run_pointers,
+                  res.levels[:SYM["record_depth"] + 1], "symmetric run_fused",
+                  args)
     no_incremental(counts, "the symmetric run_fused")
     c, g = res.metrics["counters"], res.metrics["gauges"]
     need(c["host_reads"] == c["quanta"] + c.get("level_fits", 0),
@@ -1306,12 +1600,14 @@ def symmetric_phase(args, doc):
     print(f"phase 8c: run_fused, shipped model, symmetry off, to depth {d}",
           flush=True)
     kernels.reset_launch_counts()
+    plain0 = plain_calls()
     eng = engine(symmetry=False)
     t0 = time.time()
     res = eng.run_fused(max_depth=d)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernels.launch_counts()
+    k10_only(counts, plain0, "the symmetry-off run_fused")
     need(res.ok and res.levels == SHIPPED_OFF_LEVELS[:d + 1],
          f"symmetry-off levels {res.levels}")
     need(counts["vsr_canon"] == 0 and counts["vsr_fp_incremental"] > 0,
@@ -1351,14 +1647,29 @@ def main(argv=None):
               "(tpuvsr_torch/ is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    doc = {}
+    t_all = time.time()
+    try:
+        return run_phases(args, doc, t_all)
+    except SmokeError as e:
+        doc["failed"] = str(e)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(doc, f, indent=1, default=str)
+        raise
+
+
+def run_phases(args, doc, t_all):
+    """Phases 1-9 (the module docstring); returns the exit code."""
     import numpy as np
+    import torch
     from tpuvsr_torch import kernels
     from tpuvsr_torch.engine.device_bfs import DeviceBFS, device_bfs_check
     from tpuvsr_torch.engine.spec import load_binding
     from tpuvsr_torch.testing import (STUB_DISTINCT, STUB_LEVELS,
                                       stub_device_engine)
-    doc = {}
-    t_all = time.time()
 
     print("phase 1: build", flush=True)
     t0 = time.time()
@@ -1373,7 +1684,7 @@ def main(argv=None):
     doc["device_name"] = torch.cuda.get_device_name(0)
 
     print("phase 3: kernels against their plain versions", flush=True)
-    binding = load_binding(DEFECT)
+    binding = load_binding(DEFECT, "VSR")
     rec = Recorder()
     uninstall = rec.install()
     eng = DeviceBFS(binding, tile_size=128, chunk_tiles=64,
@@ -1423,6 +1734,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    plain0 = plain_calls()
     t0 = time.time()
     eng = DeviceBFS(binding, tile_size=128, chunk_tiles=64,
                     fpset_capacity=1 << 26, device="cuda")
@@ -1430,6 +1742,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernels.launch_counts()
+    k10_only(counts, plain0, "the BFS path")
     run_pointers = [np.concatenate(getattr(eng, k))
                     for k in ("_h_parent", "_h_action", "_h_param")]
     del eng

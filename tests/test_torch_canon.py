@@ -59,7 +59,7 @@ def _jax_shim(cfg):
 
 def _port_binding(cfg_path):
     """The port's binding of a cfg, with SYMMETRY symmValues declared."""
-    b = load_binding(cfg_path)
+    b = load_binding(cfg_path, "VSR")
     b.cfg.symmetry = "symmValues"
     b.symmetry_perms = symmetry_perms("VSR", b.cfg)
     return b
@@ -228,16 +228,16 @@ def test_unknown_symmetry_name_is_refused(tmp_path):
     cfg.write_text(open(SHIPPED).read().replace("SYMMETRY symmValues",
                                                 "SYMMETRY symmOther"))
     with pytest.raises(TLAError, match="symmOther"):
-        load_binding(str(cfg))
+        load_binding(str(cfg), "VSR")
 
 
 def test_symmetry_on_without_a_symmetry_cfg_is_refused():
     with pytest.raises(TLAError, match="declares no SYMMETRY"):
-        DeviceBFS(load_binding(DEFECT), device="cpu", symmetry=True)
+        DeviceBFS(load_binding(DEFECT, "VSR"), device="cpu", symmetry=True)
 
 
 def test_kernel_refuses_a_folded_table():
-    binding = load_binding(SHIPPED)
+    binding = load_binding(SHIPPED, "VSR")
     codec, _kern = make_model(binding)
     with pytest.raises(ValueError, match="identity"):
         VSRKernel(codec, perms=value_perm_table(binding, codec,

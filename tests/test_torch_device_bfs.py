@@ -23,6 +23,7 @@ from tpuvsr.testing import counter_spec
 from tpuvsr.testing import stub_model_factory as j_stub_factory
 from tpuvsr_torch.engine.device_bfs import DeviceBFS, device_bfs_check
 from tpuvsr_torch.engine.spec import load_binding
+from tpuvsr_torch.models.registry import make_model
 from tpuvsr_torch.testing import (STUB_DISTINCT, STUB_LEVELS,
                                   stub_device_engine)
 
@@ -158,7 +159,7 @@ def _jax_level_bfs(depth, batch=64):
 
 @pytest.fixture(scope="module")
 def port_defect_depth4():
-    eng = DeviceBFS(load_binding(DEFECT), tile_size=32, chunk_tiles=4,
+    eng = DeviceBFS(load_binding(DEFECT, "VSR"), tile_size=32, chunk_tiles=4,
                     fpset_capacity=1 << 14, next_capacity=1 << 10,
                     device="cpu")
     return eng, eng.run(max_depth=4)
@@ -176,7 +177,7 @@ def test_defect_bag_growth_keeps_levels(port_defect_depth4):
     packed buffers, padded messages); levels and counts are those of
     the MAX_MSGS=32 run."""
     ref_eng, ref = port_defect_depth4
-    eng = DeviceBFS(load_binding(DEFECT), max_msgs=4, tile_size=32,
+    eng = DeviceBFS(load_binding(DEFECT, "VSR"), max_msgs=4, tile_size=32,
                     chunk_tiles=4, fpset_capacity=1 << 14,
                     next_capacity=1 << 10, device="cpu")
     res = eng.run(max_depth=4)
@@ -189,8 +190,22 @@ def test_defect_bag_growth_keeps_levels(port_defect_depth4):
         ref.metrics["gauges"]["action_expansions"]
 
 
+def test_binding_names_its_module():
+    """A cfg bound to another module than VSR reaches the registry's
+    refusal (the CP06 cfg), not a VSR codec that lacks its constants."""
+    cfg = os.path.join(ROOT, "examples", "VR_REPLICA_RECOVERY_CP_small.cfg")
+    b = load_binding(cfg, "VR_REPLICA_RECOVERY_CP")
+    assert b.module == "VR_REPLICA_RECOVERY_CP"
+    with pytest.raises(KeyError, match="no hand model kernel for module "
+                       "'VR_REPLICA_RECOVERY_CP'"):
+        make_model(b)
+    with pytest.raises(KeyError, match="no hand model kernel"):
+        DeviceBFS(b, device="cpu")
+    assert load_binding(DEFECT, "VSR").module == "VSR"
+
+
 def test_device_bfs_check_entry_point_on_cpu():
-    res = device_bfs_check(load_binding(DEFECT), max_depth=2,
+    res = device_bfs_check(load_binding(DEFECT, "VSR"), max_depth=2,
                            tile_size=16, chunk_tiles=2,
                            fpset_capacity=1 << 12, next_capacity=1 << 8,
                            device="cpu")
@@ -236,13 +251,13 @@ def test_entry_points_refuse_a_cpu_not_asked_for():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        DeviceBFS(load_binding(DEFECT))
+        DeviceBFS(load_binding(DEFECT, "VSR"))
     with pytest.raises(RuntimeError, match="CUDA"):
         stub_device_engine()
     with pytest.raises(RuntimeError, match="CUDA"):
-        device_bfs_check(load_binding(DEFECT), max_depth=1)
+        device_bfs_check(load_binding(DEFECT, "VSR"), max_depth=1)
     with pytest.raises(RuntimeError, match="CUDA"):
-        DeviceBFS(load_binding(DEFECT)).run_fused(max_depth=1)
+        DeviceBFS(load_binding(DEFECT, "VSR")).run_fused(max_depth=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         stub_device_engine().run_fused()
     from tpuvsr_torch.sim.defect_hunt import make_fleet

@@ -124,7 +124,7 @@ _RUNS = {}
 def _run_at(tile):
     """The port's run() to depth 4 at one tile width (cached)."""
     if tile not in _RUNS:
-        eng = DeviceBFS(load_binding(DEFECT), tile_size=tile, **_KW)
+        eng = DeviceBFS(load_binding(DEFECT, "VSR"), tile_size=tile, **_KW)
         _RUNS[tile] = (eng, eng.run(max_depth=4))
     return _RUNS[tile]
 
@@ -146,7 +146,7 @@ def test_defect_run_fused_equals_run(tile, fits):
     """Tile 8 makes the 62-state frontier large enough (four tiles) to be
     fitted before it runs; tile 32 runs every level unfitted."""
     ref_eng, ref = _run_at(tile)
-    eng = DeviceBFS(load_binding(DEFECT), tile_size=tile, **_KW)
+    eng = DeviceBFS(load_binding(DEFECT, "VSR"), tile_size=tile, **_KW)
     res = eng.run_fused(max_depth=4)
     _same_as_run(ref_eng, ref, eng, res)
     c = res.metrics["counters"]
@@ -159,8 +159,52 @@ def test_defect_run_fused_bag_growth_keeps_levels():
     packed buffers are laid out again); levels, counts and pointer
     tables are those of run() at MAX_MSGS 32."""
     ref_eng, ref = _run_at(32)
-    eng = DeviceBFS(load_binding(DEFECT), max_msgs=4, tile_size=32, **_KW)
+    eng = DeviceBFS(load_binding(DEFECT, "VSR"), max_msgs=4, tile_size=32, **_KW)
     res = eng.run_fused(max_depth=4)
     assert res.metrics["counters"]["grow_message_table"] >= 1
     assert eng.codec.shape.MAX_MSGS > 4
     _same_as_run(ref_eng, ref, eng, res)
+
+
+def test_captured_graph_keeps_its_tensors_alive(monkeypatch):
+    """A CUDA graph holds the addresses of the tensors its function
+    touched (the fused tile's queue, K10's outputs, ...): the replay
+    function ``kernels.capture`` returns must keep them alive, or their
+    memory goes to the next allocation while replays still write it.
+    Rehearsed on the CPU with a stand-in for the graph."""
+    import gc
+    import weakref
+
+    import torch
+
+    from tpuvsr_torch import kernels
+
+    class Graph:
+        def replay(self):
+            pass
+
+    class Capturing:
+        def __init__(self, graph):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", Capturing)
+    def tile_function():
+        buf = torch.zeros(4)
+        return weakref.ref(buf), lambda: buf.add_(1)
+
+    alive, fn = tile_function()
+    replay = kernels.capture(fn)
+    del fn
+    gc.collect()
+    assert alive() is not None and alive().tolist() == [1.0] * 4
+    replay()
+    del replay
+    gc.collect()
+    assert alive() is None

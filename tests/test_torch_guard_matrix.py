@@ -65,7 +65,7 @@ def rows(request, trace_entries):
     en = np.asarray(en).reshape(-1)
     succ = {k: np.asarray(v).reshape((-1,) + np.asarray(v).shape[2:])[en]
             for k, v in succ.items()}
-    _codec, kern = make_model(load_binding(DEFECT), max_msgs=m)
+    _codec, kern = make_model(load_binding(DEFECT, "VSR"), max_msgs=m)
     pk = kern.pk
     flat = torch.cat([
         pk.flatten({k: torch.from_numpy(np.ascontiguousarray(v))

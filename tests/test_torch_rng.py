@@ -215,7 +215,7 @@ def test_lane_table_is_the_hunt_kernels():
     from tpuvsr_torch.models.registry import make_model
     cfg = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "examples", "VSR_defect.cfg")
-    _codec, kern = make_model(load_binding(cfg), max_msgs=48)
+    _codec, kern = make_model(load_binding(cfg, "VSR"), max_msgs=48)
     assert kern.n_lanes == N_LANES
     assert np.array_equal(kern.lane_action, np.concatenate(
         [np.full(n, a, np.int32) for a, n in enumerate(ACTION_LANES)]))

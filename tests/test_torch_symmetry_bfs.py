@@ -131,7 +131,7 @@ def _jax_level_bfs(depth, symmetry, batch=64):
 
 
 def _engine(symmetry="auto", **kw):
-    return DeviceBFS(load_binding(SHIPPED), tile_size=32, chunk_tiles=4,
+    return DeviceBFS(load_binding(SHIPPED, "VSR"), tile_size=32, chunk_tiles=4,
                      fpset_capacity=1 << 14, next_capacity=1 << 10,
                      device="cpu", symmetry=symmetry, **kw)
 
@@ -186,7 +186,7 @@ def test_shipped_gauges_and_hash_path(shipped_depth5):
 
 
 def test_defect_cfg_keeps_symmetry_off():
-    eng = DeviceBFS(load_binding(DEFECT), device="cpu")
+    eng = DeviceBFS(load_binding(DEFECT, "VSR"), device="cpu")
     assert eng._canon is None and eng._incremental
 
 

@@ -42,7 +42,7 @@ def golden():
     jk = JKernel(jcodec)
     dense = [jcodec.encode(e.state) for e in entries]
     batch = {k: np.stack([d[k] for d in dense]) for k in dense[0]}
-    codec, kern = make_model(load_binding(DEFECT), max_msgs=48)
+    codec, kern = make_model(load_binding(DEFECT, "VSR"), max_msgs=48)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     js, je = jk.step_batch(batch)
     ps, pe = kern.step_all(tb)

@@ -10,11 +10,12 @@ three stages in both:
                     (kernel K6 on the VSR model, after K4 unpacks the
                     packed rows): exact per-action enabled counts
   work queue    --> the enabled (state, lane) items of each action are
-                    compacted in order (K7) and only they are expanded,
-                    fingerprinted (K3, incremental from the parents'
-                    parts; with symmetry on, K9 first maps each to the
-                    least element of its orbit and K3 hashes that image
-                    in full) and invariant-checked
+                    compacted in order (K7) and only they are expanded
+                    and invariant-checked (K10 on the VSR model, one
+                    launch over the whole queue), then fingerprinted
+                    (K3, incremental from the parents' parts; with
+                    symmetry on, K9 first maps each to the least element
+                    of its orbit and K3 hashes that image in full)
   single commit --> one dedup (K2), one FPSet insert (K1) and one
                     pack-scatter (K4) into the next buffer
 
@@ -80,6 +81,7 @@ from ..models.vsr import ERR_BAG_OVERFLOW
 from .. import kernels
 from .bfs import CheckResult
 from .canon import build_canon_spec, kernel_fold_order
+from .device_sim import apply_one
 from .fpset import dedup_keep, empty_table, grow, insert_core
 from .tile import (C_DEAD, C_DEPTH, C_FP_COUNT, C_GEN, C_HALT, C_IDLE,
                    C_LEVEL_BASE, C_LVL_CUR, C_NEED, C_NEXT_CAP, C_N_FRONT,
@@ -170,6 +172,9 @@ class DeviceBFS:
         if self._need_seen is None or len(self._need_seen) != len(names):
             self._need_seen = np.zeros(len(names), np.int64)
         self._inv = kern.invariant_fn(self.inv_names)
+        # K10 (kern.successors) checks the cfg's invariants by this mask
+        self._inv_mask = (kern.invariant_mask(self.inv_names)
+                          if hasattr(kern, "successors") else None)
         # rebuilt with the codec: the group table depends on V, the
         # key positions on the layout (MAX_MSGS)
         self._canon = build_canon_spec(self.spec, self.codec, kern,
@@ -213,6 +218,32 @@ class DeviceBFS:
         out[0].copy_(en)
         out[1].copy_(en.any(dim=1))
         return out
+
+    def _successors(self, flat, q, segs, out=None, halt=None):
+        """The successors of the work queue ``q`` (over parents ``flat``,
+        action segments ``segs``): a dict with ``succ`` [total, lanes],
+        ``en2``, ``err`` and ``iok`` [total], and the touch lists ``ts``
+        and replicas ``ri`` the incremental fingerprint reads.  K10 where
+        the model has it (``successors``, one launch over the queue, into
+        ``out`` when given), else each action's function on its segment
+        (which ignores ``halt``: a halted tile commits nothing)."""
+        kern = self.kern
+        if hasattr(kern, "successors"):
+            return kern.successors(flat, q["pidx"], q["aid"], q["lane"],
+                                   self._inv_mask, out, halt)
+        parts = {"succ": [], "en2": [], "err": [], "iok": []}
+        for aid, fn in enumerate(kern._action_fns()):
+            _lo, _L, E, qo = segs.host[aid]
+            if E == 0:
+                continue
+            st = self._pk.unflatten(flat[q["pidx"][qo:qo + E].long()])
+            succ, en2 = fn(st, q["lane"][qo:qo + E].long())
+            clean = {k: v for k, v in succ.items() if not k.startswith("_")}
+            parts["succ"].append(self._pk.flatten(clean))
+            parts["en2"].append(en2)
+            parts["err"].append(clean["err"].to(I32))
+            parts["iok"].append(self._inv(clean))
+        return {k: torch.cat(v) for k, v in parts.items()}
 
     # ------------------------------------------------------------------
     # one chunk of tiles (the body of the JAX level pass)
@@ -277,94 +308,58 @@ class DeviceBFS:
         sizes = [int(min(c, e)) for c, e in zip(cnts, caps)]
         segs = Segments(self._lane_off, self._lanes, sizes, dev)
         q = queue_buffers(segs.total, n_act, dev)
-        if segs.total:
-            compact(en[off:off + T], cvalid[off:off + T], segs, q)
-        q_succ, q_fp, q_en, q_pidx, q_lane, q_aid, flags = \
-            [], [], [], [], [], [], []
-        for aid, (name, fn) in enumerate(zip(kern.action_names,
-                                             kern._action_fns())):
-            _lo, _L, n_a, qo = segs.host[aid]
-            if n_a == 0:
-                continue
-            pidx = q["pidx"][qo:qo + n_a].long()
-            lane = q["lane"][qo:qo + n_a].long()
-            st_flat = tile_flat[pidx]
-            st_sel = pk.unflatten(st_flat)
-            if self._incremental:
-                succ, en2 = fn(kern.seed_touch(st_sel), lane)
-                clean = {k: v for k, v in succ.items()
-                         if not k.startswith("_")}
-                succ_flat = pk.flatten(clean)
-                ri = kern.lane_replica(name, st_sel, lane).to(I32)
-                q_fp.append(kern.fingerprint_incremental(
-                    succ_flat, ri, succ["_ts"].contiguous(), pidx.to(I32),
-                    tile_flat, parts))
-            else:
-                succ, en2 = fn(st_sel, lane)
-                clean = {k: v for k, v in succ.items()
-                         if not k.startswith("_")}
-                succ_flat = pk.flatten(clean)
-            iok = self._inv(clean)
-            errv = torch.where(en2, clean["err"], 0)
-            viol_l = en2 & ~iok & (errv == 0)
-            vidx = torch.argmax(viol_l.to(torch.int8))
-            flags.append(torch.stack([
-                viol_l.any().long(),
-                ((errv & ERR_BAG_OVERFLOW) != 0).any().long(),
-                ((errv & ~ERR_BAG_OVERFLOW) != 0).any().long(),
-                pidx[vidx], lane[vidx],
-                torch.tensor(aid, device=dev)]))
-            q_succ.append(succ_flat)
-            q_en.append(en2)
-            q_pidx.append(pidx)
-            q_lane.append(lane)
-            q_aid.append(torch.full((n_a,), aid, dtype=torch.int64,
-                                    device=dev))
         ovf_first = int(np.argmax(ovf_vec)) if ovf_vec.any() else n_act
         dead = cvalid[off:off + T] & ~en_any[off:off + T]
         tail = [dead.any().long(), torch.argmax(dead.to(torch.int8))]
-        if q_succ:
-            fl = torch.stack(flags)                          # [P, 6]
-            bad = (fl[:, 0] | fl[:, 1] | fl[:, 2]) > 0
-            first_bad = torch.clamp(
-                torch.where(bad, fl[:, 5], n_act).min(), max=ovf_first)
-            succ_q = torch.cat(q_succ)
-            fp_q = (torch.cat(q_fp).contiguous() if self._incremental
-                    else self._fp(succ_q))
-            aid_q = torch.cat(q_aid)
-            mcommit = torch.cat(q_en) & (aid_q < first_bad)
+        if segs.total:
+            compact(en[off:off + T], cvalid[off:off + T], segs, q)
+            o = self._successors(tile_flat, q, segs)
+            en2, aid_q = o["en2"], q["aid"].long()
+            errv = torch.where(en2, o["err"], 0)
+            viol = en2 & ~o["iok"] & (errv == 0)
+            bag = (errv & ERR_BAG_OVERFLOW) != 0
+            slot = (errv & ~ERR_BAG_OVERFLOW) != 0
+            # the first action with a violation, a full bag or a slot
+            # error, and the first violating item (queue order is action
+            # order)
+            first_bad = torch.clamp(torch.where(viol | bag | slot, aid_q,
+                                                n_act).min(), max=ovf_first)
+            vidx = torch.argmax(viol.to(torch.int8))
+            fp_q = (kern.fingerprint_incremental(
+                        o["succ"], o["ri"], o["ts"], q["pidx"], tile_flat,
+                        parts) if self._incremental
+                    else self._fp(o["succ"]))
+            mcommit = en2 & (aid_q < first_bad)
             # -- stage 3: one dedup, one insert, one scatter -----------
             keep = dedup_keep(fp_q, mcommit)
             _tbl, fresh, ovf_i = insert_core(table, fp_q, keep)
             rank = torch.cumsum(fresh, 0) - 1 + out["nn"]
             dest = torch.where(fresh, rank, bufs.cap)
-            pk.pack(succ_q, out=bufs.nb,
+            pk.pack(o["succ"], out=bufs.nb,
                     dest=torch.where(fresh, rank, -1).to(I32))
-            bufs.par[dest] = (base + torch.cat(q_pidx)).to(I32)
-            bufs.act[dest] = aid_q.to(I32)
-            bufs.prm[dest] = torch.cat(q_lane).to(I32)
-            head = [fresh.sum(), torch.as_tensor(ovf_i, device=dev).long(),
-                    first_bad]
-            host = torch.cat([torch.stack(head + tail), fl.reshape(-1)]
-                             ).cpu().numpy()
-            fl_h = host[5:].reshape(-1, 6)
+            bufs.par[dest] = (base + q["pidx"]).to(I32)
+            bufs.act[dest] = q["aid"]
+            bufs.prm[dest] = q["lane"]
+            host = torch.stack([
+                fresh.sum(), torch.as_tensor(ovf_i, device=dev).long(),
+                first_bad, viol.any().long(), slot.any().long(),
+                bag.any().long(), q["pidx"][vidx].long(), aid_q[vidx],
+                q["lane"][vidx].long()] + tail).cpu().numpy()
         else:
-            host = torch.stack(tail).cpu().numpy()
-            host = np.concatenate([[0, 0, ovf_first], host])
-            fl_h = np.zeros((0, 6), np.int64)
-        nfi, ovf_i, first_bad, dead_any, dead_i = (int(x) for x in host[:5])
+            host = np.concatenate([[0, 0, ovf_first, 0, 0, 0, 0, 0, 0],
+                                   torch.stack(tail).cpu().numpy()])
+        (nfi, ovf_i, first_bad, viol_any, slot_any, bag_any, vrow, vaid,
+         vlane, dead_any, dead_i) = (int(x) for x in host)
         out["nn"] += nfi
         out["dist"] += nfi
         commit = first_bad >= n_act and not ovf_i
-        viol_any = bool(fl_h[:, 0].any())
         if viol_any:
-            r = fl_h[np.argmax(fl_h[:, 0] > 0)]
-            out["viol"] = (base + int(r[3]), int(r[5]), int(r[4]))
+            out["viol"] = (base + vrow, vaid, vlane)
         if viol_any:
             reason = R_VIOLATION
-        elif fl_h[:, 2].any():
+        elif slot_any:
             reason = R_SLOT_ERR
-        elif fl_h[:, 1].any():
+        elif bag_any:
             reason = R_BAG_GROW
         elif ovf_vec.any():
             reason = R_EXPAND_GROW
@@ -491,14 +486,11 @@ class DeviceBFS:
 
     def _materialize_one(self, flat, aid, param):
         """Apply one recorded (action, lane param) to one state [1,
-        lanes] — the trace-replay step."""
-        fn = self.kern._action_fns()[aid]
-        succ, en = fn(self._pk.unflatten(flat),
-                      torch.tensor([param], device=self.device))
-        if not bool(en[0]):
+        lanes] — the trace-replay step (K10 on the VSR model)."""
+        succ, en = apply_one(self.kern, flat, aid, param)
+        if not en:
             raise TLAError("trace replay chose a disabled lane")
-        return self._pk.flatten({k: v for k, v in succ.items()
-                                 if not k.startswith("_")})
+        return succ
 
     def _decode(self, flat):
         row = {k: v[0].cpu().numpy()
@@ -659,6 +651,9 @@ class DeviceBFS:
         return {"front": front, "bufs": bufs, "table": table, "tp": tp,
                 "lvl": lvl_buf, "carry": carry, "segs": segs,
                 "q": queue_buffers(segs.total, n_act, dev),
+                # K10's outputs
+                "succ": (kern.successor_buffers(segs.total, dev)
+                         if hasattr(kern, "successors") else None),
                 # K9's output: the canonical images of the queue's rows
                 "canon": (None if self._canon is None else
                           z(segs.total, self._pk.lanes, dtype=I32)),
@@ -670,8 +665,8 @@ class DeviceBFS:
     def _fused_tile(self, S):
         """One tile of the fused pass, with no host sync (the body the
         CUDA graph captures): the tile at the carry's ``t`` of the
-        frontier through K6, K7, the actions at the fixed caps, K8's
-        commit around K2/K1/K4, and K8's level step."""
+        frontier through K6, K7, K10 over the queue at the fixed caps,
+        K8's commit around K2/K1/K4, and K8's level step."""
         T, kern, pk = self.tile, self.kern, self._pk
         carry, front, bufs, q = S["carry"], S["front"], S["bufs"], S["q"]
         sidx = carry[C_T] * T + S["ar"]
@@ -681,43 +676,20 @@ class DeviceBFS:
                                   carry[C_HALT:C_HALT + 1])
         compact(en, valid, S["segs"], q, carry)
         parts = kern.parent_parts(tile_flat) if self._incremental else None
-        succs, fps, en2s, ioks, errs = [], [], [], [], []
-        for aid, (name, fn) in enumerate(zip(kern.action_names,
-                                             kern._action_fns())):
-            _lo, _L, E, qo = S["segs"].host[aid]
-            pidx = q["pidx"][qo:qo + E]
-            lane = q["lane"][qo:qo + E]
-            st_sel = pk.unflatten(tile_flat[pidx.long()])
-            if self._incremental:
-                succ, en2 = fn(kern.seed_touch(st_sel), lane)
-                clean = {k: v for k, v in succ.items()
-                         if not k.startswith("_")}
-                succ_flat = pk.flatten(clean)
-                ri = kern.lane_replica(name, st_sel, lane).to(I32)
-                fps.append(kern.fingerprint_incremental(
-                    succ_flat, ri, succ["_ts"].contiguous(), pidx,
-                    tile_flat, parts))
-            else:
-                succ, en2 = fn(st_sel, lane)
-                clean = {k: v for k, v in succ.items()
-                         if not k.startswith("_")}
-                succ_flat = pk.flatten(clean)
-            succs.append(succ_flat)
-            en2s.append(en2)
-            ioks.append(self._inv(clean))
-            errs.append(clean["err"].to(I32))
-        succ_q = torch.cat(succs)
-        fp_q = (torch.cat(fps).contiguous() if self._incremental
-                else self._fp(succ_q, S["canon"]))
-        commit_prefix(carry, q, torch.cat(en2s), torch.cat(ioks),
-                      torch.cat(errs), S["tile"], S["mcommit"])
+        o = self._successors(tile_flat, q, S["segs"], S["succ"],
+                             carry[C_HALT:C_HALT + 1])
+        fp_q = (kern.fingerprint_incremental(o["succ"], o["ri"], o["ts"],
+                                             q["pidx"], tile_flat, parts)
+                if self._incremental else self._fp(o["succ"], S["canon"]))
+        commit_prefix(carry, q, o["en2"], o["iok"], o["err"], S["tile"],
+                      S["mcommit"])
         keep = dedup_keep(fp_q, S["mcommit"])
         _tbl, fresh, ovf_i = insert_core(S["table"], fp_q, keep)
         if not isinstance(ovf_i, torch.Tensor):
             ovf_i = torch.tensor(int(ovf_i), dtype=I32)
         commit_finish(carry, q, S["tile"], fresh, ovf_i, en_any, valid,
                       bufs, S["dest"])
-        pk.pack(succ_q, out=bufs.nb, dest=S["dest"])
+        pk.pack(o["succ"], out=bufs.nb, dest=S["dest"])
         level_step(carry, bufs, front.nb, S["tp"], S["lvl"], T)
 
     def _tile_runner(self, S):
@@ -725,9 +697,8 @@ class DeviceBFS:
         replay of a CUDA graph of ``_fused_tile`` (captured through
         ``kernels.capture``, after a warm-up on a halted copy of the
         carry, which commits nothing and fills the kernels' caches),
-        else the eager call.  The warm-up runs on the current stream:
-        run first on a side stream, as the fleet's is, the graph of a
-        fresh process hit an out-of-range index on the card (PERF.md)."""
+        else the eager call.  The replay function keeps ``S`` alive
+        (``kernels.capture``): the graph writes its buffers."""
         if not self.graphs:
             return lambda: self._fused_tile(S)
         t0 = time.time()

@@ -67,11 +67,12 @@ def symmetry_perms(module: str, cfg: CfgModel) -> list:
     return permutations(cfg.constants[const])
 
 
-def load_binding(cfg_path: str) -> SpecBinding:
-    """Bind a cfg file to the VSR module (the one module with a hand
-    model kernel and a dense Init in the port)."""
+def load_binding(cfg_path: str, module: str) -> SpecBinding:
+    """Bind a cfg file to the TLA+ module ``module`` (the name its spec
+    declares; a cfg does not name it).  ``registry.make_model`` refuses
+    a module with no hand model kernel (the port has one, VSR's)."""
     cfg = parse_cfg_file(cfg_path)
-    return SpecBinding(module="VSR", cfg=cfg,
+    return SpecBinding(module=module, cfg=cfg,
                        init=lambda codec: [codec.init_dense()],
                        invariants=list(cfg.invariants),
-                       symmetry_perms=symmetry_perms("VSR", cfg))
+                       symmetry_perms=symmetry_perms(module, cfg))

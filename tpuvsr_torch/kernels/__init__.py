@@ -66,6 +66,8 @@ KERNELS = {
                    "_make_multilevel obody level step (:1231-1300)"),
     "vsr_canon": ("canon", "tpuvsr/engine/canon.py:202 "
                   "CanonSpec.canonicalize"),
+    "vsr_actions": ("vsr_actions", "tpuvsr/models/vsr_kernel.py:331-894 "
+                    "act_* (+ :1176-1191 inv_*, :1238 invariant_fn)"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -87,6 +89,8 @@ _ENTRY = {
     "tpuvsr_commit_finish": "ppppppp" + "ipi" + "ppi" + "pppp" + "p",
     "tpuvsr_level_step": "pppppp" + "i" + "pppp" + "ii" + "p",
     "tpuvsr_canon": "pii" + "pii" + "pi" + "p" + "p",
+    "tpuvsr_vsr_actions": "pipppi" + "p" + "iiiiiii" + "iii" + "p"
+                          + "ppppppp" + "p",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
           "f": ctypes.c_float}
@@ -193,7 +197,10 @@ def capture(fn):
     """Capture ``fn()`` into a CUDA graph on the current device.  Returns
     the graph's replay function, which adds the kernel launches the
     capture recorded to the launch counts at every replay (the capture
-    itself runs and counts nothing)."""
+    itself runs and counts nothing).  The replay function keeps ``fn``,
+    and so every tensor it closes over, alive: the graph holds their
+    addresses, and a tensor freed while the graph lives would hand its
+    memory to the next allocation while replays still write it."""
     global _captured
     graph = torch.cuda.CUDAGraph()
     _captured = {}
@@ -208,6 +215,7 @@ def capture(fn):
         graph.replay()
         for k, n in launched.items():
             _launches[k] += n
+    replay.keeps = fn
     return replay
 
 

@@ -26,12 +26,22 @@ fingerprint, by ``engine/canon.py`` through ``SYM_PLANES`` and
 K6: ``guard_matrix`` evaluates all 19 guards over every lane of flat
 rows in one launch (``csrc/vsr_guards.cu``); its plain version is the
 loop over ``_guard_fns``.
+
+K10: ``successors`` applies a work queue of (parent row, action, lane)
+items in one launch (``csrc/vsr_actions.cu``): the successor rows, the
+actions' enabled bits, the error flags, the incremental fingerprint's
+touch lists and lane replicas, and the cfg invariants on each
+successor.  Its plain version ``successors_plain`` runs the ``act_*``
+functions of this module on the items of each action; every call of
+``_action_fns`` (the plain actions' only door) is counted in
+``PLAIN_CALLS``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import kernels
 from ..engine.canon import relabel
@@ -66,6 +76,8 @@ MSG_KEYS = ("m_present", "m_count", "m_hdr", "m_entry", "m_log",
             "m_log_len", "m_has_log")
 AUX_KEYS = ("aux_svc", "aux_restart", "aux_acked", "err")
 ALL_KEYS = REP_KEYS + MSG_KEYS + AUX_KEYS
+# calls of VSRKernel._action_fns, the door to the plain action functions
+PLAIN_CALLS = {"actions": 0}
 # the planes K6 reads, in the order of csrc/vsr_guards.cu enum Plane
 GUARD_PLANES = ("status", "view", "op", "commit", "log_len", "peer_op",
                 "ct", "svc", "dvc", "sent_dvc", "sent_sv", "rec_number",
@@ -1127,6 +1139,7 @@ class VSRKernel:
         return out
 
     def _action_fns(self):
+        PLAIN_CALLS["actions"] += 1
         return [
             self.act_timer_send_svc, self.act_receive_higher_svc,
             self.act_receive_matching_svc, self.act_send_dvc,
@@ -1161,6 +1174,118 @@ class VSRKernel:
         st["_ts"] = torch.full((B, self.R + 1), -1, dtype=I32, device=dev)
         st["_tn"] = torch.zeros((B,), dtype=I32, device=dev)
         return st
+
+    # -- K10: the successors of a work queue ------------------------------
+    def invariant_mask(self, names):
+        """K10's ``inv_mask``: bit b set for entry b of ``INVARIANT_FNS``
+        named in ``names``.  Raises KeyError for an invariant with no
+        device kernel."""
+        keys = list(self.INVARIANT_FNS)
+        mask = 0
+        for n in names:
+            if n not in self.INVARIANT_FNS:
+                raise KeyError(n)
+            mask |= 1 << keys.index(n)
+        return mask
+
+    def successor_buffers(self, n, device):
+        """The output buffers of ``successors`` for a queue of ``n``."""
+        z = lambda *shape, dtype=I32: torch.zeros(shape, dtype=dtype,
+                                                  device=device)
+        return {"succ": z(n, self.pk.lanes), "en2": z(n, dtype=torch.bool),
+                "err": z(n), "ts": z(n, self.R + 1), "tn": z(n), "ri": z(n),
+                "iok": z(n, dtype=torch.bool)}
+
+    def successors(self, flat, pidx, aid, lane, inv_mask, out=None,
+                   halt=None):
+        """K10 wrapper: the work queue ``pidx``, ``aid``, ``lane`` ([N]
+        int32: a row of the flat parents ``flat`` [T, lanes], an action,
+        its lane parameter) -> the dict of ``successor_buffers`` (written
+        into ``out`` when given): ``succ`` [N, lanes] successor rows,
+        ``en2`` [N] the actions' enabled bits, ``err`` [N] the
+        successors' error flags, ``ts`` [N, R+1] / ``tn`` [N] the
+        touched message slots as ``_touch`` records them, ``ri`` [N] the
+        replica each lane mutates (``lane_replica``), ``iok`` [N] the AND
+        of the invariants in ``inv_mask`` (``invariant_mask``) on the
+        successor.  With ``halt`` (a one-element int64 tensor) it does
+        nothing while ``halt[0]`` is not 0."""
+        if flat.device.type == "cpu":
+            return self.successors_plain(flat, pidx, aid, lane, inv_mask,
+                                         out, halt)
+        return self._actions_kernel(flat, pidx, aid, lane, inv_mask, out,
+                                    halt)
+
+    def successors_plain(self, flat, pidx, aid, lane, inv_mask, out=None,
+                         halt=None):
+        """The plain version of K10: each action's ``act_*`` function on
+        the queue items that name it (a profiler range per action), with
+        ``seed_touch``, ``lane_replica`` and the masked invariants."""
+        n = pidx.shape[0]
+        out = out if out is not None else self.successor_buffers(
+            n, flat.device)
+        if halt is not None and bool(halt[0] != 0):
+            return out
+        pk = self.pk
+        invs = [getattr(self, f) for b, f in
+                enumerate(self.INVARIANT_FNS.values()) if inv_mask >> b & 1]
+        for a, (name, fn) in enumerate(zip(ACTION_NAMES,
+                                           self._action_fns())):
+            sel = torch.nonzero(aid == a)[:, 0]
+            if sel.numel() == 0:
+                continue
+            with record_function(name):
+                lanes = lane[sel].long()
+                st = pk.unflatten(flat[pidx[sel].long()])
+                succ, en = fn(self.seed_touch(st), lanes)
+                clean = {k: v for k, v in succ.items()
+                         if not k.startswith("_")}
+                ok = torch.ones_like(en)
+                for f in invs:
+                    ok = ok & f(clean)
+                out["succ"][sel] = pk.flatten(clean)
+                out["en2"][sel] = en
+                out["err"][sel] = clean["err"].to(I32)
+                out["ts"][sel] = succ["_ts"]
+                out["tn"][sel] = succ["_tn"]
+                out["ri"][sel] = self.lane_replica(name, st, lanes).to(I32)
+                out["iok"][sel] = ok
+        return out
+
+    def action_tables(self, device):
+        """The first lane of every plane of ``ALL_KEYS`` in a flat row
+        (csrc/vsr_actions.cu enum Plane), on ``device``."""
+        key = ("actions", str(torch.device(device)))
+        t = self._fp_tables.get(key)
+        if t is None:
+            start = {k: a for k, _s, a, _e in self.pk._splits}
+            t = self._fp_tables[key] = torch.tensor(
+                [start[k] for k in ALL_KEYS], dtype=I32, device=device)
+        return t
+
+    def _actions_kernel(self, flat, pidx, aid, lane, inv_mask, out, halt):
+        n = pidx.shape[0]
+        T, lanes = flat.shape
+        out = out if out is not None else self.successor_buffers(
+            n, flat.device)
+        s = self.shape
+        ck = kernels.check
+        kernels.launch(
+            "vsr_actions", "tpuvsr_vsr_actions",
+            ck(flat, "flat", I32, (T, self.pk.lanes)), lanes,
+            ck(pidx, "pidx", I32, (n,)), ck(aid, "aid", I32, (n,)),
+            ck(lane, "lane", I32, (n,)), n,
+            self.action_tables(flat.device).data_ptr(), self.R, self.V,
+            self.M, s.C, self.MAX_OPS, self.NHDR, NENT, s.timer_limit,
+            s.restart_limit, int(inv_mask),
+            None if halt is None else ck(halt, "halt", torch.int64, (1,)),
+            ck(out["succ"], "succ", I32, (n, lanes)),
+            ck(out["en2"], "en2", torch.bool, (n,)),
+            ck(out["err"], "err", I32, (n,)),
+            ck(out["ts"], "ts", I32, (n, self.R + 1)),
+            ck(out["tn"], "tn", I32, (n,)), ck(out["ri"], "ri", I32, (n,)),
+            ck(out["iok"], "iok", torch.bool, (n,)),
+            kernels.stream_of(flat))
+        return out
 
     def step_all(self, st):
         """[B] states -> all lane successors: (succs with a [B, n_lanes]

@@ -66,7 +66,7 @@ def make_fleet(walkers=4096, sigma=1.0, mode="guided", device=None,
     mcfg = modes(sigma)[mode]
     split = (NoveltySplitter(frac=0.25, decay=0.5, hunt_beta=1.5)
              if mcfg["split"] else None)
-    return FleetSimulator(load_binding(str(DEFECT_CFG)), walkers=walkers,
+    return FleetSimulator(load_binding(str(DEFECT_CFG), "VSR"), walkers=walkers,
                           chunk_steps=8, max_msgs=48,
                           action_weights=mcfg["action_weights"],
                           swarm_sigma=mcfg["swarm"], split=split,

@@ -14,21 +14,30 @@ rate: a guided run is a function of ``(seed, walkers)``.
 
 **A chunk** advances every walker ``chunk_steps`` steps with no host
 synchronisation inside, as the JAX ``lax.scan`` does: the guard matrix
-over every lane (torch ops), the draw and lane choice (kernel K5,
-``csrc/fleet_draw.cu``), the grouped dispatch (each action body runs
-on the walkers that chose it, gathered by a sync-free cumsum-and-scatter
-compaction into a fixed per-action cap), the invariant.  The exact
-per-action chooser counts come out at the chunk's end with the step and
-event counts, in one device-to-host read.  A cap overflow grows the
-flagged caps to the exact count and redraws the chunk from the committed
-boundary (same keys, same draws); a message-table overflow grows the
-table and redraws.
+over every lane (kernel K6, ``csrc/vsr_guards.cu``, on the VSR model),
+the draw and lane choice (kernel K5, ``csrc/fleet_draw.cu``), each
+walker's chosen action and the invariants (kernel K10,
+``csrc/vsr_actions.cu``: one launch over every walker on the card, its
+plain version on the CPU).  A model without K10 runs the grouped
+dispatch instead (each action body on the walkers that chose it,
+gathered by a sync-free cumsum-and-scatter compaction into a fixed
+per-action cap; a cap overflow grows the flagged caps to the exact count
+and redraws the chunk from the committed boundary: same keys, same
+draws).  The exact per-action chooser counts come out at the chunk's end
+with the step and event counts, in one device-to-host read; a
+message-table overflow grows the table and redraws.
+
+Symmetry (``symmetry="auto" | True | False``, the JAX meaning: auto is
+on iff the cfg declares SYMMETRY) reaches only the novelty seen-set: the
+splitter keys it by the fingerprints of canonical images
+(``engine/canon.py``), so novelty counts orbits.  Walks and verdicts do
+not depend on it.
 
 Left out of this port (ROADMAP.md): fleet snapshots, rescue and resume;
 the OOM degrade ladder and elastic reshaping; the dispatch window (the
 port runs chunks synchronously; guided runs force a window of 1 in JAX
 too); the dense dispatch, the mesh and sharding; the observer/journal;
-the symmetry canonicalization seam; ``sim/hunt.py``.
+``sim/hunt.py``.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 
 from ..core.values import TLAError
 from ..device import resolve_device
+from ..engine.canon import build_canon_spec
 from ..engine.device_sim import materialize_walk
 from ..engine.simulate import SimResult
 from .. import kernels
@@ -72,13 +82,16 @@ class FleetSimulator:
     (an enabled action by weight, then a uniform enabled lane of it),
     ``swarm_sigma`` multiplies per-walker log-normal noise onto the
     weights; ``split=NoveltySplitter(...)`` turns on importance
-    splitting at chunk boundaries.  Runs on CUDA unless ``device`` says
+    splitting at chunk boundaries; ``symmetry`` keys its seen-set by
+    orbits (module docstring).  Runs on CUDA unless ``device`` says
     otherwise."""
 
     def __init__(self, spec, walkers=4096, chunk_steps=16, max_msgs=None,
                  action_weights=None, swarm_sigma=0.0, split=None,
-                 model_factory=None, log=None, device=None):
+                 model_factory=None, log=None, device=None,
+                 symmetry="auto"):
         self.device = resolve_device(device)
+        self._symmetry_req = symmetry
         self._model_factory = model_factory or registry.make_model
         self.spec = spec
         self.inv_names = list(spec.invariants)
@@ -127,6 +140,8 @@ class FleetSimulator:
                                  "one per action")
             self.log_w = np.log(w)
         self._inv = kern.invariant_fn(self.inv_names)
+        self._inv_mask = (kern.invariant_mask(self.inv_names)
+                          if hasattr(kern, "successors") else None)
         self._lane_aid = torch.as_tensor(kern.lane_action, dtype=I32,
                                          device=dev)
         self._lane_prm = torch.as_tensor(kern.lane_param, dtype=I32,
@@ -134,8 +149,11 @@ class FleetSimulator:
         if self.group_caps is None:
             W = self.W_pad
             self.group_caps = [min(W, max(32, W // 4))] * n_act
+        # rebuilt with the codec: the key positions follow the layout
+        self._canon = build_canon_spec(self.spec, self.codec, kern,
+                                       self._symmetry_req)
         if self.splitter is not None:
-            self.splitter.bind(kern)
+            self.splitter.bind(kern, canon=self._canon)
         self._init_cache = None
         self._graph = None       # it baked in the old kernel's tensors
 
@@ -155,8 +173,13 @@ class FleetSimulator:
     # packing layout's lane order (engine/pack.py); the kernel's guards,
     # actions and invariants read per-plane views of it.
     def _guard_all(self, states):
-        st = self.kern.pk.unflatten(states)
-        return torch.cat([g(st) for g in self.kern._guard_fns()], dim=1)
+        """[W, n_lanes] guard matrix: K6 where the model has it
+        (``guard_matrix``; the same lane order), else the guard loop."""
+        kern = self.kern
+        if hasattr(kern, "guard_matrix"):
+            return kern.guard_matrix(states)[0]
+        st = kern.pk.unflatten(states)
+        return torch.cat([g(st) for g in kern._guard_fns()], dim=1)
 
     def _apply_grouped(self, states, aid, prm, act):
         """Each action body on just the walkers that chose it (at most
@@ -191,11 +214,23 @@ class FleetSimulator:
         act = alive & can
         aid = self._lane_aid[lane]
         prm = self._lane_prm[lane]
-        succ, cnt = self._apply_grouped(states, aid, prm, act)
-        new = torch.where(act[:, None], succ, states)
-        st = self.kern.pk.unflatten(new)
-        err = act & (st["err"] != 0)
-        badw = act & ~self._inv(st) & ~err
+        kern = self.kern
+        if self._grouped_now():
+            succ, cnt = self._apply_grouped(states, aid, prm, act)
+            new = torch.where(act[:, None], succ, states)
+            st = kern.pk.unflatten(new)
+            err = act & (st["err"] != 0)
+            iok = self._inv(st)
+        else:
+            # K10: every walker's chosen (action, lane) in one launch; a
+            # walker that takes no step keeps its row
+            o = kern.successors(states, b["wid"], aid, prm, self._inv_mask)
+            new = torch.where(act[:, None], o["succ"], states)
+            err = act & (o["err"] != 0)
+            iok = o["iok"]
+            cnt = torch.zeros_like(b["need"]).index_add_(0, aid.long(),
+                                                          act.long())
+        badw = act & ~iok & ~err
         d = b["d"]
         b["dead"].copy_(torch.where(alive & ~can & (b["dead"] < 0), d,
                                     b["dead"]))
@@ -232,25 +267,24 @@ class FleetSimulator:
             "t": z(1, dtype=torch.int64), "ha": z(self.chunk, W),
             "hp": z(self.chunk, W), "steps": z(1, dtype=torch.int64),
             "err": z(1, dtype=torch.bool), "need": z(n_act,
-                                                     dtype=torch.int64)}
+                                                     dtype=torch.int64),
+            "wid": torch.arange(W, dtype=I32, device=dev)}
         return self._bufs
 
     def _replay_graph(self, b):
         """One step through the CUDA graph of ``_step`` on ``b``,
         captured on first use and again whenever the dispatch caps or
         the kernel change (``kernels.capture`` counts the kernels inside
-        at every replay)."""
+        at every replay).  The warm-up runs on the current stream, as
+        the fused BFS pass's does (a side-stream warm-up broke a fresh
+        process's first fused graph on the card, PERF.md)."""
         caps = tuple(self.group_caps)
         if self._graph is None or self._graph[0] != caps \
                 or self._graph[1] is not b:
             self._graph = None
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                # warm-up on a scratch copy: fills the index caches
-                self._step({k: (v.clone() if isinstance(v, torch.Tensor)
-                                else v) for k, v in b.items()})
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            # warm-up on a scratch copy: fills the index caches
+            self._step({k: (v.clone() if isinstance(v, torch.Tensor)
+                            else v) for k, v in b.items()})
             # the graph holds b (its tensors are the graph's addresses)
             self._graph = (caps, b, kernels.capture(lambda: self._step(b)))
             self._count("graph_captures")
@@ -288,6 +322,10 @@ class FleetSimulator:
         return (b["states"].clone(), b["alive"].clone(),
                 b["violated"].clone(), b["dead"].clone(),
                 (b["ha"].clone(), b["hp"].clone()), counts)
+
+    def _grouped_now(self):
+        """The step runs the grouped dispatch (and so has caps)."""
+        return not hasattr(self.kern, "successors")
 
     # -- replay --------------------------------------------------------
     def replay(self, init_row, hists, slot, n_steps):
@@ -382,7 +420,7 @@ class FleetSimulator:
                 continue
             caps_now = np.minimum(np.asarray(self.group_caps, np.int64), W)
             over = need > caps_now
-            if over.any():
+            if over.any() and self._grouped_now():
                 # grow the flagged caps to the exact chooser count and
                 # redraw the chunk (same keys, same draws)
                 for a in np.nonzero(over)[0]:
@@ -502,7 +540,8 @@ def _finish(sim, res, t0):
 def fleet_simulate(spec, num=1000, depth=100, seed=0, walkers=4096,
                    max_msgs=None, chunk_steps=16, action_weights=None,
                    swarm_sigma=0.0, split=None, log=None, max_seconds=None,
-                   model_factory=None, device=None) -> SimResult:
+                   model_factory=None, device=None,
+                   symmetry="auto") -> SimResult:
     """One-call fleet simulation on ``device`` (CUDA unless the caller
     asks for the CPU)."""
     sim = FleetSimulator(spec, walkers=walkers, max_msgs=max_msgs,
@@ -510,6 +549,6 @@ def fleet_simulate(spec, num=1000, depth=100, seed=0, walkers=4096,
                          action_weights=action_weights,
                          swarm_sigma=swarm_sigma, split=split,
                          model_factory=model_factory, log=log,
-                         device=device)
+                         device=device, symmetry=symmetry)
     return sim.run(num=num, depth=depth, seed=seed,
                    max_seconds=max_seconds)

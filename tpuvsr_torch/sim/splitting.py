@@ -2,7 +2,9 @@
 ``tpuvsr/sim/splitting.py``).
 
 At each chunk boundary every live walker's state is fingerprinted (K3,
-``VSRKernel.fingerprint``) and inserted into a device-resident
+``VSRKernel.fingerprint``; with a ``CanonSpec`` bound, of the state's
+canonical image, K9 then K3, so novelty counts symmetry orbits) and
+inserted into a device-resident
 seen-set (the port's FPSet, K1 ``insert_core``).  A walker that landed
 on a never-seen state earns novelty; one that landed where the fleet
 has been decays toward zero.  The lowest-scoring fraction of the live
@@ -53,11 +55,16 @@ class NoveltySplitter:
         self.inserted_total = 0
         self.best = 0.0
         self._kern = None
+        self._fp = None
         self._score = None
 
-    def bind(self, kern):
-        """(Re)bind to the fleet's kernel after a rebuild."""
+    def bind(self, kern, canon=None):
+        """(Re)bind to the fleet's kernel after a rebuild; with a
+        ``CanonSpec`` the seen-set holds the fingerprints of canonical
+        images (``canon.fingerprint_fn``), as in JAX."""
         self._kern = kern
+        self._fp = (kern.fingerprint if canon is None
+                    else canon.fingerprint_fn(kern))
         self._score = (kern.hunt_score
                        if self.hunt_beta > 0.0 and hasattr(kern, "hunt_score")
                        else None)
@@ -80,7 +87,7 @@ class NoveltySplitter:
         """Insert the live walkers' fingerprints (``states``: flat
         [W, lanes] rows); returns the [W] bool numpy mask of walkers
         that landed on a never-seen state."""
-        fps = self._kern.fingerprint(states)
+        fps = self._fp(states)
         mask = alive & fpset.dedup_keep(fps.flip(0).contiguous(),
                                         alive.flip(0).contiguous()).flip(0)
         fresh = torch.zeros_like(mask)
