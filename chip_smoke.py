@@ -80,13 +80,50 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         not; it prints what 7c prints and the orbit ratio;
      c. the A/B leg: run_fused with symmetry off to depth 9, its levels
         those of the JAX package's symmetry-off BFS (SHIPPED_OFF_LEVELS);
+  9. the paged path (PagedBFS: the frontier in pinned host pages, paged
+     through the card a chunk at a time; tile 128, 64 tiles a chunk,
+     2^26 FPSet slots, a next buffer of 2^14 rows, so the larger levels
+     drain it several times), each run with the launch counts reset just
+     before and read just after:
+     a. the defect config to depth 10: levels the recorded ones, counts
+        and trace-pointer tables those of phase 5's run(), drains of a
+        full buffer at least 3; K1-K4, K6, K7 and K10 launched, K9, K11
+        and K12 not; it prints wall, drains, host copy time and peak
+        memory;
+     b. the same with the disk tier (at most 2^16 rows a level in RAM,
+        the rest in files under a temporary directory): the same
+        results, and the files written and gone at the end;
+     c. edges=True (and retain_levels, as the liveness graph runs it;
+        edge buffers of 2^15 rows, so that full ones drain mid-chunk) to
+        depth 10: levels and trace-pointer tables those of phase 5;
+        every destination gid in [0, distinct); each expanded state's
+        out-degree its enabled lanes in K6's guard matrix; every
+        trace-pointer edge present; the fingerprint-labelled multiset of
+        the edges out of levels 0-6 the JAX-kernel host BFS's
+        (EDGE_RECORD); K11 and K12 launched and their plain versions run
+        0 times; nothing is wrapped in this timed run; then, on the
+        same engine, the two-pass graph (device_liveness.two_pass_prefix:
+        DeviceGraph's fingerprint index over levels 0-7 by insert_gids,
+        and its edge pass over levels 0-6 on K6, K7, K10, K3 and
+        lookup_gids), launch counts reset
+        just before and read just after: its CSR the streamed one out
+        of levels 0-6, K1, K11 and the edge pass's kernels launched, K12
+        and the plain versions not;
+     d. an untimed recording edge run to depth 10 keeps the largest
+        inputs of K11's store, K11's lookup and K12; K11 (store, and its
+        probe as lookup_gids and as query_core) and K12 held bit for bit
+        against their plain versions on them (on the final table of that
+        run), each timed after an L2 flush with its bound;
+     e. the behaviour graph of the Ticker stub (DeviceGraph) on the
+        card, streamed and two-pass: both CSRs equal the streamed one
+        the plain versions give on the CPU, under canon_csr;
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
 ``--out FILE`` writes the measurements as JSON, ``--profile`` adds a
 torch.profiler table of a depth-7 BFS run, of one steady round of the
-hunt and of one quantum of each fused path (phases 7 and 8) to that
-file; ``--depth N`` changes the defect config's BFS depth in phases 3, 5 and
+hunt, of one quantum of each fused path (phases 7 and 8) and of a
+depth-9 paged edge run (phase 9) to that file; ``--depth N`` changes the defect config's BFS depth in phases 3, 5 and
 7 (10 by default).
 """
 
@@ -148,6 +185,13 @@ HUNT_RECORD = {2: {
 SHIPPED_ROUND = {"steps": 1024, "chunks": 2, "events": "9f56cda75fefeab9",
                  "hists": "456ecaa59e53392b", "fresh": 61,
                  "novelty": "e31bedb0d9a84d33"}
+# the fingerprint-labelled edge multiset of the defect config out of
+# levels 0-6 (4,095 states), from a host BFS over the JAX package's
+# VSRKernel on the CPU (python tests/test_torch_edges.py record 7)
+EDGE_RECORD = {"depth": 7, "sources": 4095, "edges": 28898,
+               "digest": "d5d297c814652145"}
+PAGED = {"next_capacity": 1 << 14, "spill_ram_rows": 1 << 16,
+         "edge_capacity": 1 << 15, "min_drains": 3}
 MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
 OPS_RATE = 67e12             # H100 SXM float32 outside the tensor cores
 
@@ -1624,6 +1668,446 @@ def symmetric_phase(args, doc):
     return rows
 
 
+def triple_digest(fp, src, aid, dst):
+    """Count and digest of an edge multiset labelled by fingerprint: rows
+    (src fp, action, dst fp) of uint32 words (fingerprint word 0
+    remapped 0 -> 1, as the FPSet keys it), sorted, then sha256 (the
+    form of tests/test_torch_edges.py's record)."""
+    import hashlib
+    import numpy as np
+
+    def keyed(f):
+        k = np.array(f, np.uint32).reshape(-1, 4).copy()
+        k[:, 0] = np.where(k[:, 0] == 0, 1, k[:, 0])
+        return k
+    rows = np.concatenate([keyed(fp[src]),
+                           np.asarray(aid, np.uint32).reshape(-1, 1),
+                           keyed(fp[dst])], axis=1)
+    rows = rows[np.lexsort(rows.T[::-1])]
+    return int(rows.shape[0]), hashlib.sha256(
+        np.ascontiguousarray(rows).tobytes()).hexdigest()[:16]
+
+
+class GidRecorder:
+    """Counts calls of the plain versions of K11 and K12 and, with
+    ``record``, keeps the inputs of the largest K11 store, K11 lookup
+    and K12 call of the level pass (cloned: the engine reuses its
+    buffers; each call reads its batch size back from the card, so a
+    recording run is not timed)."""
+
+    def __init__(self):
+        self.calls = {}
+        self.plain = {"store_gids": 0, "lookup_gids": 0, "emit_edges": 0}
+
+    def install(self, record=True):
+        from tpuvsr_torch.engine import device_bfs as D
+        from tpuvsr_torch.engine import edges as E
+        from tpuvsr_torch.engine import fpset as F
+        rec = self
+        store, lookup, emit = D.store_gids, D.lookup_gids, D.emit_edges
+        plains = {"store_gids": (F, "store_gids_plain"),
+                  "lookup_gids": (F, "lookup_gids_plain"),
+                  "emit_edges": (E, "emit_edges_plain")}
+        saved = {k: getattr(m, n) for k, (m, n) in plains.items()}
+
+        def counting(key):
+            def f(*a, **k):
+                rec.plain[key] += 1
+                return saved[key](*a, **k)
+            return f
+        for k, (m, n) in plains.items():
+            setattr(m, n, counting(k))
+
+        def uninstall():
+            D.store_gids, D.lookup_gids, D.emit_edges = store, lookup, emit
+            for k, (m, n) in plains.items():
+                setattr(m, n, saved[k])
+        if not record:
+            return uninstall
+
+        def keep(name, size, make):
+            if size > self.calls.get(name, (-1, None))[0]:
+                self.calls[name] = (size, make())
+
+        def p_store(slots, vals, fps, gids, mask):
+            keep("fpset_store_gids", int(mask.sum()), lambda: (
+                fps.clone(), gids.clone(), mask.clone()))
+            return store(slots, vals, fps, gids, mask)
+
+        def p_lookup(table, vals, fps, mask):
+            keep("fpset_probe", int(mask.sum()),
+                 lambda: (fps.clone(), mask.clone()))
+            return lookup(table, vals, fps, mask)
+
+        def p_emit(eb, en, pidx, aid, dst, commit, src_off):
+            keep("edge_emit", int((en & commit).sum()), lambda: (
+                eb.cap, eb.n, en.clone(), pidx.clone(), aid.clone(),
+                dst.clone(), commit.clone(), int(src_off)))
+            return emit(eb, en, pidx, aid, dst, commit, src_off)
+        D.store_gids, D.lookup_gids, D.emit_edges = p_store, p_lookup, p_emit
+        return uninstall
+
+
+def check_gid_kernels(rec, table):
+    """Phase 9d: K11's store and probe (as lookup_gids and query_core)
+    and K12 against their plain versions on the largest inputs of the
+    recording edge run, on copies of its final table and gid column;
+    each timed after an L2 flush.  A lane reads 16 bytes of a slot row
+    (the claim word is not read)."""
+    import torch
+    from tpuvsr_torch.engine import edges as E
+    from tpuvsr_torch.engine import fpset as F
+    out = []
+    dev = table["slots"].device
+    evict = l2_evict(dev)
+    slots = table["slots"]
+    cap = slots.shape[0]
+
+    # -- K11 store: the largest batch of fresh gids, stored again into a
+    # copy of the column cleared at those slots
+    fps, gids, mask = rec.calls["fpset_store_gids"][1]
+    n, m = fps.shape[0], int(mask.sum())
+    base = table["gids"].clone()
+    hit = F.lookup_gids_plain(table, base, fps, mask)
+    need(bool((hit[mask] == gids[mask]).all()),
+         "the recorded store's gids are not in the final column")
+    cleared = base.clone()
+    cleared[F.lookup_gids_plain(table, torch.arange(
+        cap, dtype=torch.int32, device=dev), fps, mask)[mask].long()] = -1
+    va, vb = cleared.clone(), cleared.clone()
+    F.store_gids(slots, va, fps, gids, mask)
+    F.store_gids_plain(slots, vb, fps, gids, mask)
+    torch.cuda.synchronize()
+    err = max_abs(va, vb) + max_abs(va, base)
+    kernel_row(out, "fpset_store_gids",
+               cuda_ms(lambda: F.store_gids(slots, va, fps, gids, mask),
+                       evict=evict),
+               cuda_ms(lambda: F.store_gids_plain(slots, vb, fps, gids,
+                                                  mask), reps=3, warm=1),
+               err, n + 20 * m + 16 * m + 4 * m, 0,
+               extra={"shape": [n, 4], "table_slots": cap, "masked": m})
+
+    # -- K11 probe as lookup_gids: the largest lookup batch
+    fps, mask = rec.calls["fpset_probe"][1]
+    n, m = fps.shape[0], int(mask.sum())
+    vals = table["gids"]
+    a = F.lookup_gids(table, vals, fps, mask)
+    b = F.lookup_gids_plain(table, vals, fps, mask)
+    torch.cuda.synchronize()
+    need(bool((a[mask] >= 0).all()), "a recorded lookup found no gid")
+    kernel_row(out, "fpset_probe",
+               cuda_ms(lambda: F.lookup_gids(table, vals, fps, mask),
+                       evict=evict),
+               cuda_ms(lambda: F.lookup_gids_plain(table, vals, fps, mask),
+                       reps=3, warm=1),
+               max_abs(a, b), n + 16 * m + 20 * m + 4 * n, 0,
+               extra={"shape": [n, 4], "table_slots": cap, "masked": m,
+                      "as": "lookup_gids"})
+    # -- the same probe as query_core, on the same batch with half of it
+    # replaced by fingerprints the table does not hold
+    q = fps.clone()
+    q[::2, 1] ^= 0x5A5A5A5A
+    fa, oa = F.query_core(table, q, mask)
+    fb, ob = F.query_core_plain(table, q, mask)
+    torch.cuda.synchronize()
+    need(oa == ob, "query_core overflow flag differs")
+    need(bool(fa.any()), "the query batch found nothing fresh")
+    kernel_row(out, "fpset_probe",
+               cuda_ms(lambda: F.query_core(table, q, mask), evict=evict),
+               cuda_ms(lambda: F.query_core_plain(table, q, mask), reps=3,
+                       warm=1),
+               max_abs(fa, fb), n + 16 * m + 16 * m + n + 4, 0,
+               extra={"shape": [n, 4], "table_slots": cap, "masked": m,
+                      "as": "query_core", "fresh": int(fa.sum())},
+               label="fpset_probe (query_core)")
+
+    # -- K12: the tile that appended the most edges
+    e_cap, e_n, en, pidx, aid, dst, commit, src_off = rec.calls["edge_emit"][1]
+    n = en.shape[0]
+    ea, eb = E.EdgeBuffers(e_cap, dev), E.EdgeBuffers(e_cap, dev)
+    ea.n = eb.n = e_n
+    ka = E.emit_edges(ea, en, pidx, aid, dst, commit, src_off)
+    kb = E.emit_edges_plain(eb, en, pidx, aid, dst, commit, src_off)
+    torch.cuda.synchronize()
+    k = int(kb)
+    err = max(max_abs(ka, kb), max_abs(ea.src, eb.src),
+              max_abs(ea.aid, eb.aid), max_abs(ea.dst, eb.dst))
+    kernel_row(out, "edge_emit",
+               cuda_ms(lambda: E.emit_edges(ea, en, pidx, aid, dst, commit,
+                                            src_off), evict=evict),
+               cuda_ms(lambda: E.emit_edges_plain(eb, en, pidx, aid, dst,
+                                                  commit, src_off),
+                       reps=5, warm=1),
+               err, 13 * n + 1 + 12 * k + 4, 0,
+               extra={"shape": [n], "appended": k, "edge_cap": e_cap})
+    torch.cuda.synchronize()
+    return out
+
+
+def paged_phase(args, doc, binding, run_pointers):
+    """Phase 9: the paged path, its disk tier and its edge stream.
+    Returns the kernels-line rows of K11 and K12, with the launch counts
+    of the timed edge run (9c)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.paged_bfs import PagedBFS
+    levels = LEVELS[:args.depth + 1]
+    base_kernels = ("fpset_insert", "dedup_batch", "vsr_fp_parts",
+                    "vsr_fp_incremental", "pack", "unpack", "vsr_guards",
+                    "compact", "vsr_actions")
+    gid_kernels = ("fpset_store_gids", "fpset_probe", "edge_emit")
+
+    def engine(**kw):
+        return PagedBFS(binding, tile_size=128, chunk_tiles=64,
+                        fpset_capacity=1 << 26,
+                        next_capacity=PAGED["next_capacity"],
+                        device="cuda", **kw)
+
+    def timed(key, what, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        plain0 = plain_calls()
+        eng = engine(**kw)
+        t0 = time.time()
+        res = eng.run(max_depth=args.depth)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        k10_only(counts, plain0, what)
+        need(res.ok, f"{what}: {res.violated_invariant} {res.error}")
+        need(res.levels == levels, f"{what} levels {res.levels}")
+        need(res.distinct_states == sum(levels),
+             f"{what} distinct {res.distinct_states}")
+        need(res.states_generated == doc["main"]["generated"],
+             f"{what} generated {res.states_generated}, run() "
+             f"{doc['main']['generated']}")
+        same_pointers([np.concatenate(getattr(eng, k))
+                       for k in ("_h_parent", "_h_action", "_h_param")],
+                      run_pointers, res.levels, what, args)
+        for k in base_kernels:
+            need(counts[k] > 0, f"{k} was not launched on {what}")
+        need(counts["vsr_canon"] == 0, f"K9 was launched on {what}")
+        c, g = res.metrics["counters"], res.metrics["gauges"]
+        need(c["spill_count"] >= PAGED["min_drains"],
+             f"{what}: {c['spill_count']} drains of a full next buffer")
+        doc[key] = {"depth": args.depth, "levels": res.levels,
+                    "distinct": res.distinct_states,
+                    "generated": res.states_generated, "wall_s": wall,
+                    "distinct_per_s": res.distinct_states / wall,
+                    "max_memory_allocated":
+                        torch.cuda.max_memory_allocated(),
+                    "launches": counts, "metrics": res.metrics}
+        print(f"  levels {res.levels}, counts and pointer tables equal to "
+              f"run()'s", flush=True)
+        print(f"  wall {wall:.3f}s distinct/s "
+              f"{doc[key]['distinct_per_s']:.1f} drains {c['drains']} (full "
+              f"buffer {c['spill_count']}) chunks {c['chunks']} host copies "
+              f"{g['host_copy_s']:.4f}s max_memory_allocated "
+              f"{doc[key]['max_memory_allocated']}", flush=True)
+        print(f"  launches {counts}", flush=True)
+        return eng, res, counts
+
+    print(f"phase 9a: PagedBFS, defect config to depth {args.depth}",
+          flush=True)
+    eng, res, counts = timed("paged", "the paged path")
+    for k in gid_kernels:
+        need(counts[k] == 0, f"{k} was launched without edges")
+    del eng
+
+    print(f"phase 9b: PagedBFS with the disk tier, depth {args.depth}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        eng, res, counts = timed("paged_disk", "the disk tier",
+                                 spill_dir=d,
+                                 spill_ram_rows=PAGED["spill_ram_rows"])
+        c, g = res.metrics["counters"], res.metrics["gauges"]
+        need(c["spill_tier_flushes"] > 0, "the disk tier wrote no page")
+        need(os.listdir(d) == [], f"disk tier files left: {os.listdir(d)}")
+        print(f"  disk tier: {c['spill_tier_flushes']} page files, "
+              f"{g['spill_tier_bytes']} bytes", flush=True)
+        del eng
+
+    print(f"phase 9c: PagedBFS(edges=True), depth {args.depth}", flush=True)
+    plain = GidRecorder()
+    uninstall = plain.install(record=False)
+    try:
+        eng, res, counts = timed("paged_edges", "the edge stream",
+                                 edges=True, retain_levels=True,
+                                 edge_capacity=PAGED["edge_capacity"])
+    finally:
+        uninstall()
+    need(res.metrics["counters"].get("edge_flushes", 0) > 0,
+         "no tile found the edge buffers full (R_EDGE_FLUSH)")
+    for k in gid_kernels:
+        need(counts[k] > 0, f"{k} was not launched on the edge stream")
+    need(sum(plain.plain.values()) == 0,
+         f"the plain K11/K12 versions ran on the edge stream: {plain.plain}")
+    n = res.distinct_states
+    t0 = time.time()
+    indptr, aid, tid = eng.edge_sink.finalize(n)
+    csr_s = time.time() - t0
+    src = np.repeat(np.arange(n), np.diff(indptr))
+    need(bool((tid >= 0).all() and (tid < n).all()),
+         "an edge's destination gid lies outside [0, distinct)")
+    need(int(indptr[-1]) == res.metrics["gauges"]["edge_rows"],
+         "the CSR lost edges")
+    # out-degree = enabled lanes of K6's guard matrix, expanded levels
+    deg = []
+    for blk in eng.level_blocks:
+        rows = next(iter(blk.values())).shape[0]
+        for lo in range(0, rows, 1 << 16):
+            flat = eng._pk.flatten({k: torch.as_tensor(
+                v[lo:lo + (1 << 16)], device="cuda")
+                for k, v in blk.items()}).contiguous()
+            en, _any = eng._guards(flat)
+            deg.append(en.sum(dim=1).cpu().numpy())
+    deg = np.concatenate(deg)
+    n_exp = deg.shape[0]
+    need(n_exp == sum(levels[:-1]), f"retained {n_exp} expanded states")
+    need(np.array_equal(np.diff(indptr)[:n_exp], deg)
+         and not np.diff(indptr)[n_exp:].any(),
+         "an out-degree differs from the state's enabled lanes")
+    # every trace-pointer edge (parent, action, gid) is an edge
+    par = np.concatenate(eng._h_parent)
+    act = np.concatenate(eng._h_action)
+    n0 = levels[0]
+    key = lambda p, a, d: (np.asarray(p, np.int64) << 32) \
+        | (np.asarray(a, np.int64) << 24) | np.asarray(d, np.int64)
+    need(bool(np.isin(key(par[n0:], act[n0:], np.arange(n0, n)),
+                      key(src, aid, tid)).all()),
+         "a trace-pointer edge is missing from the graph")
+    # gid -> fingerprint from the gid column, on the card
+    slots, gids = eng.table["slots"], eng.table["gids"]
+    occ = torch.nonzero((slots[:, 0] != 0) & (gids >= 0)).squeeze(1)
+    fp_dev = torch.zeros((n, 4), dtype=torch.int32, device="cuda")
+    fp_dev[gids[occ].long()] = slots[occ, :4]
+    need(occ.numel() == n, f"{occ.numel()} gids stored for {n} states")
+    fp = fp_dev.cpu().numpy().view(np.uint32)
+    upto = sum(levels[:EDGE_RECORD["depth"]])
+    need(upto == EDGE_RECORD["sources"], f"{upto} sources")
+    sel = src < upto
+    count, digest = triple_digest(fp, src[sel], aid[sel], tid[sel])
+    need((count, digest) == (EDGE_RECORD["edges"], EDGE_RECORD["digest"]),
+         f"edge multiset out of levels 0-{EDGE_RECORD['depth'] - 1}: "
+         f"{count} edges, digest {digest}; the JAX record {EDGE_RECORD}")
+    g = res.metrics["gauges"]
+    doc["paged_edges"].update(edges=int(indptr[-1]), csr_s=csr_s,
+                              record=[count, digest])
+    print(f"  {int(indptr[-1])} edges ({g['edges_per_s']} /s), edge drains "
+          f"{res.metrics['counters']['edge_drains']} (flushes "
+          f"{res.metrics['counters'].get('edge_flushes', 0)}), buffer high "
+          f"water {g['edge_buf_high_water']}, CSR in {csr_s:.3f}s; "
+          f"out-degrees, pointer edges and the depth-"
+          f"{EDGE_RECORD['depth']} record ({count} edges, {digest}) hold",
+          flush=True)
+
+    # the two-pass graph over the same retained levels: its index covers
+    # levels 0-7 and its edge pass expands levels 0-6
+    from tpuvsr_torch.engine.device_liveness import two_pass_prefix
+    d = EDGE_RECORD["depth"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    plain0 = plain_calls()
+    uninstall = plain.install(record=False)
+    try:
+        t0 = time.time()
+        indptr2, aid2, tid2 = two_pass_prefix(eng, d)
+        torch.cuda.synchronize()
+        two_s = time.time() - t0
+    finally:
+        uninstall()
+    counts2 = kernels.launch_counts()
+    k10_only(counts2, plain0, "the two-pass edge pass")
+    for k in ("fpset_insert", "fpset_store_gids", "fpset_probe",
+              "vsr_guards", "compact", "vsr_fp_full"):
+        need(counts2[k] > 0, f"{k} was not launched on the two-pass graph")
+    need(counts2["edge_emit"] == 0, "K12 was launched on the two-pass graph")
+    need(sum(plain.plain.values()) == 0,
+         f"the plain K11/K12 versions ran on the two-pass graph: "
+         f"{plain.plain}")
+    need(len(indptr2) == n_exp + 1, "the two-pass CSR is not over the "
+         "retained states")
+    src2 = np.repeat(np.arange(n_exp), np.diff(indptr2))
+
+    def triples(s_, a_, t_):
+        t = np.stack([s_, np.asarray(a_, np.int64),
+                      np.asarray(t_, np.int64)], axis=1)
+        return t[np.lexsort(t.T[::-1])]
+    need(np.array_equal(triples(src2, aid2, tid2),
+                        triples(src[sel], aid[sel], tid[sel])),
+         f"the two-pass graph out of levels 0-{d - 1} differs from the "
+         f"streamed one")
+    need(triple_digest(fp, src2, aid2, tid2) == (count, digest),
+         "the two-pass graph misses the JAX record")
+    doc["two_pass"] = {"index_levels": d + 1, "edge_levels": d,
+                       "edges": int(indptr2[-1]), "wall_s": two_s,
+                       "launches": counts2}
+    print(f"  two-pass graph (index levels 0-{d}, edges out of levels "
+          f"0-{d - 1}): {int(indptr2[-1])} edges in {two_s:.3f}s, equal to "
+          f"the streamed ones; launches {counts2}", flush=True)
+    del eng
+
+    print("phase 9d: K11 and K12 against their plain versions", flush=True)
+    rec = GidRecorder()
+    uninstall = rec.install()
+    try:
+        eng = engine(edges=True, edge_capacity=PAGED["edge_capacity"])
+        rres = eng.run(max_depth=args.depth)
+    finally:
+        uninstall()
+    need(rres.levels == levels, f"recording edge run levels {rres.levels}")
+    doc["gid_recorded"] = {k: v[0] for k, v in rec.calls.items()}
+    rows = check_gid_kernels(rec, eng.table)
+    for r in rows:
+        # query_core has no caller on the path: the probe kernel's
+        # launches there are lookup_gids'
+        r["launches"] = (0 if r.get("as") == "query_core"
+                         else counts[r["kernel"]])
+    del eng, rec
+
+    print("phase 9e: the Ticker stub's behaviour graph, stream and "
+          "two-pass", flush=True)
+    from tpuvsr_torch.engine.device_liveness import DeviceGraph
+    from tpuvsr_torch.testing import (canon_csr, stub_ticker_factory,
+                                      ticker_binding)
+
+    def graph(mode, device):
+        return canon_csr(DeviceGraph(
+            ticker_binding(modulus=6), mode=mode, tile_size=4,
+            chunk_tiles=2, next_capacity=32, fpset_capacity=1 << 8,
+            device=device, model_factory=stub_ticker_factory(6)))
+    want = graph("stream", "cpu")
+    need(graph("stream", "cuda") == want, "the streamed Ticker graph "
+         "differs from the plain versions' on the CPU")
+    need(graph("two-pass", "cuda") == want, "the two-pass Ticker graph "
+         "differs from the streamed one")
+    print(f"  12 states, {sum(map(len, want))} edges: stream == two-pass",
+          flush=True)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        eng = engine(edges=True, edge_capacity=PAGED["edge_capacity"])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            eng.run(max_depth=min(args.depth, 9))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        dev_us = device_us(prof)
+        doc["profile_paged_edges"] = {
+            "depth": min(args.depth, 9), "wall_s": wall,
+            "device_s": dev_us / 1e6, "device_busy_share": dev_us / 1e6 / wall,
+            "table": prof.key_averages().table(sort_by="cuda_time_total",
+                                               row_limit=40)}
+        print(f"  profiled paged edge run to depth {min(args.depth, 9)}: "
+              f"wall {wall:.3f}s, device busy {dev_us / 1e6:.3f}s",
+              flush=True)
+        del eng
+    return rows
+
+
 def gpu_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1774,6 +2258,7 @@ def run_phases(args, doc, t_all):
     rows += hunt_phase(args, doc)
     rows += fused_phase(args, doc, binding, run_pointers)
     rows += symmetric_phase(args, doc)
+    rows += paged_phase(args, doc, binding, run_pointers)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
     if args.out:

@@ -57,6 +57,14 @@ orbit's least element (``engine/canon.py``), the incremental hash is
 off, and the frontier keeps the generated successor, so traces replay
 real states.
 
+Edge emission (``edges=True``) streams the behaviour graph out of the
+chunked level pass: after K1, K11 stores each fresh state's gid beside
+its fingerprint and looks up every enabled item's destination gid, and
+K12 appends (source gid, action, destination gid) to the device edge
+buffers when the tile commits (``engine/edges.py``).  The drain of those
+buffers lives in the host-paged loop, so only ``PagedBFS`` turns it on,
+and only with symmetry off (a graph's nodes are concrete states).
+
 Left out of this port (see ROADMAP.md): the interpreter checks (preflight,
 and the violation cross-check is done with the kernel's own invariant
 functions on the state rebuilt on the host), bounds facts, partial-order
@@ -82,16 +90,18 @@ from .. import kernels
 from .bfs import CheckResult
 from .canon import build_canon_spec, kernel_fold_order
 from .device_sim import apply_one
-from .fpset import dedup_keep, empty_table, grow, insert_core
+from .edges import emit_edges
+from .fpset import (dedup_keep, empty_gids, empty_table, grow, insert_core,
+                    lookup_gids, store_gids)
 from .tile import (C_DEAD, C_DEPTH, C_FP_COUNT, C_GEN, C_HALT, C_IDLE,
                    C_LEVEL_BASE, C_LVL_CUR, C_NEED, C_NEXT_CAP, C_N_FRONT,
                    C_NN, C_REASON, C_STOP, C_T, C_TILES, C_TP_CAP,
                    C_VIOL_AID, C_VIOL_LANE, C_VIOL_ROW, C_GROW_AID,
                    CARRY_FIELDS, F_AFLAGS, R_BAG_GROW, R_DEADLOCK,
-                   R_EXPAND_GROW, R_FPSET_GROW, R_NEXT_GROW, R_SLOT_ERR,
-                   R_VIOLATION, RUNNING, Segments, commit_finish,
-                   commit_prefix, compact, level_step, new_carry,
-                   queue_buffers)
+                   R_EDGE_FLUSH, R_EXPAND_GROW, R_FPSET_GROW, R_NEXT_GROW,
+                   R_SLOT_ERR, R_VIOLATION, RUNNING, Segments,
+                   commit_finish, commit_prefix, compact, level_step,
+                   new_carry, queue_buffers)
 from .trace import TraceEntry
 
 I32 = torch.int32
@@ -133,7 +143,15 @@ class DeviceBFS:
     def __init__(self, spec, max_msgs=None, tile_size=128,
                  fpset_capacity=1 << 20,
                  next_capacity=1 << 14, chunk_tiles=64,
-                 model_factory=None, device=None, symmetry="auto"):
+                 model_factory=None, device=None, symmetry="auto",
+                 edges=False):
+        if edges and not getattr(self, "_edges_on", False):
+            # the level pass emits edges on any engine, but their drain
+            # (R_EDGE_FLUSH -> the host CSR) is the paged loop's
+            raise TLAError(
+                "edge emission needs the host-paged drain loop; "
+                "construct PagedBFS(edges=True)")
+        self._edges_on = getattr(self, "_edges_on", False)
         self.device = resolve_device(device)
         self.spec = spec
         self._symmetry_req = symmetry
@@ -179,6 +197,12 @@ class DeviceBFS:
         # key positions on the layout (MAX_MSGS)
         self._canon = build_canon_spec(self.spec, self.codec, kern,
                                        self._symmetry_req)
+        if self._edges_on and (self._canon is not None
+                               or kernel_fold_order(kern) > 1):
+            raise TLAError(
+                "edge emission requires symmetry off: the behaviour "
+                "graph's nodes are concrete states, so orbit fingerprints "
+                "would merge distinct graph nodes")
         # the least image's hash cannot come from the parent's parts
         self._incremental = (hasattr(kern, "parent_parts")
                              and self._canon is None)
@@ -249,10 +273,12 @@ class DeviceBFS:
     # one chunk of tiles (the body of the JAX level pass)
     # ------------------------------------------------------------------
     def _level(self, table, front, n_front, start_t, bufs, nn,
-               want_deadlock):
+               want_deadlock, eb=None):
         """Run tiles start_t.. of the level until a reason stops the
         chunk or chunk_tiles tiles committed.  Returns the loop state
-        as host values; ``table`` and ``bufs`` are updated in place."""
+        as host values; ``table`` and ``bufs`` (and the edge buffers
+        ``eb`` of an edge run, ``engine/edges.EdgeBuffers``) are updated
+        in place."""
         T, K = self.tile, self.chunk_tiles
         pk, kern, dev = self._pk, self.kern, self.device
         n_tiles = (n_front + T - 1) // T
@@ -280,13 +306,13 @@ class DeviceBFS:
         while out["t"] < n_tiles and out["t"] < start_t + K:
             self._count("tiles")
             self._tile(out, table, bufs, cflat, en, en_any, cvalid,
-                       counts, start_t, caps, total_E, want_deadlock)
+                       counts, start_t, caps, total_E, want_deadlock, eb)
             if out["reason"] != RUNNING:
                 break
         return out
 
     def _tile(self, out, table, bufs, cflat, en, en_any, cvalid, counts,
-              start_t, caps, total_E, want_deadlock):
+              start_t, caps, total_E, want_deadlock, eb=None):
         T = self.tile
         pk, kern, dev = self._pk, self.kern, self.device
         n_act = len(kern.action_names)
@@ -301,6 +327,10 @@ class DeviceBFS:
         # overrun, so an insert is never committed without its state
         if bufs.cap - out["nn"] < total_E:
             out["reason"] = R_NEXT_GROW
+            return
+        # the edge buffers' gate: a full one means "drain to the host"
+        if eb is not None and eb.cap - eb.n < total_E:
+            out["reason"] = R_EDGE_FLUSH
             return
         tile_flat = cflat[off:off + T]
         parts = kern.parent_parts(tile_flat) if self._incremental else None
@@ -340,16 +370,24 @@ class DeviceBFS:
             bufs.par[dest] = (base + q["pidx"]).to(I32)
             bufs.act[dest] = q["aid"]
             bufs.prm[dest] = q["lane"]
+            ovf_t = torch.as_tensor(ovf_i, device=dev)
+            # an edge run reads the count K12 appended with the rest
+            emitted = [] if eb is None else [self._emit(
+                table, eb, fp_q, fresh, rank, en2, q,
+                (first_bad >= n_act) & (ovf_t == 0), base).long()]
             host = torch.stack([
-                fresh.sum(), torch.as_tensor(ovf_i, device=dev).long(),
-                first_bad, viol.any().long(), slot.any().long(),
-                bag.any().long(), q["pidx"][vidx].long(), aid_q[vidx],
-                q["lane"][vidx].long()] + tail).cpu().numpy()
+                fresh.sum(), ovf_t.long(), first_bad, viol.any().long(),
+                slot.any().long(), bag.any().long(),
+                q["pidx"][vidx].long(), aid_q[vidx],
+                q["lane"][vidx].long()] + tail + emitted).cpu().numpy()
         else:
             host = np.concatenate([[0, 0, ovf_first, 0, 0, 0, 0, 0, 0],
                                    torch.stack(tail).cpu().numpy()])
+        h = [int(x) for x in host]
+        if len(h) > 11:
+            eb.n += h[11]
         (nfi, ovf_i, first_bad, viol_any, slot_any, bag_any, vrow, vaid,
-         vlane, dead_any, dead_i) = (int(x) for x in host)
+         vlane, dead_any, dead_i) = h[:11]
         out["nn"] += nfi
         out["dist"] += nfi
         commit = first_bad >= n_act and not ovf_i
@@ -376,6 +414,22 @@ class DeviceBFS:
             out["act"] += cnts
             if reason == RUNNING:
                 out["t"] = t + 1
+
+    def _emit(self, table, eb, fp_q, fresh, rank, en2, q, commit, base):
+        """The edge block of a tile (after K1's insert): K11 stores each
+        fresh state's gid (``gid_base`` + its next-buffer row) UNGATED,
+        as the insert persists across a pause; K11 then looks up the
+        destination gid of every enabled item, fresh and duplicate, in
+        a launch of its own so it sees the stores; K12 appends the
+        triples only when the tile commits (``commit``, on the device).
+        Returns the count appended (a 0-dim tensor)."""
+        gids = table["gids"]
+        store_gids(table["slots"], gids, fp_q,
+                   (eb.gid_base + rank).to(I32), fresh)
+        emit = en2 & commit
+        dst = lookup_gids(table, gids, fp_q, emit)
+        return emit_edges(eb, en2, q["pidx"], q["aid"], dst, commit,
+                          eb.src_base + base)
 
     # ------------------------------------------------------------------
     # growth handlers
@@ -469,8 +523,16 @@ class DeviceBFS:
         n0 = len(keep)
         self._init_flat = flat[keep]
         table = empty_table(self.fpset_capacity, self.device)
-        insert_core(table, torch.as_tensor(fps[keep], device=self.device),
-                    torch.ones((n0,), dtype=torch.bool, device=self.device))
+        fps0 = torch.as_tensor(fps[keep], device=self.device)
+        ones = torch.ones((n0,), dtype=torch.bool, device=self.device)
+        insert_core(table, fps0, ones)
+        if self._edges_on:
+            # graph node ids are commit order: the deduped initial
+            # states take gids 0..n0-1
+            table["gids"] = store_gids(
+                table["slots"], empty_gids(self.fpset_capacity,
+                                           self.device), fps0,
+                torch.arange(n0, dtype=I32, device=self.device), ones)
         self._h_parent = [np.full(n0, -1, np.int64)]
         self._h_action = [np.full(n0, -1, np.int32)]
         self._h_param = [np.zeros(n0, np.int32)]
@@ -782,6 +844,9 @@ class DeviceBFS:
         host read are at most ``levels_per_dispatch``.  Counts, level
         sizes, traces and trace-pointer tables are those of run() and of
         the JAX package's run_fused."""
+        if self._edges_on:
+            raise TLAError("edge emission runs in PagedBFS.run (the "
+                           "chunked level pass), not in run_fused")
         emit = log or (lambda msg: None)
         kern, T, dev = self.kern, self.tile, self.device
         n_act = len(kern.action_names)

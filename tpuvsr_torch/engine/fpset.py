@@ -14,9 +14,17 @@ Unlike the JAX functions, ``insert_core`` updates the table IN PLACE
 (the table is the largest object on the card: 1.3 GB at 2^26 slots)
 and returns the same dict.
 
-The wrappers ``insert_core`` (K1) and ``dedup_keep`` (K2) take the
-plain PyTorch versions for CPU tensors and the kernels of
-``csrc/fpset_insert.cu`` and ``csrc/dedup.cu`` for CUDA tensors.
+A table may carry a gid column, ``table["gids"]``: a separate
+``int32[CAP]`` tensor, -1 where nothing was stored, that holds the graph
+node id of the fingerprint in each slot (the streamed behaviour graph of
+``engine/paged_bfs.py``).  ``store_gids`` writes it, ``lookup_gids``
+reads it, ``insert_gids`` is an insert then a store, and ``grow`` carries
+it to the larger table.
+
+The wrappers ``insert_core`` (K1), ``dedup_keep`` (K2), ``store_gids``,
+``lookup_gids`` and ``query_core`` (K11) take the plain PyTorch versions
+for CPU tensors and the kernels of ``csrc/fpset_insert.cu``,
+``csrc/dedup.cu`` and ``csrc/fpset_gids.cu`` for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -185,11 +193,8 @@ def _insert_kernel(table, fps, mask):
     return table, fresh, overflow
 
 
-def query_core(table, fps, mask):
-    """Read-only membership probe (plain PyTorch, any device): returns
-    (fresh, overflow).  ``fresh`` marks masked lanes whose fingerprint
-    is NOT in the table; lanes unresolved after MAX_PROBES raise
-    ``overflow`` and are not fresh."""
+def query_core_plain(table, fps, mask):
+    """Plain version of ``query_core``."""
     slots = table["slots"]
     capm = slots.shape[0] - 1
     keyed, h0 = _keyed(fps)
@@ -206,21 +211,153 @@ def query_core(table, fps, mask):
     return fresh, bool(unresolved.any())
 
 
+def query_core(table, fps, mask):
+    """K11 wrapper, read-only membership probe: returns (fresh,
+    overflow).  ``fresh`` marks masked lanes whose fingerprint is NOT in
+    the table (duplicate lanes of one new fingerprint all read fresh);
+    lanes unresolved after MAX_PROBES raise ``overflow`` (a bool, read
+    back from the card after the launch) and are not fresh."""
+    if fps.device.type == "cpu":
+        return query_core_plain(table, fps, mask)
+    slots = table["slots"]
+    n = fps.shape[0]
+    fresh = torch.empty((n,), dtype=torch.bool, device=fps.device)
+    overflow = torch.zeros((), dtype=torch.int32, device=fps.device)
+    _probe_kernel(slots, None, fps, mask, None, fresh, overflow)
+    return fresh, bool(overflow)
+
+
+def _probe_kernel(slots, vals, fps, mask, out_gid, out_fresh, overflow):
+    n = fps.shape[0]
+    ck = kernels.check
+    cap = slots.shape[0]
+    kernels.launch(
+        "fpset_probe", "tpuvsr_fpset_probe",
+        ck(slots, "slots", torch.int32, (cap, 5)), cap,
+        None if vals is None else ck(vals, "gids", torch.int32, (cap,)),
+        ck(fps, "fps", torch.int32, (n, 4)),
+        ck(mask, "mask", torch.bool, (n,)), n,
+        None if out_gid is None else out_gid.data_ptr(),
+        None if out_fresh is None else out_fresh.data_ptr(),
+        None if overflow is None else overflow.data_ptr(),
+        kernels.stream_of(fps))
+
+
+# ----------------------------------------------------------------------
+# K11: the gid column
+# ----------------------------------------------------------------------
+def empty_gids(capacity: int, device):
+    """A gid column for a table of ``capacity`` slots: -1 everywhere."""
+    return torch.full((capacity,), -1, dtype=torch.int32, device=device)
+
+
+def store_gids_plain(slots, vals, fps, gids, mask):
+    """Plain version of ``store_gids``: the JAX loop, all lanes in lock
+    step; a lane writes at the first slot of its chain that holds its
+    own (tag, row) and does not stop at an empty slot."""
+    capm = slots.shape[0] - 1
+    keyed, h0 = _keyed(fps)
+    unresolved = mask.clone()
+    for t in range(MAX_PROBES):
+        if not bool(unresolved.any()):
+            break
+        idx = (h0 + t) & capm
+        cur = slots[idx]
+        mine = unresolved & (to_u32(cur[:, :4]) == keyed).all(dim=1)
+        vals[idx[mine]] = gids[mine]
+        unresolved = unresolved & ~mine
+    return vals
+
+
+def store_gids(slots, vals, fps, gids, mask):
+    """K11 wrapper: write ``gids[mask]`` ([n] int32) into the gid column
+    ``vals`` ([CAP] int32) IN PLACE, at the slot each masked lane's
+    fingerprint ([n, 4] int32 words) occupies in ``slots`` (insert
+    first, then store: a lane not found in MAX_PROBES probes writes
+    nothing).  Returns ``vals``.  Two masked lanes with one fingerprint:
+    either gid may stay, as in the JAX scatter."""
+    if fps.device.type == "cpu":
+        return store_gids_plain(slots, vals, fps, gids, mask)
+    n = fps.shape[0]
+    cap = slots.shape[0]
+    ck = kernels.check
+    kernels.launch(
+        "fpset_store_gids", "tpuvsr_fpset_store_gids",
+        ck(slots, "slots", torch.int32, (cap, 5)), cap,
+        ck(vals, "gids", torch.int32, (cap,)),
+        ck(fps, "fps", torch.int32, (n, 4)),
+        ck(gids, "gid values", torch.int32, (n,)),
+        ck(mask, "mask", torch.bool, (n,)), n, kernels.stream_of(fps))
+    return vals
+
+
+def lookup_gids_plain(table, vals, fps, mask):
+    """Plain version of ``lookup_gids``."""
+    slots = table["slots"]
+    capm = slots.shape[0] - 1
+    keyed, h0 = _keyed(fps)
+    unresolved = mask.clone()
+    out = torch.full((fps.shape[0],), -1, dtype=torch.int32,
+                     device=fps.device)
+    for t in range(MAX_PROBES):
+        if not bool(unresolved.any()):
+            break
+        idx = (h0 + t) & capm
+        cur = slots[idx]
+        mine = unresolved & (to_u32(cur[:, :4]) == keyed).all(dim=1)
+        out = torch.where(mine, vals[idx], out)
+        empty = cur[:, 0] == 0
+        unresolved = unresolved & ~mine & ~empty
+    return out
+
+
+def lookup_gids(table, vals, fps, mask):
+    """K11 wrapper (the probe kernel with a gid column): the stored gid
+    of each masked lane's fingerprint, -1 where it is absent, where it
+    was never given a gid, or unresolved after MAX_PROBES.  Read-only."""
+    if fps.device.type == "cpu":
+        return lookup_gids_plain(table, vals, fps, mask)
+    out = torch.empty((fps.shape[0],), dtype=torch.int32,
+                      device=fps.device)
+    _probe_kernel(table["slots"], vals, fps, mask, out, None, None)
+    return out
+
+
+def insert_gids(table, vals, fps, gids, mask):
+    """``insert_core`` that also records ``gids`` in the column ``vals``
+    (both in place): each fresh lane stores its gid at the slot it won.
+    Batches hold no two equal fingerprints.  Returns (table, vals,
+    overflow, fresh count)."""
+    table, fresh, ovf = insert_core(table, fps, mask)
+    store_gids(table["slots"], vals, fps, gids, mask & fresh)
+    return table, vals, ovf, fresh.sum(dtype=torch.int32)
+
+
 def grow(table, factor=4):
     """Rebuild into a table ``factor`` times larger (on probe overflow
     or high load): chunked re-insertion of every occupied slot through
-    ``insert_core``."""
+    ``insert_core``.  A table with a gid column is rebuilt with it:
+    each stored gid follows its fingerprint to the new probe chain
+    (``insert_gids``)."""
     slots = table["slots"]
     occ = slots[:, 0] != 0
     fps = slots[occ][:, :4]
+    old_gids = table["gids"][occ] if "gids" in table else None
     cap = slots.shape[0]
     new = empty_table(cap * factor, slots.device)
+    if old_gids is not None:
+        new["gids"] = empty_gids(cap * factor, slots.device)
     chunk = 1 << 16
     for off in range(0, fps.shape[0], chunk):
-        part = fps[off:off + chunk]
+        part = fps[off:off + chunk].contiguous()
         m = torch.ones((part.shape[0],), dtype=torch.bool,
                        device=slots.device)
-        new, _fresh, ovf = insert_core(new, part.contiguous(), m)
+        if old_gids is None:
+            new, _fresh, ovf = insert_core(new, part, m)
+        else:
+            new, _v, ovf, _n = insert_gids(
+                new, new["gids"], part,
+                old_gids[off:off + chunk].contiguous(), m)
         if bool(ovf):
             return grow(table, factor * 2)
     return new

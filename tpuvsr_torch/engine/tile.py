@@ -47,6 +47,7 @@ R_NEXT_GROW = 5      # next-frontier buffer out of capacity
 R_SLOT_ERR = 6       # dense-layout slot collision (config limitation)
 R_DEADLOCK = 7       # a frontier state has no enabled successor
 R_EXPAND_GROW = 8    # per-action compaction buffer too small
+R_EDGE_FLUSH = 10    # edge buffers out of headroom: the host drains them
 
 # carry layout (csrc/tile_commit.cu enum Carry)
 CARRY_FIELDS = (

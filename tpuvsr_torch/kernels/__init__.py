@@ -9,10 +9,11 @@ never loaded), and bound with ``ctypes``.  ``build()`` starts one
 
 The wrappers that call these kernels live beside their plain PyTorch
 versions (``engine/fpset.py``, ``engine/pack.py``, ``engine/tile.py``,
-``engine/canon.py``, ``models/vsr_kernel.py``, ``sim/rng.py``).  A
-wrapper sends a CPU tensor to the plain version and a CUDA tensor to
-``launch()``, which raises when the C entry point reports a CUDA error
-and otherwise adds one to the kernel's launch count.  A launch recorded into a CUDA graph
+``engine/edges.py``, ``engine/canon.py``, ``models/vsr_kernel.py``,
+``sim/rng.py``).  A wrapper sends a CPU tensor to the plain version and
+a CUDA tensor to ``launch()``, which raises when the C entry point
+reports a CUDA error and otherwise adds one to the kernel's launch
+count.  A launch recorded into a CUDA graph
 runs only when the graph replays: ``capture()`` keeps those launches
 apart and counts them at each replay.
 """
@@ -68,6 +69,13 @@ KERNELS = {
                   "CanonSpec.canonicalize"),
     "vsr_actions": ("vsr_actions", "tpuvsr/models/vsr_kernel.py:331-894 "
                     "act_* (+ :1176-1191 inv_*, :1238 invariant_fn)"),
+    "fpset_store_gids": ("fpset_gids",
+                         "tpuvsr/engine/fpset.py:223 store_gids (+ :256 "
+                         "insert_gids, grow's column :289-333)"),
+    "fpset_probe": ("fpset_gids", "tpuvsr/engine/fpset.py:270 lookup_gids "
+                    "(+ :193 query_core)"),
+    "edge_emit": ("edge_emit", "tpuvsr/engine/device_bfs.py:1030-1048 "
+                  "_fused_body_factory edge block"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -91,6 +99,9 @@ _ENTRY = {
     "tpuvsr_canon": "pii" + "pii" + "pi" + "p" + "p",
     "tpuvsr_vsr_actions": "pipppi" + "p" + "iiiiiii" + "iii" + "p"
                           + "ppppppp" + "p",
+    "tpuvsr_fpset_store_gids": "pqppppi" + "p",
+    "tpuvsr_fpset_probe": "pqpppi" + "ppp" + "p",
+    "tpuvsr_edge_emit": "ppppi" + "piii" + "pppp" + "p",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
           "f": ctypes.c_float}

@@ -1,7 +1,8 @@
 """The counter stub and the SymPair stub, as torch codecs and kernels.
 
 A port of ``tpuvsr/testing.py:stub_model_factory``, ``stub_fleet``,
-``stub_sym_factory`` and ``stub_sym_engine``.
+``stub_sym_factory``, ``stub_sym_engine``, ``stub_ticker_factory``,
+``canon_csr`` and ``stub_graph_engine``.
 It implements the kernel contract the device BFS and the walker fleet
 consume (``action_names``, ``_lane_count``, ``lane_action``,
 ``lane_param``, ``_guard_fns``, ``_action_fns``, ``fingerprint``,
@@ -12,7 +13,10 @@ engine path (growth pauses, violation, deadlock, trace replay) runs in
 seconds.  SymPair (two write-once registers over a symmetric set of
 three model values, SYMMETRY ``Permutations(Vals)``) has 16 states in 5
 orbits; its kernel declares ``SYM_PLANES`` and no ``_permuted``, so it
-drives the table action of ``engine/canon.py``.
+drives the table action of ``engine/canon.py``.  The Ticker (a
+stoppable counter modulo ``modulus`` whose wrap edge leads back to a
+level-0 state) is the behaviour-graph fixture of ``PagedBFS(edges=True)``
+and ``engine/device_liveness.DeviceGraph``.
 """
 
 from __future__ import annotations
@@ -324,3 +328,129 @@ def stub_sym_engine(symmetry="auto", inv_pair=False, device=None, **kw):
                      fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
                      next_capacity=kw.pop("next_capacity", 1 << 6),
                      device=device, **kw)
+
+
+# ---------------------------------------------------------------------
+# Ticker: the behaviour-graph fixture (tpuvsr/testing.py:590-776)
+# ---------------------------------------------------------------------
+def ticker_binding(modulus=3, stop=True, spec_name="FairSpec",
+                   props=("AlwaysEventuallyZero",)):
+    """The Ticker spec's binding, made directly (the port has no .tla):
+    Init is x = 0, stopped = FALSE; Tick steps x modulo ``modulus``
+    while not stopped, Stop (left out with ``stop=False``) stops it.
+    ``2 * modulus`` reachable states (``modulus`` without Stop), and a
+    PROPERTY cfg, as in the JAX package's ``ticker_spec``."""
+    cfg = parse_cfg_text(f"SPECIFICATION {spec_name}\nPROPERTY\n"
+                         + "\n".join(props) + "\n")
+    return SpecBinding(module="ObsTicker", cfg=cfg,
+                       init=lambda codec: [codec.init_dense()],
+                       invariants=list(cfg.invariants))
+
+
+class TickCodec:
+    MSG_KEYS = ()
+
+    def __init__(self, modulus):
+        self.shape = _Shape()
+        self.modulus = modulus
+
+    def zero_state(self):
+        z = np.zeros((), np.int32)
+        return {"status": z, "x": z.copy(), "stopped": z.copy(),
+                "err": z.copy()}
+
+    def plane_bounds(self, ranges):
+        return {"status": (0, 1), "x": (0, self.modulus - 1),
+                "stopped": (0, 1), "err": (0, 1)}
+
+    def init_dense(self):
+        return self.zero_state()
+
+    def decode(self, d):
+        return {"x": int(np.asarray(d["x"])),
+                "stopped": bool(int(np.asarray(d["stopped"])))}
+
+    def pad_msgs(self, batch, old):
+        return batch
+
+
+class TickKern:
+    def __init__(self, codec, modulus, stop):
+        self.modulus = modulus
+        self.action_names = ("Tick", "Stop") if stop else ("Tick",)
+        self.n_lanes = len(self.action_names)
+        self.lane_action = np.arange(self.n_lanes, dtype=np.int32)
+        self.lane_param = np.zeros(self.n_lanes, np.int32)
+        self.pk = build_pack_spec(codec)
+
+    def _lane_count(self, name):
+        return 1
+
+    def _guard_fns(self):
+        fns = [lambda st: (st["stopped"] == 0)[:, None],
+               lambda st: (st["status"] == 0)[:, None]]       # TRUE
+        return fns[:self.n_lanes]
+
+    def _action_fns(self):
+        mod = self.modulus
+
+        def tick(st, lane):
+            return ({"status": st["status"], "x": (st["x"] + 1) % mod,
+                     "stopped": st["stopped"],
+                     "err": torch.zeros_like(st["err"])},
+                    st["stopped"] == 0)
+
+        def stp(st, lane):
+            return ({"status": st["status"], "x": st["x"],
+                     "stopped": torch.ones_like(st["stopped"]),
+                     "err": torch.zeros_like(st["err"])},
+                    st["status"] == 0)
+        return [tick, stp][:self.n_lanes]
+
+    def fingerprint(self, flat):
+        st = self.pk.unflatten(flat)
+        x = st["x"].to(torch.int64)
+        s = st["stopped"].to(torch.int64)
+        return to_i32(torch.stack([x * 2 + s + 1, x + 1, s + 1,
+                                   torch.full_like(x, 55)], dim=1))
+
+    def invariant_fns(self, names):
+        return [(n, lambda st: torch.ones_like(st["x"], dtype=torch.bool))
+                for n in names]
+
+    def invariant_fn(self, names):
+        return lambda st: torch.ones_like(st["x"], dtype=torch.bool)
+
+
+def stub_ticker_factory(modulus=3, stop=True):
+    """``model_factory`` for the Ticker fixture."""
+    def make(binding, max_msgs=None):
+        codec = TickCodec(modulus)
+        return codec, TickKern(codec, modulus, stop)
+    return make
+
+
+def canon_csr(csr_or_graph):
+    """Per-source sorted CSR segments: the one comparison form of the
+    streamed/two-pass contract (edge order within one source's segment
+    is free).  Takes a DeviceGraph or an ``(indptr, aid, tid)`` triple."""
+    indptr, aid, tid = getattr(csr_or_graph, "csr", csr_or_graph)
+    return [sorted(zip(aid[indptr[u]:indptr[u + 1]].tolist(),
+                       tid[indptr[u]:indptr[u + 1]].tolist()))
+            for u in range(len(indptr) - 1)]
+
+
+def stub_graph_engine(binding=None, modulus=3, stop=True, device=None,
+                      **kw):
+    """A small ``PagedBFS(retain_levels=True, edges=True)`` over the
+    Ticker (the JAX harness's defaults: tile 4, FPSet 2^8 slots, next
+    buffer 2^6 rows); two-pass oracles pass ``edges=False``."""
+    from .engine.paged_bfs import PagedBFS
+    return PagedBFS(
+        binding or ticker_binding(modulus=modulus, stop=stop),
+        model_factory=stub_ticker_factory(modulus=modulus, stop=stop),
+        tile_size=kw.pop("tile_size", 4),
+        fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
+        next_capacity=kw.pop("next_capacity", 1 << 6),
+        retain_levels=kw.pop("retain_levels", True),
+        edges=kw.pop("edges", True), device=device, **kw)
