@@ -117,14 +117,36 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
      e. the behaviour graph of the Ticker stub (DeviceGraph) on the
         card, streamed and two-pass: both CSRs equal the streamed one
         the plain versions give on the CPU, under canon_csr;
+  10. VR_STATE_TRANSFER (ST03), the first model of the VSR family other
+     than VSR (tile 128, 64 tiles a chunk, 2^26 FPSet slots; launch
+     counts reset just before each run and read just after, and in each
+     run K13, K14 and K3's ST03 kernels launched, the VSR kernels K6,
+     K9, K10 and VSR's K3 not, and the plain ST03 guard and action
+     functions not at all, models/st03_kernel.PLAIN_CALLS):
+     a. an untimed recording run() of tpuvsr_torch/configs/
+        VR_STATE_TRANSFER_small.cfg to its fixpoint: 42,753 distinct,
+        106,794 generated, diameter 24 (scripts/fixpoints.json) and the
+        levels ST03_SMALL_LEVELS; it keeps the largest inputs of K13,
+        K14 and K3 (full, parts, incremental);
+     b. K13, K14 and K3 on ST03 held bit for bit against their plain
+        versions on those inputs, each timed after an L2 flush with its
+        bound;
+     c. the timed run_fused on the same cfg to its fixpoint: 10a's
+        levels, totals and trace-pointer tables; K7 and K8 launched too;
+        it prints wall, distinct/s, host reads, graph captures, growth
+        pauses and peak memory;
+     d. the timed run_fused and run() on tpuvsr_torch/configs/
+        VR_STATE_TRANSFER_shipped.cfg to depth 16: the levels through
+        the JAX record's depth the record's (ST03_SHIPPED_LEVELS), and
+        all levels of the two runs equal;
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
 ``--out FILE`` writes the measurements as JSON, ``--profile`` adds a
 torch.profiler table of a depth-7 BFS run, of one steady round of the
 hunt, of one quantum of each fused path (phases 7 and 8) and of a
-depth-9 paged edge run (phase 9) to that file; ``--depth N`` changes the defect config's BFS depth in phases 3, 5 and
-7 (10 by default).
+depth-9 paged edge run (phase 9) to that file; ``--depth N`` changes
+the defect config's BFS depth in phases 3, 5 and 7 (10 by default).
 """
 
 from __future__ import annotations
@@ -190,6 +212,26 @@ SHIPPED_ROUND = {"steps": 1024, "chunks": 2, "events": "9f56cda75fefeab9",
 # VSRKernel on the CPU (python tests/test_torch_edges.py record 7)
 EDGE_RECORD = {"depth": 7, "sources": 4095, "edges": 28898,
                "digest": "d5d297c814652145"}
+ST03_SMALL = os.path.join(ROOT, "tpuvsr_torch", "configs",
+                          "VR_STATE_TRANSFER_small.cfg")
+ST03_SHIPPED = os.path.join(ROOT, "tpuvsr_torch", "configs",
+                            "VR_STATE_TRANSFER_shipped.cfg")
+# VR_STATE_TRANSFER_small.cfg to its fixpoint: the totals
+# scripts/fixpoints.json records for 03-state-transfer/VR_STATE_TRANSFER
+# (the interpreter's, from the spec's own Init), and the levels of the
+# JAX package's ST03Kernel in a host BFS from ST03Codec.init_dense on the
+# CPU (python tests/test_torch_st03_bfs.py small 24, whose 25th level,
+# 0, is the fixpoint)
+ST03_SMALL_LEVELS = [1, 3, 8, 24, 68, 163, 332, 595, 968, 1457, 2027, 2613,
+                     3261, 4153, 5265, 6086, 5970, 4755, 2974, 1412, 487,
+                     114, 16, 1]
+ST03_FIXPOINT = (42753, 106794, 24)
+# VR_STATE_TRANSFER_shipped.cfg: the same host BFS's levels (python
+# tests/test_torch_st03_bfs.py shipped 11, 198 s on 8 CPU cores)
+ST03_SHIPPED_LEVELS = [1, 4, 17, 63, 238, 851, 2814, 8564, 24012, 62231,
+                       149418, 333593]
+# phase 10d's depth: run_fused takes 10-60 s there on the card
+ST03_SHIPPED_DEPTH = 16
 PAGED = {"next_capacity": 1 << 14, "spill_ram_rows": 1 << 16,
          "edge_capacity": 1 << 15, "min_drains": 3}
 MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
@@ -357,19 +399,19 @@ def record_actions(rec):
     return uninstall
 
 
-def range_ms(prof):
+def range_ms(prof, names):
     """Device ms under each action's profiler range in a trace (the
-    plain action code's ranges: the kernels each action launched)."""
+    plain action code's ranges, named ``names``: the kernels each action
+    launched)."""
     from torch.autograd import DeviceType
-    from tpuvsr_torch.models.vsr_kernel import ACTION_NAMES
     per = {}
     for e in prof.events():
-        if e.name in ACTION_NAMES and e.device_type == DeviceType.CPU:
+        if e.name in names and e.device_type == DeviceType.CPU:
             per[e.name] = per.get(e.name, 0.0) + e.device_time_total / 1e3
     return per
 
 
-def action_profile(fn):
+def action_profile(fn, names):
     """Device ms of each action's profiler range in one ``fn()`` call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -379,13 +421,14 @@ def action_profile(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return range_ms(prof)
+    return range_ms(prof, names)
 
 
-def check_actions(out, call, label=None):
-    """K10 bit for bit against its plain version on a recorded work
-    queue (the entries the queue filled), timed with its bound, and the
-    plain version's device time per action."""
+def check_actions(out, call, label=None, name="vsr_actions"):
+    """K10 (K14 with ``name`` "st03_actions") bit for bit against its
+    plain version on a recorded work queue (the entries the queue
+    filled), timed with its bound, and the plain version's device time
+    per action."""
     import torch
     kern, flat, pidx, aid, lane, mask, ok = call
     n, lanes = pidx.shape[0], flat.shape[1]
@@ -402,13 +445,13 @@ def check_actions(out, call, label=None):
                  evict=l2_evict(flat.device))
     plain = lambda: kern.successors_plain(flat, pidx, aid, lane, mask)
     plain_ms = cuda_ms(plain, reps=3, warm=1)
-    per_action = action_profile(plain)
+    per_action = action_profile(plain, kern.action_names)
     parents = int(torch.unique(pidx).numel())
     # each parent row read once, each successor row written once, the
     # queue's three int32 columns in, the small outputs out
     nbytes = (parents + n) * lanes * 4 + n * 12 + n * (4 * (kern.R + 1)
                                                       + 3 * 4 + 2)
-    kernel_row(out, "vsr_actions", ms, plain_ms, err, nbytes, 0,
+    kernel_row(out, name, ms, plain_ms, err, nbytes, 0,
                extra={"shape": [n, lanes], "filled": int(ok.sum()),
                       "parents": parents, "max_msgs": kern.M,
                       "enabled": int(a["en2"][ok].sum()),
@@ -572,6 +615,48 @@ def check_insert(out, fps, mask, table_fps, cap, label=None):
                       "masked": n_mask, "fresh": n_fresh}, label=label)
 
 
+def fp_rows(out, calls, names, evict=None):
+    """K3's three kernels (``names``: their KERNELS names) against their
+    plain versions on the recorded ``calls``, timed (after ``evict``,
+    ``l2_evict()``, when given) with their bounds: the row columns each
+    hashes (``nrep``, ``nmsg`` and the global row's ``nglob``), four
+    multiply-adds a column a word."""
+    kern, flat = calls[names["parts"]][1]
+    B, L = flat.shape
+    a = kern.parent_parts(flat)
+    p = kern.parent_parts_plain(flat)
+    err = max(max_abs(x, y) for x, y in zip(a, p))
+    ms = cuda_ms(lambda: kern.parent_parts(flat), evict=evict)
+    plain_ms = cuda_ms(lambda: kern.parent_parts_plain(flat), reps=5)
+    cols = kern.R * kern.nrep + kern.M * kern.nmsg
+    kernel_row(out, names["parts"], ms, plain_ms, err,
+               B * L * 4 + B * (kern.R + kern.M + 1) * 16, B * cols * 4 * 2,
+               extra={"shape": [B, L]})
+    kern, flat = calls[names["full"]][1]
+    B, L = flat.shape
+    ms = cuda_ms(lambda: kern.fingerprint(flat), evict=evict)
+    plain_ms = cuda_ms(lambda: kern.fingerprint_plain(flat), reps=5)
+    kernel_row(out, names["full"], ms, plain_ms,
+               max_abs(kern.fingerprint(flat), kern.fingerprint_plain(flat)),
+               B * L * 4 + B * 16, B * (cols + kern.nglob) * 4 * 2,
+               extra={"shape": [B, L]})
+    kern, succ, ri, ts, pidx, parent, prt = calls[names["incremental"]][1]
+    n, L = succ.shape
+    args = (succ, ri, ts, pidx, parent, prt)
+    ms = cuda_ms(lambda: kern.fingerprint_incremental(*args), evict=evict)
+    plain_ms = cuda_ms(lambda: kern.fingerprint_incremental_plain(*args),
+                       reps=5)
+    n_ts = int((ts >= 0).sum())
+    cols_read = n * (kern.nrep + kern.nglob) + n_ts * kern.nmsg
+    kernel_row(out, names["incremental"], ms, plain_ms,
+               max_abs(kern.fingerprint_incremental(*args),
+                       kern.fingerprint_incremental_plain(*args)),
+               cols_read * 4 + n * (ri.element_size() + pidx.element_size()
+                                    + ts.shape[1] * 4) + (n + n_ts) * 16
+               + n * 16, cols_read * 4 * 2,
+               extra={"shape": [n, L], "touched_slots": n_ts})
+
+
 def check_kernels(rec):
     """Phase 3: every kernel against its plain version, on the card."""
     import torch
@@ -604,38 +689,8 @@ def check_kernels(rec):
                                "library": "torch.sort lexsort, 2 keys"})
 
     # -- K3
-    kern, flat = rec.calls["vsr_fp_parts"][1]
-    B, L = flat.shape
-    a = kern.parent_parts(flat)
-    p = kern.parent_parts_plain(flat)
-    err = max(max_abs(x, y) for x, y in zip(a, p))
-    ms = cuda_ms(lambda: kern.parent_parts(flat))
-    plain_ms = cuda_ms(lambda: kern.parent_parts_plain(flat), reps=5)
-    cols = kern.R * kern.nrep + kern.M * kern.nmsg
-    row("vsr_fp_parts", ms, plain_ms, err,
-        B * L * 4 + B * (kern.R + kern.M + 1) * 16, B * cols * 4 * 2,
-        extra={"shape": [B, L]})
-    kern, flat = rec.calls["vsr_fp_full"][1]
-    B, L = flat.shape
-    ms = cuda_ms(lambda: kern.fingerprint(flat))
-    plain_ms = cuda_ms(lambda: kern.fingerprint_plain(flat), reps=5)
-    row("vsr_fp_full", ms, plain_ms,
-        max_abs(kern.fingerprint(flat), kern.fingerprint_plain(flat)),
-        B * L * 4 + B * 16, B * cols * 4 * 2, extra={"shape": [B, L]})
-    kern, succ, ri, ts, pidx, parent, prt = rec.calls["vsr_fp_incremental"][1]
-    n, L = succ.shape
-    args = (succ, ri, ts, pidx, parent, prt)
-    ms = cuda_ms(lambda: kern.fingerprint_incremental(*args))
-    plain_ms = cuda_ms(lambda: kern.fingerprint_incremental_plain(*args),
-                       reps=5)
-    n_ts = int((ts >= 0).sum())
-    cols_read = n * kern.nrep + n_ts * kern.nmsg
-    row("vsr_fp_incremental", ms, plain_ms,
-        max_abs(kern.fingerprint_incremental(*args),
-                kern.fingerprint_incremental_plain(*args)),
-        cols_read * 4 + n * (ri.element_size() + pidx.element_size()
-                             + ts.shape[1] * 4) + (n + n_ts) * 16 + n * 16,
-        cols_read * 4 * 2, extra={"shape": [n, L], "touched_slots": n_ts})
+    from tpuvsr_torch.models.vsr_kernel import VSRKernel
+    fp_rows(out, rec.calls, VSRKernel.FP_KERNELS)
 
     # -- K4
     pk, flat, dest, out_rows = rec.calls["pack"][1]
@@ -2108,6 +2163,245 @@ def paged_phase(args, doc, binding, run_pointers):
     return rows
 
 
+class ST03Recorder:
+    """Keeps, during a run on the ST03 model, the inputs of the largest
+    call of K13 (rows), K14 (queue items) and K3's three kernels, cloned
+    before the call."""
+
+    def __init__(self):
+        self.calls = {}
+
+    keep = Recorder.keep
+
+    def install(self):
+        from tpuvsr_torch.models.st03_kernel import ST03Kernel as K
+        rec = self
+        saved = {n: getattr(K, n) for n in (
+            "guard_matrix", "successors", "parent_parts", "fingerprint",
+            "fingerprint_incremental")}
+
+        def guards(self, flat, out=None, halt=None):
+            rec.keep("st03_guards", flat.shape[0],
+                     lambda: (self, flat.clone()))
+            return saved["guard_matrix"](self, flat, out, halt)
+
+        def succs(self, flat, pidx, aid, lane, mask, out=None, halt=None):
+            rec.keep("st03_actions", pidx.shape[0], lambda: (
+                self, flat.clone(), pidx.clone(), aid.clone(), lane.clone(),
+                mask, None))
+            return saved["successors"](self, flat, pidx, aid, lane, mask,
+                                       out, halt)
+
+        def parts(self, flat):
+            rec.keep("st03_fp_parts", flat.shape[0],
+                     lambda: (self, flat.clone()))
+            return saved["parent_parts"](self, flat)
+
+        def full(self, flat):
+            rec.keep("st03_fp_full", flat.shape[0],
+                     lambda: (self, flat.clone()))
+            return saved["fingerprint"](self, flat)
+
+        def incr(self, succ, ri, ts, pidx, parent, prt):
+            rec.keep("st03_fp_incremental", succ.shape[0], lambda: (
+                self, succ.clone(), ri.clone(), ts.clone(), pidx.clone(),
+                parent.clone(), tuple(x.clone() for x in prt)))
+            return saved["fingerprint_incremental"](self, succ, ri, ts, pidx,
+                                                    parent, prt)
+        for n, f in (("guard_matrix", guards), ("successors", succs),
+                     ("parent_parts", parts), ("fingerprint", full),
+                     ("fingerprint_incremental", incr)):
+            setattr(K, n, f)
+
+        def uninstall():
+            for n, f in saved.items():
+                setattr(K, n, f)
+        return uninstall
+
+
+def st03_plain_calls():
+    """Calls of the plain ST03 guard and action functions so far (their
+    doors, ST03Kernel._guard_fns and _action_fns)."""
+    from tpuvsr_torch.models.st03_kernel import PLAIN_CALLS
+    return dict(PLAIN_CALLS)
+
+
+def check_st03_kernels(rec):
+    """Phase 10b: K13, K14 and K3 on ST03 bit for bit against their plain
+    versions on the inputs 10a recorded, each timed after an L2 flush
+    with its bound."""
+    import torch
+    from tpuvsr_torch.models.st03_kernel import GUARD_PLANES, ST03Kernel
+    out = []
+    kern, flat = rec.calls["st03_guards"][1]
+    dev = flat.device
+    evict = l2_evict(dev)
+    B = flat.shape[0]
+    a, p = kern.guard_matrix(flat), kern.guard_matrix_plain(flat)
+    err = max(max_abs(a[0], p[0]), max_abs(a[1], p[1]))
+    span = {k: e - s for k, _sh, s, e in kern.pk._splits}
+    lanes_read = sum(span[k] for k in GUARD_PLANES)
+    sgs = kern.lane_action == kern.action_names.index("SendGetState")
+    n_scan = int(a[0][:, torch.as_tensor(sgs, device=dev)].sum())
+    # ten operations a lane, SendDVC's and SendSV's quorum counts (six
+    # compares a slot, 2R lanes a row) and the SendOnce scans of the
+    # enabled SendGetState lanes (a header, an entry and a log a slot)
+    nops = (10 * B * kern.n_lanes + 6 * kern.M * 2 * kern.R * B
+            + (kern.NHDR + kern.MAX_OPS + 2) * kern.M * n_scan)
+    kernel_row(out, "st03_guards",
+               cuda_ms(lambda: kern.guard_matrix(flat), evict=evict),
+               cuda_ms(lambda: kern.guard_matrix_plain(flat), reps=5), err,
+               B * lanes_read * 4 + B * kern.n_lanes + B, nops,
+               extra={"shape": [B, kern.pk.lanes], "n_lanes": kern.n_lanes,
+                      "enabled": int(a[0].sum()),
+                      "send_get_state": n_scan})
+    check_actions(out, rec.calls["st03_actions"][1], name="st03_actions")
+    fp_rows(out, rec.calls, ST03Kernel.FP_KERNELS, evict=evict)
+    # the full fingerprint at a tile's width (the recorded call is the
+    # Init row): the successors of the recorded incremental call
+    kern, succ = rec.calls["st03_fp_incremental"][1][:2]
+    n, L = succ.shape
+    cols = kern.R * kern.nrep + kern.M * kern.nmsg + kern.nglob
+    kernel_row(out, "st03_fp_full",
+               cuda_ms(lambda: kern.fingerprint(succ), evict=evict),
+               cuda_ms(lambda: kern.fingerprint_plain(succ), reps=5),
+               max_abs(kern.fingerprint(succ), kern.fingerprint_plain(succ)),
+               n * L * 4 + n * 16, n * cols * 4 * 2,
+               extra={"shape": [n, L]},
+               label="st03_fp_full (a tile's successors)")
+    torch.cuda.synchronize()
+    return out
+
+
+def st03_phase(args, doc):
+    """Phase 10: VR_STATE_TRANSFER (ST03) on the card.  Returns its
+    kernels-line rows, with the launch counts of the timed run_fused on
+    the small cfg (10c)."""
+    import numpy as np
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS
+    from tpuvsr_torch.engine.spec import load_binding
+
+    def engine(cfg):
+        return DeviceBFS(load_binding(cfg, "VR_STATE_TRANSFER"),
+                         tile_size=128, chunk_tiles=64,
+                         fpset_capacity=1 << 26, device="cuda")
+
+    def pointers(eng):
+        return [np.concatenate(getattr(eng, k))
+                for k in ("_h_parent", "_h_action", "_h_param")]
+
+    def timed(cfg, entry, depth=None):
+        """One run, launch counts reset just before and read just after;
+        K13, K14 and K3 (parts, incremental) launched, the VSR kernels
+        and the plain ST03 functions not."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        plain0 = st03_plain_calls()
+        eng = engine(cfg)
+        t0 = time.time()
+        res = getattr(eng, entry)(max_depth=depth)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        what = f"ST03 {os.path.basename(cfg)} {entry}"
+        for k in ("st03_guards", "st03_actions", "st03_fp_parts",
+                  "st03_fp_incremental", "st03_fp_full"):
+            need(counts[k] > 0, f"{k} was not launched on {what}")
+        for k in ("vsr_guards", "vsr_actions", "vsr_canon", "vsr_fp_parts",
+                  "vsr_fp_full", "vsr_fp_incremental"):
+            need(counts[k] == 0, f"{k} was launched on {what}")
+        if entry == "run_fused":
+            for k in ("compact", "commit_prefix", "commit_finish",
+                      "level_step"):
+                need(counts[k] > 0, f"{k} was not launched on {what}")
+        need(st03_plain_calls() == plain0, f"the plain ST03 functions ran "
+             f"on {what}: {plain0} -> {st03_plain_calls()}")
+        need(res.ok, f"{what}: {res.violated_invariant} {res.error}")
+        c = res.metrics["counters"]
+        info = {"levels": res.levels, "distinct": res.distinct_states,
+                "generated": res.states_generated,
+                "diameter": res.diameter, "wall_s": wall,
+                "distinct_per_s": res.distinct_states / wall,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "launches": counts, "metrics": res.metrics}
+        print(f"  {entry}: distinct {res.distinct_states} generated "
+              f"{res.states_generated} diameter {res.diameter} wall "
+              f"{wall:.3f}s distinct/s {info['distinct_per_s']:.1f} "
+              f"max_memory_allocated {info['max_memory_allocated']}",
+              flush=True)
+        print(f"  host_reads {c.get('host_reads')} graph_captures "
+              f"{c.get('graph_captures')} growth_pauses "
+              f"{c.get('growth_pauses', 0)} tiles {c.get('tiles')} "
+              f"max_msgs {res.metrics['gauges']['max_msgs']}", flush=True)
+        return eng, res, info
+
+    def fixpoint(res, what):
+        need(res.levels == ST03_SMALL_LEVELS, f"{what} levels {res.levels}")
+        need((res.distinct_states, res.states_generated, res.diameter)
+             == ST03_FIXPOINT, f"{what}: {res.distinct_states} distinct, "
+             f"{res.states_generated} generated, diameter {res.diameter}")
+        need(res.error is None, f"{what}: {res.error}")
+
+    print("phase 10a: ST03 small cfg, recording run() to its fixpoint",
+          flush=True)
+    rec = ST03Recorder()
+    uninstall = rec.install()
+    try:
+        eng, res, info = timed(ST03_SMALL, "run")
+    finally:
+        uninstall()
+    fixpoint(res, "ST03 recording run()")
+    info["recorded"] = {k: v[0] for k, v in rec.calls.items()}
+    doc["st03_record"] = info
+    run_pointers = pointers(eng)
+    del eng
+    print("phase 10b: K13, K14, K3 on ST03 against their plain versions",
+          flush=True)
+    rows = check_st03_kernels(rec)
+    del rec
+
+    print("phase 10c: run_fused, ST03 small cfg to its fixpoint",
+          flush=True)
+    eng, res, info = timed(ST03_SMALL, "run_fused")
+    fixpoint(res, "ST03 run_fused")
+    same_pointers(pointers(eng), run_pointers, res.levels, "ST03 run_fused",
+                  args)
+    c = res.metrics["counters"]
+    need(c["host_reads"] == c["quanta"] + c.get("level_fits", 0),
+         f"ST03 fused host reads {c}")
+    doc["st03_fused"] = info
+    print(f"  levels {res.levels}, pointer tables equal to 10a's",
+          flush=True)
+    print(f"  launches {info['launches']}", flush=True)
+    for k in rows:
+        k["launches"] = info["launches"][k["kernel"]]
+    del eng
+
+    d = ST03_SHIPPED_DEPTH
+    rec_d = len(ST03_SHIPPED_LEVELS) - 1
+    print(f"phase 10d: ST03 shipped cfg, run_fused and run() to depth {d}",
+          flush=True)
+    _e, fres, finfo = timed(ST03_SHIPPED, "run_fused", d)
+    del _e
+    _e, rres, rinfo = timed(ST03_SHIPPED, "run", d)
+    del _e
+    need(fres.levels[:rec_d + 1] == ST03_SHIPPED_LEVELS,
+         f"ST03 shipped levels {fres.levels[:rec_d + 1]}")
+    need(fres.levels == rres.levels and len(fres.levels) == d + 1,
+         f"ST03 shipped run_fused levels {fres.levels}, run() "
+         f"{rres.levels}")
+    need((fres.distinct_states, fres.states_generated)
+         == (rres.distinct_states, rres.states_generated),
+         "ST03 shipped run_fused and run() totals differ")
+    doc["st03_shipped"] = {"depth": d, "run_fused": finfo, "run": rinfo}
+    print(f"  levels {fres.levels} (the JAX record through depth {rec_d})",
+          flush=True)
+    return rows
+
+
 def gpu_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2146,7 +2440,7 @@ def main(argv=None):
 
 
 def run_phases(args, doc, t_all):
-    """Phases 1-9 (the module docstring); returns the exit code."""
+    """Phases 1-10 (the module docstring); returns the exit code."""
     import numpy as np
     import torch
     from tpuvsr_torch import kernels
@@ -2259,6 +2553,7 @@ def run_phases(args, doc, t_all):
     rows += fused_phase(args, doc, binding, run_pointers)
     rows += symmetric_phase(args, doc)
     rows += paged_phase(args, doc, binding, run_pointers)
+    rows += st03_phase(args, doc)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
     if args.out:

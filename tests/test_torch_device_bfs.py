@@ -204,6 +204,26 @@ def test_binding_names_its_module():
     assert load_binding(DEFECT, "VSR").module == "VSR"
 
 
+def test_make_model_resolves_st03():
+    """VR_STATE_TRANSFER binds to the port's ST03 codec and kernel, with
+    the pack spec the JAX package builds for the same codec; a module
+    with no hand kernel is still refused by name."""
+    from tpuvsr_torch.models.st03 import ST03Codec
+    from tpuvsr_torch.models.st03_kernel import ST03Kernel
+    cfg = os.path.join(ROOT, "tpuvsr_torch", "configs",
+                       "VR_STATE_TRANSFER_small.cfg")
+    b = load_binding(cfg, "VR_STATE_TRANSFER")
+    codec, kern = make_model(b, max_msgs=16)
+    assert isinstance(codec, ST03Codec) and isinstance(kern, ST03Kernel)
+    assert kern.pk is not None and kern.M == 16
+    assert b.invariants == ["NoLogDivergence", "AcknowledgedWriteNotLost",
+                            "CommitNumberNeverHigherThanOpNumber"]
+    assert not b.symmetry_perms
+    with pytest.raises(KeyError, match="no hand model kernel for module "
+                       "'VR_ASSUME_NEWVIEWCHANGE'"):
+        make_model(load_binding(cfg, "VR_ASSUME_NEWVIEWCHANGE"))
+
+
 def test_device_bfs_check_entry_point_on_cpu():
     res = device_bfs_check(load_binding(DEFECT, "VSR"), max_depth=2,
                            tile_size=16, chunk_tiles=2,
@@ -219,7 +239,8 @@ def test_import_loads_no_jax():
     code = ("import sys, tpuvsr_torch, tpuvsr_torch.engine.device_bfs, "
             "tpuvsr_torch.testing, tpuvsr_torch.engine.carry, "
             "tpuvsr_torch.sim.fleet, tpuvsr_torch.sim.splitting, "
-            "tpuvsr_torch.sim.defect_hunt, tpuvsr_torch.sim.rng\n"
+            "tpuvsr_torch.sim.defect_hunt, tpuvsr_torch.sim.rng, "
+            "tpuvsr_torch.models.st03_kernel, tpuvsr_torch.models.registry\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuvsr' or "
             "m.startswith('tpuvsr.')]\n"

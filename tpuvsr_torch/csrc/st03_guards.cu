@@ -1,0 +1,283 @@
+// K13: the ST03 (VR_STATE_TRANSFER) guard matrix.
+//
+// Replaces tpuvsr/engine/device_bfs.py:_guard_matrix (:398), the vmapped
+// sweep of the 16 guards of tpuvsr/models/st03_kernel.py:578-710 over
+// every (state, lane) of a batch.  The port's plain version is the loop
+// over ST03Kernel._guard_fns (models/st03_kernel.py); this kernel
+// computes the same [B, n_lanes] enabled matrix (lane-table order:
+// action-major, then the action's lane parameter) and en_any[b] = OR
+// over the row.
+//
+// ST03's guards, against VSR's (K6, csrc/vsr_guards.cu): every guard
+// but NoProgressChange's asks CanProgress of its replica (no_prog = 0);
+// SendDVC and SendSV count processed (count-0) SVC and DVC records in
+// the bag instead of per-replica sets; ReceiveGetState's lanes are
+// (slot, receiving replica) pairs, since a GetState sent to AnyDest (-1)
+// goes to any replica but its sender; SendGetState's SendOnce scans the
+// M slots for the record it would send; NoProgressChange has a lane per
+// subset of the replicas (1 << R lanes), enabled for the minority
+// subsets while the counter is below its limit.
+//
+// What bounds it on the H100: neither bytes nor operations at the
+// engine's sizes (a tile of 128 rows of a few hundred lanes): each row
+// is read once and each guard is a handful of compares, except the
+// quorum counts (M slots per replica lane) and SendGetState's SendOnce
+// scan (M slots per slot lane).  A launch is latency-bound.
+//
+// Design, that of K6.  One block per state row: the block copies the
+// row into shared memory (coalesced), then each thread evaluates the
+// guards of its lanes from shared memory, the lane -> (action,
+// parameter) pair read from the host-built lane tables, the planes
+// located by the host-built plane-offset table (enum Plane below,
+// GUARD_PLANES in models/st03_kernel.py).  en_any is an OR across the
+// block.  Integer arithmetic wraps as int32 does in PyTorch; the primary
+// of a view keeps torch.remainder's floor modulo.  With a halt word (the
+// fused pass's carry) the kernel does nothing while it is set.
+#include "common.cuh"
+
+namespace {
+
+enum Plane {
+    P_STATUS, P_VIEW, P_OP, P_COMMIT, P_PEER_OP, P_SENT_DVC, P_SENT_SV,
+    P_NO_PROG, P_NP_CTR, P_M_PRESENT, P_M_COUNT, P_M_HDR, P_M_ENTRY,
+    P_M_LOG, P_AUX_SVC, P_AUX_ACKED, N_PLANES
+};
+
+// the codec's encodings (models/st03.py, models/vsr.py)
+constexpr int NORMAL = 0, VIEWCHANGE = 1, STATETRANSFER = 2;
+constexpr int M_PREPARE = 1, M_PREPAREOK = 2, M_SVC = 3, M_DVC = 4,
+              M_SV = 5, M_GETSTATE = 6, M_NEWSTATE = 7;
+constexpr int H_TYPE = 0, H_VIEW = 1, H_OP = 2, H_COMMIT = 3, H_DEST = 4,
+              H_SRC = 5;
+constexpr int ANYDEST = -1;
+constexpr int THREADS = 128;
+
+struct Row {
+    const int* s;       // the state row in shared memory
+    const int* off;     // plane offsets
+    int R, V, M, OPS, NHDR;
+
+    __device__ int at(int p, int i) const { return s[off[p] + i]; }
+    __device__ int hdr(int k, int col) const {
+        return s[off[P_M_HDR] + k * NHDR + col];
+    }
+};
+
+__device__ __forceinline__ int wadd(int a, int b) {
+    return (int)((unsigned)a + (unsigned)b);
+}
+
+__device__ __forceinline__ int clipi(int x, int lo, int hi) {
+    return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// 1 + (view - 1) mod R with a floor modulo (torch.remainder)
+__device__ __forceinline__ int primary(int view, int R) {
+    int x = wadd(view, -1) % R;
+    if (x < 0) x += R;
+    return 1 + x;
+}
+
+__device__ __forceinline__ int dest_rep(const Row& g, int k) {
+    return clipi(wadd(g.hdr(k, H_DEST), -1), 0, g.R - 1);
+}
+
+__device__ __forceinline__ bool can_progress(const Row& g, int i) {
+    return g.at(P_NO_PROG, i) == 0;
+}
+
+// replica i is the Normal primary of its view, named r
+__device__ __forceinline__ bool normal_primary(const Row& g, int i, int r) {
+    return primary(g.at(P_VIEW, i), g.R) == r && g.at(P_STATUS, i) == NORMAL;
+}
+
+// a deliverable mtype record whose receiver can progress
+__device__ bool recv(const Row& g, int k, int mtype) {
+    return g.at(P_M_PRESENT, k) == 1 && g.at(P_M_COUNT, k) > 0 &&
+           g.hdr(k, H_TYPE) == mtype && can_progress(g, dest_rep(g, k));
+}
+
+// processed (count-0) mtype records addressed to replica r in its view
+__device__ int tombstones(const Row& g, int r, int mtype) {
+    int n = 0;
+    const int view = g.at(P_VIEW, r);
+    for (int m = 0; m < g.M; ++m)
+        n += g.at(P_M_PRESENT, m) == 1 && g.at(P_M_COUNT, m) == 0 &&
+             g.hdr(m, H_TYPE) == mtype && g.hdr(m, H_DEST) == r + 1 &&
+             g.hdr(m, H_VIEW) == view;
+    return n;
+}
+
+__device__ bool send_get_state(const Row& g, int k) {
+    const int i = dest_rep(g, k), r = g.hdr(k, H_DEST);
+    const int view_i = g.at(P_VIEW, i);
+    if (!(recv(g, k, M_PREPARE) && !normal_primary(g, i, r) &&
+          g.at(P_STATUS, i) == NORMAL && g.hdr(k, H_VIEW) > view_i &&
+          g.hdr(k, H_OP) > wadd(g.at(P_OP, i), 1)))
+        return false;
+    // SendOnce: the record [GetState, view of k, op = commit of i, dest
+    // AnyDest, source i + 1, every other field 0] in the bag at all
+    const int want_op = g.at(P_COMMIT, i);
+    for (int s = 0; s < g.M; ++s) {
+        if (g.at(P_M_PRESENT, s) != 1 || g.at(P_M_ENTRY, s) != 0) continue;
+        bool eq = true;
+        for (int c = 0; c < g.NHDR && eq; ++c) {
+            const int want = c == H_TYPE ? M_GETSTATE
+                             : c == H_VIEW ? g.hdr(k, H_VIEW)
+                             : c == H_OP ? want_op
+                             : c == H_DEST ? ANYDEST
+                             : c == H_SRC ? i + 1 : 0;
+            eq = g.hdr(s, c) == want;
+        }
+        for (int o = 0; o < g.OPS && eq; ++o)
+            eq = g.at(P_M_LOG, s * g.OPS + o) == 0;
+        if (eq) return false;
+    }
+    return true;
+}
+
+__device__ bool guard(const Row& g, int a, int p, int timer_limit,
+                      int np_limit) {
+    const int R = g.R;
+    switch (a) {
+    case 0:     // TimerSendSVC, lane r
+        return g.at(P_AUX_SVC, 0) < timer_limit && can_progress(g, p) &&
+               !normal_primary(g, p, p + 1);
+    case 1:     // ReceiveHigherSVC, lane k
+        return recv(g, p, M_SVC) &&
+               g.hdr(p, H_VIEW) > g.at(P_VIEW, dest_rep(g, p));
+    case 2: {   // ReceiveMatchingSVC
+        const int i = dest_rep(g, p);
+        return recv(g, p, M_SVC) && g.at(P_STATUS, i) == VIEWCHANGE &&
+               g.hdr(p, H_VIEW) == g.at(P_VIEW, i);
+    }
+    case 3:     // SendDVC, lane r
+        return can_progress(g, p) && g.at(P_STATUS, p) == VIEWCHANGE &&
+               g.at(P_SENT_DVC, p) == 0 && tombstones(g, p, M_SVC) >= R / 2;
+    case 4:     // ReceiveHigherDVC
+        return recv(g, p, M_DVC) &&
+               g.hdr(p, H_VIEW) > g.at(P_VIEW, dest_rep(g, p));
+    case 5: {   // ReceiveMatchingDVC
+        const int i = dest_rep(g, p);
+        return recv(g, p, M_DVC) && g.at(P_STATUS, i) == VIEWCHANGE &&
+               g.hdr(p, H_VIEW) == g.at(P_VIEW, i);
+    }
+    case 6:     // SendSV, lane r
+        return can_progress(g, p) && g.at(P_STATUS, p) == VIEWCHANGE &&
+               g.at(P_SENT_SV, p) == 0 &&
+               tombstones(g, p, M_DVC) >= R / 2 + 1;
+    case 7: {   // ReceiveSV
+        const int i = dest_rep(g, p);
+        const int hv = g.hdr(p, H_VIEW), v = g.at(P_VIEW, i);
+        return recv(g, p, M_SV) &&
+               ((hv == v && g.at(P_STATUS, i) == VIEWCHANGE) || hv > v);
+    }
+    case 8: {   // ReceiveClientRequest, lane r * V + v
+        const int r = p / g.V, v = p - r * g.V;
+        return can_progress(g, r) && normal_primary(g, r, r + 1) &&
+               g.at(P_AUX_ACKED, v) == 0;
+    }
+    case 9: {   // ReceivePrepareMsg
+        const int i = dest_rep(g, p);
+        return recv(g, p, M_PREPARE) &&
+               !normal_primary(g, i, g.hdr(p, H_DEST)) &&
+               g.at(P_STATUS, i) == NORMAL &&
+               g.hdr(p, H_VIEW) == g.at(P_VIEW, i) &&
+               g.hdr(p, H_OP) == wadd(g.at(P_OP, i), 1);
+    }
+    case 10: {  // ReceivePrepareOkMsg
+        const int i = dest_rep(g, p);
+        const int j = clipi(wadd(g.hdr(p, H_SRC), -1), 0, R - 1);
+        return recv(g, p, M_PREPAREOK) &&
+               normal_primary(g, i, g.hdr(p, H_DEST)) &&
+               g.hdr(p, H_VIEW) == g.at(P_VIEW, i) &&
+               g.hdr(p, H_OP) > g.at(P_PEER_OP, i * R + j);
+    }
+    case 11: {  // ExecuteOp, lane r
+        const int opn = wadd(g.at(P_COMMIT, p), 1);
+        int n = 0;
+        for (int j = 0; j < R; ++j) n += g.at(P_PEER_OP, p * R + j) >= opn;
+        return can_progress(g, p) && normal_primary(g, p, p + 1) &&
+               g.at(P_COMMIT, p) < g.at(P_OP, p) && n >= R / 2;
+    }
+    case 12:    // SendGetState, lane k
+        return send_get_state(g, p);
+    case 13: {  // ReceiveGetState, lane k * R + (receiver - 1)
+        const int k = p / R, i = p - k * R, r = i + 1;
+        const int dest = g.hdr(k, H_DEST);
+        return g.at(P_M_PRESENT, k) == 1 && g.at(P_M_COUNT, k) > 0 &&
+               g.hdr(k, H_TYPE) == M_GETSTATE &&
+               (dest == r || (dest == ANYDEST && g.hdr(k, H_SRC) != r)) &&
+               can_progress(g, i) && g.at(P_STATUS, i) == NORMAL &&
+               g.at(P_VIEW, i) == g.hdr(k, H_VIEW) &&
+               g.at(P_OP, i) > g.hdr(k, H_OP);
+    }
+    case 14: {  // ReceiveNewState
+        const int i = dest_rep(g, p);
+        return recv(g, p, M_NEWSTATE) &&
+               g.at(P_STATUS, i) == STATETRANSFER &&
+               g.hdr(p, H_VIEW) > g.at(P_VIEW, i);
+    }
+    case 15:    // NoProgressChange, lane = a subset of the replicas
+        return g.at(P_NP_CTR, 0) < np_limit && __popc(p) <= R / 2;
+    }
+    return false;
+}
+
+__global__ void guards_kernel(const int* __restrict__ flat, int lanes,
+                              int n_lanes, int R, int V, int M, int OPS,
+                              int NHDR, int timer_limit, int np_limit,
+                              const int* __restrict__ planes,
+                              const int* __restrict__ lane_action,
+                              const int* __restrict__ lane_param,
+                              const long long* __restrict__ halt,
+                              uint8_t* __restrict__ en,
+                              uint8_t* __restrict__ en_any) {
+    if (halt && *halt) return;
+    extern __shared__ int row[];
+    __shared__ int any;
+    const int b = blockIdx.x;
+    const int* src = flat + (size_t)b * lanes;
+    for (int l = threadIdx.x; l < lanes; l += blockDim.x) row[l] = src[l];
+    if (threadIdx.x == 0) any = 0;
+    __syncthreads();
+    Row g{row, planes, R, V, M, OPS, NHDR};
+    int mine = 0;
+    uint8_t* out = en + (size_t)b * n_lanes;
+    for (int l = threadIdx.x; l < n_lanes; l += blockDim.x) {
+        const bool e = guard(g, lane_action[l], lane_param[l], timer_limit,
+                             np_limit);
+        out[l] = e;
+        mine |= e;
+    }
+    if (mine) atomicOr(&any, 1);
+    __syncthreads();
+    if (threadIdx.x == 0) en_any[b] = any != 0;
+}
+
+}  // namespace
+
+// flat: [B, lanes] int32 state rows; planes: [N_PLANES] int32 plane
+// offsets (GUARD_PLANES order); lane_action, lane_param: [n_lanes]
+// int32; halt: one int64 word or null; en: [B, n_lanes] uint8; en_any:
+// [B] uint8.
+TPUVSR_EXPORT int tpuvsr_st03_guards(const void* flat, int B, int lanes,
+                                     int n_lanes, int R, int V, int M,
+                                     int OPS, int NHDR, int timer_limit,
+                                     int np_limit, const void* planes,
+                                     const void* lane_action,
+                                     const void* lane_param,
+                                     const void* halt, void* en,
+                                     void* en_any, void* stream) {
+    if (B > 0) {
+        const size_t smem = (size_t)lanes * sizeof(int);
+        if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+        cudaStream_t st = (cudaStream_t)stream;
+        KLAUNCH_SMEM(guards_kernel, B, THREADS, smem, st,
+            (const int*)flat, lanes, n_lanes, R, V, M, OPS, NHDR,
+            timer_limit, np_limit, (const int*)planes,
+            (const int*)lane_action, (const int*)lane_param,
+            (const long long*)halt, (uint8_t*)en, (uint8_t*)en_any);
+    }
+    return (int)cudaGetLastError();
+}

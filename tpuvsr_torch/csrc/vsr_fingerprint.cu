@@ -1,20 +1,27 @@
-// K3: the VSR 128-bit state fingerprint, full and incremental.
+// K3: the 128-bit state fingerprint of the VSR family, full and
+// incremental.
 //
 // Replaces tpuvsr/models/vsr_kernel.py:_mix32, _rep_hashes,
 // _slot_hashes, _fp_one, fingerprint, parent_parts and
-// fingerprint_incremental (identity permutation table only: the
-// engine's kernel is built with fold_symmetry=False).  The fingerprint
-// of a dense state is
+// fingerprint_incremental, and their ST03 counterparts
+// tpuvsr/models/st03_kernel.py:763-907 with its global row _glob_hash
+// (identity permutation table only: the engine's kernel is built with
+// fold_symmetry=False).  The fingerprint of a dense state is
 //   rep_h[r]  = mix32(sum_c rep_row[r][c] * k_rep[w][c] + seed[w])
 //   slot_h[m] = mix32(sum_c slot_row[m][c] * k_msg[w][c] + seed[w])
+//   glob      = mix32(sum_c glob_row[c] * k_glob[w][c] + seed[w])
 //   total     = sum_r rep_h[r] + sum_m m_present[m] * slot_h[m]
-//   fp[w]     = mix32(mix32(total[w]) + seed[w])
+//   fp[w]     = mix32(mix32(total[w] + glob[w]) + seed[w])
 // for the four words w, in wrapping uint32 arithmetic.  A replica row
 // is the replica index followed by every per-replica state slice; a
-// slot row is the message slot's header, entry, payload log, log
-// length, has-log flag and count.  The wrapper hands the kernels the
-// flat lane index of every row column (rep_cols, slot_cols), so the
-// state stays in the engine's flat [B, lanes] int32 layout.
+// slot row is the message slot's planes (VSR: header, entry, payload
+// log, log length, has-log flag and count; ST03: header, entry, log and
+// count).  The global row is optional (nglob = 0: no glob term, VSR);
+// ST03's is its no_progress plane and counter.  total (the parts) never
+// includes it: the incremental form recomputes it from the successor.
+// The wrapper hands the kernels the flat lane index of every row column
+// (rep_cols, slot_cols, glob_cols), so the state stays in the engine's
+// flat [B, lanes] int32 layout.
 //
 // What bounds it on the H100: integer multiply-adds — about 4 x (R x
 // n_rep + M x n_msg) per full state (1,680 x 4 at the defect layout)
@@ -43,12 +50,14 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 
 struct Layout {
     int lanes;               // ints per flat state row
-    int R, M, nrep, nmsg;
+    int R, M, nrep, nmsg, nglob;
     const int* rep_cols;     // [R, nrep] flat lane index, -1 = replica id
     const int* slot_cols;    // [M, nmsg] flat lane index
     const int* pres_cols;    // [M] flat lane index of m_present[m]
+    const int* glob_cols;    // [nglob] flat lane index (null if nglob 0)
     const uint32_t* k_rep;   // [4, nrep]
     const uint32_t* k_msg;   // [4, nmsg]
+    const uint32_t* k_glob;  // [4, nglob] (null if nglob 0)
     const uint32_t* seeds;   // [4]
 };
 
@@ -87,6 +96,18 @@ __device__ __forceinline__ void slot_hash(const Layout& L, const int* st,
     h[3] = mix32(a3 + L.seeds[3]);
 }
 
+// adds the global row's hash to d (nothing without a global row)
+__device__ __forceinline__ void add_glob(const Layout& L, const int* st,
+                                         uint32_t d[4]) {
+    if (L.nglob == 0) return;
+    uint32_t a[4] = {0, 0, 0, 0};
+    for (int c = 0; c < L.nglob; ++c) {
+        const uint32_t v = (uint32_t)st[L.glob_cols[c]];
+        for (int w = 0; w < 4; ++w) a[w] += v * L.k_glob[w * L.nglob + c];
+    }
+    for (int w = 0; w < 4; ++w) d[w] += mix32(a[w] + L.seeds[w]);
+}
+
 // one thread per (state, row): rows 0..R-1 are replicas, R..R+M-1 slots
 __global__ void parts_kernel(Layout L, const int* __restrict__ flat, int B,
                              uint32_t* __restrict__ rep_h,
@@ -111,7 +132,8 @@ __global__ void parts_kernel(Layout L, const int* __restrict__ flat, int B,
     out[3] = h[3];
 }
 
-// one thread per state: total = sum of parts; fp = mix(mix(total)+seed)
+// one thread per state: total = sum of parts;
+// fp = mix(mix(total + glob) + seed)
 __global__ void total_kernel(Layout L, const int* __restrict__ flat, int B,
                              const uint32_t* __restrict__ rep_h,
                              const uint32_t* __restrict__ slot_h,
@@ -129,9 +151,12 @@ __global__ void total_kernel(Layout L, const int* __restrict__ flat, int B,
         for (int w = 0; w < 4; ++w)
             s[w] += slot_h[((size_t)b * L.M + m) * 4 + w] * p;
     }
-    for (int w = 0; w < 4; ++w) {
-        if (total) total[(size_t)b * 4 + w] = s[w];
-        if (fp) fp[(size_t)b * 4 + w] = mix32(mix32(s[w]) + L.seeds[w]);
+    if (total)
+        for (int w = 0; w < 4; ++w) total[(size_t)b * 4 + w] = s[w];
+    if (fp) {
+        add_glob(L, st, s);
+        for (int w = 0; w < 4; ++w)
+            fp[(size_t)b * 4 + w] = mix32(mix32(s[w]) + L.seeds[w]);
     }
 }
 
@@ -166,42 +191,49 @@ __global__ void incremental_kernel(
             d[w] += h[w] * sp;
         }
     }
+    add_glob(L, st, d);
     for (int w = 0; w < 4; ++w)
         fp[(size_t)i * 4 + w] = mix32(mix32(d[w]) + L.seeds[w]);
 }
 
-Layout make_layout(int lanes, int R, int M, int nrep, int nmsg,
+Layout make_layout(int lanes, int R, int M, int nrep, int nmsg, int nglob,
                    const void* rep_cols, const void* slot_cols,
-                   const void* pres_cols, const void* k_rep,
-                   const void* k_msg, const void* seeds) {
+                   const void* pres_cols, const void* glob_cols,
+                   const void* k_rep, const void* k_msg, const void* k_glob,
+                   const void* seeds) {
     Layout L;
     L.lanes = lanes;
     L.R = R;
     L.M = M;
     L.nrep = nrep;
     L.nmsg = nmsg;
+    L.nglob = nglob;
     L.rep_cols = (const int*)rep_cols;
     L.slot_cols = (const int*)slot_cols;
     L.pres_cols = (const int*)pres_cols;
+    L.glob_cols = (const int*)glob_cols;
     L.k_rep = (const uint32_t*)k_rep;
     L.k_msg = (const uint32_t*)k_msg;
+    L.k_glob = (const uint32_t*)k_glob;
     L.seeds = (const uint32_t*)seeds;
     return L;
 }
 
 }  // namespace
 
-#define TPUVSR_LAYOUT_ARGS                                               \
-    int lanes, int R, int M, int nrep, int nmsg, const void *rep_cols,  \
-        const void *slot_cols, const void *pres_cols, const void *k_rep, \
-        const void *k_msg, const void *seeds
-#define TPUVSR_LAYOUT \
-    make_layout(lanes, R, M, nrep, nmsg, rep_cols, slot_cols, pres_cols, \
-                k_rep, k_msg, seeds)
+#define TPUVSR_LAYOUT_ARGS                                              \
+    int lanes, int R, int M, int nrep, int nmsg, int nglob,            \
+        const void *rep_cols, const void *slot_cols,                   \
+        const void *pres_cols, const void *glob_cols,                  \
+        const void *k_rep, const void *k_msg, const void *k_glob,      \
+        const void *seeds
+#define TPUVSR_LAYOUT                                                   \
+    make_layout(lanes, R, M, nrep, nmsg, nglob, rep_cols, slot_cols,   \
+                pres_cols, glob_cols, k_rep, k_msg, k_glob, seeds)
 
 // flat: [B, lanes] int32 -> rep_h [B, R, 4], slot_h [B, M, 4], total
-// [B, 4] (pre-mix sums), and fp [B, 4] when fp is not null; total may
-// be null when only fp is wanted.
+// [B, 4] (pre-mix sums, global row left out), and fp [B, 4] when fp is
+// not null; total may be null when only fp is wanted.
 TPUVSR_EXPORT int tpuvsr_vsr_fp_parts(TPUVSR_LAYOUT_ARGS, const void* flat,
                                       int B, void* rep_h, void* slot_h,
                                       void* total, void* fp, void* stream) {

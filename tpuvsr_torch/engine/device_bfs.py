@@ -85,7 +85,6 @@ import torch
 from ..core.values import TLAError
 from ..device import resolve_device
 from ..models import registry
-from ..models.vsr import ERR_BAG_OVERFLOW
 from .. import kernels
 from .bfs import CheckResult
 from .canon import build_canon_spec, kernel_fold_order
@@ -97,8 +96,9 @@ from .tile import (C_DEAD, C_DEPTH, C_FP_COUNT, C_GEN, C_HALT, C_IDLE,
                    C_LEVEL_BASE, C_LVL_CUR, C_NEED, C_NEXT_CAP, C_N_FRONT,
                    C_NN, C_REASON, C_STOP, C_T, C_TILES, C_TP_CAP,
                    C_VIOL_AID, C_VIOL_LANE, C_VIOL_ROW, C_GROW_AID,
-                   CARRY_FIELDS, F_AFLAGS, R_BAG_GROW, R_DEADLOCK,
-                   R_EDGE_FLUSH, R_EXPAND_GROW, R_FPSET_GROW, R_NEXT_GROW,
+                   CARRY_FIELDS, ERR_BAG_OVERFLOW, F_AFLAGS, R_BAG_GROW,
+                   R_DEADLOCK, R_EDGE_FLUSH, R_EXPAND_GROW, R_FPSET_GROW,
+                   R_NEXT_GROW,
                    R_SLOT_ERR, R_VIOLATION, RUNNING, Segments,
                    commit_finish, commit_prefix, compact, level_step,
                    new_carry, queue_buffers)
@@ -179,6 +179,13 @@ class DeviceBFS:
                                                     max_msgs=max_msgs)
         kern = self.kern
         self._pk = kern.pk
+        # the model's bag-overflow flag; K8 knows the engine's bit only
+        # (a stub model that never fills a bag declares none)
+        self._bag_bit = getattr(kern, "ERR_BAG_OVERFLOW", ERR_BAG_OVERFLOW)
+        if self._bag_bit != ERR_BAG_OVERFLOW:
+            raise TLAError(
+                f"{type(kern).__name__}.ERR_BAG_OVERFLOW = {self._bag_bit}: "
+                f"the engine's commit reads bit {ERR_BAG_OVERFLOW}")
         names = kern.action_names
         tl = [self.tile * kern._lane_count(n) for n in names]
         if self.expand_caps is None:
@@ -347,8 +354,8 @@ class DeviceBFS:
             en2, aid_q = o["en2"], q["aid"].long()
             errv = torch.where(en2, o["err"], 0)
             viol = en2 & ~o["iok"] & (errv == 0)
-            bag = (errv & ERR_BAG_OVERFLOW) != 0
-            slot = (errv & ~ERR_BAG_OVERFLOW) != 0
+            bag = (errv & self._bag_bit) != 0
+            slot = (errv & ~self._bag_bit) != 0
             # the first action with a violation, a full bag or a slot
             # error, and the first violating item (queue order is action
             # order)

@@ -32,7 +32,6 @@ import numpy as np
 import torch
 
 from ..core.values import TLAError
-from ..models.vsr import ERR_BAG_OVERFLOW
 from .fpset import empty_gids, empty_table, insert_gids, lookup_gids
 from .paged_bfs import PagedBFS
 from .spill import _block_rows
@@ -198,7 +197,7 @@ class DeviceGraph:
         err = torch.where(ok, o["err"], 0)
         if bool((err != 0).any()):
             kind = ("bag overflow"
-                    if bool(((err & ERR_BAG_OVERFLOW) != 0).any())
+                    if bool(((err & eng._bag_bit) != 0).any())
                     else "slot error")
             raise TLAError(f"edge pass produced lane error ({kind}) on "
                            f"a successor the BFS accepted (engine bug)")

@@ -33,10 +33,15 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..models.vsr import ERR_BAG_OVERFLOW
 
 I64 = torch.int64
 I32 = torch.int32
+
+# the bag-overflow bit of a successor's err word, the engine's contract
+# with every model (models/vsr.py and models/st03.py use this bit, and
+# DeviceBFS refuses a kernel whose ERR_BAG_OVERFLOW differs); K8 holds
+# the same constant (csrc/tile_commit.cu); any other bit is a slot error
+ERR_BAG_OVERFLOW = 1
 
 # level-pass stop reasons (the JAX engine's codes)
 RUNNING = 0

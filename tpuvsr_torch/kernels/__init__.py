@@ -9,13 +9,13 @@ never loaded), and bound with ``ctypes``.  ``build()`` starts one
 
 The wrappers that call these kernels live beside their plain PyTorch
 versions (``engine/fpset.py``, ``engine/pack.py``, ``engine/tile.py``,
-``engine/edges.py``, ``engine/canon.py``, ``models/vsr_kernel.py``,
-``sim/rng.py``).  A wrapper sends a CPU tensor to the plain version and
-a CUDA tensor to ``launch()``, which raises when the C entry point
-reports a CUDA error and otherwise adds one to the kernel's launch
-count.  A launch recorded into a CUDA graph
-runs only when the graph replays: ``capture()`` keeps those launches
-apart and counts them at each replay.
+``engine/edges.py``, ``engine/canon.py``, ``models/fingerprint.py``,
+``models/vsr_kernel.py``, ``models/st03_kernel.py``, ``sim/rng.py``).
+A wrapper sends a CPU tensor to the plain version and a CUDA tensor to
+``launch()``, which raises when the C entry point reports a CUDA error
+and otherwise adds one to the kernel's launch count.  A launch recorded
+into a CUDA graph runs only when the graph replays: ``capture()`` keeps
+those launches apart and counts them at each replay.
 """
 
 from __future__ import annotations
@@ -76,12 +76,26 @@ KERNELS = {
                     "(+ :193 query_core)"),
     "edge_emit": ("edge_emit", "tpuvsr/engine/device_bfs.py:1030-1048 "
                   "_fused_body_factory edge block"),
+    "st03_fp_full": ("vsr_fingerprint",
+                     "tpuvsr/models/st03_kernel.py:841 fingerprint "
+                     "(+ :813 _glob_hash)"),
+    "st03_fp_parts": ("vsr_fingerprint",
+                      "tpuvsr/models/st03_kernel.py:847 parent_parts"),
+    "st03_fp_incremental": (
+        "vsr_fingerprint",
+        "tpuvsr/models/st03_kernel.py:879 fingerprint_incremental"),
+    "st03_guards": ("st03_guards", "tpuvsr/engine/device_bfs.py:398 "
+                    "_guard_matrix over tpuvsr/models/st03_kernel.py:"
+                    "578-710"),
+    "st03_actions": ("st03_actions", "tpuvsr/models/st03_kernel.py:261-570 "
+                     "act_* (+ :183-227 bag primitives, :723 lane_replica, "
+                     ":912-938 inv_*, :976 invariant_fn)"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
 # C entry point -> argument types ("p" pointer, "i" int, "q" long long,
 # "f" float)
-_LAYOUT = "iiiiipppppp"
+_LAYOUT = "iiiiii" + "pppppppp"
 _ENTRY = {
     "tpuvsr_fpset_insert": "pqppipp" + "p",
     "tpuvsr_dedup_batch": "ppippppqp" + "p",
@@ -102,6 +116,9 @@ _ENTRY = {
     "tpuvsr_fpset_store_gids": "pqppppi" + "p",
     "tpuvsr_fpset_probe": "pqpppi" + "ppp" + "p",
     "tpuvsr_edge_emit": "ppppi" + "piii" + "pppp" + "p",
+    "tpuvsr_st03_guards": "piii" + "iiiiiii" + "ppp" + "ppp" + "p",
+    "tpuvsr_st03_actions": "pipppi" + "p" + "iiiii" + "iii" + "p"
+                           + "ppppppp" + "p",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
           "f": ctypes.c_float}

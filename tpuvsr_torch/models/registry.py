@@ -1,10 +1,11 @@
 """Model registry: which modules have a hand model kernel in the port,
 and how to build (codec, kernel) for a binding.
 
-The counterpart of ``tpuvsr/models/registry.py`` for the ``VSR`` module
-only, with an identity-only permutation table (``fold_symmetry=False``,
-what the device BFS asks for: symmetry is reduced by
-``engine/canon.py``, not folded into the fingerprint).  The kernel
+The counterpart of ``tpuvsr/models/registry.py`` for the modules
+``VSR`` and ``VR_STATE_TRANSFER`` (ST03), with an identity-only
+permutation table (``fold_symmetry=False``, what the device BFS asks
+for: symmetry is reduced by ``engine/canon.py``, not folded into the
+fingerprint).  The kernel
 carries the binding's pack spec: the port's fingerprint kernel reads
 states in the packed layout's flat lane order.
 """
@@ -34,15 +35,27 @@ def value_perm_table(binding, codec, fold_symmetry=False):
     return np.stack(rows)
 
 
+def _resolve(module):
+    """(codec class, kernel class) of a module with a hand model kernel in
+    the port (``tpuvsr/models/registry.py:_resolve``, for the modules
+    ported so far)."""
+    if module == "VSR":
+        from .vsr import VSRCodec
+        from .vsr_kernel import VSRKernel
+        return VSRCodec, VSRKernel
+    if module == "VR_STATE_TRANSFER":
+        from .st03 import ST03Codec
+        from .st03_kernel import ST03Kernel
+        return ST03Codec, ST03Kernel
+    raise KeyError(f"no hand model kernel for module {module!r} in the port")
+
+
 def make_model(binding, max_msgs=None):
     """(codec, kernel) for a bound spec (``engine/spec.SpecBinding``)."""
-    if binding.module != "VSR":
-        raise KeyError(f"no hand model kernel for module "
-                       f"{binding.module!r} in the port")
-    from .vsr import VSRCodec
-    from .vsr_kernel import VSRKernel
+    codec_cls, kern_cls = _resolve(binding.module)
     constants = binding.cfg.constants
-    codec = VSRCodec(constants, max_msgs=max_msgs)
-    pk = build_pack_spec(codec, ranges=derive_ranges_from(constants, "VSR"))
-    return codec, VSRKernel(codec, perms=value_perm_table(binding, codec),
-                            pack_spec=pk)
+    codec = codec_cls(constants, max_msgs=max_msgs)
+    pk = build_pack_spec(codec, ranges=derive_ranges_from(constants,
+                                                          binding.module))
+    return codec, kern_cls(codec, perms=value_perm_table(binding, codec),
+                           pack_spec=pk)

@@ -1,0 +1,382 @@
+"""Dense state layout for VR_STATE_TRANSFER (reference: ST03,
+analysis/03-state-transfer/VR_STATE_TRANSFER.tla).
+
+A copy of ``tpuvsr/models/st03.py`` (``ST03Shape``, ``shape_from_cfg``,
+``ST03Codec``) with two changes: ``pad_msgs`` pads torch tensors, and
+``init_dense()`` builds ST03's ``Init`` state densely (the port has no
+interpreter to enumerate it).
+
+Same struct-of-arrays discipline as the VSR layout (vsr.py), with the
+ST03-specific simplifications and additions:
+
+* Log entries are ``[operation: Values]`` (ST03:105-106) — one value id
+  per entry, so logs are plain ``[.., MAX_OPS]`` int planes and
+  ``rep_op_number[r] = Len(rep_log[r])`` always holds — no separate
+  length column.
+* No per-replica received-message sets: the quorums count count-0 bag
+  tombstones directly (ST03:595-600, 703), so the only overflow the
+  layout can hit is the bag slot table itself.
+* ``AnyDest`` addressing (ST03:65-67, 213-218): dest column value
+  ANYDEST (-1); only GetState messages carry it.
+* ``StateTransfer`` is a third replica status (ST03:52-54).
+* ``no_progress``/``no_progress_ctr`` (ST03:84-87) are inside the VIEW
+  projection (ST03:97), unlike aux_svc/aux_client_acked.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..core.values import FnVal, TLAError, mk_record, value_key
+from .vsr import (H_COMMIT, H_DEST, H_FIRST, H_LNV, H_OP, H_SRC, H_TYPE,
+                  H_VIEW, H_X, NHDR)
+
+# Status encoding (ST03:52-54)
+NORMAL, VIEWCHANGE, STATETRANSFER = 0, 1, 2
+STATUS_NAMES = ("Normal", "ViewChange", "StateTransfer")
+
+# Message-type encoding; 0 marks an empty slot (ST03:57-63)
+(M_NONE, M_PREPARE, M_PREPAREOK, M_SVC, M_DVC, M_SV, M_GETSTATE,
+ M_NEWSTATE) = range(8)
+MSGTYPE_NAMES = {
+    M_PREPARE: "PrepareMsg", M_PREPAREOK: "PrepareOkMsg",
+    M_SVC: "StartViewChangeMsg", M_DVC: "DoViewChangeMsg",
+    M_SV: "StartViewMsg", M_GETSTATE: "GetStateMsg",
+    M_NEWSTATE: "NewStateMsg",
+}
+
+ANYDEST = -1
+
+ERR_BAG_OVERFLOW = 1
+
+
+@dataclass(frozen=True)
+class ST03Shape:
+    R: int
+    V: int
+    MAX_OPS: int
+    MAX_MSGS: int
+    MAX_VIEW: int
+    timer_limit: int
+    np_limit: int
+
+    @property
+    def f(self):
+        return self.R // 2
+
+
+def shape_from_cfg(constants, max_msgs=None):
+    R = constants["ReplicaCount"]
+    V = len(constants["Values"])
+    T = constants["StartViewOnTimerLimit"]
+    np_limit = constants.get("NoProgressChangeLimit", 0)
+    if max_msgs is None:
+        max_msgs = 8 * (1 + T)
+    return ST03Shape(R=R, V=V, MAX_OPS=V, MAX_MSGS=max_msgs,
+                     MAX_VIEW=1 + T, timer_limit=T, np_limit=np_limit)
+
+
+class ST03Codec:
+    """Host-side bridge between TLC-style state dicts and the dense ST03
+    layout (same interface as vsr.VSRCodec)."""
+
+    NHDR = NHDR
+
+    def __init__(self, constants, shape: ST03Shape = None, max_msgs=None):
+        self.constants = constants
+        self.shape = shape or shape_from_cfg(constants, max_msgs=max_msgs)
+        values = sorted(constants["Values"], key=value_key)
+        self.value_id = {v: i + 1 for i, v in enumerate(values)}
+        self.values = values
+        self.nil = constants["Nil"]
+        self.anydest = constants.get("AnyDest")
+        self.status_id = {constants["Normal"]: NORMAL,
+                          constants["ViewChange"]: VIEWCHANGE}
+        stf = constants.get("StateTransfer")
+        if stf is not None:
+            self.status_id[stf] = STATETRANSFER
+        self.status_mv = {i: mv for mv, i in self.status_id.items()}
+        self.mtype_id = {constants[cname]: code
+                         for code, cname in MSGTYPE_NAMES.items()
+                         if cname in constants}
+        self.mtype_mv = {i: mv for mv, i in self.mtype_id.items()}
+
+    # -- empty dense state -------------------------------------------------
+    def zero_state(self):
+        s = self.shape
+        z = lambda *sh: np.zeros(sh, np.int32)
+        return {
+            "status": z(s.R), "view": z(s.R), "op": z(s.R),
+            "commit": z(s.R), "lnv": z(s.R),
+            "log": z(s.R, s.MAX_OPS),
+            "peer_op": z(s.R, s.R),
+            "sent_dvc": z(s.R), "sent_sv": z(s.R),
+            "no_prog": z(s.R), "np_ctr": z(),
+            "m_present": z(s.MAX_MSGS), "m_count": z(s.MAX_MSGS),
+            "m_hdr": z(s.MAX_MSGS, self.NHDR),
+            "m_entry": z(s.MAX_MSGS),
+            "m_log": z(s.MAX_MSGS, s.MAX_OPS),
+            "aux_svc": z(), "aux_acked": z(s.V),
+            "err": z(),
+        }
+
+    MSG_KEYS = ("m_present", "m_count", "m_hdr", "m_entry", "m_log")
+
+    # -- packed-frontier bit budgets (engine/pack.py) ----------------------
+    @staticmethod
+    def _range_hi(ranges, name, default):
+        r = ranges.get(name)
+        return max(default, int(r[1])) if r else default
+
+    def _entry_code_hi(self, view_hi):
+        """Largest packed log-entry code this layout stores (plain value
+        ids for ST03)."""
+        return self.shape.V
+
+    def _x_hi(self, ranges):
+        """Largest recovery nonce in the H_X header column; ST03 never
+        writes H_X."""
+        return 0
+
+    def _hdr_bounds(self, ranges, view_hi, ops_hi):
+        s = self.shape
+        x_hi = self._x_hi(ranges)
+        b = [None] * self.NHDR
+        b[H_TYPE] = (0, max(self.mtype_id.values(), default=7))
+        b[H_VIEW] = (0, view_hi)
+        b[H_OP] = (-1, ops_hi + 1)
+        b[H_COMMIT] = (-1, ops_hi)
+        b[H_DEST] = (-1, s.R)          # ANYDEST sentinel
+        b[H_SRC] = (0, s.R)
+        b[H_X] = (0, max(1, x_hi)) if x_hi is not None else None
+        b[H_FIRST] = (-1, ops_hi + 1)
+        b[H_LNV] = (0, view_hi)
+        # unset columns (None) keep raw 32-bit lanes
+        return [(0, (1 << 31)) if c is None else c for c in b]
+
+    def plane_bounds(self, ranges):
+        """Plane key -> (lo, hi) or per-column bound list, consumed by
+        engine/pack.build_pack_spec; ``ranges`` is the widths table
+        (analysis/widths.derive_ranges_from)."""
+        s = self.shape
+        view = self._range_hi(ranges, "view_number", s.MAX_VIEW)
+        ops = self._range_hi(ranges, "op_number", s.MAX_OPS)
+        ent = self._entry_code_hi(view)
+        return {
+            "status": (0, max(self.status_id.values())),
+            "view": (0, view), "op": (0, ops), "commit": (0, ops),
+            "lnv": (0, view),
+            "log": (0, ent), "peer_op": (0, ops),
+            "sent_dvc": (0, 1), "sent_sv": (0, 1), "no_prog": (0, 1),
+            "np_ctr": (0, max(1, s.np_limit)),
+            "m_present": (0, 1),
+            "m_hdr": self._hdr_bounds(ranges, view, ops),
+            "m_entry": (0, max(1, ent)), "m_log": (0, ent),
+            "aux_svc": (0, max(1, s.timer_limit)),
+            "aux_acked": (0, 2),
+            "err": (0, 7),
+        }
+
+    def pad_msgs(self, dense, old_max_msgs):
+        """Grow the message table of a batch from ``old_max_msgs`` slots
+        to this codec's MAX_MSGS (zero padding is content-neutral, as in
+        vsr.VSRCodec.pad_msgs).  Takes numpy arrays or torch tensors."""
+        import torch
+        new = self.shape.MAX_MSGS
+        out = dict(dense)
+        for k in self.MSG_KEYS:
+            v = dense[k]
+            shape = list(v.shape)
+            shape[1] = new - old_max_msgs
+            if isinstance(v, np.ndarray):
+                out[k] = np.concatenate([v, np.zeros(shape, v.dtype)],
+                                        axis=1)
+            else:
+                out[k] = torch.cat([v, torch.zeros(shape, dtype=v.dtype,
+                                                   device=v.device)], dim=1)
+        return out
+
+    # -- Init ----------------------------------------------------------
+    def init_dense(self):
+        """ST03's ``Init`` as a dense state: every replica Normal in view
+        1 with an empty log, no message, no_progress all FALSE and every
+        counter 0 — all zeros except ``view``.  The repository holds no
+        VR_STATE_TRANSFER.tla; the evidence for this state is that a
+        level BFS of the JAX ST03Kernel from it reaches the fixpoint
+        scripts/fixpoints.json records for VR_STATE_TRANSFER (R=3,
+        Values={v1}, StartViewOnTimerLimit=1: 42,753 distinct, 106,794
+        generated, diameter 24), which the interpreter measured from
+        the spec's own Init."""
+        d = self.zero_state()
+        d["view"][:] = 1
+        return d
+
+    # -- encode ------------------------------------------------------------
+    def _enc_entry(self, e: FnVal) -> int:
+        return self.value_id[e.apply("operation")]
+
+    def _enc_log(self, log: FnVal, first_op=1):
+        row = np.zeros(self.shape.MAX_OPS, np.int32)
+        for i in range(len(log)):
+            row[i] = self._enc_entry(log.apply(first_op + i))
+        return row
+
+    def _enc_dest(self, dest):
+        return ANYDEST if (self.anydest is not None
+                           and dest is self.anydest) else dest
+
+    def encode_msg_row(self, m: FnVal):
+        hdr = np.zeros(self.NHDR, np.int32)
+        entry = 0
+        log = np.zeros(self.shape.MAX_OPS, np.int32)
+        t = self.mtype_id[m.apply("type")]
+        get = m.get
+        hdr[H_TYPE] = t
+        hdr[H_VIEW] = get("view_number")
+        hdr[H_DEST] = self._enc_dest(get("dest"))
+        hdr[H_SRC] = get("source")
+        if t == M_PREPARE:
+            hdr[H_OP] = get("op_number")
+            hdr[H_COMMIT] = get("commit_number")
+            entry = self._enc_entry(get("message"))
+        elif t in (M_PREPAREOK, M_GETSTATE):
+            hdr[H_OP] = get("op_number")
+        elif t == M_SVC:
+            pass
+        elif t == M_DVC:
+            hdr[H_OP] = get("op_number")
+            hdr[H_COMMIT] = get("commit_number")
+            hdr[H_LNV] = get("last_normal_vn")
+            log = self._enc_log(get("log"))
+        elif t == M_SV:
+            hdr[H_OP] = get("op_number")
+            hdr[H_COMMIT] = get("commit_number")
+            log = self._enc_log(get("log"))
+        elif t == M_NEWSTATE:
+            hdr[H_OP] = get("op_number")
+            hdr[H_COMMIT] = get("commit_number")
+            hdr[H_FIRST] = get("first_op")
+            log = self._enc_log(get("log"), first_op=get("first_op"))
+        else:
+            raise TLAError(f"unencodable message type {m.apply('type')}")
+        return hdr, entry, log
+
+    def _store_msg_row(self, d, k, m):
+        hdr, entry, log = self.encode_msg_row(m)
+        d["m_hdr"][k] = hdr
+        d["m_entry"][k] = entry
+        d["m_log"][k] = log
+
+    def encode(self, st: dict):
+        s = self.shape
+        d = self.zero_state()
+        for r in range(1, s.R + 1):
+            i = r - 1
+            d["status"][i] = self.status_id[st["rep_status"].apply(r)]
+            d["view"][i] = st["rep_view_number"].apply(r)
+            d["op"][i] = st["rep_op_number"].apply(r)
+            d["commit"][i] = st["rep_commit_number"].apply(r)
+            d["lnv"][i] = st["rep_last_normal_view"].apply(r)
+            log = st["rep_log"].apply(r)
+            if len(log) != d["op"][i]:
+                raise TLAError("ST03 layout invariant violated: "
+                               "Len(rep_log) != rep_op_number")
+            d["log"][i] = self._enc_log(log)
+            for r2 in range(1, s.R + 1):
+                d["peer_op"][i][r2 - 1] = \
+                    st["rep_peer_op_number"].apply(r).apply(r2)
+            d["sent_dvc"][i] = 1 if st["rep_sent_dvc"].apply(r) else 0
+            d["sent_sv"][i] = 1 if st["rep_sent_sv"].apply(r) else 0
+            d["no_prog"][i] = 1 if st["no_progress"].apply(r) else 0
+        d["np_ctr"][()] = st["no_progress_ctr"]
+        for k, (m, cnt) in enumerate(st["messages"].items):
+            if k >= s.MAX_MSGS:
+                raise TLAError(f"message bag exceeds MAX_MSGS={s.MAX_MSGS}")
+            d["m_present"][k] = 1
+            d["m_count"][k] = cnt
+            self._store_msg_row(d, k, m)
+        d["aux_svc"][()] = st["aux_svc"]
+        for v, acked in st["aux_client_acked"].items:
+            d["aux_acked"][self.value_id[v] - 1] = 2 if acked else 1
+        return d
+
+    # -- decode ------------------------------------------------------------
+    def _dec_entry(self, vid):
+        return mk_record(operation=self.values[int(vid) - 1])
+
+    def _dec_log(self, row, n, first_op=1):
+        return FnVal((first_op + i, self._dec_entry(row[i]))
+                     for i in range(int(n)))
+
+    def _dec_dest(self, dest):
+        return self.anydest if int(dest) == ANYDEST else int(dest)
+
+    def decode_msg_row(self, hdr, entry, log):
+        t = int(hdr[H_TYPE])
+        mv = self.mtype_mv[t]
+        f = {"type": mv, "view_number": int(hdr[H_VIEW]),
+             "dest": self._dec_dest(hdr[H_DEST]), "source": int(hdr[H_SRC])}
+        if t == M_PREPARE:
+            f.update(op_number=int(hdr[H_OP]),
+                     commit_number=int(hdr[H_COMMIT]),
+                     message=self._dec_entry(entry))
+        elif t in (M_PREPAREOK, M_GETSTATE):
+            f.update(op_number=int(hdr[H_OP]))
+        elif t == M_SVC:
+            pass
+        elif t == M_DVC:
+            f.update(op_number=int(hdr[H_OP]),
+                     commit_number=int(hdr[H_COMMIT]),
+                     last_normal_vn=int(hdr[H_LNV]),
+                     log=self._dec_log(log, hdr[H_OP]))
+        elif t == M_SV:
+            f.update(op_number=int(hdr[H_OP]),
+                     commit_number=int(hdr[H_COMMIT]),
+                     log=self._dec_log(log, hdr[H_OP]))
+        elif t == M_NEWSTATE:
+            first = int(hdr[H_FIRST])
+            f.update(op_number=int(hdr[H_OP]),
+                     commit_number=int(hdr[H_COMMIT]), first_op=first,
+                     log=self._dec_log(log, int(hdr[H_OP]) - first + 1,
+                                       first_op=first))
+        else:
+            raise TLAError(f"bad message type code {t}")
+        return FnVal(f.items())
+
+    def decode(self, d: dict):
+        s = self.shape
+        d = {k: np.asarray(v) for k, v in d.items()}
+        reps = range(1, s.R + 1)
+        st = {}
+        st["replicas"] = frozenset(reps)
+        st["rep_status"] = FnVal((r, self.status_mv[int(d["status"][r - 1])])
+                                 for r in reps)
+        for name, key in [("rep_view_number", "view"),
+                          ("rep_op_number", "op"),
+                          ("rep_commit_number", "commit"),
+                          ("rep_last_normal_view", "lnv")]:
+            st[name] = FnVal((r, int(d[key][r - 1])) for r in reps)
+        st["rep_log"] = FnVal(
+            (r, self._dec_log(d["log"][r - 1], d["op"][r - 1]))
+            for r in reps)
+        st["rep_peer_op_number"] = FnVal(
+            (r, FnVal((r2, int(d["peer_op"][r - 1][r2 - 1])) for r2 in reps))
+            for r in reps)
+        st["rep_sent_dvc"] = FnVal((r, bool(d["sent_dvc"][r - 1]))
+                                   for r in reps)
+        st["rep_sent_sv"] = FnVal((r, bool(d["sent_sv"][r - 1]))
+                                  for r in reps)
+        st["no_progress"] = FnVal((r, bool(d["no_prog"][r - 1]))
+                                  for r in reps)
+        st["no_progress_ctr"] = int(d["np_ctr"])
+        st["messages"] = FnVal(
+            (self.decode_msg_row(d["m_hdr"][k], d["m_entry"][k],
+                                 d["m_log"][k]), int(d["m_count"][k]))
+            for k in range(s.MAX_MSGS) if d["m_present"][k])
+        st["aux_svc"] = int(d["aux_svc"])
+        st["aux_client_acked"] = FnVal(
+            (self.values[i], int(d["aux_acked"][i]) == 2)
+            for i in range(s.V) if d["aux_acked"][i])
+        return st

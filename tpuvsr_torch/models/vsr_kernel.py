@@ -16,8 +16,9 @@ JAX kernel (see its docstring); the arithmetic is identical, so guards,
 successors, fingerprints and invariants are bit-identical to it.
 
 K3: ``fingerprint``, ``parent_parts`` and ``fingerprint_incremental``
-send CUDA tensors to ``csrc/vsr_fingerprint.cu`` and CPU tensors to
-their plain versions in this module.  The engine builds the kernel with
+(``models/fingerprint.RowFingerprint``) send CUDA tensors to
+``csrc/vsr_fingerprint.cu`` and CPU tensors to their plain versions.
+The engine builds the kernel with
 an identity-only permutation table (``fold_symmetry=False``), which is
 the only table the port supports: symmetry is reduced before the
 fingerprint, by ``engine/canon.py`` through ``SYM_PLANES`` and
@@ -45,8 +46,7 @@ from torch.profiler import record_function
 
 from .. import kernels
 from ..engine.canon import relabel
-from ..engine.fpset import mul32
-from ..engine.pack import MASK32, to_i32, to_u32
+from .fingerprint import RowFingerprint
 from .vsr import (E_CLIENT, E_OPER, E_REQ, E_VIEW, ERR_BAG_OVERFLOW,
                   ERR_DVC_OVERFLOW, ERR_REC_OVERFLOW, H_COMMIT, H_DEST,
                   H_FIRST, H_LNV, H_OP, H_SRC, H_TYPE, H_VIEW, H_X,
@@ -176,18 +176,9 @@ def _lex_less(a, b):
     return ne.any(dim=1) & (ai < bi)
 
 
-def _mix32(x):
-    """uint32 finalizer on int64 values in [0, 2^32)."""
-    x = x ^ (x >> 16)
-    x = mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = mul32(x, 0xC2B2AE35)
-    x = x ^ (x >> 16)
-    return x
-
-
-class VSRKernel:
+class VSRKernel(RowFingerprint):
     action_names = ACTION_NAMES
+    ERR_BAG_OVERFLOW = ERR_BAG_OVERFLOW
     REP_KEYS = REP_KEYS
     MSG_KEYS = MSG_KEYS
     AUX_KEYS = AUX_KEYS
@@ -235,6 +226,7 @@ class VSRKernel:
         self._k_msg = (rng.integers(1, 2**32, size=(4, nmsg),
                                     dtype=np.uint64)
                        .astype(np.uint32) | 1)
+        self._k_glob = None
         self._seeds = (rng.integers(1, 2**32, size=(4,), dtype=np.uint64)
                        .astype(np.uint32))
         self.pk = pack_spec
@@ -1306,183 +1298,13 @@ class VSRKernel:
         return succs, torch.cat(ens, dim=1)
 
     # ==================================================================
-    # K3: fingerprint (VIEW projection excludes aux vars, VSR.tla:149)
+    # K3 (models/fingerprint.py): the VIEW projection excludes aux vars
+    # (VSR.tla:149); no global row
     # ==================================================================
-    def _build_row_tables(self, pk):
-        """Flat-lane index of every replica-row and slot-row column."""
-        sp = {k: (a, s) for k, s, a, _e in pk._splits}
-        R, M = self.R, self.M
-        rep = [[-1] for _ in range(R)]
-        for k in REP_KEYS:
-            a, s = sp[k]
-            per = int(np.prod(s)) // R
-            for r in range(R):
-                rep[r].extend(range(a + r * per, a + (r + 1) * per))
-        slot = [[] for _ in range(M)]
-        for k in ("m_hdr", "m_entry", "m_log", "m_log_len", "m_has_log",
-                  "m_count"):
-            a, s = sp[k]
-            per = int(np.prod(s)) // M
-            for m in range(M):
-                slot[m].extend(range(a + m * per, a + (m + 1) * per))
-        self._rep_cols = np.asarray(rep, np.int32)
-        self._slot_cols = np.asarray(slot, np.int32)
-        self._pres_cols = np.arange(M, dtype=np.int32) + sp["m_present"][0]
-        if self._rep_cols.shape[1] != self.nrep or \
-                self._slot_cols.shape[1] != self.nmsg:
-            raise ValueError("pack layout does not match the kernel rows")
-
-    def fp_tables(self, device):
-        key = str(torch.device(device))
-        t = self._fp_tables.get(key)
-        if t is None:
-            t = {"rep_cols": torch.as_tensor(self._rep_cols),
-                 "slot_cols": torch.as_tensor(self._slot_cols),
-                 "pres_cols": torch.as_tensor(self._pres_cols),
-                 "k_rep": torch.as_tensor(self._k_rep.view(np.int32)),
-                 "k_msg": torch.as_tensor(self._k_msg.view(np.int32)),
-                 "seeds": torch.as_tensor(self._seeds.view(np.int32))}
-            t = {k: v.to(device) for k, v in t.items()}
-            self._fp_tables[key] = t
-        return t
-
-    def _layout_args(self, t, lanes):
-        return (lanes, self.R, self.M, self.nrep, self.nmsg,
-                t["rep_cols"].data_ptr(), t["slot_cols"].data_ptr(),
-                t["pres_cols"].data_ptr(), t["k_rep"].data_ptr(),
-                t["k_msg"].data_ptr(), t["seeds"].data_ptr())
-
-    # -- plain versions (any device) -----------------------------------
-    def _row_hash(self, vals, k, seeds):
-        """[..., n] uint32 values (int64) x [4, n] coefficients ->
-        [..., 4] mix32(sum + seed)."""
-        acc = mul32(vals[..., None, :], k).sum(dim=-1) & MASK32
-        return _mix32((acc + seeds) & MASK32)
-
-    def _rep_vals(self, flat, t, rows):
-        """Values of replica rows ``rows`` ([B, K] int64) of each state."""
-        cols = t["rep_cols"].long()[rows]                    # [B, K, nrep]
-        vals = to_u32(flat.gather(
-            1, cols.clamp(min=0).reshape(flat.shape[0], -1))).reshape(
-            cols.shape)
-        return torch.where(cols < 0, rows[:, :, None], vals)
-
-    def _slot_vals(self, flat, t, slots):
-        cols = t["slot_cols"].long()[slots]                  # [B, K, nmsg]
-        return to_u32(flat.gather(
-            1, cols.reshape(flat.shape[0], -1))).reshape(cols.shape)
-
-    def parent_parts_plain(self, flat):
-        t = self.fp_tables(flat.device)
-        B, dev = flat.shape[0], flat.device
-        k_rep, k_msg = to_u32(t["k_rep"]), to_u32(t["k_msg"])
-        seeds = to_u32(t["seeds"])
-        reps = torch.arange(self.R, device=dev).expand(B, -1)
-        slots = torch.arange(self.M, device=dev).expand(B, -1)
-        rep_h = self._row_hash(self._rep_vals(flat, t, reps), k_rep, seeds)
-        slot_h = self._row_hash(self._slot_vals(flat, t, slots), k_msg,
-                                seeds)
-        pres = to_u32(flat[:, t["pres_cols"].long()])        # [B, M]
-        total = (rep_h.sum(dim=1)
-                 + mul32(slot_h, pres[:, :, None]).sum(dim=1)) & MASK32
-        return to_i32(rep_h), to_i32(slot_h), to_i32(total)
-
-    def _finish_fp(self, total, seeds):
-        return to_i32(_mix32((_mix32(total) + seeds) & MASK32))
-
-    def fingerprint_plain(self, flat):
-        _r, _s, total = self.parent_parts_plain(flat)
-        return self._finish_fp(to_u32(total),
-                               to_u32(self.fp_tables(flat.device)["seeds"]))
-
-    def fingerprint_incremental_plain(self, succ, ri, ts, pidx, parent,
-                                      parts):
-        t = self.fp_tables(succ.device)
-        k_rep, k_msg = to_u32(t["k_rep"]), to_u32(t["k_msg"])
-        seeds = to_u32(t["seeds"])
-        rep_h, slot_h, total = (to_u32(x) for x in parts)
-        p, r = pidx.long(), ri.long()
-        d = total[p] - rep_h[p, r]
-        d = d + self._row_hash(self._rep_vals(succ, t, r[:, None]),
-                               k_rep, seeds)[:, 0]
-        ok = ts >= 0
-        sc = ts.long().clamp(0, self.M - 1)                   # [n, nts]
-        pcols = t["pres_cols"].long()[sc]
-        pp = to_u32(parent[p].gather(1, pcols))
-        sp = to_u32(succ.gather(1, pcols))
-        new_h = self._row_hash(self._slot_vals(succ, t, sc), k_msg, seeds)
-        old = mul32(slot_h[p[:, None], sc], pp[:, :, None])
-        new = mul32(new_h, sp[:, :, None])
-        d = d + torch.where(ok[:, :, None], new - old, 0).sum(dim=1)
-        return self._finish_fp(d & MASK32, seeds)
-
-    # -- wrappers --------------------------------------------------------
-    def parent_parts(self, flat):
-        """[B, lanes] int32 states -> (rep_h [B, R, 4], slot_h [B, M, 4],
-        total [B, 4]) int32 words: the per-row hashes and pre-mix sums
-        the incremental fingerprint starts from."""
-        if flat.device.type == "cpu":
-            return self.parent_parts_plain(flat)
-        return self._parts_kernel(flat, "vsr_fp_parts", want_fp=False)
-
-    def fingerprint(self, flat):
-        """[B, lanes] int32 states -> [B, 4] int32 fingerprint words."""
-        if flat.device.type == "cpu":
-            return self.fingerprint_plain(flat)
-        return self._parts_kernel(flat, "vsr_fp_full", want_fp=True)
-
-    def _parts_kernel(self, flat, name, want_fp):
-        t = self.fp_tables(flat.device)
-        B, dev = flat.shape[0], flat.device
-        rep_h = torch.empty((B, self.R, 4), dtype=I32, device=dev)
-        slot_h = torch.empty((B, self.M, 4), dtype=I32, device=dev)
-        total = (None if want_fp else
-                 torch.empty((B, 4), dtype=I32, device=dev))
-        fp = torch.empty((B, 4), dtype=I32, device=dev) if want_fp else None
-        kernels.launch(
-            name, "tpuvsr_vsr_fp_parts",
-            *self._layout_args(t, flat.shape[1]),
-            kernels.check(flat, "flat", I32, (B, self.pk.lanes)), B,
-            rep_h.data_ptr(), slot_h.data_ptr(),
-            None if total is None else total.data_ptr(),
-            None if fp is None else fp.data_ptr(),
-            kernels.stream_of(flat))
-        return fp if want_fp else (rep_h, slot_h, total)
-
-    def fingerprint_incremental(self, succ, ri, ts, pidx, parent, parts):
-        """Successor fingerprints from their parents' parts: ``succ``
-        [n, lanes] successors, ``ri`` [n] the replica each mutated,
-        ``ts`` [n, R+1] the touched slots (-1 padded), ``pidx`` [n] the
-        parent row in ``parent`` [T, lanes] whose ``parent_parts`` are
-        ``parts``.  Equal to ``fingerprint(succ)``."""
-        if succ.device.type == "cpu":
-            return self.fingerprint_incremental_plain(succ, ri, ts, pidx,
-                                                      parent, parts)
-        return self._incremental_kernel(succ, ri, ts, pidx, parent, parts)
-
-    def _incremental_kernel(self, succ, ri, ts, pidx, parent, parts):
-        t = self.fp_tables(succ.device)
-        n, lanes = succ.shape
-        T = parent.shape[0]
-        rep_h, slot_h, total = parts
-        ck = kernels.check
-        fp = torch.empty((n, 4), dtype=I32, device=succ.device)
-        kernels.launch(
-            "vsr_fp_incremental", "tpuvsr_vsr_fp_incremental",
-            *self._layout_args(t, lanes), ck(succ, "succ", I32, (n, lanes)),
-            n, ck(ri, "ri", I32, (n,)),
-            ck(ts, "ts", I32, (n, self.R + 1)), self.R + 1,
-            ck(pidx, "pidx", I32, (n,)),
-            ck(parent, "parent", I32, (T, lanes)),
-            ck(rep_h, "rep_h", I32, (T, self.R, 4)),
-            ck(slot_h, "slot_h", I32, (T, self.M, 4)),
-            ck(total, "total", I32, (T, 4)), fp.data_ptr(),
-            kernels.stream_of(succ))
-        return fp
-
-    def fingerprint_batch(self, batch):
-        """Dense batch dict -> [B, 4] int32 fingerprints."""
-        return self.fingerprint(self.pk.flatten(batch).contiguous())
+    FP_KERNELS = {"full": "vsr_fp_full", "parts": "vsr_fp_parts",
+                  "incremental": "vsr_fp_incremental"}
+    SLOT_KEYS = ("m_hdr", "m_entry", "m_log", "m_log_len", "m_has_log",
+                 "m_count")
 
     # ==================================================================
     # invariants (VSR.tla:926-952), batched: st -> [B] bool
