@@ -139,6 +139,37 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         VR_STATE_TRANSFER_shipped.cfg to depth 16: the levels through
         the JAX record's depth the record's (ST03_SHIPPED_LEVELS), and
         all levels of the two runs equal;
+  11. the family's other models, A01 (VR_ASSUME_NEWVIEWCHANGE), I01
+     (VR_INC_RESEND) and AS04 (VR_APP_STATE), each on its own
+     instantiation of K13, K14 and K3 (tile 128, 64 tiles a chunk, 2^26
+     FPSet slots; launch counts reset just before each run and read just
+     after, and in each run the model's K13, K14 and K3 launched, the
+     other models' kernels, the VSR kernels and the family's plain guard
+     and action functions not), in turn:
+     a. an untimed recording run() of tpuvsr_torch/configs/
+        <module>_small.cfg to its fixpoint (scripts/fixpoints.json: A01
+        42,753 / 106,794 / 24, I01 52,635 / 135,162 / 24, AS04 42,738 /
+        85,336 / 24) with the levels of FAMILY; it keeps the largest
+        inputs of K13, K14 and K3 (full, parts, incremental);
+     b. the model's K13, K14 and K3 held bit for bit against their plain
+        versions on those inputs, each timed after an L2 flush with its
+        bound;
+     c. the timed run_fused on the same cfg to its fixpoint: 11a's
+        levels, totals and trace-pointer tables; it prints wall,
+        distinct/s, host reads, graph captures, growth pauses and peak
+        memory;
+     d. <module>_shipped.cfg through run_fused to depth 16 and run() to
+        depth 13: the levels through depth 8 the JAX record's, run()'s
+        levels run_fused()'s;
+     e. an untimed recording run() of the shipped constants to the
+        model's ``cover_depth`` (A01 and I01 11, AS04 12) that keeps, for
+        each action, the K13 and K14 call in which its lanes were enabled
+        most; on those inputs K13, K14 (under the cfg's invariants and
+        under each of INVARIANT_FNS alone, ReceivedDVCsAllSameView
+        included) and K3's full fingerprint of the successors held bit
+        for bit against their plain versions, with every action but
+        NoProgressChange enabled in them (I01's ResendSVC, AS04's
+        SendGetState, ReceiveGetState and ReceiveNewState);
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
@@ -232,6 +263,45 @@ ST03_SHIPPED_LEVELS = [1, 4, 17, 63, 238, 851, 2814, 8564, 24012, 62231,
                        149418, 333593]
 # phase 10d's depth: run_fused takes 10-60 s there on the card
 ST03_SHIPPED_DEPTH = 16
+# phase 11: the family's other models.  The small cfgs' fixpoints are
+# scripts/fixpoints.json's (distinct, generated, diameter); the levels,
+# small and shipped, are those of a host-driven level BFS over the JAX
+# package's kernel from init_dense on the CPU (as ST03's above; the
+# shipped ones through depth 8, at MAX_MSGS 48; tests/test_torch_a01.py
+# holds the port's CPU runs to depths 8 and 5 against the same BFS)
+FAMILY = {
+    "A01": {
+        "module": "VR_ASSUME_NEWVIEWCHANGE",
+        "fixpoint": (42753, 106794, 24),
+        "small": [1, 3, 8, 24, 68, 163, 332, 595, 968, 1457, 2027, 2613,
+                  3261, 4153, 5265, 6086, 5970, 4755, 2974, 1412, 487, 114,
+                  16, 1],
+        "shipped": [1, 4, 16, 56, 198, 667, 2108, 6262, 17487],
+        "cover_depth": 11},
+    "I01": {
+        "module": "VR_INC_RESEND",
+        "fixpoint": (52635, 135162, 24),
+        "small": [1, 3, 8, 24, 68, 163, 332, 595, 968, 1457, 2043, 2701,
+                  3481, 4563, 5997, 7324, 7718, 6705, 4653, 2499, 999, 280,
+                  49, 4],
+        "shipped": [1, 4, 15, 47, 143, 401, 1056, 2672, 6721],
+        "cover_depth": 11},
+    "AS04": {
+        "module": "VR_APP_STATE",
+        "fixpoint": (42738, 85336, 24),
+        "small": [1, 3, 8, 24, 68, 162, 331, 593, 965, 1453, 2024, 2612,
+                  3261, 4153, 5265, 6086, 5970, 4755, 2974, 1412, 487, 114,
+                  16, 1],
+        "shipped": [1, 4, 17, 63, 238, 850, 2809, 8538, 23908],
+        "cover_depth": 12},
+}
+# phase 11d's depths: run_fused (2-4 s to depth 14 on the card), and
+# run() (a host sync a tile; 1.5-4.2 s to depth 11).  ``cover_depth``
+# is phase 11e's: the shallowest at which every action but
+# NoProgressChange is enabled on the shipped constants (I01's ResendSVC
+# by depth 6; AS04's ReceiveNewState first at depth 12, 4 lanes)
+FAMILY_FUSED_DEPTH = 16
+FAMILY_RUN_DEPTH = 13
 PAGED = {"next_capacity": 1 << 14, "spill_ram_rows": 1 << 16,
          "edge_capacity": 1 << 15, "min_drains": 3}
 MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
@@ -2164,16 +2234,34 @@ def paged_phase(args, doc, binding, run_pointers):
 
 
 class ST03Recorder:
-    """Keeps, during a run on the ST03 model, the inputs of the largest
-    call of K13 (rows), K14 (queue items) and K3's three kernels, cloned
-    before the call."""
+    """Keeps, during a run on a model of the ST03 family, the inputs of
+    the largest call of K13 (rows), K14 (queue items) and K3's three
+    kernels, cloned before the call, under the model's KERNELS names
+    (``GUARDS_KERNEL``, ``ACTIONS_KERNEL``, ``FP_KERNELS``).  With
+    ``by_action`` it also keeps, under (kernel name, action name), the
+    inputs of the K13 and K14 call in which that action's lanes were
+    enabled most, and sums each action's enabled lanes in ``enabled``
+    (a host read a call)."""
 
-    def __init__(self):
+    def __init__(self, by_action=False):
         self.calls = {}
+        self.by_action = by_action
+        self.enabled = {}
 
     keep = Recorder.keep
 
+    def keep_by_action(self, name, kern, counts, make):
+        snap = []
+        for a, c in zip(kern.action_names, counts.tolist()):
+            key = (name, a)
+            self.enabled[key] = self.enabled.get(key, 0) + c
+            if c > self.calls.get(key, (0, None))[0]:
+                if not snap:
+                    snap.append(make())
+                self.calls[key] = (c, snap[0])
+
     def install(self):
+        import torch
         from tpuvsr_torch.models.st03_kernel import ST03Kernel as K
         rec = self
         saved = {n: getattr(K, n) for n in (
@@ -2181,31 +2269,47 @@ class ST03Recorder:
             "fingerprint_incremental")}
 
         def guards(self, flat, out=None, halt=None):
-            rec.keep("st03_guards", flat.shape[0],
+            rec.keep(self.GUARDS_KERNEL[0], flat.shape[0],
                      lambda: (self, flat.clone()))
-            return saved["guard_matrix"](self, flat, out, halt)
+            res = saved["guard_matrix"](self, flat, out, halt)
+            if rec.by_action:
+                la = torch.as_tensor(self.lane_action, device=flat.device)
+                counts = torch.zeros(len(self.action_names), dtype=torch.long,
+                                     device=flat.device).index_add_(
+                    0, la.long(), res[0].sum(dim=0))
+                rec.keep_by_action(self.GUARDS_KERNEL[0], self, counts,
+                                   lambda: (self, flat.clone()))
+            return res
 
         def succs(self, flat, pidx, aid, lane, mask, out=None, halt=None):
-            rec.keep("st03_actions", pidx.shape[0], lambda: (
-                self, flat.clone(), pidx.clone(), aid.clone(), lane.clone(),
-                mask, None))
-            return saved["successors"](self, flat, pidx, aid, lane, mask,
-                                       out, halt)
+            def snap():
+                return (self, flat.clone(), pidx.clone(), aid.clone(),
+                        lane.clone(), mask, None)
+            rec.keep(self.ACTIONS_KERNEL[0], pidx.shape[0], snap)
+            res = saved["successors"](self, flat, pidx, aid, lane, mask,
+                                      out, halt)
+            if rec.by_action:
+                counts = torch.bincount(aid.long()[res["en2"]],
+                                        minlength=len(self.action_names))
+                rec.keep_by_action(self.ACTIONS_KERNEL[0], self, counts,
+                                   snap)
+            return res
 
         def parts(self, flat):
-            rec.keep("st03_fp_parts", flat.shape[0],
+            rec.keep(self.FP_KERNELS["parts"], flat.shape[0],
                      lambda: (self, flat.clone()))
             return saved["parent_parts"](self, flat)
 
         def full(self, flat):
-            rec.keep("st03_fp_full", flat.shape[0],
+            rec.keep(self.FP_KERNELS["full"], flat.shape[0],
                      lambda: (self, flat.clone()))
             return saved["fingerprint"](self, flat)
 
         def incr(self, succ, ri, ts, pidx, parent, prt):
-            rec.keep("st03_fp_incremental", succ.shape[0], lambda: (
-                self, succ.clone(), ri.clone(), ts.clone(), pidx.clone(),
-                parent.clone(), tuple(x.clone() for x in prt)))
+            rec.keep(self.FP_KERNELS["incremental"], succ.shape[0],
+                     lambda: (self, succ.clone(), ri.clone(), ts.clone(),
+                              pidx.clone(), parent.clone(),
+                              tuple(x.clone() for x in prt)))
             return saved["fingerprint_incremental"](self, succ, ri, ts, pidx,
                                                     parent, prt)
         for n, f in (("guard_matrix", guards), ("successors", succs),
@@ -2219,6 +2323,47 @@ class ST03Recorder:
         return uninstall
 
 
+def check_family_coverage(rec, K, what):
+    """Phase 11e: on the K13 and K14 calls that a ``by_action`` recording
+    run kept for each action, K13, K14 (under each invariant of
+    ``INVARIANT_FNS`` alone, so an invariant the cfg leaves out is held
+    too) and K3's full fingerprint of K14's successors bit for bit
+    against their plain versions.  Every action but NoProgressChange
+    (NoProgressChangeLimit 0 disables it) must have been enabled in
+    both kernels' kept inputs.  Returns each action's enabled lanes."""
+    g_name, a_name = K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0]
+    masks = [1 << b for b in range(len(K.INVARIANT_FNS))]
+    for (name, act), (c, call) in sorted(
+            (k, v) for k, v in rec.calls.items() if isinstance(k, tuple)):
+        if name == g_name:
+            kern, flat = call
+            a, p = kern.guard_matrix(flat), kern.guard_matrix_plain(flat)
+            need(max(max_abs(a[0], p[0]), max_abs(a[1], p[1])) == 0,
+                 f"{what}: {g_name} differs from its plain version on the "
+                 f"call where {act} was enabled {c} times")
+            continue
+        kern, flat, pidx, aid, lane, cfg_mask, _ok = call
+        for m in [cfg_mask] + masks:
+            a = kern.successors(flat, pidx, aid, lane, m)
+            p = kern.successors_plain(flat, pidx, aid, lane, m)
+            bad = [k for k in a if max_abs(a[k], p[k]) != 0]
+            need(not bad, f"{what}: {a_name} differs from its plain version "
+                 f"in {bad} (invariant mask {m}) on the queue where {act} "
+                 f"was enabled {c} times")
+        need(max_abs(kern.fingerprint(a["succ"]),
+                     kern.fingerprint_plain(a["succ"])) == 0,
+             f"{what}: {K.FP_KERNELS['full']} differs from its plain "
+             f"version on the successors of the queue where {act} was "
+             f"enabled {c} times")
+    enabled = {n: {a: rec.enabled.get((n, a), 0) for a in K.action_names}
+               for n in (g_name, a_name)}
+    for n, per in enabled.items():
+        idle = [a for a, c in per.items()
+                if c == 0 and a != "NoProgressChange"]
+        need(not idle, f"{what}: {idle} never enabled in {n}'s inputs")
+    return enabled
+
+
 def st03_plain_calls():
     """Calls of the plain ST03 guard and action functions so far (their
     doors, ST03Kernel._guard_fns and _action_fns)."""
@@ -2226,49 +2371,57 @@ def st03_plain_calls():
     return dict(PLAIN_CALLS)
 
 
-def check_st03_kernels(rec):
-    """Phase 10b: K13, K14 and K3 on ST03 bit for bit against their plain
-    versions on the inputs 10a recorded, each timed after an L2 flush
-    with its bound."""
+def check_st03_kernels(rec, kern_cls=None):
+    """Phases 10b and 11b: K13, K14 and K3 of a model of the ST03 family
+    (``kern_cls``, ST03Kernel by default) bit for bit against their
+    plain versions on the inputs its recording run kept, each timed after
+    an L2 flush with its bound."""
+    import numpy as np
     import torch
-    from tpuvsr_torch.models.st03_kernel import GUARD_PLANES, ST03Kernel
+    from tpuvsr_torch.models.st03_kernel import ST03Kernel
+    K = kern_cls or ST03Kernel
+    g_name, a_name = K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0]
     out = []
-    kern, flat = rec.calls["st03_guards"][1]
+    kern, flat = rec.calls[g_name][1]
     dev = flat.device
     evict = l2_evict(dev)
     B = flat.shape[0]
     a, p = kern.guard_matrix(flat), kern.guard_matrix_plain(flat)
     err = max(max_abs(a[0], p[0]), max_abs(a[1], p[1]))
     span = {k: e - s for k, _sh, s, e in kern.pk._splits}
-    lanes_read = sum(span[k] for k in GUARD_PLANES)
-    sgs = kern.lane_action == kern.action_names.index("SendGetState")
-    n_scan = int(a[0][:, torch.as_tensor(sgs, device=dev)].sum())
+    lanes_read = sum(span[k] for k in kern.GUARD_KEYS if k in span)
+    scans = [kern.action_names.index(n) for n in ("SendGetState",
+                                                  "ResendSVC")
+             if n in kern.action_names]
+    sgs = torch.as_tensor(np.isin(kern.lane_action, scans), device=dev)
+    n_scan = int(a[0][:, sgs].sum())
     # ten operations a lane, SendDVC's and SendSV's quorum counts (six
-    # compares a slot, 2R lanes a row) and the SendOnce scans of the
-    # enabled SendGetState lanes (a header, an entry and a log a slot)
+    # compares a slot, 2R lanes a row) and the bag scans of the enabled
+    # SendGetState (SendOnce: a header, an entry and a log a slot) and
+    # ResendSVC lanes
     nops = (10 * B * kern.n_lanes + 6 * kern.M * 2 * kern.R * B
             + (kern.NHDR + kern.MAX_OPS + 2) * kern.M * n_scan)
-    kernel_row(out, "st03_guards",
+    kernel_row(out, g_name,
                cuda_ms(lambda: kern.guard_matrix(flat), evict=evict),
                cuda_ms(lambda: kern.guard_matrix_plain(flat), reps=5), err,
                B * lanes_read * 4 + B * kern.n_lanes + B, nops,
                extra={"shape": [B, kern.pk.lanes], "n_lanes": kern.n_lanes,
-                      "enabled": int(a[0].sum()),
-                      "send_get_state": n_scan})
-    check_actions(out, rec.calls["st03_actions"][1], name="st03_actions")
-    fp_rows(out, rec.calls, ST03Kernel.FP_KERNELS, evict=evict)
+                      "enabled": int(a[0].sum()), "bag_scans": n_scan})
+    check_actions(out, rec.calls[a_name][1], name=a_name)
+    fp_rows(out, rec.calls, K.FP_KERNELS, evict=evict)
     # the full fingerprint at a tile's width (the recorded call is the
     # Init row): the successors of the recorded incremental call
-    kern, succ = rec.calls["st03_fp_incremental"][1][:2]
+    full = K.FP_KERNELS["full"]
+    kern, succ = rec.calls[K.FP_KERNELS["incremental"]][1][:2]
     n, L = succ.shape
     cols = kern.R * kern.nrep + kern.M * kern.nmsg + kern.nglob
-    kernel_row(out, "st03_fp_full",
+    kernel_row(out, full,
                cuda_ms(lambda: kern.fingerprint(succ), evict=evict),
                cuda_ms(lambda: kern.fingerprint_plain(succ), reps=5),
                max_abs(kern.fingerprint(succ), kern.fingerprint_plain(succ)),
                n * L * 4 + n * 16, n * cols * 4 * 2,
                extra={"shape": [n, L]},
-               label="st03_fp_full (a tile's successors)")
+               label=f"{full} (a tile's successors)")
     torch.cuda.synchronize()
     return out
 
@@ -2402,6 +2555,176 @@ def st03_phase(args, doc):
     return rows
 
 
+def family_phase(args, doc):
+    """Phase 11: A01, I01 and AS04, the family's models on ST03's kernels,
+    on the card.  Returns their kernels-line rows, with the launch counts
+    of each model's timed run_fused on its small cfg (11c)."""
+    import numpy as np
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS
+    from tpuvsr_torch.engine.spec import load_binding
+    from tpuvsr_torch.models.registry import _resolve
+
+    # every kernel of the VSR path and of every model of the family
+    model_kernels = {}
+    for m, fam in [("ST03", {"module": "VR_STATE_TRANSFER"})] + list(
+            FAMILY.items()):
+        K = _resolve(fam["module"])[1]
+        model_kernels[m] = [K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0],
+                            *K.FP_KERNELS.values()]
+    vsr = ["vsr_guards", "vsr_actions", "vsr_canon", "vsr_fp_parts",
+           "vsr_fp_full", "vsr_fp_incremental"]
+
+    def cfg(fam, size):
+        return os.path.join(ROOT, "tpuvsr_torch", "configs",
+                            f"{fam['module']}_{size}.cfg")
+
+    def pointers(eng):
+        return [np.concatenate(getattr(eng, k))
+                for k in ("_h_parent", "_h_action", "_h_param")]
+
+    def timed(m, size, entry, depth=None):
+        """One run, launch counts reset just before and read just after:
+        the model's K13, K14 and K3 (parts, incremental) launched, the
+        other models' kernels, the VSR kernels and the plain functions
+        of the family not."""
+        fam = FAMILY[m]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        plain0 = st03_plain_calls()
+        eng = DeviceBFS(load_binding(cfg(fam, size), fam["module"]),
+                        tile_size=128, chunk_tiles=64,
+                        fpset_capacity=1 << 26, device="cuda")
+        t0 = time.time()
+        res = getattr(eng, entry)(max_depth=depth)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        what = f"{m} {size} {entry}"
+        need(type(eng.kern).__name__ == f"{m}Kernel",
+             f"{what} ran on {type(eng.kern).__name__}")
+        for k in model_kernels[m]:
+            need(counts[k] > 0, f"{k} was not launched on {what}")
+        others = [k for o, ks in model_kernels.items() if o != m
+                  for k in ks] + vsr
+        for k in others:
+            need(counts[k] == 0, f"{k} was launched on {what}")
+        if entry == "run_fused":
+            for k in ("compact", "commit_prefix", "commit_finish",
+                      "level_step"):
+                need(counts[k] > 0, f"{k} was not launched on {what}")
+        need(st03_plain_calls() == plain0, f"the plain family functions "
+             f"ran on {what}: {plain0} -> {st03_plain_calls()}")
+        need(res.ok, f"{what}: {res.violated_invariant} {res.error}")
+        c = res.metrics["counters"]
+        info = {"levels": res.levels, "distinct": res.distinct_states,
+                "generated": res.states_generated,
+                "diameter": res.diameter, "wall_s": wall,
+                "distinct_per_s": res.distinct_states / wall,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "launches": counts, "metrics": res.metrics}
+        print(f"  {m} {size} {entry}: distinct {res.distinct_states} "
+              f"generated {res.states_generated} diameter {res.diameter} "
+              f"wall {wall:.3f}s distinct/s {info['distinct_per_s']:.1f} "
+              f"max_memory_allocated {info['max_memory_allocated']}",
+              flush=True)
+        print(f"    host_reads {c.get('host_reads')} graph_captures "
+              f"{c.get('graph_captures')} growth_pauses "
+              f"{c.get('growth_pauses', 0)} tiles {c.get('tiles')} "
+              f"max_msgs {res.metrics['gauges']['max_msgs']}", flush=True)
+        return eng, res, info
+
+    def fixpoint(m, res, what):
+        fam = FAMILY[m]
+        need(res.levels == fam["small"], f"{what} levels {res.levels}")
+        need((res.distinct_states, res.states_generated, res.diameter)
+             == fam["fixpoint"], f"{what}: {res.distinct_states} distinct, "
+             f"{res.states_generated} generated, diameter {res.diameter}")
+        need(res.error is None, f"{what}: {res.error}")
+
+    rows = []
+    out = doc.setdefault("family", {})
+    for m, fam in FAMILY.items():
+        K = _resolve(fam["module"])[1]
+        info_m = out.setdefault(m, {})
+        print(f"phase 11a: {m} small cfg, recording run() to its fixpoint",
+              flush=True)
+        rec = ST03Recorder()
+        uninstall = rec.install()
+        try:
+            eng, res, info = timed(m, "small", "run")
+        finally:
+            uninstall()
+        fixpoint(m, res, f"{m} recording run()")
+        info["recorded"] = {k: v[0] for k, v in rec.calls.items()}
+        info_m["record"] = info
+        run_pointers = pointers(eng)
+        del eng
+        print(f"phase 11b: K13, K14, K3 on {m} against their plain "
+              f"versions", flush=True)
+        mrows = check_st03_kernels(rec, K)
+        del rec
+
+        print(f"phase 11c: run_fused, {m} small cfg to its fixpoint",
+              flush=True)
+        eng, res, info = timed(m, "small", "run_fused")
+        fixpoint(m, res, f"{m} run_fused")
+        same_pointers(pointers(eng), run_pointers, res.levels,
+                      f"{m} run_fused", args)
+        c = res.metrics["counters"]
+        need(c["host_reads"] == c["quanta"] + c.get("level_fits", 0),
+             f"{m} fused host reads {c}")
+        info_m["fused"] = info
+        print(f"  levels {res.levels}, pointer tables equal to 11a's",
+              flush=True)
+        for k in mrows:
+            k["launches"] = info["launches"][k["kernel"]]
+        rows += mrows
+        del eng
+
+        fd, rd = FAMILY_FUSED_DEPTH, FAMILY_RUN_DEPTH
+        rec_d = len(fam["shipped"]) - 1
+        print(f"phase 11d: {m} shipped constants, run_fused to depth {fd} "
+              f"and run() to depth {rd}", flush=True)
+        _e, fres, finfo = timed(m, "shipped", "run_fused", fd)
+        del _e
+        _e, rres, rinfo = timed(m, "shipped", "run", rd)
+        del _e
+        need(fres.levels[:rec_d + 1] == fam["shipped"],
+             f"{m} shipped levels {fres.levels[:rec_d + 1]}")
+        need(len(fres.levels) == fd + 1 and len(rres.levels) == rd + 1
+             and fres.levels[:rd + 1] == rres.levels,
+             f"{m} shipped run_fused levels {fres.levels}, run() "
+             f"{rres.levels}")
+        need(rres.distinct_states == sum(fres.levels[:rd + 1]),
+             f"{m} shipped run() distinct {rres.distinct_states}")
+        info_m["shipped"] = {"run_fused": finfo, "run": rinfo}
+        print(f"  levels {fres.levels} (the JAX record through depth "
+              f"{rec_d})", flush=True)
+
+        cd = fam["cover_depth"]
+        print(f"phase 11e: {m} shipped constants, recording run() to depth "
+              f"{cd}; K13, K14, K3 against their plain versions on the "
+              f"calls where each action was enabled most", flush=True)
+        rec = ST03Recorder(by_action=True)
+        uninstall = rec.install()
+        try:
+            _e, cres, cinfo = timed(m, "shipped", "run", cd)
+        finally:
+            uninstall()
+        del _e
+        need(cres.levels == fres.levels[:cd + 1],
+             f"{m} shipped recording run() levels {cres.levels}")
+        enabled = check_family_coverage(rec, K, f"{m} shipped")
+        del rec
+        info_m["cover"] = {"depth": cd, "wall_s": cinfo["wall_s"],
+                           "enabled": enabled}
+        print(f"  enabled lanes by action: {enabled}", flush=True)
+    return rows
+
+
 def gpu_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2439,8 +2762,24 @@ def main(argv=None):
         raise
 
 
+def write_doc(args, doc):
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=1, default=str)
+
+
+def kernels_line(rows):
+    return json.dumps({"kernels": [
+        {k: r[k] for k in ("name", "route", "source", "replaces",
+                           "launches", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
+        for r in rows]})
+
+
 def run_phases(args, doc, t_all):
-    """Phases 1-10 (the module docstring); returns the exit code."""
+    """Phases 1-11 (the module docstring); returns the exit code."""
     import numpy as np
     import torch
     from tpuvsr_torch import kernels
@@ -2554,18 +2893,11 @@ def run_phases(args, doc, t_all):
     rows += symmetric_phase(args, doc)
     rows += paged_phase(args, doc, binding, run_pointers)
     rows += st03_phase(args, doc)
+    rows += family_phase(args, doc)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(doc, f, indent=1, default=str)
-    print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
-        for r in rows]}))
+    write_doc(args, doc)
+    print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -202,6 +202,23 @@ def test_binding_names_its_module():
     with pytest.raises(KeyError, match="no hand model kernel"):
         DeviceBFS(b, device="cpu")
     assert load_binding(DEFECT, "VSR").module == "VSR"
+    # the family's models each bind to their own codec and kernel
+    from tpuvsr_torch.models.a01 import A01Codec
+    from tpuvsr_torch.models.a01_kernel import A01Kernel
+    from tpuvsr_torch.models.as04 import AS04Codec
+    from tpuvsr_torch.models.as04_kernel import AS04Kernel
+    from tpuvsr_torch.models.i01 import I01Codec
+    from tpuvsr_torch.models.i01_kernel import I01Kernel
+    for module, codec_cls, kern_cls in (
+            ("VR_ASSUME_NEWVIEWCHANGE", A01Codec, A01Kernel),
+            ("VR_INC_RESEND", I01Codec, I01Kernel),
+            ("VR_APP_STATE", AS04Codec, AS04Kernel)):
+        fb = load_binding(os.path.join(ROOT, "tpuvsr_torch", "configs",
+                                       f"{module}_small.cfg"), module)
+        assert fb.module == module and not fb.symmetry_perms
+        codec, kern = make_model(fb, max_msgs=8)
+        assert type(codec) is codec_cls and type(kern) is kern_cls
+        assert kern.pk is not None and kern.M == 8
 
 
 def test_make_model_resolves_st03():
@@ -220,8 +237,8 @@ def test_make_model_resolves_st03():
                             "CommitNumberNeverHigherThanOpNumber"]
     assert not b.symmetry_perms
     with pytest.raises(KeyError, match="no hand model kernel for module "
-                       "'VR_ASSUME_NEWVIEWCHANGE'"):
-        make_model(load_binding(cfg, "VR_ASSUME_NEWVIEWCHANGE"))
+                       "'VR_REPLICA_RECOVERY'"):
+        make_model(load_binding(cfg, "VR_REPLICA_RECOVERY"))
 
 
 def test_device_bfs_check_entry_point_on_cpu():
@@ -240,7 +257,9 @@ def test_import_loads_no_jax():
             "tpuvsr_torch.testing, tpuvsr_torch.engine.carry, "
             "tpuvsr_torch.sim.fleet, tpuvsr_torch.sim.splitting, "
             "tpuvsr_torch.sim.defect_hunt, tpuvsr_torch.sim.rng, "
-            "tpuvsr_torch.models.st03_kernel, tpuvsr_torch.models.registry\n"
+            "tpuvsr_torch.models.st03_kernel, tpuvsr_torch.models.registry, "
+            "tpuvsr_torch.models.a01_kernel, tpuvsr_torch.models.i01_kernel, "
+            "tpuvsr_torch.models.as04_kernel\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuvsr' or "
             "m.startswith('tpuvsr.')]\n"

@@ -227,14 +227,29 @@ def test_grow_carries_the_gid_column(factor):
 # ----------------------------------------------------------------------
 # the C entry points of every kernel against the ctypes table
 # ----------------------------------------------------------------------
+def expand_macros(src):
+    """A kernel source with its argument-list macros (vsr_fingerprint.cu's
+    layout arguments) and its entry-point macros (st03_guards.cu's and
+    st03_actions.cu's ``M(name, MODEL)``, one entry a model) written
+    out, so each ``TPUVSR_EXPORT int tpuvsr_...(...)`` reads whole."""
+    for name, body in re.findall(
+            r"#define (\w+_ARGS)((?:[^\n]*\\\n)*[^\n]*)", src):
+        src = src.replace(name + ",", body.replace("\\", "") + ",")
+    for macro, body in re.findall(
+            r"#define (\w+_ENTRY)\(name, MODEL\)((?:[^\n]*\\\n)*[^\n]*)",
+            src):
+        body = body.replace("\\", "")
+        src = re.sub(rf"^{macro}\((\w+), (\w+)\)$",
+                     lambda m: body.replace("##name##", m.group(1))
+                     .replace("MODEL", m.group(2)), src, flags=re.M)
+    return src
+
+
 def _entries():
     out = []
     for stem in kernels.SOURCES:
-        src = open(os.path.join(kernels.CSRC, f"{stem}.cu")).read()
-        # argument-list macros (vsr_fingerprint.cu's layout arguments)
-        for name, body in re.findall(
-                r"#define (\w+_ARGS)((?:[^\n]*\\\n)*[^\n]*)", src):
-            src = src.replace(name + ",", body.replace("\\", "") + ",")
+        src = expand_macros(open(os.path.join(kernels.CSRC,
+                                              f"{stem}.cu")).read())
         for m in re.finditer(r"TPUVSR_EXPORT int (tpuvsr_\w+)\((.*?)\)",
                              src, re.S):
             out.append((stem, m.group(1), m.group(2)))

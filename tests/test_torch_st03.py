@@ -39,6 +39,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.test_torch_gids import expand_macros
 from tpuvsr.analysis.passes.widths import derive_ranges_from as j_ranges
 from tpuvsr.engine.device_bfs import DeviceBFS as JDeviceBFS
 from tpuvsr.engine.pack import build_pack_spec as j_pack_spec
@@ -79,14 +80,15 @@ def _jax_codec(path, np_limit, max_msgs):
 
 
 def _jax_all_lanes(jk):
-    """jit(vmap over states) of every lane of every action, from
-    ``seed_touch``: (successor, enabled, _ts, _tn, lane replica, all
-    invariants), each with a [B, n_lanes] leading pair of axes."""
+    """jit(vmap over states) of every lane of every action of a JAX
+    kernel of the family, from ``seed_touch``: (successor, enabled,
+    _ts, _tn, lane replica, all invariants), each with a [B, n_lanes]
+    leading pair of axes."""
     inv = jk.invariant_fn(list(jk.INVARIANT_FNS))
 
     def per_state(st):
         outs = []
-        for name, fn in zip(ACTION_NAMES, jk._action_fns()):
+        for name, fn in zip(jk.action_names, jk._action_fns()):
             def one(ln, fn=fn, name=name):
                 succ, en = fn(jk.seed_touch(st), ln)
                 clean = {k: v for k, v in succ.items()
@@ -121,10 +123,14 @@ def _run(fn, batch, size=PAD):
 
 @functools.lru_cache(maxsize=None)
 def _jax(name):
-    """(JAX kernel, all-lanes step, fingerprint, guard matrix, every
-    invariant and hunt_score) of a case, each jitted."""
     path, np_limit, mm, _seed = CASES[name]
-    jk = JKernel(_jax_codec(path, np_limit, mm))
+    return jax_fns_of(JKernel(_jax_codec(path, np_limit, mm)))
+
+
+def jax_fns_of(jk):
+    """(JAX kernel, all-lanes step, fingerprint, guard matrix, every
+    invariant and hunt_score, parent parts) of a JAX kernel of the
+    family, each jitted."""
     fns = [getattr(jk, f) for f in jk.INVARIANT_FNS.values()]
     mat = JDeviceBFS._guard_matrix(None, jk)
     return SimpleNamespace(
@@ -152,12 +158,13 @@ def _is_era(row):
 
 
 # lane weights of the guided walkers: a view change, a new primary and
-# its client requests first, then the state transfer
+# its client requests first, then the state transfer (and I01's resends)
 GUIDE = {"TimerSendSVC": 0.2, "ReceiveClientRequest": 50.0, "SendSV": 30.0,
          "SendDVC": 20.0,
          "ReceiveMatchingDVC": 10.0, "ReceiveMatchingSVC": 10.0,
          "ReceiveHigherSVC": 10.0, "SendGetState": 50.0,
-         "ReceiveGetState": 50.0, "ReceiveNewState": 50.0}
+         "ReceiveGetState": 50.0, "ReceiveNewState": 50.0,
+         "ResendSVC": 10.0}
 
 
 def _walk_rows(jk, f, init, seed, walkers=PAD, steps=24, lag=16):
@@ -173,9 +180,9 @@ def _walk_rows(jk, f, init, seed, walkers=PAD, steps=24, lag=16):
     rng = np.random.default_rng(seed)
     batch = {k: np.repeat(np.asarray(v)[None], walkers, 0)
              for k, v in init.items()}
-    weight = np.array([GUIDE.get(n, 1.0) for n in ACTION_NAMES])[
-        jk.lane_action]
-    crq = jk.lane_action == ACTION_NAMES.index("ReceiveClientRequest")
+    names = jk.action_names
+    weight = np.array([GUIDE.get(n, 1.0) for n in names])[jk.lane_action]
+    crq = jk.lane_action == names.index("ReceiveClientRequest")
     seen, rows, ens = set(), [], []
     for step in range(steps):
         succ, en, _ts, _tn, ri = f(batch)[:5]
@@ -209,13 +216,15 @@ def _walk_rows(jk, f, init, seed, walkers=PAD, steps=24, lag=16):
     return rows, ens
 
 
-def _full_bag_row(row, M):
+def _full_bag_row(row, M, anydest=True):
     """``row`` with every free message slot holding a distinct record no
     action sends and none receives (a PrepareOk of view 0, count 1),
-    each field inside its packing range."""
+    each field inside its packing range; a destination of -1 (AnyDest)
+    only where the model declares AnyDest."""
     row = {k: np.array(v) for k, v in row.items()}
     combos = iter([(op, dest, src) for op in range(-1, 3)
-                   for dest in range(-1, 4) for src in range(4)])
+                   for dest in range(-1 if anydest else 0, 4)
+                   for src in range(4)])
     for m in range(M):
         if row["m_present"][m] == 0:
             op, dest, src = next(combos)
@@ -278,7 +287,7 @@ def _port_outputs(kern, flat):
     aid = torch.as_tensor(kern.lane_action).repeat(B)
     lane = torch.as_tensor(kern.lane_param).repeat(B)
     mask = kern.invariant_mask(list(kern.INVARIANT_FNS))
-    assert mask == 63
+    assert mask == (1 << len(kern.INVARIANT_FNS)) - 1
     o = kern.successors(flat, pidx, aid, lane, mask)
     return {k: v.numpy().reshape((B, L) + tuple(v.shape[1:]))
             for k, v in o.items()}
@@ -572,8 +581,8 @@ def test_halt_writes_nothing():
 # ----------------------------------------------------------------------
 def _enum(src, name):
     body = re.search(r"enum " + name + r" \{(.*?)\};", src, re.S).group(1)
-    return [x.strip() for x in body.replace("\n", " ").split(",")
-            if x.strip()]
+    return [x.strip().split(" = ")[0] for x in body.replace("\n", " ")
+            .split(",") if x.strip()]
 
 
 def _upper_snake(camel):
@@ -581,8 +590,8 @@ def _upper_snake(camel):
 
 
 def _signature(src, entry):
-    sig = re.search(r"TPUVSR_EXPORT int " + entry + r"\((.*?)\)", src,
-                    re.S).group(1)
+    sig = re.search(r"TPUVSR_EXPORT int " + entry + r"\((.*?)\)",
+                    expand_macros(src), re.S).group(1)
     return "".join("p" if "*" in a else "i" for a in sig.split(","))
 
 

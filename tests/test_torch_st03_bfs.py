@@ -31,10 +31,13 @@ SHIPPED_LEVELS = [1, 4, 17, 63, 238, 851]
 
 @functools.lru_cache(maxsize=None)
 def _jax_level_bfs(name, depth):
-    """Host-driven level BFS with the JAX ST03Kernel from init_dense, the
-    frontier stepped PAD states at a time; no enabled successor may
-    overflow the bag."""
-    J = _jax(name)
+    return level_bfs(_jax(name), depth)
+
+
+def level_bfs(J, depth):
+    """Host-driven level BFS with a JAX kernel of the family (``J``, a
+    ``jax_fns_of`` namespace) from init_dense, the frontier stepped PAD
+    states at a time; no enabled successor may set an error flag."""
     init = J.jk.codec.zero_state()
     init["view"][:] = 1
     seen = {_fps(J, {k: v[None] for k, v in init.items()})[0].tobytes()}

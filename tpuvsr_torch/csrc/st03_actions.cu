@@ -1,5 +1,6 @@
-// K14: the ST03 (VR_STATE_TRANSFER) transition relation (successors and
-// invariants).
+// K14: the transition relation (successors and invariants) of the ST03
+// (VR_STATE_TRANSFER) family: ST03, A01 (VR_ASSUME_NEWVIEWCHANGE), I01
+// (VR_INC_RESEND) and AS04 (VR_APP_STATE).
 //
 // Replaces the 16 action functions of tpuvsr/models/st03_kernel.py
 // (act_* at :261-570, with the message-bag primitives _bag_send,
@@ -43,13 +44,36 @@
 // primary of a view keeps torch.remainder's floor modulo.  With a halt
 // word (the fused pass's carry) the kernel does nothing while it is set.
 //
-// The family layout.  Everything above the kernel (the Plane and Action
-// enums, the St row with its bag primitives, the actions, apply() and
-// the invariants) is the ST03 layer that the family's other models
-// (A01, I01, AS04, RR05, CP06 subclass ST03Kernel) extend: their planes
-// follow N_ST03_PLANES in their ALL_KEYS, their actions follow
-// N_ST03_ACTIONS, and a model that changes an ST03 action replaces its
-// case in apply().
+// The family.  The kernel is a template on the model, with one entry
+// point each (tpuvsr_st03_actions, tpuvsr_a01_actions,
+// tpuvsr_i01_actions, tpuvsr_as04_actions), and replaces the action and
+// invariant functions of tpuvsr/models/a01_kernel.py:53-117,
+// i01_kernel.py:78-397 and as04_kernel.py:76-346 as well.  A model's
+// deltas are if-constexpr branches in the ST03 actions, so ST03's
+// instantiation does ST03's work alone.  The family's planes follow
+// N_ST03_PLANES (enum FamilyPlane: I01's third sent flag and DVC tracker,
+// AS04's DVC slots and app plane; the host's table gives -1 for a plane
+// the model lacks, which is never read), its one new action follows
+// N_ST03_ACTIONS (FamilyAction: I01's ResendSVC), and its invariants
+// follow N_INVARIANTS (FamilyInvariant).  A host-built table maps each
+// model's action index to its family id (A01 drops the three
+// state-transfer actions and I01 adds ResendSVC, so their ids do not
+// line up with ST03's; AS04's PrimaryExecuteOp takes ExecuteOp's), and
+// inv_mask carries the family's invariant bits.
+//
+// The deltas, by model.  A01: log entries are packed value_id << 8 |
+// view (ReceiveClientRequest writes one, ExecuteOp reads the value id
+// back, and the invariants look a value up by it), TimerSendSVC is
+// blocked for the primary whatever its status, and ReceiveSV takes any
+// view not below the replica's.  I01 (on A01): a view change adopts
+// view + 1, the three sent flags, ResendSVC, the DVC tracker with
+// replacement semantics (update_tracker), SendSV from the tracker's
+// valid entries, ReceiveMatchingDVC whatever the status, no primary
+// exemption in ReceivePrepareMsg.  AS04: every commit-advancing action
+// appends the newly committed ops to the app plane (exec_ops), commit is
+// never lowered, DVCs are counted in per-source slots cleared on every
+// view adoption, and a second, different DVC from one source sets
+// ERR_DVC_OVERFLOW.
 #include <climits>
 
 #include "common.cuh"
@@ -83,6 +107,28 @@ enum Invariant {
     I_ALL_REPLICAS_MOVE_TO_SAME_VIEW, N_INVARIANTS
 };
 
+// the family's planes beyond ST03's (FAMILY_PLANES order)
+enum FamilyPlane {
+    P_SENT_SVC = N_ST03_PLANES, P_DVC, P_DVC_VIEW, P_DVC_LNV, P_DVC_OP,
+    P_DVC_COMMIT, P_DVC_LOG, P_APP, N_FAMILY_PLANES
+};
+
+// the family's action beyond ST03's
+enum FamilyAction { A_RESEND_SVC = N_ST03_ACTIONS, N_FAMILY_ACTIONS };
+
+// the family's invariants beyond ST03's (FAMILY_INVARIANTS order)
+enum FamilyInvariant {
+    I_NO_REPLICA_MORE_THAN_ONE_VIEW_AHEAD_OF_MAJORITY = N_INVARIANTS,
+    I_RECEIVED_DVCS_ALL_SAME_VIEW, I_NO_APP_STATE_DIVERGENCE,
+    N_FAMILY_INVARIANTS
+};
+
+// the models (one instantiation and entry point each)
+enum Model { MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04 };
+
+template <int MODEL>
+constexpr bool A01_LIKE = MODEL == MODEL_A01 || MODEL == MODEL_I01;
+
 // the codec's encodings (models/st03.py, models/vsr.py)
 constexpr int NORMAL = 0, VIEWCHANGE = 1, STATETRANSFER = 2;
 constexpr int M_PREPARE = 1, M_PREPAREOK = 2, M_SVC = 3, M_DVC = 4,
@@ -90,7 +136,8 @@ constexpr int M_PREPARE = 1, M_PREPAREOK = 2, M_SVC = 3, M_DVC = 4,
 constexpr int H_TYPE = 0, H_VIEW = 1, H_OP = 2, H_COMMIT = 3, H_DEST = 4,
               H_SRC = 5, H_X = 6, H_FIRST = 7, H_LNV = 8, N_ROWHDR = 9;
 constexpr int ANYDEST = -1;
-constexpr int ERR_BAG_OVERFLOW = 1;
+constexpr int ERR_BAG_OVERFLOW = 1, ERR_DVC_OVERFLOW = 2;
+constexpr int ENTRY_VIEW_BITS = 8;          // A01's packed log entries
 constexpr int THREADS = 128;
 
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -146,6 +193,14 @@ struct St {
     __device__ int& peer(int i, int j) const {
         return s[off[P_PEER_OP] + i * R + j];
     }
+    // a family [R, R] plane at (i, j), and the DVC log of slot (i, j)
+    __device__ int& slot(int p, int i, int j) const {
+        return s[off[p] + i * R + j];
+    }
+    __device__ int* dvc_log(int i, int j) const {
+        return &s[off[P_DVC_LOG] + (i * R + j) * OPS];
+    }
+    __device__ int* app_row(int i) const { return &s[off[P_APP] + i * OPS]; }
 
     // -- the record being built ----------------------------------------
     __device__ void row(int type, int view, int op, int commit, int dest,
@@ -228,9 +283,99 @@ struct St {
         return primary(at(P_VIEW, i), R) == r && at(P_STATUS, i) == NORMAL;
     }
 
+    // ResetSentVars (I01's clears its third flag too)
+    template <int MODEL>
     __device__ void reset_sent(int i) {
+        if constexpr (MODEL == MODEL_I01) at(P_SENT_SVC, i) = 0;
         at(P_SENT_DVC, i) = 0;
         at(P_SENT_SV, i) = 0;
+    }
+
+    // -- I01's DVC tracker (I01:245-250) --------------------------------
+    __device__ void clear_tracker(int i) {
+        for (int j = 0; j < R; ++j) {
+            slot(P_DVC, i, j) = 0;
+            slot(P_DVC_VIEW, i, j) = 0;
+            slot(P_DVC_LNV, i, j) = 0;
+            slot(P_DVC_OP, i, j) = 0;
+            slot(P_DVC_COMMIT, i, j) = 0;
+            int* l = dvc_log(i, j);
+            for (int o = 0; o < OPS; ++o) l[o] = 0;
+        }
+    }
+
+    // UpdateDVCsTracker: with pred, drop the entries below vn and the
+    // one from src_j (their fields to 0), then write the carrier into
+    // slot src_j; without, only the fields of empty slots go to 0 (the
+    // plain version's keep mask is then the occupancy)
+    __device__ void update_tracker(int i, int vn, int src_j, int view,
+                                   int lnv, int op, int commit,
+                                   const int* log, bool pred) {
+        for (int j = 0; j < R; ++j) {
+            const bool had = slot(P_DVC, i, j) == 1;
+            const bool keep = pred ? had && slot(P_DVC_VIEW, i, j) >= vn &&
+                                         j != src_j
+                                   : had;
+            slot(P_DVC, i, j) = keep;
+            if (keep) continue;
+            slot(P_DVC_VIEW, i, j) = 0;
+            slot(P_DVC_LNV, i, j) = 0;
+            slot(P_DVC_OP, i, j) = 0;
+            slot(P_DVC_COMMIT, i, j) = 0;
+            int* l = dvc_log(i, j);
+            for (int o = 0; o < OPS; ++o) l[o] = 0;
+        }
+        if (!pred) return;
+        slot(P_DVC, i, src_j) = 1;
+        slot(P_DVC_VIEW, i, src_j) = view;
+        slot(P_DVC_LNV, i, src_j) = lnv;
+        slot(P_DVC_OP, i, src_j) = op;
+        slot(P_DVC_COMMIT, i, src_j) = commit;
+        int* l = dvc_log(i, src_j);
+        for (int o = 0; o < OPS; ++o) l[o] = log[o];
+    }
+
+    // -- AS04's DVC slots and app plane ---------------------------------
+    __device__ void clear_dvc(int i) {
+        for (int j = 0; j < R; ++j) {
+            slot(P_DVC, i, j) = 0;
+            slot(P_DVC_LNV, i, j) = 0;
+            slot(P_DVC_OP, i, j) = 0;
+            slot(P_DVC_COMMIT, i, j) = 0;
+            int* l = dvc_log(i, j);
+            for (int o = 0; o < OPS; ++o) l[o] = 0;
+        }
+    }
+
+    // set-union a DVC into slot (i, j): an equal record changes nothing,
+    // a different one from the same source sets ERR_DVC_OVERFLOW
+    __device__ void dvc_slot_add(int i, int j, int lnv, int op, int commit,
+                                 const int* log, bool pred) {
+        int* l = dvc_log(i, j);
+        bool same = slot(P_DVC, i, j) == 1 && slot(P_DVC_LNV, i, j) == lnv &&
+                    slot(P_DVC_OP, i, j) == op &&
+                    slot(P_DVC_COMMIT, i, j) == commit;
+        for (int o = 0; o < OPS && same; ++o) same = l[o] == log[o];
+        const bool collide = pred && slot(P_DVC, i, j) == 1 && !same;
+        if (pred) {
+            slot(P_DVC, i, j) = 1;
+            slot(P_DVC_LNV, i, j) = lnv;
+            slot(P_DVC_OP, i, j) = op;
+            slot(P_DVC_COMMIT, i, j) = commit;
+            for (int o = 0; o < OPS; ++o) l[o] = log[o];
+        }
+        if (collide) at(P_ERR, 0) |= ERR_DVC_OVERFLOW;
+    }
+
+    // MaybeExecuteOps (AS04:277-282): past the commit, append lp[old..new)
+    // to the app plane and raise the commit; never lower it
+    __device__ void exec_ops(int i, const int* lp, int new_commit) {
+        const int old = at(P_COMMIT, i);
+        if (!(new_commit > old)) return;
+        int* app = app_row(i);
+        for (int o = 0; o < OPS; ++o)
+            if (o >= old && o < new_commit) app[o] = lp[o];
+        at(P_COMMIT, i) = new_commit;
     }
 
     // processed (count-0) mtype records addressed to replica i in its
@@ -253,13 +398,19 @@ struct St {
     }
 
     // -- the invariants on this (the successor's) row ----------------------
+    // replica r's log holds an entry of value v (A01, I01: by the value
+    // id of the packed entry)
+    template <int MODEL>
     __device__ int has_op(int r, int v) const {
         const int* l = log_row(r);
-        for (int o = 0; o < OPS; ++o)
-            if (l[o] == v + 1) return 1;
+        for (int o = 0; o < OPS; ++o) {
+            const int vid = A01_LIKE<MODEL> ? l[o] >> ENTRY_VIEW_BITS : l[o];
+            if (vid == v + 1) return 1;
+        }
         return 0;
     }
 
+    template <int MODEL>
     __device__ bool invariants(int mask, int timer_limit) const {
         bool ok = true;
         if (mask & (1 << I_NO_LOG_DIVERGENCE))
@@ -273,14 +424,14 @@ struct St {
             for (int v = 0; v < V; ++v) {
                 if (at(P_AUX_ACKED, v) != 2) continue;
                 int n = 0;
-                for (int r = 0; r < R; ++r) n += has_op(r, v);
+                for (int r = 0; r < R; ++r) n += has_op<MODEL>(r, v);
                 ok = ok && n > 0;
             }
         if (mask & (1 << I_ACKNOWLEDGED_WRITES_EXIST_ON_MAJORITY))
             for (int v = 0; v < V; ++v) {
                 if (at(P_AUX_ACKED, v) != 2) continue;
                 int n = 0;
-                for (int r = 0; r < R; ++r) n += has_op(r, v);
+                for (int r = 0; r < R; ++r) n += has_op<MODEL>(r, v);
                 ok = ok && n >= R / 2 + 1;
             }
         if (mask & (1 << I_COMMIT_NUMBER_NEVER_HIGHER_THAN_OP_NUMBER))
@@ -307,53 +458,135 @@ struct St {
                            at(P_STATUS, r) == NORMAL;
             ok = ok && (blocked || same);
         }
+        if (mask & (1 << I_NO_REPLICA_MORE_THAN_ONE_VIEW_AHEAD_OF_MAJORITY))
+            // no replica with a majority of the others more than one view
+            // behind it (I01:789-795)
+            for (int r = 0; r < R; ++r) {
+                int n = 0;
+                for (int j = 0; j < R; ++j)
+                    n += j != r && at(P_VIEW, j) < wsub(at(P_VIEW, r), 1);
+                ok = ok && !(n > R / 2);
+            }
+        if (mask & (1 << I_RECEIVED_DVCS_ALL_SAME_VIEW))
+            // no replica in a view change with tracker entries of two
+            // views (I01:797-804)
+            for (int r = 0; r < R; ++r) {
+                bool mixed = false;
+                for (int a = 0; a < R; ++a)
+                    for (int b = 0; b < R; ++b)
+                        mixed = mixed || (slot(P_DVC, r, a) == 1 &&
+                                          slot(P_DVC, r, b) == 1 &&
+                                          slot(P_DVC_VIEW, r, a) !=
+                                              slot(P_DVC_VIEW, r, b));
+                ok = ok && !(at(P_STATUS, r) == VIEWCHANGE && mixed);
+            }
+        if (mask & (1 << I_NO_APP_STATE_DIVERGENCE))
+            // no two replicas, both committed at an op, whose app entries
+            // differ there while the first's log agrees with its app
+            // (AS04:852-865)
+            for (int a = 0; a < R; ++a)
+                for (int b = 0; b < R; ++b)
+                    for (int o = 0; o < OPS; ++o)
+                        if (o < at(P_COMMIT, a) && o < at(P_COMMIT, b) &&
+                                app_row(a)[o] != app_row(b)[o] &&
+                                log_row(a)[o] == app_row(a)[o])
+                            ok = false;
         // TestInv holds
         return ok;
     }
 };
 
 // ----------------------------------------------------------------------
-// the 16 actions (ST03:293-776): each updates the row in place, in the
-// plain version's order, and returns the enabled bit
+// the actions (ST03:293-776 and the family's deltas): each updates the
+// row in place, in the plain version's order, and returns the enabled
+// bit
 // ----------------------------------------------------------------------
+template <int MODEL>
 __device__ bool timer_send_svc(St& g, int i, int timer_limit) {
     const int r = i + 1;
-    const bool en = g.at(P_AUX_SVC, 0) < timer_limit && g.can_progress(i) &&
-                    !g.normal_primary(i, r);
+    bool en = g.at(P_AUX_SVC, 0) < timer_limit && g.can_progress(i);
+    if constexpr (A01_LIKE<MODEL>) {
+        // blocked for the primary whatever its status (A01:411)
+        en = en && primary(g.at(P_VIEW, i), g.R) != r;
+        if constexpr (MODEL == MODEL_I01)      // NotInPhaseSVC
+            en = en && (g.at(P_SENT_SVC, i) == 0 ||
+                        g.at(P_SENT_DVC, i) == 1);
+    } else {
+        en = en && !g.normal_primary(i, r);
+    }
     const int new_view = wadd(g.at(P_VIEW, i), 1);
     g.at(P_VIEW, i) = new_view;
     g.at(P_STATUS, i) = VIEWCHANGE;
-    g.reset_sent(i);
+    g.reset_sent<MODEL>(i);
+    if constexpr (MODEL == MODEL_I01) g.at(P_SENT_SVC, i) = 1;
     g.at(P_AUX_SVC, 0) = wadd(g.at(P_AUX_SVC, 0), 1);
+    g.row(M_SVC, new_view, 0, 0, 0, r, 0, 0);
+    g.broadcast(r);
+    if constexpr (MODEL == MODEL_AS04) g.clear_dvc(i);
+    return en;
+}
+
+// ReceiveHigherSVC / ReceiveHigherDVC (ST03:537-556, 616-635); I01
+// adopts view + 1 (I01:455, 572) and tracks the DVC; AS04 resets its DVC
+// slots and seeds them with the carrier DVC (AS04:667)
+template <int MODEL>
+__device__ bool receive_higher(St& g, int k, int mtype) {
+    const int i = g.msg_lane(k), r = g.mh[H_DEST];
+    const int j = clipi(wsub(g.mh[H_SRC], 1), 0, g.R - 1);
+    const bool en = g.recv_en(k, mtype) && g.can_progress(i) &&
+                    g.mh[H_VIEW] > g.at(P_VIEW, i);
+    const int new_view = MODEL == MODEL_I01 ? wadd(g.at(P_VIEW, i), 1)
+                                            : g.mh[H_VIEW];
+    g.at(P_VIEW, i) = new_view;
+    g.at(P_STATUS, i) = VIEWCHANGE;
+    g.reset_sent<MODEL>(i);
+    if constexpr (MODEL == MODEL_I01) {
+        g.at(P_SENT_SVC, i) = 1;
+        if (mtype == M_DVC)
+            g.update_tracker(i, new_view, j, g.mh[H_VIEW], g.mh[H_LNV],
+                             g.mh[H_OP], g.mh[H_COMMIT], g.m_log(k), en);
+    }
+    if constexpr (MODEL == MODEL_AS04) {
+        g.clear_dvc(i);
+        if (mtype == M_DVC)
+            g.dvc_slot_add(i, j, g.mh[H_LNV], g.mh[H_OP], g.mh[H_COMMIT],
+                           g.m_log(k), true);
+    }
+    g.discard(k);
     g.row(M_SVC, new_view, 0, 0, 0, r, 0, 0);
     g.broadcast(r);
     return en;
 }
 
-// ReceiveHigherSVC / ReceiveHigherDVC (ST03:537-556, 616-635)
-__device__ bool receive_higher(St& g, int k, int mtype) {
-    const int i = g.msg_lane(k), r = g.mh[H_DEST];
-    const bool en = g.recv_en(k, mtype) && g.can_progress(i) &&
-                    g.mh[H_VIEW] > g.at(P_VIEW, i);
-    g.at(P_VIEW, i) = g.mh[H_VIEW];
-    g.at(P_STATUS, i) = VIEWCHANGE;
-    g.reset_sent(i);
-    g.discard(k);
-    g.row(M_SVC, g.mh[H_VIEW], 0, 0, 0, r, 0, 0);
-    g.broadcast(r);
-    return en;
-}
-
-// ReceiveMatchingSVC / ReceiveMatchingDVC (ST03:558-575, 637-654)
+// ReceiveMatchingSVC / ReceiveMatchingDVC (ST03:558-575, 637-654); AS04
+// asks sent_dvc = FALSE of the SVC (AS04:601) and registers the DVC in
+// its slots; I01 registers the DVC whatever the status, in its tracker
+template <int MODEL>
 __device__ bool receive_matching(St& g, int k, int mtype) {
     const int i = g.msg_lane(k);
-    const bool en = g.recv_en(k, mtype) && g.can_progress(i) &&
-                    g.at(P_STATUS, i) == VIEWCHANGE &&
-                    g.mh[H_VIEW] == g.at(P_VIEW, i);
+    const int j = clipi(wsub(g.mh[H_SRC], 1), 0, g.R - 1);
+    const int view = g.at(P_VIEW, i);
+    bool en = g.recv_en(k, mtype) && g.can_progress(i) &&
+              g.mh[H_VIEW] == view;
+    if (!(MODEL == MODEL_I01 && mtype == M_DVC))
+        en = en && g.at(P_STATUS, i) == VIEWCHANGE;
+    if (MODEL == MODEL_AS04 && mtype == M_SVC)
+        en = en && g.at(P_SENT_DVC, i) == 0;
+    if constexpr (MODEL == MODEL_I01)
+        if (mtype == M_DVC)
+            g.update_tracker(i, view, j, g.mh[H_VIEW], g.mh[H_LNV],
+                             g.mh[H_OP], g.mh[H_COMMIT], g.m_log(k), en);
     g.discard(k);
+    if constexpr (MODEL == MODEL_AS04)
+        if (mtype == M_DVC)
+            g.dvc_slot_add(i, j, g.mh[H_LNV], g.mh[H_OP], g.mh[H_COMMIT],
+                           g.m_log(k), en);
     return en;
 }
 
+// SendDVC (ST03:577-614); the new primary's own DVC also enters I01's
+// tracker and AS04's slots
+template <int MODEL>
 __device__ bool send_dvc(St& g, int i) {
     const int R = g.R, r = i + 1;
     const int view = g.at(P_VIEW, i), prim = primary(view, R);
@@ -368,109 +601,188 @@ __device__ bool send_dvc(St& g, int i) {
     for (int o = 0; o < g.OPS; ++o) g.rl[o] = l[o];
     // the new primary's own DVC is born processed (SendAsReceived)
     g.send(true, prim == r ? 0 : 1);
+    if constexpr (MODEL == MODEL_I01)
+        g.update_tracker(i, view, i, view, g.at(P_LNV, i), g.at(P_OP, i),
+                         g.at(P_COMMIT, i), l, prim == r && en);
+    if constexpr (MODEL == MODEL_AS04)
+        g.dvc_slot_add(i, i, g.at(P_LNV, i), g.at(P_OP, i),
+                       g.at(P_COMMIT, i), l, prim == r && en);
     return en;
 }
 
-__device__ bool send_sv(St& g, int i) {
-    const int R = g.R, OPS = g.OPS, r = i + 1;
-    const int view = g.at(P_VIEW, i);
-    // HighestLog (ST03:676-697): among the valid DVCs, the maximal
-    // (last normal view, op number) pair, ties to the least (commit,
-    // log, source), the first such slot; the commit maximized alone
-    int n_valid = 0, best_pair = INT_MIN, new_cn = INT_MIN;
-    auto pair = [&](int m) {
-        return wadd(wmul(g.hdr(m, H_LNV), OPS + 1), g.hdr(m, H_OP));
-    };
-    for (int m = 0; m < g.M; ++m) {
-        const bool v = g.tombstone(m, i, M_DVC);
-        n_valid += v;
-        best_pair = imax(best_pair, v ? pair(m) : -1);
-        new_cn = imax(new_cn, v ? g.hdr(m, H_COMMIT) : -1);
-    }
-    // key word t of slot m: commit, log[0..OPS-1], source
-    auto key = [&](int m, int t) {
-        if (t == 0) return g.hdr(m, H_COMMIT);
-        if (t <= OPS) return g.m_log(m)[t - 1];
-        return g.hdr(m, H_SRC);
+// the HighestLog CHOOSE: among the candidates, the maximal (last normal
+// view, op number) pair, ties to the least (commit, log, source), the
+// first such; cand(t), the pair, the commit, the log and the source of
+// candidate t (the bag's slots for ST03 and A01, the DVC slots of the
+// replica for I01 and AS04)
+template <typename Cand, typename Lnv, typename Op, typename Commit,
+          typename Log, typename Src>
+__device__ int highest(int n, int OPS, Cand cand, Lnv lnv, Op op,
+                       Commit commit, Log log, Src src) {
+    int best_pair = INT_MIN;
+    auto pair = [&](int t) { return wadd(wmul(lnv(t), OPS + 1), op(t)); };
+    for (int t = 0; t < n; ++t) best_pair = imax(best_pair,
+                                                 cand(t) ? pair(t) : -1);
+    auto key = [&](int t, int w) {
+        if (w == 0) return commit(t);
+        if (w <= OPS) return log(t)[w - 1];
+        return src(t);
     };
     int best = -1;
-    for (int m = 0; m < g.M; ++m) {
-        if (!(g.tombstone(m, i, M_DVC) && pair(m) == best_pair)) continue;
+    for (int t = 0; t < n; ++t) {
+        if (!(cand(t) && pair(t) == best_pair)) continue;
         bool less = best < 0;
-        for (int t = 0; t < OPS + 2 && !less; ++t) {
-            const int a = key(m, t), b = key(best, t);
+        for (int w = 0; w < OPS + 2 && !less; ++w) {
+            const int a = key(t, w), b = key(best, w);
             if (a != b) {
                 less = a < b;
                 break;
             }
         }
-        if (less) best = m;
+        if (less) best = t;
     }
-    if (best < 0) best = 0;
+    return best < 0 ? 0 : best;
+}
+
+template <int MODEL>
+__device__ bool send_sv(St& g, int i) {
+    const int R = g.R, OPS = g.OPS, r = i + 1;
+    const int view = g.at(P_VIEW, i);
+    int n_valid = 0, new_cn = INT_MIN, new_vn = view, new_on;
+    if constexpr (MODEL == MODEL_I01 || MODEL == MODEL_AS04) {
+        // the replica's DVC slots: I01's valid (view >= own) tracker
+        // entries (I01:610-645), AS04's recv_dvc set (AS04:697-727)
+        auto cand = [&](int j) {
+            return g.slot(P_DVC, i, j) == 1 &&
+                   (MODEL == MODEL_AS04 ||
+                    g.slot(P_DVC_VIEW, i, j) >= view);
+        };
+        new_vn = INT_MIN;
+        for (int j = 0; j < R; ++j) {
+            n_valid += cand(j);
+            new_cn = imax(new_cn, cand(j) ? g.slot(P_DVC_COMMIT, i, j) : -1);
+            if constexpr (MODEL == MODEL_I01)
+                new_vn = imax(new_vn,
+                              cand(j) ? g.slot(P_DVC_VIEW, i, j) : -1);
+        }
+        const int best = highest(
+            R, OPS, cand, [&](int j) { return g.slot(P_DVC_LNV, i, j); },
+            [&](int j) { return g.slot(P_DVC_OP, i, j); },
+            [&](int j) { return g.slot(P_DVC_COMMIT, i, j); },
+            [&](int j) { return (const int*)g.dvc_log(i, j); },
+            [&](int j) { return j + 1; });
+        if constexpr (MODEL == MODEL_AS04) new_vn = view;
+        new_on = g.slot(P_DVC_OP, i, best);
+        g.row(M_SV, new_vn, new_on, new_cn, 0, r, 0, 0);
+        const int* bl = g.dvc_log(i, best);
+        for (int o = 0; o < OPS; ++o) g.rl[o] = bl[o];
+    } else {
+        // HighestLog over the valid DVC tombstones (ST03:676-697)
+        auto cand = [&](int m) { return g.tombstone(m, i, M_DVC); };
+        for (int m = 0; m < g.M; ++m) {
+            n_valid += cand(m);
+            new_cn = imax(new_cn, cand(m) ? g.hdr(m, H_COMMIT) : -1);
+        }
+        const int best = highest(
+            g.M, OPS, cand, [&](int m) { return g.hdr(m, H_LNV); },
+            [&](int m) { return g.hdr(m, H_OP); },
+            [&](int m) { return g.hdr(m, H_COMMIT); },
+            [&](int m) { return (const int*)g.m_log(m); },
+            [&](int m) { return g.hdr(m, H_SRC); });
+        new_on = g.hdr(best, H_OP);
+        g.row(M_SV, view, new_on, new_cn, 0, r, 0, 0);
+        const int* bl = g.m_log(best);
+        for (int o = 0; o < OPS; ++o) g.rl[o] = bl[o];
+    }
     const bool en = g.can_progress(i) && g.at(P_STATUS, i) == VIEWCHANGE &&
                     g.at(P_SENT_SV, i) == 0 && n_valid >= R / 2 + 1;
-    const int new_on = g.hdr(best, H_OP);
-    g.row(M_SV, view, new_on, new_cn, 0, r, 0, 0);
-    const int* bl = g.m_log(best);
-    for (int o = 0; o < OPS; ++o) g.rl[o] = bl[o];
     g.at(P_STATUS, i) = NORMAL;
     int* l = g.log_row(i);
     for (int o = 0; o < OPS; ++o) l[o] = g.rl[o];
+    if constexpr (MODEL == MODEL_AS04) {
+        // HighestCommitNumber executes the ops up to it; the commit is
+        // never lowered (the SV still carries new_cn)
+        g.exec_ops(i, g.rl, new_cn);
+    } else {
+        g.at(P_COMMIT, i) = new_cn;
+    }
     g.at(P_OP, i) = new_on;
     for (int j = 0; j < R; ++j) g.peer(i, j) = 0;
-    g.at(P_COMMIT, i) = new_cn;
     g.at(P_SENT_SV, i) = 1;
-    g.at(P_LNV, i) = view;
+    g.at(P_LNV, i) = new_vn;
+    if constexpr (MODEL == MODEL_I01) {
+        g.at(P_VIEW, i) = new_vn;
+        g.clear_tracker(i);
+    }
+    if constexpr (MODEL == MODEL_AS04) g.clear_dvc(i);
     g.broadcast(r);
     return en;
 }
 
+template <int MODEL>
 __device__ bool receive_sv(St& g, int k) {
     const int i = g.msg_lane(k), r = g.mh[H_DEST];
     const int hv = g.mh[H_VIEW], v = g.at(P_VIEW, i);
-    const bool en = g.recv_en(k, M_SV) && g.can_progress(i) &&
-                    ((hv == v && g.at(P_STATUS, i) == VIEWCHANGE) || hv > v);
+    bool en = g.recv_en(k, M_SV) && g.can_progress(i);
+    if constexpr (A01_LIKE<MODEL>)
+        en = en && hv >= v;                 // A01:621-624
+    else
+        en = en && ((hv == v && g.at(P_STATUS, i) == VIEWCHANGE) || hv > v);
     const int old_commit = g.at(P_COMMIT, i);
     g.at(P_STATUS, i) = NORMAL;
     g.at(P_VIEW, i) = hv;
     int* l = g.log_row(i);
     const int* ml = g.m_log(k);
     for (int o = 0; o < g.OPS; ++o) l[o] = ml[o];
+    if constexpr (MODEL == MODEL_AS04)
+        g.exec_ops(i, l, g.mh[H_COMMIT]);
+    else
+        g.at(P_COMMIT, i) = g.mh[H_COMMIT];
     g.at(P_OP, i) = g.mh[H_OP];
-    g.at(P_COMMIT, i) = g.mh[H_COMMIT];
     g.at(P_LNV, i) = hv;
-    g.reset_sent(i);
+    g.reset_sent<MODEL>(i);
+    if constexpr (MODEL == MODEL_I01) g.clear_tracker(i);
+    if constexpr (MODEL == MODEL_AS04) g.clear_dvc(i);
     g.discard(k);
     g.row(M_PREPAREOK, hv, g.mh[H_OP], 0, primary(hv, g.R), r, 0, 0);
     g.send(old_commit < g.mh[H_OP], 1);
     return en;
 }
 
+template <int MODEL>
 __device__ bool receive_client_request(St& g, int lane) {
     const int i = lane / g.V, vid = lane - i * g.V + 1, r = i + 1;
     const bool en = g.can_progress(i) && g.normal_primary(i, r) &&
                     g.at(P_AUX_ACKED, vid - 1) == 0;
     const int opn = wadd(g.at(P_OP, i), 1);
-    g.log_row(i)[clipi(wsub(opn, 1), 0, g.OPS - 1)] = vid;
+    // A01's entries are packed value_id << 8 | view (A01:287-289)
+    const int entry = A01_LIKE<MODEL>
+        ? (vid << ENTRY_VIEW_BITS) | g.at(P_VIEW, i) : vid;
+    g.log_row(i)[clipi(wsub(opn, 1), 0, g.OPS - 1)] = entry;
     g.at(P_OP, i) = opn;
     g.at(P_AUX_ACKED, vid - 1) = 1;
     g.row(M_PREPARE, g.at(P_VIEW, i), opn, g.at(P_COMMIT, i), 0, r, 0, 0);
-    g.re = vid;
+    g.re = entry;
     g.broadcast(r);
     return en;
 }
 
+template <int MODEL>
 __device__ bool receive_prepare(St& g, int k) {
     const int i = g.msg_lane(k), r = g.mh[H_DEST];
     const int view = g.at(P_VIEW, i);
+    // I01 has no primary exemption (I01:311-323)
     const bool en = g.recv_en(k, M_PREPARE) && g.can_progress(i) &&
-                    !g.normal_primary(i, r) && g.at(P_STATUS, i) == NORMAL &&
-                    g.mh[H_VIEW] == view &&
+                    (MODEL == MODEL_I01 || !g.normal_primary(i, r)) &&
+                    g.at(P_STATUS, i) == NORMAL && g.mh[H_VIEW] == view &&
                     g.mh[H_OP] == wadd(g.at(P_OP, i), 1);
     g.log_row(i)[clipi(wsub(g.mh[H_OP], 1), 0, g.OPS - 1)] =
         g.at(P_M_ENTRY, k);
     g.at(P_OP, i) = g.mh[H_OP];
-    g.at(P_COMMIT, i) = g.mh[H_COMMIT];
+    if constexpr (MODEL == MODEL_AS04)
+        g.exec_ops(i, g.log_row(i), g.mh[H_COMMIT]);
+    else
+        g.at(P_COMMIT, i) = g.mh[H_COMMIT];
     g.discard(k);
     g.row(M_PREPAREOK, view, g.mh[H_OP], 0, g.mh[H_SRC], r, 0, 0);
     g.send(true, 1);
@@ -489,6 +801,8 @@ __device__ bool receive_prepare_ok(St& g, int k) {
     return en;
 }
 
+// ExecuteOp (AS04: PrimaryExecuteOp, AS04:420-437)
+template <int MODEL>
 __device__ bool execute_op(St& g, int i) {
     const int r = i + 1;
     const int opn = wadd(g.at(P_COMMIT, i), 1);
@@ -496,8 +810,12 @@ __device__ bool execute_op(St& g, int i) {
     for (int j = 0; j < g.R; ++j) n += g.peer(i, j) >= opn;
     const bool en = g.can_progress(i) && g.normal_primary(i, r) &&
                     g.at(P_COMMIT, i) < g.at(P_OP, i) && n >= g.R / 2;
-    const int vid = g.log_row(i)[clipi(wsub(opn, 1), 0, g.OPS - 1)];
-    g.at(P_COMMIT, i) = opn;
+    const int code = g.log_row(i)[clipi(wsub(opn, 1), 0, g.OPS - 1)];
+    const int vid = A01_LIKE<MODEL> ? code >> ENTRY_VIEW_BITS : code;
+    if constexpr (MODEL == MODEL_AS04)
+        g.exec_ops(i, g.log_row(i), opn);
+    else
+        g.at(P_COMMIT, i) = opn;
     g.at(P_AUX_ACKED, clipi(wsub(vid, 1), 0, g.V - 1)) = 2;
     return en;
 }
@@ -539,6 +857,7 @@ __device__ bool receive_get_state(St& g, int lane) {
     return en;
 }
 
+template <int MODEL>
 __device__ bool receive_new_state(St& g, int k) {
     const int i = g.msg_lane(k);
     const bool en = g.recv_en(k, M_NEWSTATE) && g.can_progress(i) &&
@@ -557,7 +876,10 @@ __device__ bool receive_new_state(St& g, int k) {
     g.at(P_VIEW, i) = g.mh[H_VIEW];
     g.at(P_LNV, i) = g.mh[H_VIEW];
     g.at(P_OP, i) = g.mh[H_OP];
-    g.at(P_COMMIT, i) = g.mh[H_COMMIT];
+    if constexpr (MODEL == MODEL_AS04)
+        g.exec_ops(i, l, g.mh[H_COMMIT]);
+    else
+        g.at(P_COMMIT, i) = g.mh[H_COMMIT];
     g.discard(k);
     return en;
 }
@@ -568,6 +890,29 @@ __device__ bool no_progress_change(St& g, int mask, int np_limit) {
     const bool en = g.at(P_NP_CTR, 0) < np_limit && n <= g.R / 2;
     for (int r = 0; r < g.R; ++r) g.at(P_NO_PROG, r) = (mask >> r) & 1;
     g.at(P_NP_CTR, 0) = wadd(g.at(P_NP_CTR, 0), 1);
+    return en;
+}
+
+// I01's ResendSVC (I01:505-517), lane i * R + peer: the SVC of the
+// replica's view to the peer again, when none to it is undelivered
+// (count 1) and none came back from it in this view
+__device__ bool resend_svc(St& g, int lane) {
+    const int i = lane / g.R, p = lane - i * g.R, r = i + 1, peer = p + 1;
+    const int view = g.at(P_VIEW, i);
+    bool undelivered = false, back = false;
+    for (int m = 0; m < g.M; ++m) {
+        if (g.at(P_M_PRESENT, m) != 1 || g.hdr(m, H_TYPE) != M_SVC ||
+                g.hdr(m, H_VIEW) != view)
+            continue;
+        const int dest = g.hdr(m, H_DEST), src = g.hdr(m, H_SRC);
+        undelivered = undelivered || (dest == peer && src == r &&
+                                      g.at(P_M_COUNT, m) == 1);
+        back = back || (dest == r && src == peer);
+    }
+    const bool en = g.can_progress(i) && r != peer &&
+                    g.at(P_SENT_SVC, i) == 1 && !undelivered && !back;
+    g.row(M_SVC, view, 0, 0, peer, r, 0, 0);
+    g.send(true, 1);
     return en;
 }
 
@@ -583,43 +928,54 @@ __device__ int lane_replica(const St& g, int a, int lane) {
         return lane / g.V;
     case A_RECEIVE_GET_STATE:
         return lane % g.R;
+    case A_RESEND_SVC:
+        return lane / g.R;
     default:
         return clipi(wsub(g.hdr(lane, H_DEST), 1), 0, g.R - 1);
     }
 }
 
+// a: the family action id
+template <int MODEL>
 __device__ bool apply(St& g, int a, int lane, int timer_limit,
                       int np_limit) {
     switch (a) {
-    case A_TIMER_SEND_SVC: return timer_send_svc(g, lane, timer_limit);
-    case A_RECEIVE_HIGHER_SVC: return receive_higher(g, lane, M_SVC);
-    case A_RECEIVE_MATCHING_SVC: return receive_matching(g, lane, M_SVC);
-    case A_SEND_DVC: return send_dvc(g, lane);
-    case A_RECEIVE_HIGHER_DVC: return receive_higher(g, lane, M_DVC);
-    case A_RECEIVE_MATCHING_DVC: return receive_matching(g, lane, M_DVC);
-    case A_SEND_SV: return send_sv(g, lane);
-    case A_RECEIVE_SV: return receive_sv(g, lane);
-    case A_RECEIVE_CLIENT_REQUEST: return receive_client_request(g, lane);
-    case A_RECEIVE_PREPARE: return receive_prepare(g, lane);
+    case A_TIMER_SEND_SVC: return timer_send_svc<MODEL>(g, lane,
+                                                        timer_limit);
+    case A_RECEIVE_HIGHER_SVC: return receive_higher<MODEL>(g, lane, M_SVC);
+    case A_RECEIVE_MATCHING_SVC:
+        return receive_matching<MODEL>(g, lane, M_SVC);
+    case A_SEND_DVC: return send_dvc<MODEL>(g, lane);
+    case A_RECEIVE_HIGHER_DVC: return receive_higher<MODEL>(g, lane, M_DVC);
+    case A_RECEIVE_MATCHING_DVC:
+        return receive_matching<MODEL>(g, lane, M_DVC);
+    case A_SEND_SV: return send_sv<MODEL>(g, lane);
+    case A_RECEIVE_SV: return receive_sv<MODEL>(g, lane);
+    case A_RECEIVE_CLIENT_REQUEST:
+        return receive_client_request<MODEL>(g, lane);
+    case A_RECEIVE_PREPARE: return receive_prepare<MODEL>(g, lane);
     case A_RECEIVE_PREPARE_OK: return receive_prepare_ok(g, lane);
-    case A_EXECUTE_OP: return execute_op(g, lane);
+    case A_EXECUTE_OP: return execute_op<MODEL>(g, lane);
     case A_SEND_GET_STATE: return send_get_state(g, lane);
     case A_RECEIVE_GET_STATE: return receive_get_state(g, lane);
-    case A_RECEIVE_NEW_STATE: return receive_new_state(g, lane);
+    case A_RECEIVE_NEW_STATE: return receive_new_state<MODEL>(g, lane);
     case A_NO_PROGRESS_CHANGE: return no_progress_change(g, lane, np_limit);
+    case A_RESEND_SVC: return resend_svc(g, lane);
     }
     return false;
 }
 
+template <int MODEL>
 __global__ void actions_kernel(
         const int* __restrict__ flat, int lanes,
         const int* __restrict__ pidx, const int* __restrict__ aid,
         const int* __restrict__ lane_of, const int* __restrict__ planes,
-        int R, int V, int M, int OPS, int NHDR, int timer_limit,
-        int np_limit, int inv_mask, const long long* __restrict__ halt,
-        int* __restrict__ succ, uint8_t* __restrict__ en2,
-        int* __restrict__ err, int* __restrict__ ts, int* __restrict__ tn,
-        int* __restrict__ ri, uint8_t* __restrict__ iok) {
+        const int* __restrict__ amap, int R, int V, int M, int OPS,
+        int NHDR, int timer_limit, int np_limit, int inv_mask,
+        const long long* __restrict__ halt, int* __restrict__ succ,
+        uint8_t* __restrict__ en2, int* __restrict__ err,
+        int* __restrict__ ts, int* __restrict__ tn, int* __restrict__ ri,
+        uint8_t* __restrict__ iok) {
     if (halt && *halt) return;
     int* row = tpuvsr_st03_smem;
     const size_t n = blockIdx.x;
@@ -639,31 +995,27 @@ __global__ void actions_kernel(
         g.re = 0;
         for (int t = 0; t <= R; ++t) g.ts[t] = -1;
         g.tn = 0;
-        const int a = aid[n], lane = lane_of[n];
+        const int a = amap[aid[n]], lane = lane_of[n];
         ri[n] = lane_replica(g, a, lane);
-        en2[n] = apply(g, a, lane, timer_limit, np_limit);
+        en2[n] = apply<MODEL>(g, a, lane, timer_limit, np_limit);
         err[n] = g.at(P_ERR, 0);
         for (int t = 0; t <= R; ++t) ts[n * (R + 1) + t] = g.ts[t];
         tn[n] = g.tn;
-        iok[n] = g.invariants(inv_mask, timer_limit);
+        iok[n] = g.invariants<MODEL>(inv_mask, timer_limit);
     }
     __syncthreads();
     int* dst = succ + n * lanes;
     for (int l = threadIdx.x; l < lanes; l += blockDim.x) dst[l] = row[l];
 }
 
-}  // namespace
-
-// flat: [T, lanes] int32 parent rows; pidx, aid, lane: [N] int32 work
-// queue; planes: [N_ST03_PLANES] int32 plane offsets (ALL_KEYS order);
-// halt: one int64 word or null; succ: [N, lanes] int32; en2, iok: [N]
-// uint8; err, tn, ri: [N] int32; ts: [N, R + 1] int32.
-TPUVSR_EXPORT int tpuvsr_st03_actions(
-        const void* flat, int lanes, const void* pidx, const void* aid,
-        const void* lane, int N, const void* planes, int R, int V, int M,
-        int OPS, int NHDR, int timer_limit, int np_limit, int inv_mask,
-        const void* halt, void* succ, void* en2, void* err, void* ts,
-        void* tn, void* ri, void* iok, void* stream) {
+template <int MODEL>
+int launch_actions(const void* flat, int lanes, const void* pidx,
+                   const void* aid, const void* lane, int N,
+                   const void* planes, const void* amap, int R, int V,
+                   int M, int OPS, int NHDR, int timer_limit, int np_limit,
+                   int inv_mask, const void* halt, void* succ, void* en2,
+                   void* err, void* ts, void* tn, void* ri, void* iok,
+                   void* stream) {
     if (N > 0) {
         // the row and the scratch words of one block
         const size_t smem = (size_t)(lanes + 2 * NHDR + OPS + R + 1) *
@@ -671,12 +1023,41 @@ TPUVSR_EXPORT int tpuvsr_st03_actions(
         if (NHDR < N_ROWHDR || smem > 48 * 1024)
             return (int)cudaErrorInvalidValue;
         cudaStream_t st = (cudaStream_t)stream;
-        KLAUNCH_SMEM(actions_kernel, N, THREADS, smem, st,
+        KLAUNCH_SMEM(actions_kernel<MODEL>, N, THREADS, smem, st,
             (const int*)flat, lanes, (const int*)pidx, (const int*)aid,
-            (const int*)lane, (const int*)planes, R, V, M, OPS, NHDR,
-            timer_limit, np_limit, inv_mask, (const long long*)halt,
-            (int*)succ, (uint8_t*)en2, (int*)err, (int*)ts, (int*)tn,
-            (int*)ri, (uint8_t*)iok);
+            (const int*)lane, (const int*)planes, (const int*)amap, R, V,
+            M, OPS, NHDR, timer_limit, np_limit, inv_mask,
+            (const long long*)halt, (int*)succ, (uint8_t*)en2, (int*)err,
+            (int*)ts, (int*)tn, (int*)ri, (uint8_t*)iok);
     }
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// flat: [T, lanes] int32 parent rows; pidx, aid, lane: [N] int32 work
+// queue (aid: the model's action index); planes: [N_ST03_PLANES] int32
+// plane offsets (ALL_KEYS order; [N_FAMILY_PLANES] for A01, I01 and
+// AS04, -1 for a plane the model lacks); amap: the model's action index
+// -> family action id; inv_mask: family invariant bits; halt: one int64
+// word or null; succ: [N, lanes] int32; en2, iok: [N] uint8; err, tn,
+// ri: [N] int32; ts: [N, R + 1] int32.  One entry point a model, all
+// with this signature.
+#define TPUVSR_ACTIONS_ENTRY(name, MODEL)                                 \
+    TPUVSR_EXPORT int tpuvsr_##name##_actions(                            \
+            const void* flat, int lanes, const void* pidx, const void* aid, \
+            const void* lane, int N, const void* planes, const void* amap, \
+            int R, int V, int M, int OPS, int NHDR, int timer_limit,      \
+            int np_limit, int inv_mask, const void* halt, void* succ,     \
+            void* en2, void* err, void* ts, void* tn, void* ri, void* iok, \
+            void* stream) {                                               \
+        return launch_actions<MODEL>(                                     \
+            flat, lanes, pidx, aid, lane, N, planes, amap, R, V, M, OPS,  \
+            NHDR, timer_limit, np_limit, inv_mask, halt, succ, en2, err,  \
+            ts, tn, ri, iok, stream);                                     \
+    }
+
+TPUVSR_ACTIONS_ENTRY(st03, MODEL_ST03)
+TPUVSR_ACTIONS_ENTRY(a01, MODEL_A01)
+TPUVSR_ACTIONS_ENTRY(i01, MODEL_I01)
+TPUVSR_ACTIONS_ENTRY(as04, MODEL_AS04)

@@ -1,12 +1,35 @@
-// K13: the ST03 (VR_STATE_TRANSFER) guard matrix.
+// K13: the guard matrix of the ST03 (VR_STATE_TRANSFER) family: ST03,
+// A01 (VR_ASSUME_NEWVIEWCHANGE), I01 (VR_INC_RESEND) and AS04
+// (VR_APP_STATE).
 //
 // Replaces tpuvsr/engine/device_bfs.py:_guard_matrix (:398), the vmapped
-// sweep of the 16 guards of tpuvsr/models/st03_kernel.py:578-710 over
-// every (state, lane) of a batch.  The port's plain version is the loop
-// over ST03Kernel._guard_fns (models/st03_kernel.py); this kernel
-// computes the same [B, n_lanes] enabled matrix (lane-table order:
-// action-major, then the action's lane parameter) and en_any[b] = OR
-// over the row.
+// sweep of the guards of tpuvsr/models/st03_kernel.py:578-710 over every
+// (state, lane) of a batch, and the guards the family's kernels replace
+// or add: tpuvsr/models/a01_kernel.py:61,71 (TimerSendSVC, ReceiveSV),
+// i01_kernel.py:150,173,253,303,340 (TimerSendSVC, ResendSVC,
+// ReceiveMatchingDVC, SendSV, ReceivePrepareMsg) and as04_kernel.py:
+// 319,324 (ReceiveMatchingSVC, SendSV).  The port's plain version is the
+// loop over the model's _guard_fns (models/st03_kernel.py and its
+// subclasses); this kernel computes the same [B, n_lanes] enabled matrix
+// (lane-table order: action-major, then the action's lane parameter)
+// and en_any[b] = OR over the row.
+//
+// The family.  The kernel is a template on the model, with one entry
+// point each (tpuvsr_st03_guards, tpuvsr_a01_guards, tpuvsr_i01_guards,
+// tpuvsr_as04_guards); a model's deltas are if-constexpr branches, so
+// ST03's instantiation does ST03's work alone.  The host's lane table
+// names each lane's action by its family id (enum Action, then
+// FamilyAction in csrc/st03_actions.cu: A01 and I01 drop and add
+// actions, so their ids do not line up with ST03's), and the plane
+// table locates the family planes after ST03's (FamilyPlane; a plane the
+// model lacks is never read).  A01 blocks TimerSendSVC for the primary
+// whatever its status and takes any StartView of a view not below its
+// own; I01 adds NotInPhaseSVC to TimerSendSVC, counts SendSV's quorum
+// over the valid (view >= own) DVC tracker entries, registers a matching
+// DVC whatever its status, drops ReceivePrepareMsg's primary exemption
+// and has ResendSVC, one lane per (replica, peer) pair, whose guard
+// scans the bag twice; AS04 counts SendSV's quorum over its DVC slots
+// and asks sent_dvc = FALSE of ReceiveMatchingSVC.
 //
 // ST03's guards, against VSR's (K6, csrc/vsr_guards.cu): every guard
 // but NoProgressChange's asks CanProgress of its replica (no_prog = 0);
@@ -42,6 +65,18 @@ enum Plane {
     P_NO_PROG, P_NP_CTR, P_M_PRESENT, P_M_COUNT, P_M_HDR, P_M_ENTRY,
     P_M_LOG, P_AUX_SVC, P_AUX_ACKED, N_PLANES
 };
+
+// the family's planes K13 reads (FAMILY_GUARD_PLANES)
+enum FamilyPlane {
+    P_SENT_SVC = N_PLANES, P_DVC, P_DVC_VIEW, N_FAMILY_PLANES
+};
+
+// the models (one instantiation and entry point each)
+enum Model { MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04 };
+
+// the family ids of the actions (csrc/st03_actions.cu enums Action and
+// FamilyAction)
+constexpr int A_RESEND_SVC = 16;
 
 // the codec's encodings (models/st03.py, models/vsr.py)
 constexpr int NORMAL = 0, VIEWCHANGE = 1, STATETRANSFER = 2;
@@ -136,20 +171,54 @@ __device__ bool send_get_state(const Row& g, int k) {
     return true;
 }
 
+// I01's ResendSVC (RequiresResend, I01:490-503), lane i * R + peer: the
+// replica has sent an SVC in this view, none to the peer is undelivered
+// (count 1) and none came back from the peer in this view
+__device__ bool resend_svc(const Row& g, int lane) {
+    const int i = lane / g.R, p = lane - i * g.R, r = i + 1, peer = p + 1;
+    if (!(can_progress(g, i) && r != peer && g.at(P_SENT_SVC, i) == 1))
+        return false;
+    const int view = g.at(P_VIEW, i);
+    for (int m = 0; m < g.M; ++m) {
+        if (g.at(P_M_PRESENT, m) != 1 || g.hdr(m, H_TYPE) != M_SVC ||
+                g.hdr(m, H_VIEW) != view)
+            continue;
+        const int dest = g.hdr(m, H_DEST), src = g.hdr(m, H_SRC);
+        if (dest == peer && src == r && g.at(P_M_COUNT, m) == 1)
+            return false;
+        if (dest == r && src == peer) return false;
+    }
+    return true;
+}
+
+template <int MODEL>
 __device__ bool guard(const Row& g, int a, int p, int timer_limit,
                       int np_limit) {
+    constexpr bool A01_LIKE = MODEL == MODEL_A01 || MODEL == MODEL_I01;
     const int R = g.R;
     switch (a) {
     case 0:     // TimerSendSVC, lane r
+        if constexpr (A01_LIKE) {
+            // blocked for the primary whatever its status; I01 adds
+            // NotInPhaseSVC
+            bool en = g.at(P_AUX_SVC, 0) < timer_limit &&
+                      can_progress(g, p) &&
+                      primary(g.at(P_VIEW, p), R) != p + 1;
+            if constexpr (MODEL == MODEL_I01)
+                en = en && (g.at(P_SENT_SVC, p) == 0 ||
+                            g.at(P_SENT_DVC, p) == 1);
+            return en;
+        }
         return g.at(P_AUX_SVC, 0) < timer_limit && can_progress(g, p) &&
                !normal_primary(g, p, p + 1);
     case 1:     // ReceiveHigherSVC, lane k
         return recv(g, p, M_SVC) &&
                g.hdr(p, H_VIEW) > g.at(P_VIEW, dest_rep(g, p));
-    case 2: {   // ReceiveMatchingSVC
+    case 2: {   // ReceiveMatchingSVC (AS04: and sent_dvc = FALSE)
         const int i = dest_rep(g, p);
         return recv(g, p, M_SVC) && g.at(P_STATUS, i) == VIEWCHANGE &&
-               g.hdr(p, H_VIEW) == g.at(P_VIEW, i);
+               g.hdr(p, H_VIEW) == g.at(P_VIEW, i) &&
+               (MODEL != MODEL_AS04 || g.at(P_SENT_DVC, i) == 0);
     }
     case 3:     // SendDVC, lane r
         return can_progress(g, p) && g.at(P_STATUS, p) == VIEWCHANGE &&
@@ -157,18 +226,33 @@ __device__ bool guard(const Row& g, int a, int p, int timer_limit,
     case 4:     // ReceiveHigherDVC
         return recv(g, p, M_DVC) &&
                g.hdr(p, H_VIEW) > g.at(P_VIEW, dest_rep(g, p));
-    case 5: {   // ReceiveMatchingDVC
+    case 5: {   // ReceiveMatchingDVC (I01: whatever the status)
         const int i = dest_rep(g, p);
-        return recv(g, p, M_DVC) && g.at(P_STATUS, i) == VIEWCHANGE &&
+        return recv(g, p, M_DVC) &&
+               (MODEL == MODEL_I01 || g.at(P_STATUS, i) == VIEWCHANGE) &&
                g.hdr(p, H_VIEW) == g.at(P_VIEW, i);
     }
-    case 6:     // SendSV, lane r
+    case 6: {   // SendSV, lane r: a quorum of DVCs
+        int n;
+        if constexpr (MODEL == MODEL_I01) {
+            // the valid (view >= own) tracker entries
+            n = 0;
+            for (int j = 0; j < R; ++j)
+                n += g.at(P_DVC, p * R + j) == 1 &&
+                     g.at(P_DVC_VIEW, p * R + j) >= g.at(P_VIEW, p);
+        } else if constexpr (MODEL == MODEL_AS04) {
+            n = 0;      // the recv_dvc slots
+            for (int j = 0; j < R; ++j) n += g.at(P_DVC, p * R + j) == 1;
+        } else {
+            n = tombstones(g, p, M_DVC);
+        }
         return can_progress(g, p) && g.at(P_STATUS, p) == VIEWCHANGE &&
-               g.at(P_SENT_SV, p) == 0 &&
-               tombstones(g, p, M_DVC) >= R / 2 + 1;
-    case 7: {   // ReceiveSV
+               g.at(P_SENT_SV, p) == 0 && n >= R / 2 + 1;
+    }
+    case 7: {   // ReceiveSV (A01, I01: any view not below its own)
         const int i = dest_rep(g, p);
         const int hv = g.hdr(p, H_VIEW), v = g.at(P_VIEW, i);
+        if constexpr (A01_LIKE) return recv(g, p, M_SV) && hv >= v;
         return recv(g, p, M_SV) &&
                ((hv == v && g.at(P_STATUS, i) == VIEWCHANGE) || hv > v);
     }
@@ -177,10 +261,11 @@ __device__ bool guard(const Row& g, int a, int p, int timer_limit,
         return can_progress(g, r) && normal_primary(g, r, r + 1) &&
                g.at(P_AUX_ACKED, v) == 0;
     }
-    case 9: {   // ReceivePrepareMsg
+    case 9: {   // ReceivePrepareMsg (I01: no primary exemption)
         const int i = dest_rep(g, p);
         return recv(g, p, M_PREPARE) &&
-               !normal_primary(g, i, g.hdr(p, H_DEST)) &&
+               (MODEL == MODEL_I01 ||
+                !normal_primary(g, i, g.hdr(p, H_DEST))) &&
                g.at(P_STATUS, i) == NORMAL &&
                g.hdr(p, H_VIEW) == g.at(P_VIEW, i) &&
                g.hdr(p, H_OP) == wadd(g.at(P_OP, i), 1);
@@ -220,10 +305,14 @@ __device__ bool guard(const Row& g, int a, int p, int timer_limit,
     }
     case 15:    // NoProgressChange, lane = a subset of the replicas
         return g.at(P_NP_CTR, 0) < np_limit && __popc(p) <= R / 2;
+    case A_RESEND_SVC:
+        if constexpr (MODEL == MODEL_I01) return resend_svc(g, p);
+        return false;
     }
     return false;
 }
 
+template <int MODEL>
 __global__ void guards_kernel(const int* __restrict__ flat, int lanes,
                               int n_lanes, int R, int V, int M, int OPS,
                               int NHDR, int timer_limit, int np_limit,
@@ -245,8 +334,8 @@ __global__ void guards_kernel(const int* __restrict__ flat, int lanes,
     int mine = 0;
     uint8_t* out = en + (size_t)b * n_lanes;
     for (int l = threadIdx.x; l < n_lanes; l += blockDim.x) {
-        const bool e = guard(g, lane_action[l], lane_param[l], timer_limit,
-                             np_limit);
+        const bool e = guard<MODEL>(g, lane_action[l], lane_param[l],
+                                    timer_limit, np_limit);
         out[l] = e;
         mine |= e;
     }
@@ -255,25 +344,17 @@ __global__ void guards_kernel(const int* __restrict__ flat, int lanes,
     if (threadIdx.x == 0) en_any[b] = any != 0;
 }
 
-}  // namespace
-
-// flat: [B, lanes] int32 state rows; planes: [N_PLANES] int32 plane
-// offsets (GUARD_PLANES order); lane_action, lane_param: [n_lanes]
-// int32; halt: one int64 word or null; en: [B, n_lanes] uint8; en_any:
-// [B] uint8.
-TPUVSR_EXPORT int tpuvsr_st03_guards(const void* flat, int B, int lanes,
-                                     int n_lanes, int R, int V, int M,
-                                     int OPS, int NHDR, int timer_limit,
-                                     int np_limit, const void* planes,
-                                     const void* lane_action,
-                                     const void* lane_param,
-                                     const void* halt, void* en,
-                                     void* en_any, void* stream) {
+template <int MODEL>
+int launch_guards(const void* flat, int B, int lanes, int n_lanes, int R,
+                  int V, int M, int OPS, int NHDR, int timer_limit,
+                  int np_limit, const void* planes, const void* lane_action,
+                  const void* lane_param, const void* halt, void* en,
+                  void* en_any, void* stream) {
     if (B > 0) {
         const size_t smem = (size_t)lanes * sizeof(int);
         if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
         cudaStream_t st = (cudaStream_t)stream;
-        KLAUNCH_SMEM(guards_kernel, B, THREADS, smem, st,
+        KLAUNCH_SMEM(guards_kernel<MODEL>, B, THREADS, smem, st,
             (const int*)flat, lanes, n_lanes, R, V, M, OPS, NHDR,
             timer_limit, np_limit, (const int*)planes,
             (const int*)lane_action, (const int*)lane_param,
@@ -281,3 +362,29 @@ TPUVSR_EXPORT int tpuvsr_st03_guards(const void* flat, int B, int lanes,
     }
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// flat: [B, lanes] int32 state rows; planes: [N_PLANES] int32 plane
+// offsets (GUARD_PLANES order; [N_FAMILY_PLANES] for A01, I01 and AS04,
+// -1 for a plane the model lacks); lane_action (family action ids),
+// lane_param: [n_lanes] int32; halt: one int64 word or null; en:
+// [B, n_lanes] uint8; en_any: [B] uint8.  One entry point a model, all
+// with this signature.
+#define TPUVSR_GUARDS_ENTRY(name, MODEL)                                  \
+    TPUVSR_EXPORT int tpuvsr_##name##_guards(                             \
+            const void* flat, int B, int lanes, int n_lanes, int R, int V, \
+            int M, int OPS, int NHDR, int timer_limit, int np_limit,      \
+            const void* planes, const void* lane_action,                  \
+            const void* lane_param, const void* halt, void* en,           \
+            void* en_any, void* stream) {                                 \
+        return launch_guards<MODEL>(flat, B, lanes, n_lanes, R, V, M, OPS, \
+                                    NHDR, timer_limit, np_limit, planes,  \
+                                    lane_action, lane_param, halt, en,    \
+                                    en_any, stream);                      \
+    }
+
+TPUVSR_GUARDS_ENTRY(st03, MODEL_ST03)
+TPUVSR_GUARDS_ENTRY(a01, MODEL_A01)
+TPUVSR_GUARDS_ENTRY(i01, MODEL_I01)
+TPUVSR_GUARDS_ENTRY(as04, MODEL_AS04)

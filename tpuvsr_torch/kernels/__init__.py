@@ -10,7 +10,8 @@ never loaded), and bound with ``ctypes``.  ``build()`` starts one
 The wrappers that call these kernels live beside their plain PyTorch
 versions (``engine/fpset.py``, ``engine/pack.py``, ``engine/tile.py``,
 ``engine/edges.py``, ``engine/canon.py``, ``models/fingerprint.py``,
-``models/vsr_kernel.py``, ``models/st03_kernel.py``, ``sim/rng.py``).
+``models/vsr_kernel.py``, ``models/st03_kernel.py`` and the family's
+subclasses, ``sim/rng.py``).
 A wrapper sends a CPU tensor to the plain version and a CUDA tensor to
 ``launch()``, which raises when the C entry point reports a CUDA error
 and otherwise adds one to the kernel's launch count.  A launch recorded
@@ -90,6 +91,49 @@ KERNELS = {
     "st03_actions": ("st03_actions", "tpuvsr/models/st03_kernel.py:261-570 "
                      "act_* (+ :183-227 bag primitives, :723 lane_replica, "
                      ":912-938 inv_*, :976 invariant_fn)"),
+    # the family's other models: K13, K14 and K3 instantiated for each
+    "a01_fp_full": ("vsr_fingerprint",
+                    "tpuvsr/models/st03_kernel.py:841 fingerprint on "
+                    "tpuvsr/models/a01_kernel.py's rows"),
+    "a01_fp_parts": ("vsr_fingerprint",
+                     "tpuvsr/models/st03_kernel.py:847 parent_parts on "
+                     "tpuvsr/models/a01_kernel.py's rows"),
+    "a01_fp_incremental": (
+        "vsr_fingerprint", "tpuvsr/models/st03_kernel.py:879 "
+        "fingerprint_incremental on tpuvsr/models/a01_kernel.py's rows"),
+    "a01_guards": ("st03_guards", "tpuvsr/engine/device_bfs.py:398 "
+                   "_guard_matrix over tpuvsr/models/a01_kernel.py:61,71 "
+                   "(+ st03_kernel.py:578-710)"),
+    "a01_actions": ("st03_actions", "tpuvsr/models/a01_kernel.py:53-117 "
+                    "(+ st03_kernel.py:261-570 act_*, :912-938 inv_*)"),
+    "i01_fp_full": ("vsr_fingerprint",
+                    "tpuvsr/models/st03_kernel.py:841 fingerprint on "
+                    "tpuvsr/models/i01_kernel.py's rows (REP_KEYS :45)"),
+    "i01_fp_parts": ("vsr_fingerprint",
+                     "tpuvsr/models/st03_kernel.py:847 parent_parts on "
+                     "tpuvsr/models/i01_kernel.py's rows"),
+    "i01_fp_incremental": (
+        "vsr_fingerprint", "tpuvsr/models/st03_kernel.py:879 "
+        "fingerprint_incremental on tpuvsr/models/i01_kernel.py's rows"),
+    "i01_guards": ("st03_guards", "tpuvsr/engine/device_bfs.py:398 "
+                   "_guard_matrix over tpuvsr/models/i01_kernel.py:150,"
+                   "173,253,303,340 (+ a01, st03 guards)"),
+    "i01_actions": ("st03_actions", "tpuvsr/models/i01_kernel.py:78-397 "
+                    "(+ a01_kernel.py, st03_kernel.py act_*, inv_*)"),
+    "as04_fp_full": ("vsr_fingerprint",
+                     "tpuvsr/models/st03_kernel.py:841 fingerprint on "
+                     "tpuvsr/models/as04_kernel.py's rows (REP_KEYS :43)"),
+    "as04_fp_parts": ("vsr_fingerprint",
+                      "tpuvsr/models/st03_kernel.py:847 parent_parts on "
+                      "tpuvsr/models/as04_kernel.py's rows"),
+    "as04_fp_incremental": (
+        "vsr_fingerprint", "tpuvsr/models/st03_kernel.py:879 "
+        "fingerprint_incremental on tpuvsr/models/as04_kernel.py's rows"),
+    "as04_guards": ("st03_guards", "tpuvsr/engine/device_bfs.py:398 "
+                    "_guard_matrix over tpuvsr/models/as04_kernel.py:319,"
+                    "324 (+ st03 guards)"),
+    "as04_actions": ("st03_actions", "tpuvsr/models/as04_kernel.py:76-346 "
+                     "(+ st03_kernel.py act_*, inv_*)"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -116,10 +160,13 @@ _ENTRY = {
     "tpuvsr_fpset_store_gids": "pqppppi" + "p",
     "tpuvsr_fpset_probe": "pqpppi" + "ppp" + "p",
     "tpuvsr_edge_emit": "ppppi" + "piii" + "pppp" + "p",
-    "tpuvsr_st03_guards": "piii" + "iiiiiii" + "ppp" + "ppp" + "p",
-    "tpuvsr_st03_actions": "pipppi" + "p" + "iiiii" + "iii" + "p"
-                           + "ppppppp" + "p",
 }
+# K13 and K14 take one signature for every model of the ST03 family
+for _m in ("st03", "a01", "i01", "as04"):
+    _ENTRY[f"tpuvsr_{_m}_guards"] = ("piii" + "iiiiiii" + "ppp" + "ppp"
+                                     + "p")
+    _ENTRY[f"tpuvsr_{_m}_actions"] = ("pipppi" + "pp" + "iiiii" + "iii"
+                                      + "p" + "ppppppp" + "p")
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
           "f": ctypes.c_float}
 

@@ -2,7 +2,8 @@
 and how to build (codec, kernel) for a binding.
 
 The counterpart of ``tpuvsr/models/registry.py`` for the modules
-``VSR`` and ``VR_STATE_TRANSFER`` (ST03), with an identity-only
+``VSR``, ``VR_STATE_TRANSFER`` (ST03), ``VR_ASSUME_NEWVIEWCHANGE``
+(A01), ``VR_INC_RESEND`` (I01) and ``VR_APP_STATE`` (AS04), with an identity-only
 permutation table (``fold_symmetry=False``, what the device BFS asks
 for: symmetry is reduced by ``engine/canon.py``, not folded into the
 fingerprint).  The kernel
@@ -47,6 +48,18 @@ def _resolve(module):
         from .st03 import ST03Codec
         from .st03_kernel import ST03Kernel
         return ST03Codec, ST03Kernel
+    if module == "VR_APP_STATE":
+        from .as04 import AS04Codec
+        from .as04_kernel import AS04Kernel
+        return AS04Codec, AS04Kernel
+    if module == "VR_ASSUME_NEWVIEWCHANGE":
+        from .a01 import A01Codec
+        from .a01_kernel import A01Kernel
+        return A01Codec, A01Kernel
+    if module == "VR_INC_RESEND":
+        from .i01 import I01Codec
+        from .i01_kernel import I01Kernel
+        return I01Codec, I01Kernel
     raise KeyError(f"no hand model kernel for module {module!r} in the port")
 
 

@@ -2,7 +2,8 @@
 analysis/03-state-transfer/VR_STATE_TRANSFER.tla).
 
 A copy of ``tpuvsr/models/st03.py`` (``ST03Shape``, ``shape_from_cfg``,
-``ST03Codec``) with two changes: ``pad_msgs`` pads torch tensors, and
+``ST03Codec``, the ``encode`` / ``_encode_common`` split the family's
+codecs extend) with two changes: ``pad_msgs`` pads torch tensors, and
 ``init_dense()`` builds ST03's ``Init`` state densely (the port has no
 interpreter to enumerate it).
 
@@ -270,6 +271,11 @@ class ST03Codec:
         d["m_log"][k] = log
 
     def encode(self, st: dict):
+        return self._encode_common(st)
+
+    def _encode_common(self, st: dict):
+        """The ST03-shaped part of the encoding (the family's other
+        codecs add their planes to the dict it returns)."""
         s = self.shape
         d = self.zero_state()
         for r in range(1, s.R + 1):

@@ -33,8 +33,18 @@ version ``successors_plain`` runs the ``act_*`` functions.  Every call
 of ``_action_fns`` and ``_guard_fns`` (the plain functions' only doors)
 is counted in ``PLAIN_CALLS``.
 
+The family.  A01, I01 and AS04 (``models/{a01,i01,as04}_kernel.py``)
+subclass this kernel as their JAX counterparts subclass JAX's, and run
+on the same two CUDA sources: K13 and K14 are templated on the model,
+with one C entry point each (``GUARDS_KERNEL``, ``ACTIONS_KERNEL``).  A
+subclass names its planes beyond ST03's in ``FAMILY_PLANES`` order
+(``PLANE_KEYS``, ``GUARD_KEYS``; a plane a model lacks has offset -1 and
+is never read), its actions by their family ids (``FAMILY_ACTIONS``,
+``ACTION_ALIASES``) and its invariants by their family bits
+(``FAMILY_INVARIANTS``).
+
 The engine builds the kernel with the identity permutation table only:
-the port reduces no symmetry on ST03 (``engine/spec._SYMMETRY_DEFS``
+the port reduces no symmetry on the family (``engine/spec._SYMMETRY_DEFS``
 knows VSR's definition alone).
 """
 
@@ -77,8 +87,26 @@ ALL_KEYS = REP_KEYS + GLOBAL_KEYS + MSG_KEYS + AUX_KEYS
 GUARD_PLANES = ("status", "view", "op", "commit", "peer_op", "sent_dvc",
                 "sent_sv", "no_prog", "np_ctr", "m_present", "m_count",
                 "m_hdr", "m_entry", "m_log", "aux_svc", "aux_acked")
-# calls of ST03Kernel._action_fns and _guard_fns, the doors to the plain
-# action and guard functions
+# the family's planes beyond ST03's, in the order of the FamilyPlane enum
+# of csrc/st03_actions.cu (I01's tracker and sent flag, AS04's DVC slots
+# and app plane); K13 reads the first three (csrc/st03_guards.cu)
+FAMILY_PLANES = ("sent_svc", "dvc", "dvc_view", "dvc_lnv", "dvc_op",
+                 "dvc_commit", "dvc_log", "app")
+FAMILY_GUARD_PLANES = FAMILY_PLANES[:3]
+# the family's action ids (csrc/st03_actions.cu enums Action and
+# FamilyAction); a model's action takes the id of its name, or of the
+# ST03 action it replaces
+FAMILY_ACTIONS = ACTION_NAMES + ("ResendSVC",)
+ACTION_ALIASES = {"PrimaryExecuteOp": "ExecuteOp"}
+# the family's invariant bits (enums Invariant and FamilyInvariant)
+FAMILY_INVARIANTS = (
+    "NoLogDivergence", "AcknowledgedWriteNotLost",
+    "AcknowledgedWritesExistOnMajority",
+    "CommitNumberNeverHigherThanOpNumber", "TestInv",
+    "AllReplicasMoveToSameView", "NoReplicaMoreThanOneViewAheadOfMajority",
+    "ReceivedDVCsAllSameView", "NoAppStateDivergence")
+# calls of the family's _action_fns and _guard_fns, the doors to the
+# plain action and guard functions
 PLAIN_CALLS = {"actions": 0, "guards": 0}
 
 
@@ -89,6 +117,12 @@ class ST03Kernel(RowFingerprint):
     GLOB_KEYS = GLOBAL_KEYS
     FP_KERNELS = {"full": "st03_fp_full", "parts": "st03_fp_parts",
                   "incremental": "st03_fp_incremental"}
+    # (kernels.KERNELS name, C entry point) of K13 and K14 for the model
+    GUARDS_KERNEL = ("st03_guards", "tpuvsr_st03_guards")
+    ACTIONS_KERNEL = ("st03_actions", "tpuvsr_st03_actions")
+    # the planes K14 and K13 locate (ST03's, then the family's)
+    PLANE_KEYS = ALL_KEYS
+    GUARD_KEYS = GUARD_PLANES
     ERR_BAG_OVERFLOW = ERR_BAG_OVERFLOW
 
     def __init__(self, codec: ST03Codec, perms: np.ndarray = None,
@@ -103,10 +137,10 @@ class ST03Kernel(RowFingerprint):
         self.perms = np.asarray(perms, dtype=np.int32)
         if self.perms.shape[0] != 1 or not (
                 self.perms[0] == np.arange(s.V + 1)).all():
-            raise ValueError("the port's ST03 kernel takes the identity "
-                             "permutation table only")
+            raise ValueError(f"the port's {type(self).__name__} takes the "
+                             "identity permutation table only")
         acts, params = [], []
-        for aid, name in enumerate(ACTION_NAMES):
+        for aid, name in enumerate(self.action_names):
             n = self._lane_count(name)
             acts.append(np.full(n, aid, np.int32))
             params.append(np.arange(n, dtype=np.int32))
@@ -118,7 +152,7 @@ class ST03Kernel(RowFingerprint):
         # seed and order: rep, msg, global row, seeds)
         rng = np.random.default_rng(0x57A7E03)
         self.nrep = 1 + sum(int(np.prod(self._rep_shape(k))) // s.R
-                            for k in REP_KEYS)
+                            for k in self.REP_KEYS)
         self.nmsg = self.NHDR + 1 + self.MAX_OPS + 1
 
         def keys(n):
@@ -734,6 +768,13 @@ class ST03Kernel(RowFingerprint):
 
     def _guard_fns(self):
         PLAIN_CALLS["guards"] += 1
+        return self._guard_list()
+
+    def _action_fns(self):
+        PLAIN_CALLS["actions"] += 1
+        return self._action_list()
+
+    def _guard_list(self):
         return [
             self.guard_timer_send_svc, self.guard_receive_higher_svc,
             self.guard_receive_matching_svc, self.guard_send_dvc,
@@ -745,8 +786,7 @@ class ST03Kernel(RowFingerprint):
             self.guard_receive_new_state, self.guard_no_progress_change,
         ]
 
-    def _action_fns(self):
-        PLAIN_CALLS["actions"] += 1
+    def _action_list(self):
         return [
             self.act_timer_send_svc, self.act_receive_higher_svc,
             self.act_receive_matching_svc, self.act_send_dvc,
@@ -787,25 +827,46 @@ class ST03Kernel(RowFingerprint):
         return out
 
     def _plane_table(self, name, keys, device):
-        """The first lane of every plane of ``keys`` in a flat row, on
-        ``device`` (cached: a CUDA graph holds its address)."""
+        """The first lane of every plane of ``keys`` in a flat row (-1
+        for a plane of ``FAMILY_PLANES`` the model lacks; any other key
+        missing from the pack spec raises KeyError), on ``device``
+        (cached: a CUDA graph holds its address)."""
         key = (name, str(torch.device(device)))
         t = self._fp_tables.get(key)
         if t is None:
             start = {k: a for k, _s, a, _e in self.pk._splits}
             t = self._fp_tables[key] = torch.tensor(
-                [start[k] for k in keys], dtype=I32, device=device)
+                [start[k] if k in start or k not in FAMILY_PLANES else -1
+                 for k in keys], dtype=I32, device=device)
         return t
 
+    def family_action_ids(self):
+        """[n_actions] int32: each action's id in the family's enum
+        (csrc/st03_actions.cu Action, FamilyAction)."""
+        return np.asarray([FAMILY_ACTIONS.index(ACTION_ALIASES.get(n, n))
+                           for n in self.action_names], np.int32)
+
+    def family_mask(self, inv_mask):
+        """A model's ``inv_mask`` (bits of its ``INVARIANT_FNS``) as the
+        family's invariant bits (``FAMILY_INVARIANTS``), which K14
+        reads."""
+        mask = 0
+        for b, n in enumerate(self.INVARIANT_FNS):
+            if inv_mask >> b & 1:
+                mask |= 1 << FAMILY_INVARIANTS.index(n)
+        return mask
+
     def guard_tables(self, device):
-        """K13's plane offsets (``GUARD_PLANES`` order) and the lane ->
-        (action, param) tables, on ``device``."""
+        """K13's plane offsets (``GUARD_KEYS`` order) and the lane ->
+        (family action id, param) tables, on ``device``."""
         key = ("lanes", str(torch.device(device)))
         t = self._fp_tables.get(key)
         if t is None:
+            fam = self.family_action_ids()[self.lane_action]
             t = self._fp_tables[key] = {
-                "planes": self._plane_table("guards", GUARD_PLANES, device),
-                "lane_action": torch.as_tensor(self.lane_action).to(device),
+                "planes": self._plane_table("guards", self.GUARD_KEYS,
+                                            device),
+                "lane_action": torch.as_tensor(fam).to(device),
                 "lane_param": torch.as_tensor(self.lane_param).to(device)}
         return t
 
@@ -816,7 +877,7 @@ class ST03Kernel(RowFingerprint):
         s = self.shape
         ck = kernels.check
         kernels.launch(
-            "st03_guards", "tpuvsr_st03_guards",
+            *self.GUARDS_KERNEL,
             ck(flat, "flat", I32, (B, self.pk.lanes)), B, lanes,
             self.n_lanes, self.R, self.V, self.M, self.MAX_OPS, self.NHDR,
             s.timer_limit, s.np_limit, t["planes"].data_ptr(),
@@ -898,7 +959,7 @@ class ST03Kernel(RowFingerprint):
         pk = self.pk
         invs = [getattr(self, f) for b, f in
                 enumerate(self.INVARIANT_FNS.values()) if inv_mask >> b & 1]
-        for a, (name, fn) in enumerate(zip(ACTION_NAMES,
+        for a, (name, fn) in enumerate(zip(self.action_names,
                                            self._action_fns())):
             sel = torch.nonzero(aid == a)[:, 0]
             if sel.numel() == 0:
@@ -922,9 +983,19 @@ class ST03Kernel(RowFingerprint):
         return out
 
     def action_tables(self, device):
-        """The first lane of every plane of ``ALL_KEYS`` in a flat row
-        (csrc/st03_actions.cu enum Plane), on ``device``."""
-        return self._plane_table("actions", ALL_KEYS, device)
+        """The first lane of every plane of ``PLANE_KEYS`` in a flat row
+        (csrc/st03_actions.cu enums Plane and FamilyPlane), on
+        ``device``."""
+        return self._plane_table("actions", self.PLANE_KEYS, device)
+
+    def action_map(self, device):
+        """``family_action_ids()`` on ``device`` (cached)."""
+        key = ("amap", str(torch.device(device)))
+        t = self._fp_tables.get(key)
+        if t is None:
+            t = self._fp_tables[key] = torch.as_tensor(
+                self.family_action_ids()).to(device)
+        return t
 
     def _actions_kernel(self, flat, pidx, aid, lane, inv_mask, out, halt):
         n = pidx.shape[0]
@@ -934,13 +1005,14 @@ class ST03Kernel(RowFingerprint):
         s = self.shape
         ck = kernels.check
         kernels.launch(
-            "st03_actions", "tpuvsr_st03_actions",
+            *self.ACTIONS_KERNEL,
             ck(flat, "flat", I32, (T, self.pk.lanes)), lanes,
             ck(pidx, "pidx", I32, (n,)), ck(aid, "aid", I32, (n,)),
             ck(lane, "lane", I32, (n,)), n,
-            self.action_tables(flat.device).data_ptr(), self.R, self.V,
+            self.action_tables(flat.device).data_ptr(),
+            self.action_map(flat.device).data_ptr(), self.R, self.V,
             self.M, self.MAX_OPS, self.NHDR, s.timer_limit, s.np_limit,
-            int(inv_mask),
+            self.family_mask(int(inv_mask)),
             None if halt is None else ck(halt, "halt", torch.int64, (1,)),
             ck(out["succ"], "succ", I32, (n, lanes)),
             ck(out["en2"], "en2", torch.bool, (n,)),
