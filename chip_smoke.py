@@ -135,10 +135,10 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         levels, totals and trace-pointer tables; K7 and K8 launched too;
         it prints wall, distinct/s, host reads, graph captures, growth
         pauses and peak memory;
-     d. the timed run_fused and run() on tpuvsr_torch/configs/
-        VR_STATE_TRANSFER_shipped.cfg to depth 16: the levels through
-        the JAX record's depth the record's (ST03_SHIPPED_LEVELS), and
-        all levels of the two runs equal;
+     d. the timed run_fused on tpuvsr_torch/configs/
+        VR_STATE_TRANSFER_shipped.cfg to depth 16 and run() to depth
+        14: the levels through the JAX record's depth the record's
+        (ST03_SHIPPED_LEVELS), and run()'s levels run_fused()'s;
   11. the family's other models, A01 (VR_ASSUME_NEWVIEWCHANGE), I01
      (VR_INC_RESEND) and AS04 (VR_APP_STATE), each on its own
      instantiation of K13, K14 and K3 (tile 128, 64 tiles a chunk, 2^26
@@ -170,6 +170,46 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         for bit against their plain versions, with every action but
         NoProgressChange enabled in them (I01's ResendSVC, AS04's
         SendGetState, ReceiveGetState and ReceiveNewState);
+  12. the crash-recovery models, RR05 (VR_REPLICA_RECOVERY) and AL05
+     (VR_REPLICA_RECOVERY_ASYNC_LOG), each on its own instantiation of
+     K13, K14 and K3 (as in phase 11: launch counts reset just before
+     each run and read just after, the model's kernels launched, every
+     other model's, the VSR kernels and the plain functions not):
+     a. AL05's small cfg with its invariants: an untimed recording run()
+        that keeps the largest inputs of K13, K14 and K3, which are then
+        held bit for bit against their plain versions and timed; it and
+        run_fused() stop at depth 17 on the same NoLogDivergence
+        counterexample (RECOVERY's), with the record's levels before it;
+        with no invariant, run() and run_fused() reach the fixpoint
+        (RECOVERY's distinct, generated, diameter and levels) with equal
+        trace-pointer tables; K4's range check on the recorded queue's
+        successors: the flag stays 0 on them and is set by a copy with
+        one lane of any bounded plane past or below its bound, on which
+        the plain pack raises;
+     b. RR05's small cfg at CrashLimit 0 through both entry points to
+        VR_APP_STATE's fixpoint (FAMILY's AS04 record), equal pointers;
+     c. RR05's small cfg at CrashLimit 1: a recording run() (K13, K14,
+        K3 held against their plain versions as in a) and run_fused()
+        stop at depth 17 on the same NoLogDivergence counterexample; the
+        levels and cumulative generated counts through depth 16 are the
+        JAX host BFS's, those at depths 10, 12, 14 and 15 the JAX log's,
+        and the largest recovery nonce first reaches 4 at depth 16; K4's
+        range check as in a; with no invariant, run() to depth 22 and
+        run_fused() to depth 28 past the counterexample, equal levels
+        and trace-pointer tables through 22, the levels through 16 the
+        JAX host BFS's, and the largest nonce past 4;
+     d. each model's _wide cfg through run_fused() to depth 12 and run()
+        to depth 10: the levels through depth 6 the JAX record's, run()'s
+        levels run_fused()'s;
+     e. a recording run() of each _wide cfg to depth 12: K13, K14 (under
+        each invariant alone) and K3 against their plain versions on the
+        calls where each action was enabled most, every action but
+        NoProgressChange enabled in them;
+     f. RR05's small cfg with no invariant, packed under the JAX
+        package's manifest (the recovery nonce in 2 bits): run_fused()
+        to depth 15 holds, and run_fused() and run() to depth 16, where
+        the first nonce of 4 appears, stop on K4's range flag (run()
+        after completing depth 15) instead of wrapping it to 0;
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
@@ -261,8 +301,10 @@ ST03_FIXPOINT = (42753, 106794, 24)
 # tests/test_torch_st03_bfs.py shipped 11, 198 s on 8 CPU cores)
 ST03_SHIPPED_LEVELS = [1, 4, 17, 63, 238, 851, 2814, 8564, 24012, 62231,
                        149418, 333593]
-# phase 10d's depth: run_fused takes 10-60 s there on the card
+# phase 10d's depths: run_fused takes 10-60 s to depth 16 on the card,
+# run() about 140 s to 16 and a quarter of that to 14
 ST03_SHIPPED_DEPTH = 16
+ST03_SHIPPED_RUN_DEPTH = 14
 # phase 11: the family's other models.  The small cfgs' fixpoints are
 # scripts/fixpoints.json's (distinct, generated, diameter); the levels,
 # small and shipped, are those of a host-driven level BFS over the JAX
@@ -302,6 +344,65 @@ FAMILY = {
 # by depth 6; AS04's ReceiveNewState first at depth 12, 4 lanes)
 FAMILY_FUSED_DEPTH = 16
 FAMILY_RUN_DEPTH = 13
+# phase 12: the crash-recovery models at CrashLimit 1.  The records are
+# those of a host-driven level BFS over the JAX package's kernel from
+# init_dense (exact: dense states, no pack): RR05's levels through depth
+# 16 and cumulative generated counts (Init counted, as the engines count
+# it) print with python tests/test_torch_rr05.py record 1 16 (about 4
+# min of CPU); AL05's fixpoint, with no invariant, with python
+# tests/test_torch_al05.py record 30 (48 min of CPU).  The JAX package's
+# own records differ (ROADMAP queue 3): its AL05 fixpoint
+# (scripts/recovery_fixpoints.json, 2,316,959 / 5,123,247 / 30) departs
+# from the exact levels at depth 16, and RR05's bounded run packs
+# the recovery nonce in 2 bits, whose first value of 4 appears at depth
+# 16, so scripts/recovery_fixpoints.log's counts (the last line of each
+# depth, cumulative) hold through depth 15 and are checked there.  Both
+# small cfgs stop at depth 17 on the same NoLogDivergence counterexample
+# (COUNTEREXAMPLE); with CrashLimit 0 RR05 is VR_APP_STATE (FAMILY's AS04
+# record).  The wide cfgs' levels: record wide 6 of the same scripts.
+# The actions of the counterexample: replica 2 crashes and recovers in
+# view 1 (lnv 1 from the response) while replica 1, keeping Init's lnv
+# 0, commits v1; in view 2 replica 2's empty-log DoViewChange wins
+# HighestLog and SendSV installs commit 1 over an empty log.  The JAX
+# kernel's own steps reach the same state (tests/test_torch_a01.py
+# check_counterexample).
+COUNTEREXAMPLE = [
+    "Crash", "ReceiveRecoveryMsg", "ReceiveRecoveryMsg",
+    "ReceiveClientRequest", "ReceivePrepareMsg", "TimerSendSVC",
+    "ReceivePrepareOkMsg", "PrimaryExecuteOp", "ReceiveHigherSVC", "SendDVC",
+    "ReceiveRecoveryResponseMsg", "ReceiveRecoveryResponseMsg",
+    "CompleteRecovery", "ReceiveHigherSVC", "ReceiveMatchingDVC", "SendDVC",
+    "SendSV"]
+RECOVERY = {
+    "AL05": {
+        "module": "VR_REPLICA_RECOVERY_ASYNC_LOG",
+        "fixpoint": (2298063, 5089047, 30),
+        "small": [1, 6, 24, 85, 261, 702, 1665, 3509, 6611, 11281, 17722,
+                  26123, 37156, 52996, 78044, 117425, 172219, 233786,
+                  284323, 306053, 291401, 245792, 183206, 119181, 65855,
+                  29600, 10185, 2463, 364, 24],
+        "violation": ("NoLogDivergence", 17, COUNTEREXAMPLE),
+        "wide": [1, 7, 37, 171, 697, 2604, 9039]},
+    "RR05": {
+        "module": "VR_REPLICA_RECOVERY",
+        "small": [1, 6, 23, 77, 227, 593, 1364, 2761, 4946, 8006, 12065,
+                  17434, 24799, 35496, 51609, 75117, 105791],
+        "generated": [1, 7, 38, 152, 536, 1665, 4505, 10653, 22241, 41676,
+                      71353, 113693, 171708, 250626, 360271, 516245,
+                      735948],
+        # scripts/recovery_fixpoints.log, the last line of each depth
+        "log": {10: (30069, 71353), 12: (72302, 171708),
+                14: (159407, 360271), 15: (234524, 516245)},
+        "nonce4_depth": 16,
+        "violation": ("NoLogDivergence", 17, COUNTEREXAMPLE),
+        "wide": [1, 7, 35, 151, 595, 2178, 7426]},
+}
+RECOVERY_DEPTH = 30          # 12c: RR05, CrashLimit 1 (it stops at 17)
+# 12c with no invariant, past the counterexample: the nonce keeps growing
+RECOVERY_DEEP = {"fused": 28, "run": 22}
+# 12d (run_fused peaks 11.5 / 20.9 GB at depth 12) and 12e (state
+# transfer's receives first fire past depth 10)
+RECOVERY_WIDE = {"fused": 12, "run": 10, "cover": 12}
 PAGED = {"next_capacity": 1 << 14, "spill_ram_rows": 1 << 16,
          "edge_capacity": 1 << 15, "min_drains": 3}
 MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
@@ -2324,13 +2425,13 @@ class ST03Recorder:
 
 
 def check_family_coverage(rec, K, what):
-    """Phase 11e: on the K13 and K14 calls that a ``by_action`` recording
-    run kept for each action, K13, K14 (under each invariant of
-    ``INVARIANT_FNS`` alone, so an invariant the cfg leaves out is held
-    too) and K3's full fingerprint of K14's successors bit for bit
+    """Phases 11e and 12e: on the K13 and K14 calls that a ``by_action``
+    recording run kept for each action, K13, K14 (under each invariant
+    of ``INVARIANT_FNS`` alone, so an invariant the cfg leaves out is
+    held too) and K3's full fingerprint of K14's successors bit for bit
     against their plain versions.  Every action but NoProgressChange
-    (NoProgressChangeLimit 0 disables it) must have been enabled in
-    both kernels' kept inputs.  Returns each action's enabled lanes."""
+    (NoProgressChangeLimit 0 disables it) must have been enabled in both
+    kernels' kept inputs.  Returns each action's enabled lanes."""
     g_name, a_name = K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0]
     masks = [1 << b for b in range(len(K.INVARIANT_FNS))]
     for (name, act), (c, call) in sorted(
@@ -2533,108 +2634,146 @@ def st03_phase(args, doc):
         k["launches"] = info["launches"][k["kernel"]]
     del eng
 
-    d = ST03_SHIPPED_DEPTH
+    d, rd = ST03_SHIPPED_DEPTH, ST03_SHIPPED_RUN_DEPTH
     rec_d = len(ST03_SHIPPED_LEVELS) - 1
-    print(f"phase 10d: ST03 shipped cfg, run_fused and run() to depth {d}",
-          flush=True)
+    print(f"phase 10d: ST03 shipped cfg, run_fused to depth {d} and run() "
+          f"to depth {rd}", flush=True)
     _e, fres, finfo = timed(ST03_SHIPPED, "run_fused", d)
     del _e
-    _e, rres, rinfo = timed(ST03_SHIPPED, "run", d)
+    _e, rres, rinfo = timed(ST03_SHIPPED, "run", rd)
     del _e
     need(fres.levels[:rec_d + 1] == ST03_SHIPPED_LEVELS,
          f"ST03 shipped levels {fres.levels[:rec_d + 1]}")
-    need(fres.levels == rres.levels and len(fres.levels) == d + 1,
+    need(fres.levels[:rd + 1] == rres.levels and len(fres.levels) == d + 1
+         and len(rres.levels) == rd + 1,
          f"ST03 shipped run_fused levels {fres.levels}, run() "
          f"{rres.levels}")
-    need((fres.distinct_states, fres.states_generated)
-         == (rres.distinct_states, rres.states_generated),
-         "ST03 shipped run_fused and run() totals differ")
-    doc["st03_shipped"] = {"depth": d, "run_fused": finfo, "run": rinfo}
+    need(rres.distinct_states == sum(fres.levels[:rd + 1]),
+         f"ST03 shipped run() distinct {rres.distinct_states}")
+    doc["st03_shipped"] = {"depth": d, "run_depth": rd,
+                           "run_fused": finfo, "run": rinfo}
     print(f"  levels {fres.levels} (the JAX record through depth {rec_d})",
           flush=True)
     return rows
+
+
+def family_kernels():
+    """{model: its K13, K14 and K3 kernel names} for ST03 and every model
+    of FAMILY and RECOVERY."""
+    from tpuvsr_torch.models.registry import _resolve
+    out = {}
+    for m, fam in [("ST03", {"module": "VR_STATE_TRANSFER"})] + list(
+            FAMILY.items()) + list(RECOVERY.items()):
+        K = _resolve(fam["module"])[1]
+        out[m] = [K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0],
+                  *K.FP_KERNELS.values()]
+    return out
+
+
+VSR_KERNELS = ["vsr_guards", "vsr_actions", "vsr_canon", "vsr_fp_parts",
+               "vsr_fp_full", "vsr_fp_incremental"]
+
+
+def family_cfg(module, size):
+    return os.path.join(ROOT, "tpuvsr_torch", "configs",
+                        f"{module}_{size}.cfg")
+
+
+def trace_pointers(eng):
+    import numpy as np
+    return [np.concatenate(getattr(eng, k))
+            for k in ("_h_parent", "_h_action", "_h_param")]
+
+
+def model_run(m, module, size, entry, depth=None, constants=None,
+              log=None, label=None, setup=None, violation=None,
+              invariants=None):
+    """One run of the family model ``m`` on its ``size`` cfg (cfg
+    constants overridden by ``constants``; ``setup(engine)``, when given,
+    installs a probe and returns its removal), launch counts reset just
+    before and read just after: the model's K13, K14 and K3 (parts,
+    incremental) launched, the other models' kernels, the VSR kernels and
+    the plain functions of the family not.  The run must end without a
+    violation, or with the invariant ``violation``.  Returns (engine,
+    result, info).  ``invariants``, when given, replaces the cfg's
+    INVARIANT list."""
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS
+    from tpuvsr_torch.engine.spec import load_binding
+    model_kernels = family_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    plain0 = st03_plain_calls()
+    b = load_binding(family_cfg(module, size), module)
+    b.cfg.constants.update(constants or {})
+    if invariants is not None:
+        b.invariants = list(invariants)
+    eng = DeviceBFS(b, tile_size=128, chunk_tiles=64,
+                    fpset_capacity=1 << 26, device="cuda")
+    undo = setup(eng) if setup else None
+    try:
+        t0 = time.time()
+        res = getattr(eng, entry)(max_depth=depth, log=log)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        if undo:
+            undo()
+    counts = kernels.launch_counts()
+    what = f"{label or m + ' ' + size} {entry}"
+    need(type(eng.kern).__name__ == f"{m}Kernel",
+         f"{what} ran on {type(eng.kern).__name__}")
+    for k in model_kernels[m]:
+        need(counts[k] > 0, f"{k} was not launched on {what}")
+    others = [k for o, ks in model_kernels.items() if o != m
+              for k in ks] + VSR_KERNELS
+    for k in others:
+        need(counts[k] == 0, f"{k} was launched on {what}")
+    if entry == "run_fused":
+        for k in ("compact", "commit_prefix", "commit_finish",
+                  "level_step"):
+            need(counts[k] > 0, f"{k} was not launched on {what}")
+    need(st03_plain_calls() == plain0, f"the plain family functions "
+         f"ran on {what}: {plain0} -> {st03_plain_calls()}")
+    need(res.ok if violation is None else
+         res.violated_invariant == violation,
+         f"{what}: {res.violated_invariant} {res.error}")
+    c = res.metrics["counters"]
+    info = {"levels": res.levels, "distinct": res.distinct_states,
+            "generated": res.states_generated,
+            "diameter": res.diameter, "wall_s": wall,
+            "distinct_per_s": res.distinct_states / wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": counts, "metrics": res.metrics,
+            "violated": res.violated_invariant}
+    print(f"  {what}: distinct {res.distinct_states} generated "
+          f"{res.states_generated} diameter {res.diameter} wall "
+          f"{wall:.3f}s distinct/s {info['distinct_per_s']:.1f} "
+          f"max_memory_allocated {info['max_memory_allocated']}",
+          flush=True)
+    print(f"    host_reads {c.get('host_reads')} graph_captures "
+          f"{c.get('graph_captures')} growth_pauses "
+          f"{c.get('growth_pauses', 0)} tiles {c.get('tiles')} "
+          f"max_msgs {res.metrics['gauges']['max_msgs']}", flush=True)
+    return eng, res, info
+
+
+def fused_host_reads(res, what):
+    c = res.metrics["counters"]
+    need(c["host_reads"] == c["quanta"] + c.get("level_fits", 0),
+         f"{what} fused host reads {c}")
 
 
 def family_phase(args, doc):
     """Phase 11: A01, I01 and AS04, the family's models on ST03's kernels,
     on the card.  Returns their kernels-line rows, with the launch counts
     of each model's timed run_fused on its small cfg (11c)."""
-    import numpy as np
-    import torch
-    from tpuvsr_torch import kernels
-    from tpuvsr_torch.engine.device_bfs import DeviceBFS
-    from tpuvsr_torch.engine.spec import load_binding
     from tpuvsr_torch.models.registry import _resolve
 
-    # every kernel of the VSR path and of every model of the family
-    model_kernels = {}
-    for m, fam in [("ST03", {"module": "VR_STATE_TRANSFER"})] + list(
-            FAMILY.items()):
-        K = _resolve(fam["module"])[1]
-        model_kernels[m] = [K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0],
-                            *K.FP_KERNELS.values()]
-    vsr = ["vsr_guards", "vsr_actions", "vsr_canon", "vsr_fp_parts",
-           "vsr_fp_full", "vsr_fp_incremental"]
-
-    def cfg(fam, size):
-        return os.path.join(ROOT, "tpuvsr_torch", "configs",
-                            f"{fam['module']}_{size}.cfg")
-
-    def pointers(eng):
-        return [np.concatenate(getattr(eng, k))
-                for k in ("_h_parent", "_h_action", "_h_param")]
-
     def timed(m, size, entry, depth=None):
-        """One run, launch counts reset just before and read just after:
-        the model's K13, K14 and K3 (parts, incremental) launched, the
-        other models' kernels, the VSR kernels and the plain functions
-        of the family not."""
-        fam = FAMILY[m]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        plain0 = st03_plain_calls()
-        eng = DeviceBFS(load_binding(cfg(fam, size), fam["module"]),
-                        tile_size=128, chunk_tiles=64,
-                        fpset_capacity=1 << 26, device="cuda")
-        t0 = time.time()
-        res = getattr(eng, entry)(max_depth=depth)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = kernels.launch_counts()
-        what = f"{m} {size} {entry}"
-        need(type(eng.kern).__name__ == f"{m}Kernel",
-             f"{what} ran on {type(eng.kern).__name__}")
-        for k in model_kernels[m]:
-            need(counts[k] > 0, f"{k} was not launched on {what}")
-        others = [k for o, ks in model_kernels.items() if o != m
-                  for k in ks] + vsr
-        for k in others:
-            need(counts[k] == 0, f"{k} was launched on {what}")
-        if entry == "run_fused":
-            for k in ("compact", "commit_prefix", "commit_finish",
-                      "level_step"):
-                need(counts[k] > 0, f"{k} was not launched on {what}")
-        need(st03_plain_calls() == plain0, f"the plain family functions "
-             f"ran on {what}: {plain0} -> {st03_plain_calls()}")
-        need(res.ok, f"{what}: {res.violated_invariant} {res.error}")
-        c = res.metrics["counters"]
-        info = {"levels": res.levels, "distinct": res.distinct_states,
-                "generated": res.states_generated,
-                "diameter": res.diameter, "wall_s": wall,
-                "distinct_per_s": res.distinct_states / wall,
-                "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                "launches": counts, "metrics": res.metrics}
-        print(f"  {m} {size} {entry}: distinct {res.distinct_states} "
-              f"generated {res.states_generated} diameter {res.diameter} "
-              f"wall {wall:.3f}s distinct/s {info['distinct_per_s']:.1f} "
-              f"max_memory_allocated {info['max_memory_allocated']}",
-              flush=True)
-        print(f"    host_reads {c.get('host_reads')} graph_captures "
-              f"{c.get('graph_captures')} growth_pauses "
-              f"{c.get('growth_pauses', 0)} tiles {c.get('tiles')} "
-              f"max_msgs {res.metrics['gauges']['max_msgs']}", flush=True)
-        return eng, res, info
+        return model_run(m, FAMILY[m]["module"], size, entry, depth)
 
     def fixpoint(m, res, what):
         fam = FAMILY[m]
@@ -2660,7 +2799,7 @@ def family_phase(args, doc):
         fixpoint(m, res, f"{m} recording run()")
         info["recorded"] = {k: v[0] for k, v in rec.calls.items()}
         info_m["record"] = info
-        run_pointers = pointers(eng)
+        run_pointers = trace_pointers(eng)
         del eng
         print(f"phase 11b: K13, K14, K3 on {m} against their plain "
               f"versions", flush=True)
@@ -2671,11 +2810,9 @@ def family_phase(args, doc):
               flush=True)
         eng, res, info = timed(m, "small", "run_fused")
         fixpoint(m, res, f"{m} run_fused")
-        same_pointers(pointers(eng), run_pointers, res.levels,
+        same_pointers(trace_pointers(eng), run_pointers, res.levels,
                       f"{m} run_fused", args)
-        c = res.metrics["counters"]
-        need(c["host_reads"] == c["quanta"] + c.get("level_fits", 0),
-             f"{m} fused host reads {c}")
+        fused_host_reads(res, m)
         info_m["fused"] = info
         print(f"  levels {res.levels}, pointer tables equal to 11a's",
               flush=True)
@@ -2722,6 +2859,407 @@ def family_phase(args, doc):
         info_m["cover"] = {"depth": cd, "wall_s": cinfo["wall_s"],
                            "enabled": enabled}
         print(f"  enabled lanes by action: {enabled}", flush=True)
+    return rows
+
+
+class NonceTracker:
+    """During a run() of RR05: the largest recovery nonce (``rec_number``
+    and the H_X column of present messages) over the successors K14
+    enabled, kept on the card and snapshotted at each level's end (no
+    host read until ``maxima``)."""
+
+    def install(self, K, eng):
+        import torch
+        from tpuvsr_torch.models.vsr import H_X
+        tr = self
+        tr.cur = torch.zeros((), dtype=torch.int32, device=eng.device)
+        tr.snaps = []
+        orig = K.successors
+
+        def succs(self, flat, pidx, aid, lane, mask, out=None, halt=None):
+            o = orig(self, flat, pidx, aid, lane, mask, out, halt)
+            if o["en2"].numel():
+                st = self.pk.unflatten(o["succ"])
+                x = torch.maximum(
+                    st["rec_number"].amax(dim=1),
+                    torch.where(st["m_present"] == 1,
+                                st["m_hdr"][:, :, H_X], 0).amax(dim=1))
+                tr.cur = torch.maximum(tr.cur, torch.where(
+                    o["en2"], x, 0).amax().to(torch.int32))
+            return o
+        cal = eng._calibrate_caps
+
+        def level_end(emit, n_front):
+            tr.snaps.append(tr.cur.clone())
+            return cal(emit, n_front)
+        K.successors = succs
+        eng._calibrate_caps = level_end
+
+        def uninstall():
+            del K.successors
+            del eng._calibrate_caps
+        return uninstall
+
+    def maxima(self):
+        """The largest nonce through depth 1, 2, ... (cumulative)."""
+        return [int(x) for x in self.snaps]
+
+
+def check_range_flag(rec, K, what):
+    """K4's range check on the card, on the rows the main path packed: the
+    enabled, error-free successors of the K14 queue a recording run kept.
+    Packed by the kernel, they leave ``range_flag`` at 0 and equal the
+    plain pack.  Then, for each plane with a bounded lane, a copy of one
+    row with that plane's last bounded lane set one past its bound, and
+    one below it: the kernel sets the flag and the plain version raises
+    TLAError naming the plane.  A raw 32-bit lane takes its extreme
+    values without the flag and round-trips.  Returns the planes."""
+    import numpy as np
+    import torch
+    from tpuvsr_torch.core.values import TLAError
+    kern, flat, pidx, aid, lane, mask, _ok = rec.calls[K.ACTIONS_KERNEL[0]][1]
+    o = kern.successors(flat, pidx, aid, lane, mask)
+    rows = o["succ"][o["en2"] & (o["err"] == 0)].contiguous()
+    need(rows.shape[0] > 0, f"{what}: no enabled successor to pack")
+    pk = kern.pk
+    flag = pk.range_flag(rows.device)
+    need(flag is pk.range_flag("cuda"), f"{what}: the engines' range flag "
+         f"(device 'cuda') is not the one the kernel sets ({rows.device})")
+
+    def flagged(x):
+        flag.zero_()
+        got = pk.pack(x)
+        return int(flag.item()), got
+    f, got = flagged(rows)
+    need(f == 0 and max_abs(got, pk.pack_plain(rows)) == 0,
+         f"{what}: K4 on {rows.shape[0]} clean rows: flag {f}, max_abs "
+         f"{max_abs(got, pk.pack_plain(rows))}")
+    hi = pk._lo.astype(np.int64) + pk._mask.astype(np.int64)
+    bounded, raw = [], []
+    for key, _shape, a, e in pk._splits:
+        lanes = [x for x in range(a, e) if pk._bits[x] < 32]
+        if not lanes:
+            raw.append((key, a))
+            continue
+        ln = lanes[-1]
+        for v in (int(hi[ln]) + 1, int(pk._lo[ln]) - 1):
+            bad = rows[:1].clone()
+            bad[0, ln] = v
+            f, _w = flagged(bad)
+            need(f == 1, f"{what}: K4's range flag stayed 0 with plane "
+                 f"{key!r} lane {ln} = {v} (bound [{int(pk._lo[ln])}, "
+                 f"{int(hi[ln])}])")
+            try:
+                pk.pack_plain(bad)
+                need(False, f"{what}: the plain pack took {key!r} = {v}")
+            except TLAError as err:
+                need(repr(key) in str(err), f"{what}: {err}")
+        bounded.append(key)
+    for key, ln in raw:
+        for v in (2 ** 31 - 1, -2 ** 31):
+            big = rows[:1].clone()
+            big[0, ln] = v
+            f, w = flagged(big)
+            need(f == 0 and torch.equal(pk.unpack(w), big),
+                 f"{what}: raw lane {key!r} = {v}: flag {f}")
+    flag.zero_()
+    print(f"  K4's range flag: 0 on {rows.shape[0]} packed successors, 1 "
+          f"past and below the bound of each of {len(bounded)} planes (the "
+          f"plain pack raising on the same rows); raw 32-bit planes "
+          f"{[k for k, _l in raw]} take any value", flush=True)
+    return {"clean_rows": int(rows.shape[0]), "bounded": bounded,
+            "raw": [k for k, _l in raw]}
+
+
+def jax_manifest_runs(module):
+    """Phase 12f: the small cfg of ``module`` (RR05), with no invariant,
+    packed under the JAX package's manifest, whose widths pass bounds the
+    recovery nonce by 1 + CrashLimit (2 bits): run_fused() to depth 15
+    holds; run_fused() and run() to depth 16, where the first nonce of 4
+    appears, stop with K4's range error, run() after completing depth
+    15.  The JAX package's pack would wrap the nonce to 0 there."""
+    import torch
+    from tpuvsr_torch.analysis import widths
+    from tpuvsr_torch.core.values import TLAError
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS
+    from tpuvsr_torch.engine.spec import load_binding
+    out = {}
+    saved = widths.NONCE_UNBOUNDED
+    widths.NONCE_UNBOUNDED = frozenset()
+    try:
+        for entry, depth in (("run_fused", 15), ("run_fused", 16),
+                             ("run", 16)):
+            b = load_binding(family_cfg(module, "small"), module)
+            b.invariants = []
+            eng = DeviceBFS(b, tile_size=128, chunk_tiles=64,
+                            fpset_capacity=1 << 26, device="cuda")
+            spec = {k: int(eng._pk._bits[a]) for k, _s, a, _e
+                    in eng._pk._splits if k in ("rec_number", "aux_restart")}
+            need(spec["rec_number"] == 2, f"the JAX manifest's nonce width "
+                 f"{spec}")
+            lines, err = [], None
+            t0 = time.time()
+            try:
+                res = getattr(eng, entry)(max_depth=depth, log=lines.append)
+            except TLAError as e:
+                err = str(e)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            done = [int(m.split(":")[0].split()[1]) for m in lines
+                    if m.startswith("depth ")]
+            what = f"RR05 under the JAX manifest, {entry} to depth {depth}"
+            if depth == 15:
+                need(err is None and res.ok and len(res.levels) == 16,
+                     f"{what}: {err}")
+            else:
+                need(err is not None and "outside its plane's pack bound"
+                     in err, f"{what} did not stop on K4's range flag: "
+                     f"{err}")
+                if entry == "run":
+                    need(done and done[-1] == 15, f"{what}: the last "
+                         f"complete level {done[-1:]}")
+            print(f"  {what}: {err or 'held'} ({wall:.3f}s)", flush=True)
+            out[f"{entry}_{depth}"] = {"error": err, "wall_s": wall,
+                                       "widths": spec}
+            del eng
+    finally:
+        widths.NONCE_UNBOUNDED = saved
+    return out
+
+
+def recovery_phase(args, doc):
+    """Phase 12: RR05 and AL05, the crash-recovery models, on the card.
+    Returns their kernels-line rows, with the launch counts of AL05's
+    timed run_fused to its fixpoint (12a) and of RR05's timed run_fused
+    to depth RECOVERY_DEPTH (12c)."""
+    from tpuvsr_torch.models.registry import _resolve
+    rows = []
+    out = doc.setdefault("recovery", {})
+    al, rr = RECOVERY["AL05"], RECOVERY["RR05"]
+    K_al = _resolve(al["module"])[1]
+    K_rr = _resolve(rr["module"])[1]
+
+    def trace_of(res):
+        return [(t.action_name, repr(t.state)) for t in res.trace]
+
+    def counterexample(m, res, fres, what):
+        """run()'s and run_fused()'s first counterexample: the record's
+        invariant, depth, actions and levels, the same in both."""
+        fam = RECOVERY[m]
+        inv, depth, actions = fam["violation"]
+        n = depth
+        for r, entry in ((res, "run()"), (fres, "run_fused()")):
+            need(r.levels == fam["small"][:n] and r.diameter == depth
+                 and [a for a, _s in trace_of(r)[1:]] == actions,
+                 f"{what} {entry}: levels {r.levels}, diameter "
+                 f"{r.diameter}, trace {[a for a, _s in trace_of(r)]}")
+        need(trace_of(fres) == trace_of(res),
+             f"{what}: run_fused()'s counterexample is not run()'s")
+        print(f"  {inv} at depth {depth} in both entry points, levels "
+              f"through {depth - 1} the record's", flush=True)
+
+    print("phase 12a: AL05 small cfg with its invariants, recording run() "
+          "and run_fused() to the first counterexample; K13, K14, K3 "
+          "against their plain versions; with no invariant, run() and "
+          "run_fused() to the fixpoint", flush=True)
+    viol = al["violation"][0]
+    rec = ST03Recorder()
+    uninstall = rec.install()
+    try:
+        _e, res, info = model_run("AL05", al["module"], "small", "run",
+                                  violation=viol)
+    finally:
+        uninstall()
+    del _e
+    out["AL05_run"] = info
+    info["recorded"] = {k: v[0] for k, v in rec.calls.items()}
+    al_rows = check_st03_kernels(rec, K_al)
+    out["AL05_range"] = check_range_flag(rec, K_al, "AL05")
+    del rec
+    _e, fres, finfo = model_run("AL05", al["module"], "small", "run_fused",
+                                violation=viol)
+    del _e
+    out["AL05_fused"] = finfo
+    counterexample("AL05", res, fres, "AL05")
+
+    def al_fixpoint(res, what):
+        need(res.levels == al["small"], f"{what} levels {res.levels}")
+        need((res.distinct_states, res.states_generated, res.diameter)
+             == al["fixpoint"], f"{what}: {res.distinct_states} distinct,"
+             f" {res.states_generated} generated, diameter {res.diameter}")
+        need(res.error is None, f"{what}: {res.error}")
+    eng, res, info = model_run("AL05", al["module"], "small", "run",
+                               invariants=(), label="AL05 small, no "
+                               "invariant,")
+    al_fixpoint(res, "AL05 run() with no invariant")
+    run_pointers = trace_pointers(eng)
+    out["AL05_reach_run"] = info
+    del eng
+    eng, res, info = model_run("AL05", al["module"], "small", "run_fused",
+                               invariants=(), label="AL05 small, no "
+                               "invariant,")
+    al_fixpoint(res, "AL05 run_fused() with no invariant")
+    same_pointers(trace_pointers(eng), run_pointers, res.levels,
+                  "AL05 run_fused", args)
+    fused_host_reads(res, "AL05")
+    del eng, run_pointers
+    out["AL05_reach_fused"] = info
+    for k in al_rows:
+        k["launches"] = info["launches"][k["kernel"]]
+    rows += al_rows
+    print(f"  levels {res.levels}, pointer tables equal to run()'s",
+          flush=True)
+
+    print("phase 12b: RR05 small cfg at CrashLimit 0, run() and "
+          "run_fused() to its fixpoint (VR_APP_STATE's)", flush=True)
+    as04 = FAMILY["AS04"]
+    got = {}
+    for entry in ("run", "run_fused"):
+        eng, res, info = model_run("RR05", rr["module"], "small", entry,
+                                   constants={"CrashLimit": 0},
+                                   label="RR05 small CrashLimit 0")
+        need(res.levels == as04["small"] and res.error is None
+             and (res.distinct_states, res.states_generated,
+                  res.diameter) == as04["fixpoint"],
+             f"RR05 CrashLimit 0 {entry}: {res.levels} "
+             f"{res.distinct_states} {res.states_generated} "
+             f"{res.diameter} {res.error}")
+        got[entry] = trace_pointers(eng)
+        out[f"RR05_crash0_{entry}"] = info
+        del eng
+    same_pointers(got["run_fused"], got["run"], as04["small"],
+                  "RR05 CrashLimit 0 run_fused", args)
+    del got
+    print(f"  levels {as04['small']}, {as04['fixpoint']}", flush=True)
+
+    d, viol = RECOVERY_DEPTH, rr["violation"]
+    print(f"phase 12c: RR05 small cfg (CrashLimit 1), recording run() and "
+          f"run_fused() to depth {d}; both stop on {viol[0]} at depth "
+          f"{viol[1]}", flush=True)
+    rec, tracker, lines = ST03Recorder(), NonceTracker(), []
+    uninstall = rec.install()
+    try:
+        eng, res, info = model_run(
+            "RR05", rr["module"], "small", "run", d, log=lines.append,
+            setup=lambda e: tracker.install(K_rr, e), violation=viol[0])
+    finally:
+        uninstall()
+    del eng
+    maxima = tracker.maxima()
+    cum = {}
+    for msg in lines:
+        if msg.startswith("depth ") and ", generated " in msg:
+            dd = int(msg.split(":")[0].split()[1])
+            cum[dd] = (int(msg.split("distinct ")[1].split(",")[0]),
+                       int(msg.split("generated ")[1]))
+    n_rec = len(rr["small"]) - 1
+    need([cum[x][1] for x in range(1, n_rec + 1)] == rr["generated"][1:],
+         f"RR05 recording run() generated {cum}")
+    first4 = next((i + 1 for i, x in enumerate(maxima) if x >= 4), None)
+    need(first4 == rr["nonce4_depth"], f"RR05 first nonce of 4 at depth "
+         f"{first4} (maxima {maxima})")
+    for dd, want in rr["log"].items():
+        need(dd < first4 and cum[dd] == want,
+             f"RR05 depth {dd}: {cum.get(dd)} against the log's {want}")
+    info["recorded"] = {k: v[0] for k, v in rec.calls.items()}
+    info["nonce_maxima"] = maxima
+    info["cumulative"] = cum
+    out["RR05_run"] = info
+    print(f"  levels {res.levels}; the JAX record through depth {n_rec}, "
+          f"the log at depths {sorted(rr['log'])}; the largest nonce by "
+          f"depth {maxima}; {viol[0]} at depth {res.diameter}", flush=True)
+    rr_rows = check_st03_kernels(rec, K_rr)
+    out["RR05_range"] = check_range_flag(rec, K_rr, "RR05")
+    del rec
+    eng, fres, finfo = model_run("RR05", rr["module"], "small", "run_fused",
+                                 d, violation=viol[0])
+    counterexample("RR05", res, fres, "RR05")
+    fused_host_reads(fres, "RR05")
+    del eng
+    out["RR05_fused"] = finfo
+    for k in rr_rows:
+        k["launches"] = finfo["launches"][k["kernel"]]
+    rows += rr_rows
+
+    D = RECOVERY_DEEP
+    print(f"  with no invariant: run() to depth {D['run']} (the largest "
+          f"nonce tracked) and run_fused() to depth {D['fused']}",
+          flush=True)
+    tracker = NonceTracker()
+    eng, rres, rinfo = model_run(
+        "RR05", rr["module"], "small", "run", D["run"], invariants=(),
+        setup=lambda e: tracker.install(K_rr, e),
+        label="RR05 small, no invariant,")
+    run_pointers = trace_pointers(eng)
+    del eng
+    eng, fres, finfo = model_run(
+        "RR05", rr["module"], "small", "run_fused", D["fused"],
+        invariants=(), label="RR05 small, no invariant,")
+    same_pointers(trace_pointers(eng), run_pointers, fres.levels,
+                  "RR05 no-invariant run_fused", args)
+    fused_host_reads(fres, "RR05 with no invariant")
+    del eng, run_pointers
+    n = len(rr["small"])
+    need(len(fres.levels) == D["fused"] + 1
+         and len(rres.levels) == D["run"] + 1
+         and fres.levels[:D["run"] + 1] == rres.levels
+         and rres.levels[:n] == rr["small"],
+         f"RR05 with no invariant: run_fused levels {fres.levels}, run() "
+         f"{rres.levels}")
+    maxima = tracker.maxima()
+    first4 = next((i + 1 for i, x in enumerate(maxima) if x >= 4), None)
+    need(first4 == rr["nonce4_depth"] and maxima[-1] > 4,
+         f"RR05 with no invariant: the largest nonce by depth {maxima}")
+    rinfo["nonce_maxima"] = maxima
+    out["RR05_deep"] = {"run": rinfo, "run_fused": finfo}
+    print(f"  levels {fres.levels}, run()'s through depth {D['run']} with "
+          f"equal pointer tables; the largest nonce by depth {maxima}",
+          flush=True)
+
+    W = RECOVERY_WIDE
+    for m, K in (("RR05", K_rr), ("AL05", K_al)):
+        fam = RECOVERY[m]
+        print(f"phase 12d: {m} wide cfg, run_fused to depth {W['fused']} "
+              f"and run() to depth {W['run']}", flush=True)
+        _e, fres, finfo = model_run(m, fam["module"], "wide", "run_fused",
+                                    W["fused"])
+        del _e
+        _e, rres, rinfo = model_run(m, fam["module"], "wide", "run",
+                                    W["run"])
+        del _e
+        n = len(fam["wide"])
+        need(fres.levels[:n] == fam["wide"]
+             and len(fres.levels) == W["fused"] + 1
+             and rres.levels == fres.levels[:W["run"] + 1],
+             f"{m} wide run_fused levels {fres.levels}, run() "
+             f"{rres.levels}")
+        out[f"{m}_wide"] = {"run_fused": finfo, "run": rinfo}
+        print(f"  levels {fres.levels} (the JAX record through depth "
+              f"{n - 1})", flush=True)
+
+        print(f"phase 12e: {m} wide cfg, recording run() to depth "
+              f"{W['cover']}; K13, K14, K3 against their plain versions on "
+              f"the calls where each action was enabled most", flush=True)
+        rec = ST03Recorder(by_action=True)
+        uninstall = rec.install()
+        try:
+            _e, cres, cinfo = model_run(m, fam["module"], "wide", "run",
+                                        W["cover"])
+        finally:
+            uninstall()
+        del _e
+        need(cres.levels == fres.levels[:W["cover"] + 1],
+             f"{m} wide recording run() levels {cres.levels}")
+        enabled = check_family_coverage(rec, K, f"{m} wide")
+        del rec
+        out[f"{m}_cover"] = {"depth": W["cover"], "wall_s": cinfo["wall_s"],
+                             "enabled": enabled}
+        print(f"  enabled lanes by action: {enabled}", flush=True)
+
+    print("phase 12f: RR05 small cfg packed under the JAX package's "
+          "manifest (the nonce in 2 bits), with no invariant: K4's range "
+          "flag stops both entry points at depth 16", flush=True)
+    out["RR05_jax_manifest"] = jax_manifest_runs(rr["module"])
     return rows
 
 
@@ -2779,7 +3317,7 @@ def kernels_line(rows):
 
 
 def run_phases(args, doc, t_all):
-    """Phases 1-11 (the module docstring); returns the exit code."""
+    """Phases 1-12 (the module docstring); returns the exit code."""
     import numpy as np
     import torch
     from tpuvsr_torch import kernels
@@ -2894,6 +3432,7 @@ def run_phases(args, doc, t_all):
     rows += paged_phase(args, doc, binding, run_pointers)
     rows += st03_phase(args, doc)
     rows += family_phase(args, doc)
+    rows += recovery_phase(args, doc)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
     write_doc(args, doc)

@@ -58,8 +58,12 @@ from tpuvsr.models.as04 import AS04Codec as JAS04Codec
 from tpuvsr.models.as04_kernel import AS04Kernel as JAS04Kernel
 from tpuvsr.models.i01 import I01Codec as JI01Codec
 from tpuvsr.models.i01_kernel import I01Kernel as JI01Kernel
+from tpuvsr.models.al05 import AL05Codec as JAL05Codec
+from tpuvsr.models.al05_kernel import AL05Kernel as JAL05Kernel
+from tpuvsr.models.rr05 import RR05Codec as JRR05Codec
+from tpuvsr.models.rr05_kernel import RR05Kernel as JRR05Kernel
 from tpuvsr_torch import kernels
-from tpuvsr_torch.analysis.widths import derive_ranges_from
+from tpuvsr_torch.analysis.widths import NONCE_UNBOUNDED, derive_ranges_from
 from tpuvsr_torch.engine.device_bfs import DeviceBFS
 from tpuvsr_torch.engine.spec import load_binding
 from tpuvsr_torch.models import st03_kernel as psk
@@ -71,26 +75,32 @@ CSRC = os.path.join(ROOT, "tpuvsr_torch", "csrc")
 FIELDS = ("succ", "en2", "err", "ts", "tn", "ri", "iok")
 
 
-def _cfgs(module):
+def _cfgs(module, wide="shipped"):
     return (os.path.join(CONFIGS, f"{module}_small.cfg"),
-            os.path.join(CONFIGS, f"{module}_shipped.cfg"))
+            os.path.join(CONFIGS, f"{module}_{wide}.cfg"))
 
 
-def _model(key, module, jcodec, jkernel, small_levels, shipped_levels):
-    small, shipped = _cfgs(module)
+def _model(key, module, jcodec, jkernel, small_levels, shipped_levels,
+           wide="shipped", small_depth=8, wide_depth=5, seeds=(31, 32, 34)):
+    """A model of the family; ``wide`` names its cfg with wider constants
+    (``_shipped.cfg``, or ``_wide.cfg`` where the reference ships none)
+    and the case that runs it; ``seeds`` are the cases' walk seeds."""
+    small, shipped = _cfgs(module, wide)
     return SimpleNamespace(
         key=key, module=module, jcodec=jcodec, jkernel=jkernel,
-        small=small, shipped=shipped,
+        small=small, shipped=shipped, wide=wide,
         # name -> (cfg, NoProgressChangeLimit, MAX_MSGS, walk seed)
-        cases={"small": (small, 0, 32, 31), "small_np1": (small, 1, 16, 32),
-               "shipped": (shipped, 0, 32, 34)},
+        cases={"small": (small, 0, 32, seeds[0]),
+               "small_np1": (small, 1, 16, seeds[1]),
+               wide: (shipped, 0, 32, seeds[2])},
         # (cfg, depth, the JAX-kernel host BFS's levels): the small cfg's
-        # are the first levels of its fixpoint (scripts/fixpoints.json)
-        bfs={"small": ("small", 8, small_levels),
-             "shipped": ("shipped", 5, shipped_levels)},
+        # are the first levels of its fixpoint (scripts/fixpoints.json,
+        # scripts/recovery_fixpoints.json)
+        bfs={"small": ("small", small_depth, small_levels),
+             wide: (wide, wide_depth, shipped_levels)},
         # the cases of the records chip_smoke.py holds the card to (run
         # this file as a script)
-        records={"small": (small, 0, 32, 0), "shipped": (shipped, 0, 48, 0)})
+        records={"small": (small, 0, 32, 0), wide: (shipped, 0, 48, 0)})
 
 
 FAMILY = {
@@ -103,8 +113,31 @@ FAMILY = {
     "AS04": _model("AS04", "VR_APP_STATE", JAS04Codec, JAS04Kernel,
                    [1, 3, 8, 24, 68, 162, 331, 593, 965],
                    [1, 4, 17, 63, 238, 850]),
+    # the crash-recovery models (CrashLimit 1): the small cfg's levels
+    # are the first of scripts/recovery_fixpoints.json's AL05 fixpoint
+    # and of scripts/recovery_fixpoints.log's RR05 run
+    "RR05": _model("RR05", "VR_REPLICA_RECOVERY", JRR05Codec, JRR05Kernel,
+                   [1, 6, 23, 77, 227, 593, 1364],
+                   [1, 7, 35, 151, 595], wide="wide", small_depth=6,
+                   wide_depth=4, seeds=(31, 35, 34)),
+    "AL05": _model("AL05", "VR_REPLICA_RECOVERY_ASYNC_LOG", JAL05Codec,
+                   JAL05Kernel, [1, 6, 24, 85, 261, 702, 1665],
+                   [1, 7, 37, 171, 697], wide="wide", small_depth=6,
+                   wide_depth=4, seeds=(31, 35, 35)),
 }
 KEY = "A01"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain versions run small batches, where torch's intra-op
+    thread pool costs more than it gives, and the test workers share the
+    cores: one thread for a module's tests, the count restored after
+    (each family file imports this fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def binding(model, path, np_limit):
@@ -198,9 +231,19 @@ def check_codec_layout(key, name):
         assert jz[k].shape == pz[k].shape and jz[k].dtype == pz[k].dtype, k
     constants = kern.codec.constants
     ranges = derive_ranges_from(constants, model.module)
-    assert ranges == j_ranges(jc.constants, model.module)
+    jranges = j_ranges(jc.constants, model.module)
+    if model.module in NONCE_UNBOUNDED:
+        # RetryRecovery re-mints the nonce: the port derives no bound
+        # where the JAX pass does (1 + CrashLimit), and the two pack
+        # manifests differ; the codecs agree on the port's ranges
+        assert jranges.pop("recovery_nonce") == (
+            0, 1 + constants["CrashLimit"])
+        assert "recovery_nonce" not in ranges
+        assert j_pack_spec(jc, ranges=j_ranges(
+            jc.constants, model.module)).version != kern.pk.version
+    assert ranges == jranges
     assert codec.plane_bounds(ranges) == jc.plane_bounds(ranges)
-    jpk = j_pack_spec(jc, ranges=j_ranges(jc.constants, model.module))
+    jpk = j_pack_spec(jc, ranges=ranges)
     assert kern.pk.version == jpk.version
     assert kern.pk.words == jpk.words
     init = codec.init_dense()
@@ -342,6 +385,41 @@ def check_incremental(case):
     assert np.array_equal(got[en], full.numpy().view(np.uint32))
 
 
+def check_counterexample(key, steps):
+    """A counterexample's (action, lane) steps from Init through the
+    port's plain K14 and the JAX kernel: every step enabled and the same
+    state in both, and on the last one NoLogDivergence,
+    NoAppStateDivergence and CommitNumberNeverHigherThanOpNumber fail
+    in both packages."""
+    case = family_case(key, "small")
+    kern, J = case.kern, case.J
+    jk = J.jk
+    row = kern.codec.init_dense()
+    one = torch.zeros((1,), dtype=torch.int32)
+    for name, lane in steps:
+        a = kern.action_names.index(name)
+        flat = kern.pk.flatten({k: torch.as_tensor(v)[None]
+                                for k, v in row.items()})
+        o = kern.successors_plain(flat, one, one + a, one + lane, 0)
+        assert bool(o["en2"][0]), name
+        clean, en = _run(J.step, _batch([row]))[:2]
+        col = int(np.nonzero((jk.lane_action == a)
+                             & (jk.lane_param == lane))[0][0])
+        assert bool(en[0, col]), name
+        nxt = {k: v[0, col] for k, v in clean.items()}
+        got = kern.pk.unflatten(o["succ"])
+        for k in nxt:
+            assert np.array_equal(got[k][0].numpy(), nxt[k]), (name, k)
+        row = nxt
+    st = {k: torch.as_tensor(v)[None] for k, v in row.items()}
+    want = _run(J.invs, {k: v[None] for k, v in row.items()})
+    names = list(kern.INVARIANT_FNS)
+    for inv in ("NoLogDivergence", "NoAppStateDivergence",
+                "CommitNumberNeverHigherThanOpNumber"):
+        assert not bool(getattr(kern, kern.INVARIANT_FNS[inv])(st)[0])
+        assert not bool(want[names.index(inv)][0])
+
+
 def _snake(camel):
     return re.sub(r"(?<=[a-z])(?=[A-Z])", "_", camel).upper()
 
@@ -361,8 +439,10 @@ def check_tables(key):
         start.get(k, -1) for k in kern.PLANE_KEYS]
     # every plane of the model's layout has an offset
     assert set(start) <= set(kern.PLANE_KEYS)
-    assert _enum(act, "FamilyAction") == ["A_RESEND_SVC",
-                                          "N_FAMILY_ACTIONS"]
+    assert _enum(act, "FamilyAction") == [
+        "A_" + _snake(n).replace("_MSG", "")
+        for n in psk.FAMILY_ACTIONS[len(psk.ACTION_NAMES):]] \
+        + ["N_FAMILY_ACTIONS"]
     ids = kern.family_action_ids()
     fam = _enum(act, "Action")[:-1] + _enum(act, "FamilyAction")[:-1]
     for name, fid in zip(kern.action_names, ids):
@@ -418,8 +498,16 @@ def check_plain_calls(key):
 # the BFS levels against a JAX-kernel host BFS
 # ----------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
-def jax_level_bfs(key, name, depth):
+def _cached_level_bfs(key, name, depth):
     return level_bfs(jax_fns(key, name), depth)
+
+
+def jax_level_bfs(key, name, depth, on_level=None):
+    """The JAX-kernel host BFS's levels of a model's case (cached when
+    no ``on_level`` probe is given)."""
+    if on_level is None:
+        return _cached_level_bfs(key, name, depth)
+    return level_bfs(jax_fns(key, name), depth, on_level)
 
 
 def engine(model, path, **kw):

@@ -21,7 +21,7 @@ from tests.test_torch_a01 import (
     check_fingerprints, check_guard_matrix, check_incremental,
     check_invariants, check_pack_round_trip, check_parent_parts,
     check_plain_calls, check_round_trip, check_successors, check_tables,
-    family_case, FAMILY)
+    family_case, FAMILY, one_torch_thread)
 from tpuvsr.models.as04_kernel import AS04Kernel as JAS04Kernel
 from tpuvsr_torch.core.values import TLAError
 from tpuvsr_torch.engine.device_bfs import DeviceBFS

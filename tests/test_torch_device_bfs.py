@@ -237,8 +237,8 @@ def test_make_model_resolves_st03():
                             "CommitNumberNeverHigherThanOpNumber"]
     assert not b.symmetry_perms
     with pytest.raises(KeyError, match="no hand model kernel for module "
-                       "'VR_REPLICA_RECOVERY'"):
-        make_model(load_binding(cfg, "VR_REPLICA_RECOVERY"))
+                       "'VR_REPLICA_RECOVERY_CP'"):
+        make_model(load_binding(cfg, "VR_REPLICA_RECOVERY_CP"))
 
 
 def test_device_bfs_check_entry_point_on_cpu():
@@ -259,7 +259,9 @@ def test_import_loads_no_jax():
             "tpuvsr_torch.sim.defect_hunt, tpuvsr_torch.sim.rng, "
             "tpuvsr_torch.models.st03_kernel, tpuvsr_torch.models.registry, "
             "tpuvsr_torch.models.a01_kernel, tpuvsr_torch.models.i01_kernel, "
-            "tpuvsr_torch.models.as04_kernel\n"
+            "tpuvsr_torch.models.as04_kernel, "
+            "tpuvsr_torch.models.rr05_kernel, "
+            "tpuvsr_torch.models.al05_kernel\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuvsr' or "
             "m.startswith('tpuvsr.')]\n"

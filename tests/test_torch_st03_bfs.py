@@ -34,19 +34,22 @@ def _jax_level_bfs(name, depth):
     return level_bfs(_jax(name), depth)
 
 
-def level_bfs(J, depth):
+def level_bfs(J, depth, on_level=None):
     """Host-driven level BFS with a JAX kernel of the family (``J``, a
     ``jax_fns_of`` namespace) from init_dense, the frontier stepped PAD
-    states at a time; no enabled successor may set an error flag."""
+    states at a time; no enabled successor may set an error flag.
+    ``on_level(new states, enabled successors)``, when given, sees each
+    level."""
     init = J.jk.codec.zero_state()
     init["view"][:] = 1
     seen = {_fps(J, {k: v[None] for k, v in init.items()})[0].tobytes()}
     frontier, levels = [init], [1]
     for _ in range(depth):
-        nxt = []
+        nxt, n_en = [], 0
         for lo in range(0, len(frontier), PAD):
             clean, en = _run(J.step, _batch(frontier[lo:lo + PAD]))[:2]
             en = en.reshape(-1)
+            n_en += int(en.sum())
             if not en.any():
                 continue
             flat = {k: v.reshape((-1,) + v.shape[2:])[en]
@@ -58,6 +61,8 @@ def level_bfs(J, depth):
                 if key not in seen:
                     seen.add(key)
                     nxt.append({k: v[i] for k, v in flat.items()})
+        if on_level is not None:
+            on_level(nxt, n_en)
         levels.append(len(nxt))
         frontier = nxt
     return levels

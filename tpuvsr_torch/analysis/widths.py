@@ -4,10 +4,19 @@ A copy of ``derive_ranges_from`` in ``tpuvsr/analysis/passes/widths.py``
 (interval ranges of the protocol quantities, from the constants alone).
 It is the one source of the packed frontier's per-plane bit budgets
 (``engine/pack.py``), so the port packs states exactly as the JAX
-package does.
+package does, with one exception: the recovery nonce of a module with
+``RetryRecovery`` (``NONCE_UNBOUNDED``).  The JAX pass bounds the nonce
+by 1 + CrashLimit ("UniqueNumber mints one per crash",
+``tpuvsr/analysis/passes/widths.py:23``), but RetryRecovery mints one
+too, as often as it fires, so no bound is derivable there and the port
+derives none: the planes that hold the nonce keep raw 32-bit lanes.
 """
 
 from __future__ import annotations
+
+# modules whose RetryRecovery re-mints the recovery nonce without bound
+# (VR_REPLICA_RECOVERY.tla:951-983)
+NONCE_UNBOUNDED = frozenset({"VR_REPLICA_RECOVERY"})
 
 
 def derive_ranges_from(constants, module_name):
@@ -46,6 +55,6 @@ def derive_ranges_from(constants, module_name):
         rng["client_id"] = (0, clients)
     if replicas is not None:
         rng["replica_id"] = (0, replicas)
-    if crashes is not None:
+    if crashes is not None and module_name not in NONCE_UNBOUNDED:
         rng["recovery_nonce"] = (0, 1 + crashes)
     return rng

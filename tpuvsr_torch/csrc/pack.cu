@@ -16,9 +16,13 @@
 // the host (word_ptr, word_lane, word_part); it writes whole words, so
 // it can scatter straight into a row of the next-frontier buffer
 // (dest[b] = output row, -1 = skip), as the fused commit's scatter
-// does.  Unpack: one thread per (state, lane) reads the one or two
-// words its field spans, from frontier row rows[b] (the gather of the
-// tile's states is fused in), and writes the int32 lane.
+// does.  The JAX version masks a value to its lane's width with no
+// check; here a packed field whose biased value has bits outside its
+// mask sets the one-word flag oob (a race of equal writes), which the
+// engines read with their next host read and fail the run on, so a
+// value never wraps unseen.  Unpack: one thread per (state, lane) reads
+// the one or two words its field spans, from frontier row rows[b] (the
+// gather of the tile's states is fused in), and writes the int32 lane.
 #include "common.cuh"
 
 namespace {
@@ -32,20 +36,24 @@ __global__ void pack_kernel(const int* __restrict__ flat, int B, int lanes,
                             const int* __restrict__ word_lane,
                             const uint8_t* __restrict__ word_part,
                             const int* __restrict__ dest,
-                            uint32_t* __restrict__ out) {
+                            uint32_t* __restrict__ out,
+                            int* __restrict__ oob) {
     const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= (long long)B * words) return;
     const int b = (int)(t / words), w = (int)(t % words);
     const int row = dest ? dest[b] : b;
     if (row < 0) return;
     const int* st = flat + (size_t)b * lanes;
-    uint32_t acc = 0;
+    uint32_t acc = 0, wide = 0;
     for (int e = word_ptr[w]; e < word_ptr[w + 1]; ++e) {
         const int l = word_lane[e];
-        const uint32_t v = ((uint32_t)st[l] - (uint32_t)lo[l]) & lmask[l];
+        const uint32_t raw = (uint32_t)st[l] - (uint32_t)lo[l];
+        const uint32_t v = raw & lmask[l];
+        wide |= raw & ~lmask[l];
         acc |= word_part[e] ? ((v >> hishift[l]) >> 1) : (v << off[l]);
     }
     out[(size_t)row * words + w] = acc;
+    if (wide) *oob = 1;
 }
 
 __global__ void unpack_kernel(const uint32_t* __restrict__ packed,
@@ -73,12 +81,14 @@ __global__ void unpack_kernel(const uint32_t* __restrict__ packed,
 
 // flat: [B, lanes] int32 -> out rows dest[b] (or b when dest is null)
 // of a [rows, words] uint32 buffer; rows with dest[b] < 0 are skipped.
+// oob: one int32 word, set to 1 when a packed value lies outside its
+// lane's bound (never cleared here).
 TPUVSR_EXPORT int tpuvsr_pack(const void* flat, int B, int lanes, int words,
                               const void* lo, const void* lmask,
                               const void* off, const void* hishift,
                               const void* word_ptr, const void* word_lane,
                               const void* word_part, const void* dest,
-                              void* out, void* stream) {
+                              void* out, void* oob, void* stream) {
     if (B > 0) {
         const int threads = 128;
         KLAUNCH(pack_kernel, tpuvsr_blocks((long long)B * words, threads),
@@ -86,7 +96,8 @@ TPUVSR_EXPORT int tpuvsr_pack(const void* flat, int B, int lanes, int words,
                 words, (const int*)lo, (const uint32_t*)lmask,
                 (const uint32_t*)off, (const uint32_t*)hishift,
                 (const int*)word_ptr, (const int*)word_lane,
-                (const uint8_t*)word_part, (const int*)dest, (uint32_t*)out);
+                (const uint8_t*)word_part, (const int*)dest, (uint32_t*)out,
+                (int*)oob);
     }
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // K14: the transition relation (successors and invariants) of the ST03
 // (VR_STATE_TRANSFER) family: ST03, A01 (VR_ASSUME_NEWVIEWCHANGE), I01
-// (VR_INC_RESEND) and AS04 (VR_APP_STATE).
+// (VR_INC_RESEND), AS04 (VR_APP_STATE), RR05 (VR_REPLICA_RECOVERY) and
+// AL05 (VR_REPLICA_RECOVERY_ASYNC_LOG).
 //
 // Replaces the 16 action functions of tpuvsr/models/st03_kernel.py
 // (act_* at :261-570, with the message-bag primitives _bag_send,
@@ -46,16 +47,19 @@
 //
 // The family.  The kernel is a template on the model, with one entry
 // point each (tpuvsr_st03_actions, tpuvsr_a01_actions,
-// tpuvsr_i01_actions, tpuvsr_as04_actions), and replaces the action and
-// invariant functions of tpuvsr/models/a01_kernel.py:53-117,
-// i01_kernel.py:78-397 and as04_kernel.py:76-346 as well.  A model's
+// tpuvsr_i01_actions, tpuvsr_as04_actions, tpuvsr_rr05_actions,
+// tpuvsr_al05_actions), and replaces the action and invariant functions
+// of tpuvsr/models/a01_kernel.py:53-117, i01_kernel.py:78-397,
+// as04_kernel.py:76-346, rr05_kernel.py:88-313 and al05_kernel.py:60-168
+// as well.  A model's
 // deltas are if-constexpr branches in the ST03 actions, so ST03's
 // instantiation does ST03's work alone.  The family's planes follow
 // N_ST03_PLANES (enum FamilyPlane: I01's third sent flag and DVC tracker,
-// AS04's DVC slots and app plane; the host's table gives -1 for a plane
-// the model lacks, which is never read), its one new action follows
-// N_ST03_ACTIONS (FamilyAction: I01's ResendSVC), and its invariants
-// follow N_INVARIANTS (FamilyInvariant).  A host-built table maps each
+// AS04's DVC slots and app plane, RR05's nonce, response slots and crash
+// counter, AL05's prefix ceilings; the host's table gives -1 for a plane
+// the model lacks, which is never read), its new actions follow
+// N_ST03_ACTIONS (FamilyAction: I01's ResendSVC, RR05's five recovery
+// actions), and its invariants follow N_INVARIANTS (FamilyInvariant).  A host-built table maps each
 // model's action index to its family id (A01 drops the three
 // state-transfer actions and I01 adds ResendSVC, so their ids do not
 // line up with ST03's; AS04's PrimaryExecuteOp takes ExecuteOp's), and
@@ -73,7 +77,24 @@
 // appends the newly committed ops to the app plane (exec_ops), commit is
 // never lowered, DVCs are counted in per-source slots cleared on every
 // view adoption, and a second, different DVC from one source sets
-// ERR_DVC_OVERFLOW.
+// ERR_DVC_OVERFLOW.  RR05 (on AS04): packed entries as A01's, a fourth
+// status (Recovering, 3) that TimerSendSVC, ReceiveHigherSVC,
+// ReceiveHigherDVC and ReceiveSV exclude, and the recovery sub-protocol:
+// Crash (wipe, a fresh nonce one above the largest RecoveryMsg x in the
+// bag, a RecoveryMsg broadcast), ReceiveRecoveryMsg (a Normal replica
+// answers; the primary attaches its log), ReceiveRecoveryResponseMsg (a
+// per-source slot; a different second response sets ERR_REC_OVERFLOW),
+// CompleteRecovery (the has-log response of the highest view) and
+// RetryRecovery (a new nonce when no response can come).  AL05 (on
+// RR05): plain entries again, a Crash lane per (replica, surviving
+// prefix length), a response that carries the primary's suffix above
+// the crashed replica's floor, and a CompleteRecovery that splices the
+// replica's own prefix under it.
+//
+// The entry encoding switches twice down the chain (AS04 plain, RR05
+// packed, AL05 plain), so it is a property of its own (PACKED_ENTRIES),
+// apart from A01's assume-mode guards (A01_LIKE) and AS04's app state
+// (APP_STATE).
 #include <climits>
 
 #include "common.cuh"
@@ -110,11 +131,17 @@ enum Invariant {
 // the family's planes beyond ST03's (FAMILY_PLANES order)
 enum FamilyPlane {
     P_SENT_SVC = N_ST03_PLANES, P_DVC, P_DVC_VIEW, P_DVC_LNV, P_DVC_OP,
-    P_DVC_COMMIT, P_DVC_LOG, P_APP, N_FAMILY_PLANES
+    P_DVC_COMMIT, P_DVC_LOG, P_APP, P_REC_NUMBER, P_REC, P_REC_VIEW,
+    P_REC_HAS_LOG, P_REC_LOG, P_REC_OP, P_REC_COMMIT, P_REC_CEIL,
+    P_AUX_RESTART, N_FAMILY_PLANES
 };
 
-// the family's action beyond ST03's
-enum FamilyAction { A_RESEND_SVC = N_ST03_ACTIONS, N_FAMILY_ACTIONS };
+// the family's actions beyond ST03's (FAMILY_ACTIONS order)
+enum FamilyAction {
+    A_RESEND_SVC = N_ST03_ACTIONS, A_CRASH, A_RECEIVE_RECOVERY,
+    A_RECEIVE_RECOVERY_RESPONSE, A_COMPLETE_RECOVERY, A_RETRY_RECOVERY,
+    N_FAMILY_ACTIONS
+};
 
 // the family's invariants beyond ST03's (FAMILY_INVARIANTS order)
 enum FamilyInvariant {
@@ -124,20 +151,36 @@ enum FamilyInvariant {
 };
 
 // the models (one instantiation and entry point each)
-enum Model { MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04 };
+enum Model {
+    MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04, MODEL_RR05, MODEL_AL05
+};
 
+// A01's assume-mode guards (A01, I01)
 template <int MODEL>
 constexpr bool A01_LIKE = MODEL == MODEL_A01 || MODEL == MODEL_I01;
+// log entries packed value_id << 8 | view (A01, I01, RR05)
+template <int MODEL>
+constexpr bool PACKED_ENTRIES = A01_LIKE<MODEL> || MODEL == MODEL_RR05;
+// AS04's app state and DVC slots (AS04 and the models on it)
+template <int MODEL>
+constexpr bool APP_STATE =
+    MODEL == MODEL_AS04 || MODEL == MODEL_RR05 || MODEL == MODEL_AL05;
+// the crash-recovery sub-protocol (RR05, AL05)
+template <int MODEL>
+constexpr bool RECOVERY = MODEL == MODEL_RR05 || MODEL == MODEL_AL05;
 
 // the codec's encodings (models/st03.py, models/vsr.py)
 constexpr int NORMAL = 0, VIEWCHANGE = 1, STATETRANSFER = 2;
+constexpr int RECOVERING = 3;               // the family's (models/rr05.py)
 constexpr int M_PREPARE = 1, M_PREPAREOK = 2, M_SVC = 3, M_DVC = 4,
-              M_SV = 5, M_GETSTATE = 6, M_NEWSTATE = 7;
+              M_SV = 5, M_GETSTATE = 6, M_NEWSTATE = 7, M_RECOVERY = 8,
+              M_RECOVERYRESP = 9;
 constexpr int H_TYPE = 0, H_VIEW = 1, H_OP = 2, H_COMMIT = 3, H_DEST = 4,
               H_SRC = 5, H_X = 6, H_FIRST = 7, H_LNV = 8, N_ROWHDR = 9;
 constexpr int ANYDEST = -1;
-constexpr int ERR_BAG_OVERFLOW = 1, ERR_DVC_OVERFLOW = 2;
-constexpr int ENTRY_VIEW_BITS = 8;          // A01's packed log entries
+constexpr int ERR_BAG_OVERFLOW = 1, ERR_DVC_OVERFLOW = 2,
+              ERR_REC_OVERFLOW = 4;
+constexpr int ENTRY_VIEW_BITS = 8;          // packed log entries
 constexpr int THREADS = 128;
 
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -153,6 +196,8 @@ __device__ __forceinline__ int wmul(int a, int b) {
 }
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
 __device__ __forceinline__ int clipi(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
@@ -201,6 +246,10 @@ struct St {
         return &s[off[P_DVC_LOG] + (i * R + j) * OPS];
     }
     __device__ int* app_row(int i) const { return &s[off[P_APP] + i * OPS]; }
+    // the log of RR05's response slot (i, j)
+    __device__ int* rec_log(int i, int j) const {
+        return &s[off[P_REC_LOG] + (i * R + j) * OPS];
+    }
 
     // -- the record being built ----------------------------------------
     __device__ void row(int type, int view, int op, int commit, int dest,
@@ -378,6 +427,56 @@ struct St {
         at(P_COMMIT, i) = new_commit;
     }
 
+    // -- RR05's recovery slots ------------------------------------------
+    // _clear_rec (AL05's clears the prefix ceilings too)
+    template <int MODEL>
+    __device__ void clear_rec(int i) {
+        for (int j = 0; j < R; ++j) {
+            slot(P_REC, i, j) = 0;
+            slot(P_REC_VIEW, i, j) = 0;
+            slot(P_REC_HAS_LOG, i, j) = 0;
+            slot(P_REC_OP, i, j) = 0;
+            slot(P_REC_COMMIT, i, j) = 0;
+            if constexpr (MODEL == MODEL_AL05) slot(P_REC_CEIL, i, j) = 0;
+            int* l = rec_log(i, j);
+            for (int o = 0; o < OPS; ++o) l[o] = 0;
+        }
+    }
+
+    // UniqueNumber (RR05:826-835): the largest x of the RecoveryMsgs in
+    // the bag (0 for any other slot), plus one
+    __device__ int unique_number() const {
+        int u = INT_MIN;
+        for (int m = 0; m < M; ++m)
+            u = imax(u, at(P_M_PRESENT, m) == 1 &&
+                            hdr(m, H_TYPE) == M_RECOVERY ? hdr(m, H_X) : 0);
+        return wadd(u, 1);
+    }
+
+    // _best_rec (RR05:924-931): the first has-log response in the
+    // highest view of all the responses (0 when none; *any says)
+    __device__ int best_rec(int i, bool* any) const {
+        int vmax = INT_MIN;
+        for (int j = 0; j < R; ++j)
+            vmax = imax(vmax, slot(P_REC, i, j) == 1 ? slot(P_REC_VIEW, i, j)
+                                                      : -1);
+        for (int j = 0; j < R; ++j)
+            if (slot(P_REC, i, j) == 1 && slot(P_REC_HAS_LOG, i, j) == 1 &&
+                    slot(P_REC_VIEW, i, j) == vmax) {
+                *any = true;
+                return j;
+            }
+        *any = false;
+        return 0;
+    }
+
+    // a majority of the replicas have responded
+    __device__ bool rec_quorum(int i) const {
+        int n = 0;
+        for (int j = 0; j < R; ++j) n += slot(P_REC, i, j) == 1;
+        return n > R / 2;
+    }
+
     // processed (count-0) mtype records addressed to replica i in its
     // view (_svc_tombstones, _valid_dvc)
     __device__ bool tombstone(int m, int i, int mtype) const {
@@ -398,13 +497,14 @@ struct St {
     }
 
     // -- the invariants on this (the successor's) row ----------------------
-    // replica r's log holds an entry of value v (A01, I01: by the value
-    // id of the packed entry)
+    // replica r's log holds an entry of value v (packed entries: by the
+    // value id of the entry)
     template <int MODEL>
     __device__ int has_op(int r, int v) const {
         const int* l = log_row(r);
         for (int o = 0; o < OPS; ++o) {
-            const int vid = A01_LIKE<MODEL> ? l[o] >> ENTRY_VIEW_BITS : l[o];
+            const int vid = PACKED_ENTRIES<MODEL> ? l[o] >> ENTRY_VIEW_BITS
+                                                  : l[o];
             if (vid == v + 1) return 1;
         }
         return 0;
@@ -514,6 +614,7 @@ __device__ bool timer_send_svc(St& g, int i, int timer_limit) {
     } else {
         en = en && !g.normal_primary(i, r);
     }
+    if constexpr (RECOVERY<MODEL>) en = en && g.at(P_STATUS, i) != RECOVERING;
     const int new_view = wadd(g.at(P_VIEW, i), 1);
     g.at(P_VIEW, i) = new_view;
     g.at(P_STATUS, i) = VIEWCHANGE;
@@ -522,19 +623,21 @@ __device__ bool timer_send_svc(St& g, int i, int timer_limit) {
     g.at(P_AUX_SVC, 0) = wadd(g.at(P_AUX_SVC, 0), 1);
     g.row(M_SVC, new_view, 0, 0, 0, r, 0, 0);
     g.broadcast(r);
-    if constexpr (MODEL == MODEL_AS04) g.clear_dvc(i);
+    if constexpr (APP_STATE<MODEL>) g.clear_dvc(i);
     return en;
 }
 
 // ReceiveHigherSVC / ReceiveHigherDVC (ST03:537-556, 616-635); I01
 // adopts view + 1 (I01:455, 572) and tracks the DVC; AS04 resets its DVC
-// slots and seeds them with the carrier DVC (AS04:667)
+// slots and seeds them with the carrier DVC (AS04:667); RR05's receiver
+// is not Recovering (RR05:606, 688)
 template <int MODEL>
 __device__ bool receive_higher(St& g, int k, int mtype) {
     const int i = g.msg_lane(k), r = g.mh[H_DEST];
     const int j = clipi(wsub(g.mh[H_SRC], 1), 0, g.R - 1);
-    const bool en = g.recv_en(k, mtype) && g.can_progress(i) &&
-                    g.mh[H_VIEW] > g.at(P_VIEW, i);
+    bool en = g.recv_en(k, mtype) && g.can_progress(i) &&
+              g.mh[H_VIEW] > g.at(P_VIEW, i);
+    if constexpr (RECOVERY<MODEL>) en = en && g.at(P_STATUS, i) != RECOVERING;
     const int new_view = MODEL == MODEL_I01 ? wadd(g.at(P_VIEW, i), 1)
                                             : g.mh[H_VIEW];
     g.at(P_VIEW, i) = new_view;
@@ -546,7 +649,7 @@ __device__ bool receive_higher(St& g, int k, int mtype) {
             g.update_tracker(i, new_view, j, g.mh[H_VIEW], g.mh[H_LNV],
                              g.mh[H_OP], g.mh[H_COMMIT], g.m_log(k), en);
     }
-    if constexpr (MODEL == MODEL_AS04) {
+    if constexpr (APP_STATE<MODEL>) {
         g.clear_dvc(i);
         if (mtype == M_DVC)
             g.dvc_slot_add(i, j, g.mh[H_LNV], g.mh[H_OP], g.mh[H_COMMIT],
@@ -570,14 +673,14 @@ __device__ bool receive_matching(St& g, int k, int mtype) {
               g.mh[H_VIEW] == view;
     if (!(MODEL == MODEL_I01 && mtype == M_DVC))
         en = en && g.at(P_STATUS, i) == VIEWCHANGE;
-    if (MODEL == MODEL_AS04 && mtype == M_SVC)
+    if (APP_STATE<MODEL> && mtype == M_SVC)
         en = en && g.at(P_SENT_DVC, i) == 0;
     if constexpr (MODEL == MODEL_I01)
         if (mtype == M_DVC)
             g.update_tracker(i, view, j, g.mh[H_VIEW], g.mh[H_LNV],
                              g.mh[H_OP], g.mh[H_COMMIT], g.m_log(k), en);
     g.discard(k);
-    if constexpr (MODEL == MODEL_AS04)
+    if constexpr (APP_STATE<MODEL>)
         if (mtype == M_DVC)
             g.dvc_slot_add(i, j, g.mh[H_LNV], g.mh[H_OP], g.mh[H_COMMIT],
                            g.m_log(k), en);
@@ -604,7 +707,7 @@ __device__ bool send_dvc(St& g, int i) {
     if constexpr (MODEL == MODEL_I01)
         g.update_tracker(i, view, i, view, g.at(P_LNV, i), g.at(P_OP, i),
                          g.at(P_COMMIT, i), l, prim == r && en);
-    if constexpr (MODEL == MODEL_AS04)
+    if constexpr (APP_STATE<MODEL>)
         g.dvc_slot_add(i, i, g.at(P_LNV, i), g.at(P_OP, i),
                        g.at(P_COMMIT, i), l, prim == r && en);
     return en;
@@ -649,12 +752,12 @@ __device__ bool send_sv(St& g, int i) {
     const int R = g.R, OPS = g.OPS, r = i + 1;
     const int view = g.at(P_VIEW, i);
     int n_valid = 0, new_cn = INT_MIN, new_vn = view, new_on;
-    if constexpr (MODEL == MODEL_I01 || MODEL == MODEL_AS04) {
+    if constexpr (MODEL == MODEL_I01 || APP_STATE<MODEL>) {
         // the replica's DVC slots: I01's valid (view >= own) tracker
         // entries (I01:610-645), AS04's recv_dvc set (AS04:697-727)
         auto cand = [&](int j) {
             return g.slot(P_DVC, i, j) == 1 &&
-                   (MODEL == MODEL_AS04 ||
+                   (APP_STATE<MODEL> ||
                     g.slot(P_DVC_VIEW, i, j) >= view);
         };
         new_vn = INT_MIN;
@@ -671,7 +774,7 @@ __device__ bool send_sv(St& g, int i) {
             [&](int j) { return g.slot(P_DVC_COMMIT, i, j); },
             [&](int j) { return (const int*)g.dvc_log(i, j); },
             [&](int j) { return j + 1; });
-        if constexpr (MODEL == MODEL_AS04) new_vn = view;
+        if constexpr (APP_STATE<MODEL>) new_vn = view;
         new_on = g.slot(P_DVC_OP, i, best);
         g.row(M_SV, new_vn, new_on, new_cn, 0, r, 0, 0);
         const int* bl = g.dvc_log(i, best);
@@ -699,7 +802,7 @@ __device__ bool send_sv(St& g, int i) {
     g.at(P_STATUS, i) = NORMAL;
     int* l = g.log_row(i);
     for (int o = 0; o < OPS; ++o) l[o] = g.rl[o];
-    if constexpr (MODEL == MODEL_AS04) {
+    if constexpr (APP_STATE<MODEL>) {
         // HighestCommitNumber executes the ops up to it; the commit is
         // never lowered (the SV still carries new_cn)
         g.exec_ops(i, g.rl, new_cn);
@@ -714,7 +817,7 @@ __device__ bool send_sv(St& g, int i) {
         g.at(P_VIEW, i) = new_vn;
         g.clear_tracker(i);
     }
-    if constexpr (MODEL == MODEL_AS04) g.clear_dvc(i);
+    if constexpr (APP_STATE<MODEL>) g.clear_dvc(i);
     g.broadcast(r);
     return en;
 }
@@ -728,13 +831,15 @@ __device__ bool receive_sv(St& g, int k) {
         en = en && hv >= v;                 // A01:621-624
     else
         en = en && ((hv == v && g.at(P_STATUS, i) == VIEWCHANGE) || hv > v);
+    if constexpr (RECOVERY<MODEL>)          // RR05:798
+        en = en && g.at(P_STATUS, i) != RECOVERING;
     const int old_commit = g.at(P_COMMIT, i);
     g.at(P_STATUS, i) = NORMAL;
     g.at(P_VIEW, i) = hv;
     int* l = g.log_row(i);
     const int* ml = g.m_log(k);
     for (int o = 0; o < g.OPS; ++o) l[o] = ml[o];
-    if constexpr (MODEL == MODEL_AS04)
+    if constexpr (APP_STATE<MODEL>)
         g.exec_ops(i, l, g.mh[H_COMMIT]);
     else
         g.at(P_COMMIT, i) = g.mh[H_COMMIT];
@@ -742,7 +847,7 @@ __device__ bool receive_sv(St& g, int k) {
     g.at(P_LNV, i) = hv;
     g.reset_sent<MODEL>(i);
     if constexpr (MODEL == MODEL_I01) g.clear_tracker(i);
-    if constexpr (MODEL == MODEL_AS04) g.clear_dvc(i);
+    if constexpr (APP_STATE<MODEL>) g.clear_dvc(i);
     g.discard(k);
     g.row(M_PREPAREOK, hv, g.mh[H_OP], 0, primary(hv, g.R), r, 0, 0);
     g.send(old_commit < g.mh[H_OP], 1);
@@ -755,8 +860,8 @@ __device__ bool receive_client_request(St& g, int lane) {
     const bool en = g.can_progress(i) && g.normal_primary(i, r) &&
                     g.at(P_AUX_ACKED, vid - 1) == 0;
     const int opn = wadd(g.at(P_OP, i), 1);
-    // A01's entries are packed value_id << 8 | view (A01:287-289)
-    const int entry = A01_LIKE<MODEL>
+    // packed entries value_id << 8 | view (A01:287-289, RR05:306-309)
+    const int entry = PACKED_ENTRIES<MODEL>
         ? (vid << ENTRY_VIEW_BITS) | g.at(P_VIEW, i) : vid;
     g.log_row(i)[clipi(wsub(opn, 1), 0, g.OPS - 1)] = entry;
     g.at(P_OP, i) = opn;
@@ -779,7 +884,7 @@ __device__ bool receive_prepare(St& g, int k) {
     g.log_row(i)[clipi(wsub(g.mh[H_OP], 1), 0, g.OPS - 1)] =
         g.at(P_M_ENTRY, k);
     g.at(P_OP, i) = g.mh[H_OP];
-    if constexpr (MODEL == MODEL_AS04)
+    if constexpr (APP_STATE<MODEL>)
         g.exec_ops(i, g.log_row(i), g.mh[H_COMMIT]);
     else
         g.at(P_COMMIT, i) = g.mh[H_COMMIT];
@@ -801,7 +906,7 @@ __device__ bool receive_prepare_ok(St& g, int k) {
     return en;
 }
 
-// ExecuteOp (AS04: PrimaryExecuteOp, AS04:420-437)
+// ExecuteOp (AS04, RR05, AL05: PrimaryExecuteOp, AS04:420-437)
 template <int MODEL>
 __device__ bool execute_op(St& g, int i) {
     const int r = i + 1;
@@ -811,8 +916,8 @@ __device__ bool execute_op(St& g, int i) {
     const bool en = g.can_progress(i) && g.normal_primary(i, r) &&
                     g.at(P_COMMIT, i) < g.at(P_OP, i) && n >= g.R / 2;
     const int code = g.log_row(i)[clipi(wsub(opn, 1), 0, g.OPS - 1)];
-    const int vid = A01_LIKE<MODEL> ? code >> ENTRY_VIEW_BITS : code;
-    if constexpr (MODEL == MODEL_AS04)
+    const int vid = PACKED_ENTRIES<MODEL> ? code >> ENTRY_VIEW_BITS : code;
+    if constexpr (APP_STATE<MODEL>)
         g.exec_ops(i, g.log_row(i), opn);
     else
         g.at(P_COMMIT, i) = opn;
@@ -876,7 +981,7 @@ __device__ bool receive_new_state(St& g, int k) {
     g.at(P_VIEW, i) = g.mh[H_VIEW];
     g.at(P_LNV, i) = g.mh[H_VIEW];
     g.at(P_OP, i) = g.mh[H_OP];
-    if constexpr (MODEL == MODEL_AS04)
+    if constexpr (APP_STATE<MODEL>)
         g.exec_ops(i, l, g.mh[H_COMMIT]);
     else
         g.at(P_COMMIT, i) = g.mh[H_COMMIT];
@@ -916,12 +1021,177 @@ __device__ bool resend_svc(St& g, int lane) {
     return en;
 }
 
+// -- RR05's recovery sub-protocol (RR05:837-983) and AL05's forms
+// (AL05:851-977) ----------------------------------------------------------
+
+// Crash, lane i (AL05: i * (OPS + 1) + last_op, the length of the log
+// prefix that survives): the replica wiped to Recovering with a fresh
+// nonce, a RecoveryMsg broadcast (AL05's carries the floor min(commit,
+// last_op) as its op)
+template <int MODEL>
+__device__ bool crash(St& g, int lane, int crash_limit) {
+    int i = lane, last_op = 0;
+    if constexpr (MODEL == MODEL_AL05) {
+        i = lane / (g.OPS + 1);
+        last_op = lane - i * (g.OPS + 1);
+    }
+    const int r = i + 1;
+    bool en = g.at(P_AUX_RESTART, 0) < crash_limit && g.can_progress(i);
+    if constexpr (MODEL == MODEL_AL05) en = en && last_op <= g.at(P_OP, i);
+    const int u = g.unique_number();
+    const int floor = imin(g.at(P_COMMIT, i), last_op);
+    g.at(P_STATUS, i) = RECOVERING;
+    int* l = g.log_row(i);
+    int* app = g.app_row(i);
+    for (int o = 0; o < g.OPS; ++o) {
+        if (!(MODEL == MODEL_AL05 && o < last_op)) l[o] = 0;
+        app[o] = 0;
+    }
+    g.at(P_VIEW, i) = 0;
+    g.at(P_OP, i) = last_op;
+    g.at(P_COMMIT, i) = 0;
+    for (int j = 0; j < g.R; ++j) g.peer(i, j) = 0;
+    g.at(P_LNV, i) = 0;
+    g.reset_sent<MODEL>(i);
+    g.clear_dvc(i);
+    g.clear_rec<MODEL>(i);
+    g.at(P_REC_NUMBER, i) = u;
+    g.at(P_AUX_RESTART, 0) = wadd(g.at(P_AUX_RESTART, 0), 1);
+    g.row(M_RECOVERY, 0, MODEL == MODEL_AL05 ? floor : 0, 0, 0, r, 0, 0);
+    g.rh[H_X] = u;
+    g.broadcast(r);
+    return en;
+}
+
+// ReceiveRecoveryMsg: a Normal replica answers the nonce; the primary
+// attaches its log, op and commit (RR05), or its log above the crashed
+// replica's floor, re-based at 0, with first = the floor (AL05); a
+// backup's answer has op = commit = -1 (Nil) and no log
+template <int MODEL>
+__device__ bool receive_recovery(St& g, int k) {
+    const int i = g.msg_lane(k), r = g.mh[H_DEST];
+    const bool en = g.recv_en(k, M_RECOVERY) && g.can_progress(i) &&
+                    g.at(P_STATUS, i) == NORMAL;
+    const bool prim = g.normal_primary(i, r);
+    const int floor = g.mh[H_OP];
+    const int* l = g.log_row(i);
+    const int first = MODEL == MODEL_AL05 && prim ? floor : 0;
+    g.row(M_RECOVERYRESP, g.at(P_VIEW, i), prim ? g.at(P_OP, i) : -1,
+          prim ? g.at(P_COMMIT, i) : -1, g.mh[H_SRC], r, first, 0);
+    g.rh[H_X] = g.mh[H_X];
+    if constexpr (MODEL == MODEL_AL05) {
+        const int n = imax(wsub(g.at(P_OP, i), floor), 0);
+        for (int o = 0; o < g.OPS; ++o)
+            g.rl[o] = prim && o < n
+                ? l[clipl((long long)o + floor, 0, g.OPS - 1)] : 0;
+    } else {
+        for (int o = 0; o < g.OPS; ++o) g.rl[o] = prim ? l[o] : 0;
+    }
+    g.discard(k);
+    g.send(true, 1);
+    return en;
+}
+
+// ReceiveRecoveryResponseMsg: the response into the receiver's slot for
+// its source (AL05: and its prefix ceiling); a different record there
+// already sets ERR_REC_OVERFLOW
+template <int MODEL>
+__device__ bool receive_recovery_response(St& g, int k) {
+    const int i = g.msg_lane(k);
+    const int j = clipi(wsub(g.mh[H_SRC], 1), 0, g.R - 1);
+    const bool en = g.recv_en(k, M_RECOVERYRESP) && g.can_progress(i) &&
+                    g.at(P_REC_NUMBER, i) == g.mh[H_X] &&
+                    g.at(P_STATUS, i) == RECOVERING;
+    const bool collide = en && g.slot(P_REC, i, j) == 1 &&
+                         (g.slot(P_REC_VIEW, i, j) != g.mh[H_VIEW] ||
+                          g.slot(P_REC_OP, i, j) != g.mh[H_OP]);
+    g.slot(P_REC, i, j) = 1;
+    g.slot(P_REC_VIEW, i, j) = g.mh[H_VIEW];
+    g.slot(P_REC_HAS_LOG, i, j) = g.mh[H_OP] >= 0;
+    int* l = g.rec_log(i, j);
+    const int* ml = g.m_log(k);
+    for (int o = 0; o < g.OPS; ++o) l[o] = ml[o];
+    g.slot(P_REC_OP, i, j) = g.mh[H_OP];
+    g.slot(P_REC_COMMIT, i, j) = g.mh[H_COMMIT];
+    if (collide) g.at(P_ERR, 0) |= ERR_REC_OVERFLOW;
+    g.discard(k);
+    if constexpr (MODEL == MODEL_AL05)
+        g.slot(P_REC_CEIL, i, j) = g.mh[H_OP] >= 0 ? g.mh[H_FIRST] : 0;
+    return en;
+}
+
+// CompleteRecovery, lane i: with a majority of responses, the has-log
+// response of the highest view installed (AL05: the replica's own
+// prefix below min(ceil, op) under the response's suffix), its
+// committed ops executed, the slots cleared
+template <int MODEL>
+__device__ bool complete_recovery(St& g, int i) {
+    bool any;
+    const int j = g.best_rec(i, &any);
+    const bool en = g.can_progress(i) && g.at(P_STATUS, i) == RECOVERING &&
+                    g.rec_quorum(i) && any;
+    const int rv = g.slot(P_REC_VIEW, i, j), m_op = g.slot(P_REC_OP, i, j);
+    const int m_commit = g.slot(P_REC_COMMIT, i, j);
+    const int* rlog = g.rec_log(i, j);
+    int* l = g.log_row(i);
+    if constexpr (MODEL == MODEL_AL05) {
+        const int ceil = g.slot(P_REC_CEIL, i, j);
+        for (int o = 0; o < g.OPS; ++o)
+            g.rl[o] = o < imin(ceil, m_op) ? l[o]
+                : o < m_op ? rlog[clipl((long long)o - ceil, 0, g.OPS - 1)]
+                           : 0;
+    } else {
+        for (int o = 0; o < g.OPS; ++o) g.rl[o] = rlog[o];
+    }
+    g.at(P_STATUS, i) = NORMAL;
+    g.at(P_VIEW, i) = rv;
+    g.at(P_LNV, i) = rv;
+    for (int o = 0; o < g.OPS; ++o) l[o] = g.rl[o];
+    g.at(P_OP, i) = m_op;
+    g.exec_ops(i, g.rl, m_commit);
+    g.clear_rec<MODEL>(i);
+    return en;
+}
+
+// RetryRecovery, lane i (RR05:951-983): a majority of responses, none
+// with a log, and nothing with the replica's nonce that can still bring
+// one (a RecoveryMsg whose receiver can progress, or a response, present
+// and undelivered): the slots cleared, a fresh nonce broadcast
+template <int MODEL>
+__device__ bool retry_recovery(St& g, int i) {
+    bool any;
+    g.best_rec(i, &any);
+    const int x = g.at(P_REC_NUMBER, i);
+    bool pending = false;
+    for (int m = 0; m < g.M; ++m) {
+        if (g.at(P_M_PRESENT, m) != 1 || g.at(P_M_COUNT, m) <= 0 ||
+                g.hdr(m, H_X) != x)
+            continue;
+        const int t = g.hdr(m, H_TYPE);
+        const int d = clipi(wsub(g.hdr(m, H_DEST), 1), 0, g.R - 1);
+        pending = pending || (t == M_RECOVERY && g.can_progress(d)) ||
+                  t == M_RECOVERYRESP;
+    }
+    const bool en = g.can_progress(i) && g.at(P_STATUS, i) == RECOVERING &&
+                    g.rec_quorum(i) && !any && !pending;
+    const int u = g.unique_number();
+    g.clear_rec<MODEL>(i);
+    g.at(P_REC_NUMBER, i) = u;
+    g.row(M_RECOVERY, 0, 0, 0, 0, i + 1, 0, 0);
+    g.rh[H_X] = u;
+    g.broadcast(i + 1);
+    return en;
+}
+
 // the replica a lane's action mutates (lane_replica), from the parent
+template <int MODEL>
 __device__ int lane_replica(const St& g, int a, int lane) {
     switch (a) {
     case A_TIMER_SEND_SVC: case A_SEND_DVC: case A_SEND_SV:
-    case A_EXECUTE_OP:
+    case A_EXECUTE_OP: case A_COMPLETE_RECOVERY: case A_RETRY_RECOVERY:
         return lane;
+    case A_CRASH:
+        return MODEL == MODEL_AL05 ? lane / (g.OPS + 1) : lane;
     case A_NO_PROGRESS_CHANGE:
         return 0;
     case A_RECEIVE_CLIENT_REQUEST:
@@ -937,8 +1207,8 @@ __device__ int lane_replica(const St& g, int a, int lane) {
 
 // a: the family action id
 template <int MODEL>
-__device__ bool apply(St& g, int a, int lane, int timer_limit,
-                      int np_limit) {
+__device__ bool apply(St& g, int a, int lane, int timer_limit, int np_limit,
+                      int crash_limit) {
     switch (a) {
     case A_TIMER_SEND_SVC: return timer_send_svc<MODEL>(g, lane,
                                                         timer_limit);
@@ -962,6 +1232,16 @@ __device__ bool apply(St& g, int a, int lane, int timer_limit,
     case A_NO_PROGRESS_CHANGE: return no_progress_change(g, lane, np_limit);
     case A_RESEND_SVC: return resend_svc(g, lane);
     }
+    if constexpr (RECOVERY<MODEL>) {
+        switch (a) {
+        case A_CRASH: return crash<MODEL>(g, lane, crash_limit);
+        case A_RECEIVE_RECOVERY: return receive_recovery<MODEL>(g, lane);
+        case A_RECEIVE_RECOVERY_RESPONSE:
+            return receive_recovery_response<MODEL>(g, lane);
+        case A_COMPLETE_RECOVERY: return complete_recovery<MODEL>(g, lane);
+        case A_RETRY_RECOVERY: return retry_recovery<MODEL>(g, lane);
+        }
+    }
     return false;
 }
 
@@ -971,8 +1251,9 @@ __global__ void actions_kernel(
         const int* __restrict__ pidx, const int* __restrict__ aid,
         const int* __restrict__ lane_of, const int* __restrict__ planes,
         const int* __restrict__ amap, int R, int V, int M, int OPS,
-        int NHDR, int timer_limit, int np_limit, int inv_mask,
-        const long long* __restrict__ halt, int* __restrict__ succ,
+        int NHDR, int timer_limit, int np_limit, int crash_limit,
+        int inv_mask, const long long* __restrict__ halt,
+        int* __restrict__ succ,
         uint8_t* __restrict__ en2, int* __restrict__ err,
         int* __restrict__ ts, int* __restrict__ tn, int* __restrict__ ri,
         uint8_t* __restrict__ iok) {
@@ -996,8 +1277,9 @@ __global__ void actions_kernel(
         for (int t = 0; t <= R; ++t) g.ts[t] = -1;
         g.tn = 0;
         const int a = amap[aid[n]], lane = lane_of[n];
-        ri[n] = lane_replica(g, a, lane);
-        en2[n] = apply<MODEL>(g, a, lane, timer_limit, np_limit);
+        ri[n] = lane_replica<MODEL>(g, a, lane);
+        en2[n] = apply<MODEL>(g, a, lane, timer_limit, np_limit,
+                              crash_limit);
         err[n] = g.at(P_ERR, 0);
         for (int t = 0; t <= R; ++t) ts[n * (R + 1) + t] = g.ts[t];
         tn[n] = g.tn;
@@ -1013,9 +1295,9 @@ int launch_actions(const void* flat, int lanes, const void* pidx,
                    const void* aid, const void* lane, int N,
                    const void* planes, const void* amap, int R, int V,
                    int M, int OPS, int NHDR, int timer_limit, int np_limit,
-                   int inv_mask, const void* halt, void* succ, void* en2,
-                   void* err, void* ts, void* tn, void* ri, void* iok,
-                   void* stream) {
+                   int crash_limit, int inv_mask, const void* halt,
+                   void* succ, void* en2, void* err, void* ts, void* tn,
+                   void* ri, void* iok, void* stream) {
     if (N > 0) {
         // the row and the scratch words of one block
         const size_t smem = (size_t)(lanes + 2 * NHDR + OPS + R + 1) *
@@ -1026,7 +1308,7 @@ int launch_actions(const void* flat, int lanes, const void* pidx,
         KLAUNCH_SMEM(actions_kernel<MODEL>, N, THREADS, smem, st,
             (const int*)flat, lanes, (const int*)pidx, (const int*)aid,
             (const int*)lane, (const int*)planes, (const int*)amap, R, V,
-            M, OPS, NHDR, timer_limit, np_limit, inv_mask,
+            M, OPS, NHDR, timer_limit, np_limit, crash_limit, inv_mask,
             (const long long*)halt, (int*)succ, (uint8_t*)en2, (int*)err,
             (int*)ts, (int*)tn, (int*)ri, (uint8_t*)iok);
     }
@@ -1037,9 +1319,10 @@ int launch_actions(const void* flat, int lanes, const void* pidx,
 
 // flat: [T, lanes] int32 parent rows; pidx, aid, lane: [N] int32 work
 // queue (aid: the model's action index); planes: [N_ST03_PLANES] int32
-// plane offsets (ALL_KEYS order; [N_FAMILY_PLANES] for A01, I01 and
-// AS04, -1 for a plane the model lacks); amap: the model's action index
-// -> family action id; inv_mask: family invariant bits; halt: one int64
+// plane offsets (ALL_KEYS order; [N_FAMILY_PLANES] for the other models,
+// -1 for a plane the model lacks); amap: the model's action index ->
+// family action id; crash_limit: CrashLimit (0 without recovery);
+// inv_mask: family invariant bits; halt: one int64
 // word or null; succ: [N, lanes] int32; en2, iok: [N] uint8; err, tn,
 // ri: [N] int32; ts: [N, R + 1] int32.  One entry point a model, all
 // with this signature.
@@ -1048,16 +1331,18 @@ int launch_actions(const void* flat, int lanes, const void* pidx,
             const void* flat, int lanes, const void* pidx, const void* aid, \
             const void* lane, int N, const void* planes, const void* amap, \
             int R, int V, int M, int OPS, int NHDR, int timer_limit,      \
-            int np_limit, int inv_mask, const void* halt, void* succ,     \
-            void* en2, void* err, void* ts, void* tn, void* ri, void* iok, \
-            void* stream) {                                               \
+            int np_limit, int crash_limit, int inv_mask, const void* halt, \
+            void* succ, void* en2, void* err, void* ts, void* tn,         \
+            void* ri, void* iok, void* stream) {                          \
         return launch_actions<MODEL>(                                     \
             flat, lanes, pidx, aid, lane, N, planes, amap, R, V, M, OPS,  \
-            NHDR, timer_limit, np_limit, inv_mask, halt, succ, en2, err,  \
-            ts, tn, ri, iok, stream);                                     \
+            NHDR, timer_limit, np_limit, crash_limit, inv_mask, halt,     \
+            succ, en2, err, ts, tn, ri, iok, stream);                     \
     }
 
 TPUVSR_ACTIONS_ENTRY(st03, MODEL_ST03)
 TPUVSR_ACTIONS_ENTRY(a01, MODEL_A01)
 TPUVSR_ACTIONS_ENTRY(i01, MODEL_I01)
 TPUVSR_ACTIONS_ENTRY(as04, MODEL_AS04)
+TPUVSR_ACTIONS_ENTRY(rr05, MODEL_RR05)
+TPUVSR_ACTIONS_ENTRY(al05, MODEL_AL05)

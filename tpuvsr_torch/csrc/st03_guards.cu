@@ -1,14 +1,18 @@
 // K13: the guard matrix of the ST03 (VR_STATE_TRANSFER) family: ST03,
-// A01 (VR_ASSUME_NEWVIEWCHANGE), I01 (VR_INC_RESEND) and AS04
-// (VR_APP_STATE).
+// A01 (VR_ASSUME_NEWVIEWCHANGE), I01 (VR_INC_RESEND), AS04
+// (VR_APP_STATE), RR05 (VR_REPLICA_RECOVERY) and AL05
+// (VR_REPLICA_RECOVERY_ASYNC_LOG).
 //
 // Replaces tpuvsr/engine/device_bfs.py:_guard_matrix (:398), the vmapped
 // sweep of the guards of tpuvsr/models/st03_kernel.py:578-710 over every
 // (state, lane) of a batch, and the guards the family's kernels replace
 // or add: tpuvsr/models/a01_kernel.py:61,71 (TimerSendSVC, ReceiveSV),
 // i01_kernel.py:150,173,253,303,340 (TimerSendSVC, ResendSVC,
-// ReceiveMatchingDVC, SendSV, ReceivePrepareMsg) and as04_kernel.py:
-// 319,324 (ReceiveMatchingSVC, SendSV).  The port's plain version is the
+// ReceiveMatchingDVC, SendSV, ReceivePrepareMsg), as04_kernel.py:
+// 319,324 (ReceiveMatchingSVC, SendSV), rr05_kernel.py:132,141,150,159
+// (the not-Recovering conjunct), :189, :212, :245, :279, :308 (Crash and
+// the four other recovery actions) and al05_kernel.py:102 (Crash over
+// R x (MAX_OPS + 1) lanes).  The port's plain version is the
 // loop over the model's _guard_fns (models/st03_kernel.py and its
 // subclasses); this kernel computes the same [B, n_lanes] enabled matrix
 // (lane-table order: action-major, then the action's lane parameter)
@@ -16,7 +20,8 @@
 //
 // The family.  The kernel is a template on the model, with one entry
 // point each (tpuvsr_st03_guards, tpuvsr_a01_guards, tpuvsr_i01_guards,
-// tpuvsr_as04_guards); a model's deltas are if-constexpr branches, so
+// tpuvsr_as04_guards, tpuvsr_rr05_guards, tpuvsr_al05_guards); a
+// model's deltas are if-constexpr branches, so
 // ST03's instantiation does ST03's work alone.  The host's lane table
 // names each lane's action by its family id (enum Action, then
 // FamilyAction in csrc/st03_actions.cu: A01 and I01 drop and add
@@ -29,7 +34,16 @@
 // DVC whatever its status, drops ReceivePrepareMsg's primary exemption
 // and has ResendSVC, one lane per (replica, peer) pair, whose guard
 // scans the bag twice; AS04 counts SendSV's quorum over its DVC slots
-// and asks sent_dvc = FALSE of ReceiveMatchingSVC.
+// and asks sent_dvc = FALSE of ReceiveMatchingSVC (so do RR05 and AL05,
+// which build on it).  RR05 and AL05 keep a Recovering replica out of
+// TimerSendSVC, ReceiveHigherSVC, ReceiveHigherDVC and ReceiveSV, and add
+// Crash (while aux_restart < CrashLimit; AL05: one lane per surviving
+// prefix length, at most the replica's op), ReceiveRecoveryMsg (a Normal
+// receiver), ReceiveRecoveryResponseMsg (a Recovering receiver with the
+// message's nonce), CompleteRecovery (a majority of responses, one with
+// a log in the highest view) and RetryRecovery (RR05: a majority, none
+// with a log in the highest view, and no present undelivered message
+// with the nonce that can still bring one: a scan of the bag a lane).
 //
 // ST03's guards, against VSR's (K6, csrc/vsr_guards.cu): every guard
 // but NoProgressChange's asks CanProgress of its replica (no_prog = 0);
@@ -68,22 +82,28 @@ enum Plane {
 
 // the family's planes K13 reads (FAMILY_GUARD_PLANES)
 enum FamilyPlane {
-    P_SENT_SVC = N_PLANES, P_DVC, P_DVC_VIEW, N_FAMILY_PLANES
+    P_SENT_SVC = N_PLANES, P_DVC, P_DVC_VIEW, P_REC_NUMBER, P_REC,
+    P_REC_VIEW, P_REC_HAS_LOG, P_AUX_RESTART, N_FAMILY_PLANES
 };
 
 // the models (one instantiation and entry point each)
-enum Model { MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04 };
+enum Model {
+    MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04, MODEL_RR05, MODEL_AL05
+};
 
-// the family ids of the actions (csrc/st03_actions.cu enums Action and
+// the family ids of the actions beyond ST03's (csrc/st03_actions.cu enum
 // FamilyAction)
-constexpr int A_RESEND_SVC = 16;
+constexpr int A_RESEND_SVC = 16, A_CRASH = 17, A_RECEIVE_RECOVERY = 18,
+              A_RECEIVE_RECOVERY_RESPONSE = 19, A_COMPLETE_RECOVERY = 20,
+              A_RETRY_RECOVERY = 21;
 
-// the codec's encodings (models/st03.py, models/vsr.py)
-constexpr int NORMAL = 0, VIEWCHANGE = 1, STATETRANSFER = 2;
+// the codec's encodings (models/st03.py, models/rr05.py, models/vsr.py)
+constexpr int NORMAL = 0, VIEWCHANGE = 1, STATETRANSFER = 2, RECOVERING = 3;
 constexpr int M_PREPARE = 1, M_PREPAREOK = 2, M_SVC = 3, M_DVC = 4,
-              M_SV = 5, M_GETSTATE = 6, M_NEWSTATE = 7;
+              M_SV = 5, M_GETSTATE = 6, M_NEWSTATE = 7, M_RECOVERY = 8,
+              M_RECOVERYRESP = 9;
 constexpr int H_TYPE = 0, H_VIEW = 1, H_OP = 2, H_COMMIT = 3, H_DEST = 4,
-              H_SRC = 5;
+              H_SRC = 5, H_X = 6;
 constexpr int ANYDEST = -1;
 constexpr int THREADS = 128;
 
@@ -191,11 +211,97 @@ __device__ bool resend_svc(const Row& g, int lane) {
     return true;
 }
 
+// RR05's response slots of replica i: a majority has responded; *cand:
+// one of them has a log in the highest view of all of them (_best_rec)
+__device__ bool rec_quorum(const Row& g, int i, bool* cand) {
+    int n = 0, vmax = -1;
+    for (int j = 0; j < g.R; ++j) {
+        const bool pres = g.at(P_REC, i * g.R + j) == 1;
+        n += pres;
+        if (pres && g.at(P_REC_VIEW, i * g.R + j) > vmax)
+            vmax = g.at(P_REC_VIEW, i * g.R + j);
+    }
+    *cand = false;
+    for (int j = 0; j < g.R; ++j)
+        *cand = *cand || (g.at(P_REC, i * g.R + j) == 1 &&
+                          g.at(P_REC_HAS_LOG, i * g.R + j) == 1 &&
+                          g.at(P_REC_VIEW, i * g.R + j) == vmax);
+    return n > g.R / 2;
+}
+
+// RetryRecovery's pending scan: a present, undelivered message with
+// replica i's nonce that can still bring a response
+__device__ bool rec_pending(const Row& g, int i) {
+    const int x = g.at(P_REC_NUMBER, i);
+    for (int m = 0; m < g.M; ++m) {
+        if (g.at(P_M_PRESENT, m) != 1 || g.at(P_M_COUNT, m) <= 0 ||
+                g.hdr(m, H_X) != x)
+            continue;
+        const int t = g.hdr(m, H_TYPE);
+        if (t == M_RECOVERYRESP ||
+                (t == M_RECOVERY && can_progress(g, dest_rep(g, m))))
+            return true;
+    }
+    return false;
+}
+
+// the recovery actions' guards (RR05, AL05)
+template <int MODEL>
+__device__ bool recovery_guard(const Row& g, int a, int p, int crash_limit) {
+    switch (a) {
+    case A_CRASH: {     // lane r (AL05: r * (OPS + 1) + last_op)
+        int i = p, last_op = 0;
+        if constexpr (MODEL == MODEL_AL05) {
+            i = p / (g.OPS + 1);
+            last_op = p - i * (g.OPS + 1);
+        }
+        return g.at(P_AUX_RESTART, 0) < crash_limit && can_progress(g, i) &&
+               (MODEL != MODEL_AL05 || last_op <= g.at(P_OP, i));
+    }
+    case A_RECEIVE_RECOVERY:        // lane k
+        return recv(g, p, M_RECOVERY) &&
+               g.at(P_STATUS, dest_rep(g, p)) == NORMAL;
+    case A_RECEIVE_RECOVERY_RESPONSE: {
+        const int i = dest_rep(g, p);
+        return recv(g, p, M_RECOVERYRESP) &&
+               g.at(P_REC_NUMBER, i) == g.hdr(p, H_X) &&
+               g.at(P_STATUS, i) == RECOVERING;
+    }
+    case A_COMPLETE_RECOVERY: {     // lane r
+        bool cand;
+        const bool q = rec_quorum(g, p, &cand);
+        return can_progress(g, p) && g.at(P_STATUS, p) == RECOVERING && q &&
+               cand;
+    }
+    case A_RETRY_RECOVERY: {        // lane r
+        if constexpr (MODEL != MODEL_RR05) return false;
+        bool cand;
+        const bool q = rec_quorum(g, p, &cand);
+        return can_progress(g, p) && g.at(P_STATUS, p) == RECOVERING && q &&
+               !cand && !rec_pending(g, p);
+    }
+    }
+    return false;
+}
+
 template <int MODEL>
 __device__ bool guard(const Row& g, int a, int p, int timer_limit,
-                      int np_limit) {
+                      int np_limit, int crash_limit) {
     constexpr bool A01_LIKE = MODEL == MODEL_A01 || MODEL == MODEL_I01;
+    // AS04's app state and DVC slots (AS04, RR05, AL05)
+    constexpr bool APP_STATE =
+        MODEL == MODEL_AS04 || MODEL == MODEL_RR05 || MODEL == MODEL_AL05;
+    constexpr bool RECOVERY = MODEL == MODEL_RR05 || MODEL == MODEL_AL05;
     const int R = g.R;
+    if constexpr (RECOVERY) {
+        if (a >= A_CRASH) return recovery_guard<MODEL>(g, a, p, crash_limit);
+        // TimerSendSVC, ReceiveHigherSVC, ReceiveHigherDVC, ReceiveSV:
+        // not for a Recovering replica (RR05:582, 606, 688, 798)
+        if ((a == 0 && g.at(P_STATUS, p) == RECOVERING) ||
+                ((a == 1 || a == 4 || a == 7) &&
+                 g.at(P_STATUS, dest_rep(g, p)) == RECOVERING))
+            return false;
+    }
     switch (a) {
     case 0:     // TimerSendSVC, lane r
         if constexpr (A01_LIKE) {
@@ -214,11 +320,11 @@ __device__ bool guard(const Row& g, int a, int p, int timer_limit,
     case 1:     // ReceiveHigherSVC, lane k
         return recv(g, p, M_SVC) &&
                g.hdr(p, H_VIEW) > g.at(P_VIEW, dest_rep(g, p));
-    case 2: {   // ReceiveMatchingSVC (AS04: and sent_dvc = FALSE)
+    case 2: {   // ReceiveMatchingSVC (AS04 on: and sent_dvc = FALSE)
         const int i = dest_rep(g, p);
         return recv(g, p, M_SVC) && g.at(P_STATUS, i) == VIEWCHANGE &&
                g.hdr(p, H_VIEW) == g.at(P_VIEW, i) &&
-               (MODEL != MODEL_AS04 || g.at(P_SENT_DVC, i) == 0);
+               (!APP_STATE || g.at(P_SENT_DVC, i) == 0);
     }
     case 3:     // SendDVC, lane r
         return can_progress(g, p) && g.at(P_STATUS, p) == VIEWCHANGE &&
@@ -240,7 +346,7 @@ __device__ bool guard(const Row& g, int a, int p, int timer_limit,
             for (int j = 0; j < R; ++j)
                 n += g.at(P_DVC, p * R + j) == 1 &&
                      g.at(P_DVC_VIEW, p * R + j) >= g.at(P_VIEW, p);
-        } else if constexpr (MODEL == MODEL_AS04) {
+        } else if constexpr (APP_STATE) {
             n = 0;      // the recv_dvc slots
             for (int j = 0; j < R; ++j) n += g.at(P_DVC, p * R + j) == 1;
         } else {
@@ -316,6 +422,7 @@ template <int MODEL>
 __global__ void guards_kernel(const int* __restrict__ flat, int lanes,
                               int n_lanes, int R, int V, int M, int OPS,
                               int NHDR, int timer_limit, int np_limit,
+                              int crash_limit,
                               const int* __restrict__ planes,
                               const int* __restrict__ lane_action,
                               const int* __restrict__ lane_param,
@@ -335,7 +442,7 @@ __global__ void guards_kernel(const int* __restrict__ flat, int lanes,
     uint8_t* out = en + (size_t)b * n_lanes;
     for (int l = threadIdx.x; l < n_lanes; l += blockDim.x) {
         const bool e = guard<MODEL>(g, lane_action[l], lane_param[l],
-                                    timer_limit, np_limit);
+                                    timer_limit, np_limit, crash_limit);
         out[l] = e;
         mine |= e;
     }
@@ -347,7 +454,8 @@ __global__ void guards_kernel(const int* __restrict__ flat, int lanes,
 template <int MODEL>
 int launch_guards(const void* flat, int B, int lanes, int n_lanes, int R,
                   int V, int M, int OPS, int NHDR, int timer_limit,
-                  int np_limit, const void* planes, const void* lane_action,
+                  int np_limit, int crash_limit, const void* planes,
+                  const void* lane_action,
                   const void* lane_param, const void* halt, void* en,
                   void* en_any, void* stream) {
     if (B > 0) {
@@ -356,7 +464,7 @@ int launch_guards(const void* flat, int B, int lanes, int n_lanes, int R,
         cudaStream_t st = (cudaStream_t)stream;
         KLAUNCH_SMEM(guards_kernel<MODEL>, B, THREADS, smem, st,
             (const int*)flat, lanes, n_lanes, R, V, M, OPS, NHDR,
-            timer_limit, np_limit, (const int*)planes,
+            timer_limit, np_limit, crash_limit, (const int*)planes,
             (const int*)lane_action, (const int*)lane_param,
             (const long long*)halt, (uint8_t*)en, (uint8_t*)en_any);
     }
@@ -365,9 +473,10 @@ int launch_guards(const void* flat, int B, int lanes, int n_lanes, int R,
 
 }  // namespace
 
-// flat: [B, lanes] int32 state rows; planes: [N_PLANES] int32 plane
-// offsets (GUARD_PLANES order; [N_FAMILY_PLANES] for A01, I01 and AS04,
-// -1 for a plane the model lacks); lane_action (family action ids),
+// flat: [B, lanes] int32 state rows; crash_limit: CrashLimit (0 without
+// recovery); planes: [N_PLANES] int32 plane offsets (GUARD_PLANES order;
+// [N_FAMILY_PLANES] for the other models, -1 for a plane the model
+// lacks); lane_action (family action ids),
 // lane_param: [n_lanes] int32; halt: one int64 word or null; en:
 // [B, n_lanes] uint8; en_any: [B] uint8.  One entry point a model, all
 // with this signature.
@@ -375,16 +484,19 @@ int launch_guards(const void* flat, int B, int lanes, int n_lanes, int R,
     TPUVSR_EXPORT int tpuvsr_##name##_guards(                             \
             const void* flat, int B, int lanes, int n_lanes, int R, int V, \
             int M, int OPS, int NHDR, int timer_limit, int np_limit,      \
-            const void* planes, const void* lane_action,                  \
+            int crash_limit, const void* planes, const void* lane_action, \
             const void* lane_param, const void* halt, void* en,           \
             void* en_any, void* stream) {                                 \
         return launch_guards<MODEL>(flat, B, lanes, n_lanes, R, V, M, OPS, \
-                                    NHDR, timer_limit, np_limit, planes,  \
-                                    lane_action, lane_param, halt, en,    \
-                                    en_any, stream);                      \
+                                    NHDR, timer_limit, np_limit,          \
+                                    crash_limit, planes, lane_action,     \
+                                    lane_param, halt, en, en_any,         \
+                                    stream);                              \
     }
 
 TPUVSR_GUARDS_ENTRY(st03, MODEL_ST03)
 TPUVSR_GUARDS_ENTRY(a01, MODEL_A01)
 TPUVSR_GUARDS_ENTRY(i01, MODEL_I01)
 TPUVSR_GUARDS_ENTRY(as04, MODEL_AS04)
+TPUVSR_GUARDS_ENTRY(rr05, MODEL_RR05)
+TPUVSR_GUARDS_ENTRY(al05, MODEL_AL05)

@@ -340,6 +340,9 @@ class DeviceBFS:
             out["reason"] = R_EDGE_FLUSH
             return
         tile_flat = cflat[off:off + T]
+        # K4's range flag rides along with the tile's host read, after
+        # the tile's pack
+        oob_flag = lambda: pk.range_flag(dev)[0].long()
         parts = kern.parent_parts(tile_flat) if self._incremental else None
         # the work queue, sized exactly from the chunk's counts (K7)
         sizes = [int(min(c, e)) for c, e in zip(cnts, caps)]
@@ -386,15 +389,18 @@ class DeviceBFS:
                 fresh.sum(), ovf_t.long(), first_bad, viol.any().long(),
                 slot.any().long(), bag.any().long(),
                 q["pidx"][vidx].long(), aid_q[vidx],
-                q["lane"][vidx].long()] + tail + emitted).cpu().numpy()
+                q["lane"][vidx].long()] + tail + [oob_flag()] + emitted
+                ).cpu().numpy()
         else:
             host = np.concatenate([[0, 0, ovf_first, 0, 0, 0, 0, 0, 0],
-                                   torch.stack(tail).cpu().numpy()])
+                                   torch.stack(tail + [oob_flag()]
+                                               ).cpu().numpy()])
         h = [int(x) for x in host]
-        if len(h) > 11:
-            eb.n += h[11]
+        if len(h) > 12:
+            eb.n += h[12]
         (nfi, ovf_i, first_bad, viol_any, slot_any, bag_any, vrow, vaid,
-         vlane, dead_any, dead_i) = h[:11]
+         vlane, dead_any, dead_i, oob) = h[:12]
+        pk.raise_if_out_of_range(oob)
         out["nn"] += nfi
         out["dist"] += nfi
         commit = first_bad >= n_act and not ovf_i
@@ -515,6 +521,7 @@ class DeviceBFS:
 
     def _register_init(self, res):
         pk = self._pk
+        pk.range_flag(self.device).zero_()
         init = self.spec.init_dense(self.codec)
         batch = {k: torch.as_tensor(np.stack([d[k] for d in init]),
                                     device=self.device)
@@ -768,6 +775,8 @@ class DeviceBFS:
         carry, which commits nothing and fills the kernels' caches),
         else the eager call.  The replay function keeps ``S`` alive
         (``kernels.capture``): the graph writes its buffers."""
+        # K4's range flag exists before a capture records its address
+        self._pk.range_flag(self.device)
         if not self.graphs:
             return lambda: self._fused_tile(S)
         t0 = time.time()
@@ -781,14 +790,19 @@ class DeviceBFS:
         return replay
 
     def _replay(self, run_tile, n):
-        """``n`` tiles, then the one host read of the quantum: the carry
-        and the level-size buffer in one copy."""
+        """``n`` tiles, then the one host read of the quantum: the carry,
+        the level-size buffer and K4's range flag in one copy (a set flag
+        fails the run)."""
         for _ in range(n):
             run_tile()
         self._count("graph_replays", n)
         self._count("quanta")
         self._count("host_reads")
-        return torch.cat([self._fz_carry, self._fz_lvl]).cpu().tolist()
+        h = torch.cat([self._fz_carry, self._fz_lvl,
+                       self._pk.range_flag(self.device).long()]
+                      ).cpu().tolist()
+        self._pk.raise_if_out_of_range(h.pop())
+        return h
 
     def _level_need(self, front, t0, n_front):
         """The exact per-action maxima over tiles ``t0..`` of the level in

@@ -7,6 +7,13 @@ state row is biased by its lower bound and laid into a contiguous bit
 stream of uint32 words (a lane may straddle two words); a row costs
 ``ceil(total_bits / 32)`` words instead of one word per lane.
 
+Unlike the JAX package's pack, which masks a value to its lane's width
+with no check (so a value past its plane's bound silently wraps), the
+port's pack refuses one: the plain version raises ``TLAError`` at once,
+and the kernel sets a one-word flag on the card (``range_flag``) that the
+engines read with the host read they make anyway (a tile's in ``run()``,
+a quantum's in ``run_fused()``) and raise on (``raise_if_out_of_range``).
+
 The port holds a dense batch as one flat ``[B, lanes]`` int32 tensor
 (``flatten``/``unflatten`` convert to and from the per-plane dict, in
 the codec's ``zero_state`` plane order) and packed words as int32 bit
@@ -133,6 +140,7 @@ class PackSpec:
         self._word_lane = np.asarray([p[1] for p in pairs], np.int32)
         self._word_part = np.asarray([p[2] for p in pairs], np.uint8)
         self._dev = {}
+        self._flags = {}
 
     # -- sizing --------------------------------------------------------
     @property
@@ -217,13 +225,64 @@ class PackSpec:
             self._dev[key] = t
         return t
 
+    # -- the range check ---------------------------------------------
+    def range_flag(self, device) -> torch.Tensor:
+        """The one-word int32 flag the pack kernel sets on ``device``
+        when it meets a value outside its lane's bound (built once per
+        device, zero until then; a CUDA graph holds its address).
+        ``"cuda"`` names the current card, as a tensor's ``cuda:N``
+        does: the engines and the kernel share one flag."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = str(dev)
+        t = self._flags.get(key)
+        if t is None:
+            t = self._flags[key] = torch.zeros((1,), dtype=torch.int32,
+                                               device=device)
+        return t
+
+    def range_error(self, flat=None) -> str:
+        """The message of an out-of-bound pack: the first offending lane
+        of ``flat`` when given (the plain version knows it)."""
+        msg = ("pack: a state value lies outside its plane's pack bound "
+               "(the packed frontier would wrap it)")
+        if flat is None:
+            return msg
+        lo = torch.as_tensor(self._lo, dtype=torch.int64)
+        v = (flat.cpu().to(torch.int64) - lo) & MASK32
+        bad = v > torch.as_tensor(self._mask.astype(np.int64))
+        b, lane = (int(x) for x in torch.nonzero(bad)[0])
+        key = next(k for k, _s, a, e in self._splits if a <= lane < e)
+        hi = int(self._lo[lane]) + int(self._mask[lane])
+        return (f"{msg}: plane {key!r}, lane {lane}, value "
+                f"{int(flat[b, lane])} not in [{int(self._lo[lane])}, "
+                f"{hi}]")
+
+    def raise_if_out_of_range(self, flag_value: int) -> None:
+        """Raise when a read-back value of ``range_flag`` is set."""
+        if flag_value:
+            raise TLAError(self.range_error())
+
+    def _check_plain(self, flat, dest, v, mask):
+        """Raise on a packed row of ``flat`` whose biased values ``v``
+        exceed the lane masks ``mask``."""
+        wide = v > mask
+        if dest is not None:
+            wide = wide[dest >= 0]
+        if bool(wide.any()):
+            raise TLAError(self.range_error(
+                flat if dest is None else flat[dest >= 0]))
+
     # -- K4: pack ------------------------------------------------------
     def pack(self, flat: torch.Tensor, out: torch.Tensor = None,
              dest: torch.Tensor = None) -> torch.Tensor:
         """Flat ``[B, lanes]`` int32 -> packed ``[B, words]`` int32
         words; with ``out`` and ``dest`` ([B] int32 row indices, -1 =
         skip) the rows are written into ``out[dest]`` instead (the
-        fused commit's scatter into the next-frontier buffer)."""
+        fused commit's scatter into the next-frontier buffer).  A packed
+        row with a value outside its lane's bound raises (CPU) or sets
+        ``range_flag`` (CUDA)."""
         if flat.device.type == "cpu":
             return self.pack_plain(flat, out, dest)
         return self._pack_kernel(flat, out, dest)
@@ -244,14 +303,18 @@ class PackSpec:
             t["word_part"].data_ptr(),
             None if dest is None else ck(dest, "dest", torch.int32, (B,)),
             ck(out, "out", torch.int32, (out.shape[0], self.words)),
+            self.range_flag(flat.device).data_ptr(),
             kernels.stream_of(flat))
         return out
 
     def pack_plain(self, flat, out=None, dest=None):
-        """Plain PyTorch version of ``pack`` (any device)."""
+        """Plain PyTorch version of ``pack`` (any device); raises
+        ``TLAError`` on a packed row with a value outside its bound."""
         t = self.tables(flat.device)
-        lo = t["lo"].to(torch.int64)
-        v = ((flat.to(torch.int64) - lo) & MASK32) & to_u32(t["mask"])
+        lo, mask = t["lo"].to(torch.int64), to_u32(t["mask"])
+        v = (flat.to(torch.int64) - lo) & MASK32
+        self._check_plain(flat, dest, v, mask)
+        v = v & mask
         off = to_u32(t["off"])
         lo_w = (v << off) & MASK32
         hi_w = (v >> to_u32(t["hishift"])) >> 1

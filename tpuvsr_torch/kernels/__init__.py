@@ -134,6 +134,34 @@ KERNELS = {
                     "324 (+ st03 guards)"),
     "as04_actions": ("st03_actions", "tpuvsr/models/as04_kernel.py:76-346 "
                      "(+ st03_kernel.py act_*, inv_*)"),
+    "rr05_fp_full": ("vsr_fingerprint",
+                     "tpuvsr/models/st03_kernel.py:841 fingerprint on "
+                     "tpuvsr/models/rr05_kernel.py's rows (REP_KEYS :48)"),
+    "rr05_fp_parts": ("vsr_fingerprint",
+                      "tpuvsr/models/st03_kernel.py:847 parent_parts on "
+                      "tpuvsr/models/rr05_kernel.py's rows"),
+    "rr05_fp_incremental": (
+        "vsr_fingerprint", "tpuvsr/models/st03_kernel.py:879 "
+        "fingerprint_incremental on tpuvsr/models/rr05_kernel.py's rows"),
+    "rr05_guards": ("st03_guards", "tpuvsr/engine/device_bfs.py:398 "
+                    "_guard_matrix over tpuvsr/models/rr05_kernel.py:132-"
+                    "308 (+ as04, st03 guards)"),
+    "rr05_actions": ("st03_actions", "tpuvsr/models/rr05_kernel.py:88-313 "
+                     "(+ as04_kernel.py, st03_kernel.py act_*, inv_*)"),
+    "al05_fp_full": ("vsr_fingerprint",
+                     "tpuvsr/models/st03_kernel.py:841 fingerprint on "
+                     "tpuvsr/models/al05_kernel.py's rows (REP_KEYS :37)"),
+    "al05_fp_parts": ("vsr_fingerprint",
+                      "tpuvsr/models/st03_kernel.py:847 parent_parts on "
+                      "tpuvsr/models/al05_kernel.py's rows"),
+    "al05_fp_incremental": (
+        "vsr_fingerprint", "tpuvsr/models/st03_kernel.py:879 "
+        "fingerprint_incremental on tpuvsr/models/al05_kernel.py's rows"),
+    "al05_guards": ("st03_guards", "tpuvsr/engine/device_bfs.py:398 "
+                    "_guard_matrix over tpuvsr/models/al05_kernel.py:102 "
+                    "(+ rr05, as04, st03 guards)"),
+    "al05_actions": ("st03_actions", "tpuvsr/models/al05_kernel.py:60-168 "
+                     "(+ rr05_kernel.py, as04_kernel.py, st03_kernel.py)"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -145,7 +173,7 @@ _ENTRY = {
     "tpuvsr_dedup_batch": "ppippppqp" + "p",
     "tpuvsr_vsr_fp_parts": _LAYOUT + "pipppp" + "p",
     "tpuvsr_vsr_fp_incremental": _LAYOUT + "pippipppppp" + "p",
-    "tpuvsr_pack": "piii" + "ppppppppp" + "p",
+    "tpuvsr_pack": "piii" + "pppppppppp" + "p",
     "tpuvsr_unpack": "ppiiipppppp" + "p",
     "tpuvsr_fleet_choose": "pppippiipp" + "p",
     "tpuvsr_fleet_swarm_noise": "ppifip" + "p",
@@ -162,10 +190,10 @@ _ENTRY = {
     "tpuvsr_edge_emit": "ppppi" + "piii" + "pppp" + "p",
 }
 # K13 and K14 take one signature for every model of the ST03 family
-for _m in ("st03", "a01", "i01", "as04"):
-    _ENTRY[f"tpuvsr_{_m}_guards"] = ("piii" + "iiiiiii" + "ppp" + "ppp"
+for _m in ("st03", "a01", "i01", "as04", "rr05", "al05"):
+    _ENTRY[f"tpuvsr_{_m}_guards"] = ("piii" + "iiiiiiii" + "ppp" + "ppp"
                                      + "p")
-    _ENTRY[f"tpuvsr_{_m}_actions"] = ("pipppi" + "pp" + "iiiii" + "iii"
+    _ENTRY[f"tpuvsr_{_m}_actions"] = ("pipppi" + "pp" + "iiiii" + "iiii"
                                       + "p" + "ppppppp" + "p")
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
           "f": ctypes.c_float}

@@ -115,8 +115,15 @@ class RowFingerprint:
     # -- plain versions (any device) -----------------------------------
     def _row_hash(self, vals, k, seeds):
         """[..., n] uint32 values (int64) x [4, n] coefficients ->
-        [..., 4] mix32(sum + seed)."""
-        acc = mul32(vals[..., None, :], k).sum(dim=-1) & MASK32
+        [..., 4] mix32(sum + seed).  With a = a0 + 2^16 a1 and c = c0 +
+        2^16 c1 in 16-bit halves, sum a c mod 2^32 is sum a0 c0 + 2^16
+        (sum a0 c1 + a1 c0) mod 2^32: three float64 products whose
+        integer sums stay below 2^53 (exact) while n < 2^20."""
+        a0, a1 = (vals & 0xFFFF).double(), (vals >> 16).double()
+        c0, c1 = (k & 0xFFFF).double().T, (k >> 16).double().T
+        low = (a0 @ c0).long()
+        mid = (a0 @ c1 + a1 @ c0).long()
+        acc = (low + ((mid & 0xFFFF) << 16)) & MASK32
         return mix32((acc + seeds) & MASK32)
 
     def _rep_vals(self, flat, t, rows):

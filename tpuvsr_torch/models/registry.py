@@ -3,7 +3,9 @@ and how to build (codec, kernel) for a binding.
 
 The counterpart of ``tpuvsr/models/registry.py`` for the modules
 ``VSR``, ``VR_STATE_TRANSFER`` (ST03), ``VR_ASSUME_NEWVIEWCHANGE``
-(A01), ``VR_INC_RESEND`` (I01) and ``VR_APP_STATE`` (AS04), with an identity-only
+(A01), ``VR_INC_RESEND`` (I01), ``VR_APP_STATE`` (AS04),
+``VR_REPLICA_RECOVERY`` (RR05) and ``VR_REPLICA_RECOVERY_ASYNC_LOG``
+(AL05), with an identity-only
 permutation table (``fold_symmetry=False``, what the device BFS asks
 for: symmetry is reduced by ``engine/canon.py``, not folded into the
 fingerprint).  The kernel
@@ -60,6 +62,14 @@ def _resolve(module):
         from .i01 import I01Codec
         from .i01_kernel import I01Kernel
         return I01Codec, I01Kernel
+    if module == "VR_REPLICA_RECOVERY":
+        from .rr05 import RR05Codec
+        from .rr05_kernel import RR05Kernel
+        return RR05Codec, RR05Kernel
+    if module == "VR_REPLICA_RECOVERY_ASYNC_LOG":
+        from .al05 import AL05Codec
+        from .al05_kernel import AL05Kernel
+        return AL05Codec, AL05Kernel
     raise KeyError(f"no hand model kernel for module {module!r} in the port")
 
 

@@ -33,8 +33,9 @@ version ``successors_plain`` runs the ``act_*`` functions.  Every call
 of ``_action_fns`` and ``_guard_fns`` (the plain functions' only doors)
 is counted in ``PLAIN_CALLS``.
 
-The family.  A01, I01 and AS04 (``models/{a01,i01,as04}_kernel.py``)
-subclass this kernel as their JAX counterparts subclass JAX's, and run
+The family.  A01, I01, AS04, RR05 and AL05
+(``models/{a01,i01,as04,rr05,al05}_kernel.py``) subclass this kernel as
+their JAX counterparts subclass JAX's, and run
 on the same two CUDA sources: K13 and K14 are templated on the model,
 with one C entry point each (``GUARDS_KERNEL``, ``ACTIONS_KERNEL``).  A
 subclass names its planes beyond ST03's in ``FAMILY_PLANES`` order
@@ -89,14 +90,22 @@ GUARD_PLANES = ("status", "view", "op", "commit", "peer_op", "sent_dvc",
                 "m_hdr", "m_entry", "m_log", "aux_svc", "aux_acked")
 # the family's planes beyond ST03's, in the order of the FamilyPlane enum
 # of csrc/st03_actions.cu (I01's tracker and sent flag, AS04's DVC slots
-# and app plane); K13 reads the first three (csrc/st03_guards.cu)
+# and app plane, RR05's recovery nonce and response slots, AL05's prefix
+# ceilings, RR05's crash counter)
 FAMILY_PLANES = ("sent_svc", "dvc", "dvc_view", "dvc_lnv", "dvc_op",
-                 "dvc_commit", "dvc_log", "app")
-FAMILY_GUARD_PLANES = FAMILY_PLANES[:3]
+                 "dvc_commit", "dvc_log", "app", "rec_number", "rec",
+                 "rec_view", "rec_has_log", "rec_log", "rec_op",
+                 "rec_commit", "rec_ceil", "aux_restart")
+# the ones K13 reads, in the order of its FamilyPlane enum
+# (csrc/st03_guards.cu)
+FAMILY_GUARD_PLANES = ("sent_svc", "dvc", "dvc_view", "rec_number", "rec",
+                       "rec_view", "rec_has_log", "aux_restart")
 # the family's action ids (csrc/st03_actions.cu enums Action and
 # FamilyAction); a model's action takes the id of its name, or of the
 # ST03 action it replaces
-FAMILY_ACTIONS = ACTION_NAMES + ("ResendSVC",)
+FAMILY_ACTIONS = ACTION_NAMES + (
+    "ResendSVC", "Crash", "ReceiveRecoveryMsg",
+    "ReceiveRecoveryResponseMsg", "CompleteRecovery", "RetryRecovery")
 ACTION_ALIASES = {"PrimaryExecuteOp": "ExecuteOp"}
 # the family's invariant bits (enums Invariant and FamilyInvariant)
 FAMILY_INVARIANTS = (
@@ -124,6 +133,8 @@ class ST03Kernel(RowFingerprint):
     PLANE_KEYS = ALL_KEYS
     GUARD_KEYS = GUARD_PLANES
     ERR_BAG_OVERFLOW = ERR_BAG_OVERFLOW
+    # CrashLimit, which K13 and K14 take (a model with recovery sets it)
+    crash_limit = 0
 
     def __init__(self, codec: ST03Codec, perms: np.ndarray = None,
                  pack_spec=None):
@@ -187,9 +198,9 @@ class ST03Kernel(RowFingerprint):
     # message-bag primitives (ST03:164-218), batched
     # ==================================================================
     def _row(self, B, dev, type_, view=0, op=0, commit=0, dest=0, src=0,
-             first=0, lnv=0, entry=0, log=None):
+             first=0, lnv=0, entry=0, log=None, x=0):
         cols = [_col(v, B, dev) for v in
-                (type_, view, op, commit, dest, src, 0, first, lnv)]
+                (type_, view, op, commit, dest, src, x, first, lnv)]
         hdr = torch.zeros((B, self.NHDR), dtype=I32, device=dev)
         hdr[:, :9] = torch.stack(cols, dim=1)
         return {"hdr": hdr, "entry": _col(entry, B, dev),
@@ -880,7 +891,8 @@ class ST03Kernel(RowFingerprint):
             *self.GUARDS_KERNEL,
             ck(flat, "flat", I32, (B, self.pk.lanes)), B, lanes,
             self.n_lanes, self.R, self.V, self.M, self.MAX_OPS, self.NHDR,
-            s.timer_limit, s.np_limit, t["planes"].data_ptr(),
+            s.timer_limit, s.np_limit, self.crash_limit,
+            t["planes"].data_ptr(),
             t["lane_action"].data_ptr(), t["lane_param"].data_ptr(),
             None if halt is None else ck(halt, "halt", torch.int64, (1,)),
             ck(out[0], "en", torch.bool, (B, self.n_lanes)),
@@ -1012,7 +1024,7 @@ class ST03Kernel(RowFingerprint):
             self.action_tables(flat.device).data_ptr(),
             self.action_map(flat.device).data_ptr(), self.R, self.V,
             self.M, self.MAX_OPS, self.NHDR, s.timer_limit, s.np_limit,
-            self.family_mask(int(inv_mask)),
+            self.crash_limit, self.family_mask(int(inv_mask)),
             None if halt is None else ck(halt, "halt", torch.int64, (1,)),
             ck(out["succ"], "succ", I32, (n, lanes)),
             ck(out["en2"], "en2", torch.bool, (n,)),
