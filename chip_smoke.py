@@ -210,6 +210,37 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         to depth 15 holds, and run_fused() and run() to depth 16, where
         the first nonce of 4 appears, stop on K4's range flag (run()
         after completing depth 15) instead of wrapping it to 0;
+  13. the checkpointing model, CP06 (VR_REPLICA_RECOVERY_CP), on its own
+     instantiation of K13, K14 and K3 (as in phase 11: launch counts
+     reset just before each run and read just after, CP06's kernels
+     launched, every other model's, the VSR kernels and the plain
+     functions not):
+     a. an untimed recording run() of its small cfg to the fixpoint
+        (CHECKPOINT: 137,524 distinct, 364,538 generated, diameter 29,
+        the record's 29 levels and the JAX host BFS's cumulative
+        generated counts), the largest recovery nonce tracked (1, within
+        1 + CrashLimit); K13, K14 and K3 held bit for bit against their
+        plain versions on its largest inputs and timed, and K13, K14
+        (under each invariant alone) and K3 on the calls where each
+        action was enabled most (every action but state transfer's,
+        which one value cannot open, and NoProgressChange); K4's range
+        check as in 12a; the timed run_fused() to the fixpoint with
+        run()'s levels, totals and trace-pointer tables;
+     b. the _wide cfg through run_fused() to depth 12 and run() to depth
+        10: the levels through depth 6 the JAX host BFS's, run()'s
+        levels run_fused()'s;
+     c. a recording run() of the _wide cfg to depth 12, held as in a
+        on the calls where each action was enabled most (every action
+        but NoProgressChange, SendSV, ReceiveSV and state transfer's: no
+        view change completes by depth 12);
+     d. the rows of ``tpuvsr_torch.testing.checkpoint_rows`` in the
+        small and wide layouts: K13 on every lane, K14 on every (row,
+        lane) item under each invariant mask and K3 held bit for bit
+        against their plain versions; on the wide layout SendSV,
+        ReceiveSV, state transfer and both reply forms (checkpoint and
+        suffix) of ReceiveGetState and ReceiveRecoveryMsg enabled; with
+        a, c and d every action but NoProgressChange held in both K13's
+        and K14's inputs;
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
@@ -403,6 +434,34 @@ RECOVERY_DEEP = {"fused": 28, "run": 22}
 # 12d (run_fused peaks 11.5 / 20.9 GB at depth 12) and 12e (state
 # transfer's receives first fire past depth 10)
 RECOVERY_WIDE = {"fused": 12, "run": 10, "cover": 12}
+# phase 13: VR_REPLICA_RECOVERY_CP (CP06) at CrashLimit 1.  Its small
+# cfg's fixpoint is scripts/recovery_fixpoints.json's (the interpreter's,
+# the single and the sharded JAX engines': 137,524 distinct, 364,538
+# generated, diameter 29, no invariant violated), whose levels a
+# host-driven level BFS over the JAX package's kernel from init_dense
+# gives too, with these cumulative generated counts (Init counted) and
+# the largest recovery nonce 1 at every depth (python
+# tests/test_torch_cp06.py record 30, 393 s of CPU; its output is
+# tpuvsr_torch/configs/records/CP06_small_host_bfs.log); the wide cfg's
+# levels through depth 6 with ... wide 6 of the same script
+CHECKPOINT = {
+    "module": "VR_REPLICA_RECOVERY_CP",
+    "fixpoint": (137524, 364538, 29),
+    "small": [1, 6, 23, 68, 181, 426, 879, 1605, 2661, 4083, 5790, 7569,
+              9153, 10251, 10588, 10167, 9724, 10158, 11207, 11249, 9305,
+              6494, 4662, 4072, 3526, 2336, 1036, 272, 32],
+    "generated": [1, 7, 38, 146, 463, 1278, 3064, 6463, 12258, 21450,
+                  35026, 53502, 76514, 102741, 130256, 157267, 183283,
+                  210652, 242636, 277910, 309509, 331554, 344520, 352592,
+                  358412, 362206, 363974, 364474, 364538],
+    "nonce": 1,
+    "wide": [1, 7, 35, 140, 510, 1693, 5157]}
+# 13b's depths and 13c's recording depth: by 12 every action of the wide
+# cfg is enabled but SendSV, ReceiveSV and state transfer's (a view
+# change completes only once two replicas have committed; a probe of the
+# enabled lanes by depth on the card, through depth 12, found none of
+# them), which 13d holds on built rows
+CHECKPOINT_WIDE = {"fused": 12, "run": 10, "cover": 12}
 PAGED = {"next_capacity": 1 << 14, "spill_ram_rows": 1 << 16,
          "edge_capacity": 1 << 15, "min_drains": 3}
 MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
@@ -2424,14 +2483,15 @@ class ST03Recorder:
         return uninstall
 
 
-def check_family_coverage(rec, K, what):
+def check_family_coverage(rec, K, what, idle=("NoProgressChange",)):
     """Phases 11e and 12e: on the K13 and K14 calls that a ``by_action``
     recording run kept for each action, K13, K14 (under each invariant
     of ``INVARIANT_FNS`` alone, so an invariant the cfg leaves out is
     held too) and K3's full fingerprint of K14's successors bit for bit
-    against their plain versions.  Every action but NoProgressChange
-    (NoProgressChangeLimit 0 disables it) must have been enabled in both
-    kernels' kept inputs.  Returns each action's enabled lanes."""
+    against their plain versions.  Every action but those of ``idle``
+    (NoProgressChange: NoProgressChangeLimit 0 disables it) must have
+    been enabled in both kernels' kept inputs.  Returns each action's
+    enabled lanes."""
     g_name, a_name = K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0]
     masks = [1 << b for b in range(len(K.INVARIANT_FNS))]
     for (name, act), (c, call) in sorted(
@@ -2459,9 +2519,8 @@ def check_family_coverage(rec, K, what):
     enabled = {n: {a: rec.enabled.get((n, a), 0) for a in K.action_names}
                for n in (g_name, a_name)}
     for n, per in enabled.items():
-        idle = [a for a, c in per.items()
-                if c == 0 and a != "NoProgressChange"]
-        need(not idle, f"{what}: {idle} never enabled in {n}'s inputs")
+        never = [a for a, c in per.items() if c == 0 and a not in idle]
+        need(not never, f"{what}: {never} never enabled in {n}'s inputs")
     return enabled
 
 
@@ -2658,12 +2717,13 @@ def st03_phase(args, doc):
 
 
 def family_kernels():
-    """{model: its K13, K14 and K3 kernel names} for ST03 and every model
-    of FAMILY and RECOVERY."""
+    """{model: its K13, K14 and K3 kernel names} for ST03, every model
+    of FAMILY and RECOVERY, and CP06."""
     from tpuvsr_torch.models.registry import _resolve
     out = {}
     for m, fam in [("ST03", {"module": "VR_STATE_TRANSFER"})] + list(
-            FAMILY.items()) + list(RECOVERY.items()):
+            FAMILY.items()) + list(RECOVERY.items()) + [("CP06",
+                                                          CHECKPOINT)]:
         K = _resolve(fam["module"])[1]
         out[m] = [K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0],
                   *K.FP_KERNELS.values()]
@@ -3263,6 +3323,201 @@ def recovery_phase(args, doc):
     return rows
 
 
+def check_checkpoint_rows(module):
+    """Phase 13d: on the rows of ``testing.checkpoint_rows`` in the small
+    and the wide layout (MAX_MSGS 16), on the card, K13 over every lane,
+    K14 over every (row, lane) item under the cfg's invariants and under
+    each invariant alone, and K3 (parts, incremental, full) bit for bit
+    against their plain versions.  Returns, a layout, each action's
+    enabled lanes and, for ReceiveGetState and ReceiveRecoveryMsg, the
+    enabled checkpoint (cp > 0, flag 1) and suffix (cp = 0) lanes."""
+    import numpy as np
+    import torch
+    from tpuvsr_torch.engine.spec import load_binding
+    from tpuvsr_torch.models.registry import make_model
+    from tpuvsr_torch.testing import checkpoint_rows
+    out = {}
+    for size in ("small", "wide"):
+        what = f"CP06 {size} built rows"
+        b = load_binding(family_cfg(module, size), module)
+        codec, kern = make_model(b, max_msgs=16)
+        rows = checkpoint_rows(codec)
+        flat = kern.pk.flatten({k: torch.as_tensor(np.stack(
+            [r[k] for r in rows])) for k in rows[0]}).contiguous().cuda()
+        dev, B, L = flat.device, flat.shape[0], kern.n_lanes
+        g, gp = kern.guard_matrix(flat), kern.guard_matrix_plain(flat)
+        need(max(max_abs(g[0], gp[0]), max_abs(g[1], gp[1])) == 0,
+             f"{what}: {kern.GUARDS_KERNEL[0]} differs from its plain "
+             f"version")
+        pidx = torch.arange(B, dtype=torch.int32,
+                            device=dev).repeat_interleave(L)
+        aid = torch.as_tensor(kern.lane_action, device=dev).repeat(B)
+        lane = torch.as_tensor(kern.lane_param, device=dev).repeat(B)
+        cfg_mask = kern.invariant_mask(b.invariants)
+        for m in [cfg_mask] + [1 << x for x in range(len(
+                kern.INVARIANT_FNS))]:
+            a = kern.successors(flat, pidx, aid, lane, m)
+            p = kern.successors_plain(flat, pidx, aid, lane, m)
+            bad = [k for k in a if max_abs(a[k], p[k]) != 0]
+            need(not bad, f"{what}: {kern.ACTIONS_KERNEL[0]} differs "
+                 f"from its plain version in {bad} (invariant mask {m})")
+        parts, pparts = kern.parent_parts(flat), kern.parent_parts_plain(flat)
+        need(all(max_abs(x, y) == 0 for x, y in zip(parts, pparts))
+             and max_abs(kern.fingerprint(a["succ"]),
+                         kern.fingerprint_plain(a["succ"])) == 0
+             and max_abs(kern.fingerprint_incremental(
+                 a["succ"], a["ri"], a["ts"], pidx, flat, parts),
+                 kern.fingerprint_incremental_plain(
+                     a["succ"], a["ri"], a["ts"], pidx, flat, pparts)) == 0,
+             f"{what}: K3 differs from its plain version")
+        en = g[0].cpu().numpy()
+        per = {n: int(en[:, kern.lane_action == x].sum())
+               for x, n in enumerate(kern.action_names)}
+        cp = kern.lane_param % (kern.MAX_OPS + 1)
+        lanes = {n: {"checkpoint": int(en[:, (kern.lane_action == x)
+                                             & (cp > 0)].sum()),
+                     "suffix": int(en[:, (kern.lane_action == x)
+                                         & (cp == 0)].sum())}
+                 for x, n in enumerate(kern.action_names)
+                 if n in ("ReceiveGetState", "ReceiveRecoveryMsg")}
+        out[size] = {"enabled": per, "reply_lanes": lanes,
+                     "items": int(pidx.shape[0])}
+    torch.cuda.synchronize()
+    return out
+
+
+def checkpoint_phase(args, doc):
+    """Phase 13: CP06 (VR_REPLICA_RECOVERY_CP), the checkpointing model,
+    on its own instantiations of K13, K14 and K3.  Returns its
+    kernels-line rows, with the launch counts of the timed run_fused to
+    the small cfg's fixpoint (13a)."""
+    from tpuvsr_torch.models.registry import _resolve
+    cp, W = CHECKPOINT, CHECKPOINT_WIDE
+    K = _resolve(cp["module"])[1]
+    out = doc.setdefault("checkpoint", {})
+
+    def fixpoint(res, what):
+        need(res.levels == cp["small"], f"{what} levels {res.levels}")
+        need((res.distinct_states, res.states_generated, res.diameter)
+             == cp["fixpoint"], f"{what}: {res.distinct_states} distinct, "
+             f"{res.states_generated} generated, diameter {res.diameter}")
+        need(res.ok and res.error is None, f"{what}: "
+             f"{res.violated_invariant} {res.error}")
+
+    print("phase 13a: CP06 small cfg, recording run() to its fixpoint; "
+          "K13, K14, K3 against their plain versions; K4's range check; "
+          "run_fused() to the fixpoint", flush=True)
+    rec, tracker, lines = ST03Recorder(by_action=True), NonceTracker(), []
+    uninstall = rec.install()
+    try:
+        eng, res, info = model_run(
+            "CP06", cp["module"], "small", "run", log=lines.append,
+            setup=lambda e: tracker.install(K, e))
+    finally:
+        uninstall()
+    crash = eng.kern.crash_limit
+    run_pointers = trace_pointers(eng)
+    del eng
+    fixpoint(res, "CP06 recording run()")
+    gen = [1] + [int(m.split("generated ")[1]) for m in lines
+                 if m.startswith("depth ") and ", generated " in m]
+    need(gen[:len(cp["generated"])] == cp["generated"],
+         f"CP06 recording run() cumulative generated {gen}")
+    maxima = tracker.maxima()
+    need(max(maxima) == cp["nonce"] <= 1 + crash, f"CP06 the largest "
+         f"nonce by depth {maxima} (bound {1 + crash})")
+    info["recorded"] = {k: v[0] for k, v in rec.calls.items()
+                        if isinstance(k, str)}
+    info["nonce_maxima"] = maxima
+    out["record"] = info
+    print(f"  levels, totals and cumulative generated counts the record's; "
+          f"the largest nonce {max(maxima)} (bound 1 + CrashLimit = "
+          f"{1 + crash})", flush=True)
+    rows = check_st03_kernels(rec, K)
+    out["range"] = check_range_flag(rec, K, "CP06")
+    # one value: no state transfer (a Prepare two ops ahead needs two)
+    small_on = check_family_coverage(
+        rec, K, "CP06 small", idle=("SendGetState", "ReceiveGetState",
+                                    "ReceiveNewState", "NoProgressChange"))
+    out["cover_small"] = small_on
+    print(f"  enabled lanes by action on the fixpoint: {small_on}",
+          flush=True)
+    del rec
+    eng, fres, finfo = model_run("CP06", cp["module"], "small", "run_fused")
+    fixpoint(fres, "CP06 run_fused()")
+    same_pointers(trace_pointers(eng), run_pointers, fres.levels,
+                  "CP06 run_fused", args)
+    fused_host_reads(fres, "CP06")
+    del eng, run_pointers
+    out["fused"] = finfo
+    for k in rows:
+        k["launches"] = finfo["launches"][k["kernel"]]
+    print(f"  run_fused(): the record's fixpoint, pointer tables equal to "
+          f"run()'s", flush=True)
+
+    print(f"phase 13b: CP06 wide cfg, run_fused to depth {W['fused']} and "
+          f"run() to depth {W['run']}", flush=True)
+    _e, fres, finfo = model_run("CP06", cp["module"], "wide", "run_fused",
+                                W["fused"])
+    del _e
+    _e, rres, rinfo = model_run("CP06", cp["module"], "wide", "run",
+                                W["run"])
+    del _e
+    n = len(cp["wide"])
+    need(fres.levels[:n] == cp["wide"] and len(fres.levels) == W["fused"] + 1
+         and rres.levels == fres.levels[:W["run"] + 1],
+         f"CP06 wide run_fused levels {fres.levels}, run() {rres.levels}")
+    out["wide"] = {"run_fused": finfo, "run": rinfo}
+    print(f"  levels {fres.levels} (the JAX host BFS's through depth "
+          f"{n - 1})", flush=True)
+
+    print(f"phase 13c: CP06 wide cfg, recording run() to depth "
+          f"{W['cover']}; K13, K14, K3 against their plain versions on the "
+          f"calls where each action was enabled most", flush=True)
+    rec = ST03Recorder(by_action=True)
+    uninstall = rec.install()
+    try:
+        _e, cres, cinfo = model_run("CP06", cp["module"], "wide", "run",
+                                    W["cover"])
+    finally:
+        uninstall()
+    del _e
+    need(cres.levels == fres.levels[:W["cover"] + 1],
+         f"CP06 wide recording run() levels {cres.levels}")
+    # by depth 12 no view change completes (SendSV needs two DoViewChanges,
+    # and a replica sends one only once it has committed) and state
+    # transfer cannot open; 13d holds those actions
+    late = ("SendSV", "ReceiveSV", "SendGetState", "ReceiveGetState",
+            "ReceiveNewState")
+    enabled = check_family_coverage(rec, K, "CP06 wide",
+                                    idle=late + ("NoProgressChange",))
+    del rec
+    out["cover"] = {"depth": W["cover"], "wall_s": cinfo["wall_s"],
+                    "enabled": enabled}
+    print(f"  enabled lanes by action: {enabled}", flush=True)
+
+    print("phase 13d: CP06's hand-built rows (testing.checkpoint_rows), "
+          "small and wide layouts: K13, K14, K3 against their plain "
+          "versions on every lane", flush=True)
+    built = check_checkpoint_rows(cp["module"])
+    out["built"] = built
+    wide = built["wide"]
+    need(all(wide["enabled"][a] > 0 for a in late),
+         f"CP06 wide built rows enable {wide['enabled']}")
+    need(all(min(v.values()) > 0 for v in wide["reply_lanes"].values()),
+         f"CP06 wide built rows: reply lanes {wide['reply_lanes']}")
+    for n in (K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0]):
+        never = [a for a in K.action_names if a != "NoProgressChange"
+                 and not (small_on[n][a] or enabled[n][a]
+                          or built["small"]["enabled"][a]
+                          or wide["enabled"][a])]
+        need(not never, f"CP06: {never} held on no input of {n}")
+    print(f"  every action but NoProgressChange held; on the built rows "
+          f"{ {s: v['enabled'] for s, v in built.items()} }, reply lanes "
+          f"(checkpoint, suffix) {wide['reply_lanes']}", flush=True)
+    return rows
+
+
 def gpu_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -3317,7 +3572,7 @@ def kernels_line(rows):
 
 
 def run_phases(args, doc, t_all):
-    """Phases 1-12 (the module docstring); returns the exit code."""
+    """Phases 1-13 (the module docstring); returns the exit code."""
     import numpy as np
     import torch
     from tpuvsr_torch import kernels
@@ -3433,6 +3688,7 @@ def run_phases(args, doc, t_all):
     rows += st03_phase(args, doc)
     rows += family_phase(args, doc)
     rows += recovery_phase(args, doc)
+    rows += checkpoint_phase(args, doc)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
     write_doc(args, doc)

@@ -46,8 +46,8 @@ import torch  # noqa: E402
 import jax  # noqa: E402
 
 from tests.test_torch_st03 import (  # noqa: E402
-    CHUNK, PAD, _batch, _enum, _fps, _full_bag_row, _is_era, _jax_outputs,
-    _port_outputs, _run, _signature, _walk_rows, jax_fns_of)
+    CHUNK, GUIDE, PAD, _batch, _enum, _fps, _full_bag_row, _is_era,
+    _jax_outputs, _port_outputs, _run, _signature, _walk_rows, jax_fns_of)
 from tests.test_torch_st03_bfs import level_bfs  # noqa: E402
 from tpuvsr.analysis.passes.widths import derive_ranges_from as j_ranges
 from tpuvsr.engine.pack import build_pack_spec as j_pack_spec
@@ -56,6 +56,8 @@ from tpuvsr.models.a01 import A01Codec as JA01Codec
 from tpuvsr.models.a01_kernel import A01Kernel as JA01Kernel
 from tpuvsr.models.as04 import AS04Codec as JAS04Codec
 from tpuvsr.models.as04_kernel import AS04Kernel as JAS04Kernel
+from tpuvsr.models.cp06 import CP06Codec as JCP06Codec
+from tpuvsr.models.cp06_kernel import CP06Kernel as JCP06Kernel
 from tpuvsr.models.i01 import I01Codec as JI01Codec
 from tpuvsr.models.i01_kernel import I01Kernel as JI01Kernel
 from tpuvsr.models.al05 import AL05Codec as JAL05Codec
@@ -81,14 +83,17 @@ def _cfgs(module, wide="shipped"):
 
 
 def _model(key, module, jcodec, jkernel, small_levels, shipped_levels,
-           wide="shipped", small_depth=8, wide_depth=5, seeds=(31, 32, 34)):
+           wide="shipped", small_depth=8, wide_depth=5, seeds=(31, 32, 34),
+           guide=None):
     """A model of the family; ``wide`` names its cfg with wider constants
     (``_shipped.cfg``, or ``_wide.cfg`` where the reference ships none)
-    and the case that runs it; ``seeds`` are the cases' walk seeds."""
+    and the case that runs it; ``seeds`` are the cases' walk seeds and
+    ``guide`` the guided walkers' action weights (the st03 tests'
+    ``GUIDE`` when None)."""
     small, shipped = _cfgs(module, wide)
     return SimpleNamespace(
         key=key, module=module, jcodec=jcodec, jkernel=jkernel,
-        small=small, shipped=shipped, wide=wide,
+        small=small, shipped=shipped, wide=wide, guide=guide,
         # name -> (cfg, NoProgressChangeLimit, MAX_MSGS, walk seed)
         cases={"small": (small, 0, 32, seeds[0]),
                "small_np1": (small, 1, 16, seeds[1]),
@@ -103,6 +108,12 @@ def _model(key, module, jcodec, jkernel, small_levels, shipped_levels,
         records={"small": (small, 0, 32, 0), wide: (shipped, 0, 48, 0)})
 
 
+# the CP06 walkers' weights: ST03's, with Crash rare and the recovery
+# exchange and ReceiveHigherDVC favoured
+CP06_GUIDE = dict(GUIDE, Crash=0.02, ReceiveHigherDVC=50.0,
+                  ReceiveGetCheckpointMsg=5.0, ReceiveNewCheckpointMsg=20.0,
+                  ReceiveRecoveryMsg=20.0, ReceiveRecoveryResponseMsg=20.0,
+                  CompleteRecovery=50.0)
 FAMILY = {
     "A01": _model("A01", "VR_ASSUME_NEWVIEWCHANGE", JA01Codec, JA01Kernel,
                   [1, 3, 8, 24, 68, 163, 332, 595, 968],
@@ -124,6 +135,15 @@ FAMILY = {
                    JAL05Kernel, [1, 6, 24, 85, 261, 702, 1665],
                    [1, 7, 37, 171, 697], wide="wide", small_depth=6,
                    wide_depth=4, seeds=(31, 35, 35)),
+    # the checkpointing model: the small cfg's levels are the first of
+    # scripts/recovery_fixpoints.json's CP06 fixpoint; its walkers crash
+    # seldom (Crash has R x (MAX_OPS + 1) lanes, and a Recovering replica
+    # blocks the view change the other actions need)
+    "CP06": _model("CP06", "VR_REPLICA_RECOVERY_CP", JCP06Codec,
+                   JCP06Kernel, [1, 6, 23, 68, 181, 426, 879, 1605],
+                   [1, 7, 35, 140, 510], wide="wide", small_depth=7,
+                   wide_depth=4,
+                   seeds=(33, 33, 32), guide=CP06_GUIDE),
 }
 KEY = "A01"
 
@@ -193,7 +213,7 @@ def family_case(key, name, extra=None):
     jk, f = J.jk, J.step
     _c, kern = make_model(binding(model, path, np_limit), max_msgs=mm)
     init = kern.codec.init_dense()
-    walked, ens = _walk_rows(jk, f, init, seed)
+    walked, ens = _walk_rows(jk, f, init, seed, guide=model.guide)
     rows = [init] + choose_rows(jk.action_names, jk.lane_action, walked,
                                 ens, seed)
     case = SimpleNamespace(key=key, name=name, model=model, J=J, jk=jk,

@@ -191,13 +191,16 @@ def test_defect_bag_growth_keeps_levels(port_defect_depth4):
 
 
 def test_binding_names_its_module():
-    """A cfg bound to another module than VSR reaches the registry's
-    refusal (the CP06 cfg), not a VSR codec that lacks its constants."""
+    """A cfg bound to a module the registry has no hand kernel for (here
+    the CP06 example cfg under a name no spec declares) reaches the
+    registry's refusal by name, not a VSR codec that lacks its
+    constants; the family's models, CP06 among them, each bind to their
+    own codec and kernel."""
     cfg = os.path.join(ROOT, "examples", "VR_REPLICA_RECOVERY_CP_small.cfg")
-    b = load_binding(cfg, "VR_REPLICA_RECOVERY_CP")
-    assert b.module == "VR_REPLICA_RECOVERY_CP"
+    b = load_binding(cfg, "VR_NO_SUCH_MODULE")
+    assert b.module == "VR_NO_SUCH_MODULE"
     with pytest.raises(KeyError, match="no hand model kernel for module "
-                       "'VR_REPLICA_RECOVERY_CP'"):
+                       "'VR_NO_SUCH_MODULE'"):
         make_model(b)
     with pytest.raises(KeyError, match="no hand model kernel"):
         DeviceBFS(b, device="cpu")
@@ -207,12 +210,15 @@ def test_binding_names_its_module():
     from tpuvsr_torch.models.a01_kernel import A01Kernel
     from tpuvsr_torch.models.as04 import AS04Codec
     from tpuvsr_torch.models.as04_kernel import AS04Kernel
+    from tpuvsr_torch.models.cp06 import CP06Codec
+    from tpuvsr_torch.models.cp06_kernel import CP06Kernel
     from tpuvsr_torch.models.i01 import I01Codec
     from tpuvsr_torch.models.i01_kernel import I01Kernel
     for module, codec_cls, kern_cls in (
             ("VR_ASSUME_NEWVIEWCHANGE", A01Codec, A01Kernel),
             ("VR_INC_RESEND", I01Codec, I01Kernel),
-            ("VR_APP_STATE", AS04Codec, AS04Kernel)):
+            ("VR_APP_STATE", AS04Codec, AS04Kernel),
+            ("VR_REPLICA_RECOVERY_CP", CP06Codec, CP06Kernel)):
         fb = load_binding(os.path.join(ROOT, "tpuvsr_torch", "configs",
                                        f"{module}_small.cfg"), module)
         assert fb.module == module and not fb.symmetry_perms
@@ -237,8 +243,8 @@ def test_make_model_resolves_st03():
                             "CommitNumberNeverHigherThanOpNumber"]
     assert not b.symmetry_perms
     with pytest.raises(KeyError, match="no hand model kernel for module "
-                       "'VR_REPLICA_RECOVERY_CP'"):
-        make_model(load_binding(cfg, "VR_REPLICA_RECOVERY_CP"))
+                       "'VR_NO_SUCH_MODULE'"):
+        make_model(load_binding(cfg, "VR_NO_SUCH_MODULE"))
 
 
 def test_device_bfs_check_entry_point_on_cpu():

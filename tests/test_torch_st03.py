@@ -167,7 +167,8 @@ GUIDE = {"TimerSendSVC": 0.2, "ReceiveClientRequest": 50.0, "SendSV": 30.0,
          "ResendSVC": 10.0}
 
 
-def _walk_rows(jk, f, init, seed, walkers=PAD, steps=24, lag=16):
+def _walk_rows(jk, f, init, seed, walkers=PAD, steps=24, lag=16,
+               guide=None):
     """Distinct rows along numpy-seeded random walks from ``init``, with
     the enabled bits of each (a walker with no enabled lane, or whose
     chosen successor overflows the bag, stays put).  Half of the walkers
@@ -181,7 +182,8 @@ def _walk_rows(jk, f, init, seed, walkers=PAD, steps=24, lag=16):
     batch = {k: np.repeat(np.asarray(v)[None], walkers, 0)
              for k, v in init.items()}
     names = jk.action_names
-    weight = np.array([GUIDE.get(n, 1.0) for n in names])[jk.lane_action]
+    guide = GUIDE if guide is None else guide
+    weight = np.array([guide.get(n, 1.0) for n in names])[jk.lane_action]
     crq = jk.lane_action == names.index("ReceiveClientRequest")
     seen, rows, ens = set(), [], []
     for step in range(steps):

@@ -1,7 +1,7 @@
 // K14: the transition relation (successors and invariants) of the ST03
 // (VR_STATE_TRANSFER) family: ST03, A01 (VR_ASSUME_NEWVIEWCHANGE), I01
-// (VR_INC_RESEND), AS04 (VR_APP_STATE), RR05 (VR_REPLICA_RECOVERY) and
-// AL05 (VR_REPLICA_RECOVERY_ASYNC_LOG).
+// (VR_INC_RESEND), AS04 (VR_APP_STATE), RR05 (VR_REPLICA_RECOVERY), AL05
+// (VR_REPLICA_RECOVERY_ASYNC_LOG) and CP06 (VR_REPLICA_RECOVERY_CP).
 //
 // Replaces the 16 action functions of tpuvsr/models/st03_kernel.py
 // (act_* at :261-570, with the message-bag primitives _bag_send,
@@ -48,10 +48,10 @@
 // The family.  The kernel is a template on the model, with one entry
 // point each (tpuvsr_st03_actions, tpuvsr_a01_actions,
 // tpuvsr_i01_actions, tpuvsr_as04_actions, tpuvsr_rr05_actions,
-// tpuvsr_al05_actions), and replaces the action and invariant functions
-// of tpuvsr/models/a01_kernel.py:53-117, i01_kernel.py:78-397,
-// as04_kernel.py:76-346, rr05_kernel.py:88-313 and al05_kernel.py:60-168
-// as well.  A model's
+// tpuvsr_al05_actions, tpuvsr_cp06_actions), and replaces the action and
+// invariant functions of tpuvsr/models/a01_kernel.py:53-117,
+// i01_kernel.py:78-397, as04_kernel.py:76-346, rr05_kernel.py:88-313,
+// al05_kernel.py:60-168 and cp06_kernel.py:155-759 as well.  A model's
 // deltas are if-constexpr branches in the ST03 actions, so ST03's
 // instantiation does ST03's work alone.  The family's planes follow
 // N_ST03_PLANES (enum FamilyPlane: I01's third sent flag and DVC tracker,
@@ -89,12 +89,23 @@
 // RR05): plain entries again, a Crash lane per (replica, surviving
 // prefix length), a response that carries the primary's suffix above
 // the crashed replica's floor, and a CompleteRecovery that splices the
-// replica's own prefix under it.
+// replica's own prefix under it.  CP06 (on RR05, no RetryRecovery; its
+// cp_* functions): plain entries and NoOp (V + 1) for a GC'd slot, an
+// 11-column header (H_FLAG, H_CP) and a checkpoint plane m_cp that the
+// record being sent carries too (rc: equality compares it, send stores
+// it), a checkpoint lane dimension C = OPS + 1 (SendDVC and Crash lane
+// i * C + cp, ReceiveGetState and ReceiveGetCheckpointMsg
+// k * R * C + i * C + cp, ReceiveRecoveryMsg k * C + cp), replies and
+// DoViewChanges in two forms (a checkpoint below cp and the suffix
+// above it, or a suffix from first_op), ApplyCheckpoint, WinningDVC's
+// checkpoint tie-break, GetCheckpoint -> NewCheckpoint -> Recovery, and
+// invariants that read a NoOp slot through the app state (OpOf).
 //
 // The entry encoding switches twice down the chain (AS04 plain, RR05
-// packed, AL05 plain), so it is a property of its own (PACKED_ENTRIES),
-// apart from A01's assume-mode guards (A01_LIKE) and AS04's app state
-// (APP_STATE).
+// packed, AL05 and CP06 plain), so it is a property of its own
+// (PACKED_ENTRIES), apart from A01's assume-mode guards (A01_LIKE), AS04's
+// app state (APP_STATE), the recovery sub-protocol (RECOVERY) and CP06's
+// checkpoints (CHECKPOINTS).
 #include <climits>
 
 #include "common.cuh"
@@ -133,26 +144,28 @@ enum FamilyPlane {
     P_SENT_SVC = N_ST03_PLANES, P_DVC, P_DVC_VIEW, P_DVC_LNV, P_DVC_OP,
     P_DVC_COMMIT, P_DVC_LOG, P_APP, P_REC_NUMBER, P_REC, P_REC_VIEW,
     P_REC_HAS_LOG, P_REC_LOG, P_REC_OP, P_REC_COMMIT, P_REC_CEIL,
-    P_AUX_RESTART, N_FAMILY_PLANES
+    P_AUX_RESTART, P_DVC_CPN, P_DVC_CP, P_REC_FLAG, P_REC_FIRST, P_REC_CP,
+    P_REC_CPN, P_M_CP, N_FAMILY_PLANES
 };
 
 // the family's actions beyond ST03's (FAMILY_ACTIONS order)
 enum FamilyAction {
     A_RESEND_SVC = N_ST03_ACTIONS, A_CRASH, A_RECEIVE_RECOVERY,
     A_RECEIVE_RECOVERY_RESPONSE, A_COMPLETE_RECOVERY, A_RETRY_RECOVERY,
-    N_FAMILY_ACTIONS
+    A_RECEIVE_GET_CHECKPOINT, A_RECEIVE_NEW_CHECKPOINT, N_FAMILY_ACTIONS
 };
 
 // the family's invariants beyond ST03's (FAMILY_INVARIANTS order)
 enum FamilyInvariant {
     I_NO_REPLICA_MORE_THAN_ONE_VIEW_AHEAD_OF_MAJORITY = N_INVARIANTS,
     I_RECEIVED_DVCS_ALL_SAME_VIEW, I_NO_APP_STATE_DIVERGENCE,
-    N_FAMILY_INVARIANTS
+    I_COMMIT_NUMBER_MATCHES_APP_STATE, N_FAMILY_INVARIANTS
 };
 
 // the models (one instantiation and entry point each)
 enum Model {
-    MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04, MODEL_RR05, MODEL_AL05
+    MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04, MODEL_RR05, MODEL_AL05,
+    MODEL_CP06
 };
 
 // A01's assume-mode guards (A01, I01)
@@ -163,20 +176,26 @@ template <int MODEL>
 constexpr bool PACKED_ENTRIES = A01_LIKE<MODEL> || MODEL == MODEL_RR05;
 // AS04's app state and DVC slots (AS04 and the models on it)
 template <int MODEL>
-constexpr bool APP_STATE =
-    MODEL == MODEL_AS04 || MODEL == MODEL_RR05 || MODEL == MODEL_AL05;
-// the crash-recovery sub-protocol (RR05, AL05)
+constexpr bool APP_STATE = MODEL == MODEL_AS04 || MODEL == MODEL_RR05 ||
+                           MODEL == MODEL_AL05 || MODEL == MODEL_CP06;
+// the crash-recovery sub-protocol (RR05, AL05, CP06)
 template <int MODEL>
-constexpr bool RECOVERY = MODEL == MODEL_RR05 || MODEL == MODEL_AL05;
+constexpr bool RECOVERY =
+    MODEL == MODEL_RR05 || MODEL == MODEL_AL05 || MODEL == MODEL_CP06;
+// CP06's checkpoints: NoOp entries, a checkpoint lane dimension, the
+// checkpoint fields of records and slots
+template <int MODEL>
+constexpr bool CHECKPOINTS = MODEL == MODEL_CP06;
 
 // the codec's encodings (models/st03.py, models/vsr.py)
 constexpr int NORMAL = 0, VIEWCHANGE = 1, STATETRANSFER = 2;
 constexpr int RECOVERING = 3;               // the family's (models/rr05.py)
 constexpr int M_PREPARE = 1, M_PREPAREOK = 2, M_SVC = 3, M_DVC = 4,
               M_SV = 5, M_GETSTATE = 6, M_NEWSTATE = 7, M_RECOVERY = 8,
-              M_RECOVERYRESP = 9;
+              M_RECOVERYRESP = 9, M_GETCP = 10, M_NEWCP = 11;
 constexpr int H_TYPE = 0, H_VIEW = 1, H_OP = 2, H_COMMIT = 3, H_DEST = 4,
               H_SRC = 5, H_X = 6, H_FIRST = 7, H_LNV = 8, N_ROWHDR = 9;
+constexpr int H_FLAG = 9, H_CP = 10;        // CP06's header (NHDR 11)
 constexpr int ANYDEST = -1;
 constexpr int ERR_BAG_OVERFLOW = 1, ERR_DVC_OVERFLOW = 2,
               ERR_REC_OVERFLOW = 4;
@@ -217,7 +236,8 @@ __device__ __forceinline__ int primary(int view, int R) {
 
 // One state row in shared memory, its layout, and the block's scratch:
 // the header of the message lane (a copy taken before any write), the
-// record being sent (header rh, entry re, log rl) and the touch list.
+// record being sent (header rh, entry re, log rl and, for CP06, the
+// checkpoint rc) and the touch list.
 struct St {
     int* s;
     const int* off;
@@ -226,6 +246,7 @@ struct St {
     int* rh;                        // [NHDR]
     int re;
     int* rl;                        // [OPS]
+    int* rc;                        // [OPS], null without m_cp (not CP06)
     int* ts;                        // [R + 1]
     int tn;
 
@@ -250,6 +271,15 @@ struct St {
     __device__ int* rec_log(int i, int j) const {
         return &s[off[P_REC_LOG] + (i * R + j) * OPS];
     }
+    // CP06's checkpoint planes: of bag slot k, of DVC slot (i, j), of
+    // response slot (i, j)
+    __device__ int* m_cp(int k) const { return &s[off[P_M_CP] + k * OPS]; }
+    __device__ int* dvc_cp(int i, int j) const {
+        return &s[off[P_DVC_CP] + (i * R + j) * OPS];
+    }
+    __device__ int* rec_cp(int i, int j) const {
+        return &s[off[P_REC_CP] + (i * R + j) * OPS];
+    }
 
     // -- the record being built ----------------------------------------
     __device__ void row(int type, int view, int op, int commit, int dest,
@@ -260,6 +290,8 @@ struct St {
         rh[H_FIRST] = first; rh[H_LNV] = lnv;
         re = 0;
         for (int o = 0; o < OPS; ++o) rl[o] = 0;
+        if (rc)
+            for (int o = 0; o < OPS; ++o) rc[o] = 0;
     }
 
     // -- message-bag primitives (ST03:164-218) -------------------------
@@ -277,6 +309,11 @@ struct St {
         const int* l = m_log(m);
         for (int o = 0; o < OPS; ++o)
             if (l[o] != rl[o]) return false;
+        if (rc) {
+            const int* c = m_cp(m);
+            for (int o = 0; o < OPS; ++o)
+                if (c[o] != rc[o]) return false;
+        }
         return true;
     }
 
@@ -308,6 +345,10 @@ struct St {
             at(P_M_ENTRY, idx) = re;
             int* l = m_log(idx);
             for (int o = 0; o < OPS; ++o) l[o] = rl[o];
+            if (rc) {
+                int* c = m_cp(idx);
+                for (int o = 0; o < OPS; ++o) c[o] = rc[o];
+            }
         }
         if (overflow) at(P_ERR, 0) |= ERR_BAG_OVERFLOW;
     }
@@ -385,6 +426,8 @@ struct St {
     }
 
     // -- AS04's DVC slots and app plane ---------------------------------
+    // ResetVcVars' slot wipe (CP06's clears the checkpoint fields too)
+    template <int MODEL>
     __device__ void clear_dvc(int i) {
         for (int j = 0; j < R; ++j) {
             slot(P_DVC, i, j) = 0;
@@ -393,6 +436,11 @@ struct St {
             slot(P_DVC_COMMIT, i, j) = 0;
             int* l = dvc_log(i, j);
             for (int o = 0; o < OPS; ++o) l[o] = 0;
+            if constexpr (CHECKPOINTS<MODEL>) {
+                slot(P_DVC_CPN, i, j) = 0;
+                int* c = dvc_cp(i, j);
+                for (int o = 0; o < OPS; ++o) c[o] = 0;
+            }
         }
     }
 
@@ -414,6 +462,18 @@ struct St {
             for (int o = 0; o < OPS; ++o) l[o] = log[o];
         }
         if (collide) at(P_ERR, 0) |= ERR_DVC_OVERFLOW;
+    }
+
+    // CP06: AS04's union (its collision test reads neither checkpoint
+    // field), then the slot's checkpoint number and checkpoint
+    __device__ void dvc_slot_add_cp(int i, int j, int lnv, int op,
+                                    int commit, const int* log,
+                                    const int* cp, int cpn, bool pred) {
+        dvc_slot_add(i, j, lnv, op, commit, log, pred);
+        if (!pred) return;
+        slot(P_DVC_CPN, i, j) = cpn;
+        int* c = dvc_cp(i, j);
+        for (int o = 0; o < OPS; ++o) c[o] = cp[o];
     }
 
     // MaybeExecuteOps (AS04:277-282): past the commit, append lp[old..new)
@@ -440,6 +500,13 @@ struct St {
             if constexpr (MODEL == MODEL_AL05) slot(P_REC_CEIL, i, j) = 0;
             int* l = rec_log(i, j);
             for (int o = 0; o < OPS; ++o) l[o] = 0;
+            if constexpr (CHECKPOINTS<MODEL>) {
+                slot(P_REC_FLAG, i, j) = 0;
+                slot(P_REC_FIRST, i, j) = 0;
+                slot(P_REC_CPN, i, j) = 0;
+                int* c = rec_cp(i, j);
+                for (int o = 0; o < OPS; ++o) c[o] = 0;
+            }
         }
     }
 
@@ -478,7 +545,7 @@ struct St {
     }
 
     // processed (count-0) mtype records addressed to replica i in its
-    // view (_svc_tombstones, _valid_dvc)
+    // view (_processed)
     __device__ bool tombstone(int m, int i, int mtype) const {
         return at(P_M_PRESENT, m) == 1 && at(P_M_COUNT, m) == 0 &&
                hdr(m, H_TYPE) == mtype && hdr(m, H_DEST) == i + 1 &&
@@ -496,15 +563,75 @@ struct St {
                mh[H_TYPE] == mtype;
     }
 
+    // -- CP06's checkpoint helpers ------------------------------------------
+    // HighestGCedOp (CP06:346-354): the largest 1-based position of a
+    // NoOp entry (id V + 1), 0 when none
+    __device__ int hgc(const int* l) const {
+        int h = 0;
+        for (int o = 0; o < OPS; ++o)
+            if (l[o] == V + 1) h = o + 1;
+        return h;
+    }
+
+    // LogSuffix re-based at 0 into out: source positions first - 1 on,
+    // zero past the log's end
+    __device__ void log_suffix(const int* l, int first, int* out) const {
+        for (int o = 0; o < OPS; ++o) {
+            const long long at = (long long)o + first - 1;
+            out[o] = at < OPS ? l[clipl(at, 0, OPS - 1)] : 0;
+        }
+    }
+
+    // cp_plane into out: the app state of replica i below position cp
+    __device__ void checkpoint(int i, int cp, int* out) const {
+        const int* app = app_row(i);
+        for (int o = 0; o < OPS; ++o) out[o] = o < cp ? app[o] : 0;
+    }
+
+    // ApplyCheckpoint (CP06:383-402): NoOp below cpn, the suffix (re-based
+    // at 0) up to opn, the app state the checkpoint below cpn and the
+    // suffix up to new_commit; op and commit set (sfx and cp are not the
+    // replica's log or app)
+    __device__ void apply_checkpoint(int i, const int* sfx, const int* cp,
+                                     int cpn, int opn, int new_commit) {
+        int* l = log_row(i);
+        int* app = app_row(i);
+        for (int o = 0; o < OPS; ++o) {
+            const int v = sfx[clipl((long long)o - cpn, 0, OPS - 1)];
+            l[o] = o < cpn ? V + 1 : (o < opn ? v : 0);
+            app[o] = o < cpn ? cp[o] : (o < new_commit ? v : 0);
+        }
+        at(P_OP, i) = opn;
+        at(P_COMMIT, i) = new_commit;
+    }
+
+    // the log a NewState installs: own below first_op - 1, the suffix
+    // (re-based at 0) up to op, into out (out may be own)
+    __device__ void splice(const int* own, const int* sfx, int first,
+                           int op, int* out) const {
+        const int f1 = wsub(first, 1);
+        for (int o = 0; o < OPS; ++o)
+            out[o] = o < f1 ? own[o]
+                : o < op ? sfx[clipl((long long)o - f1, 0, OPS - 1)] : 0;
+    }
+
     // -- the invariants on this (the successor's) row ----------------------
+    // OpOf (CP06:1219-1222): a NoOp log slot defers to the app state
+    template <int MODEL>
+    __device__ int op_of(int r, int o) const {
+        const int e = log_row(r)[o];
+        if constexpr (CHECKPOINTS<MODEL>)
+            if (e == V + 1) return app_row(r)[o];
+        return e;
+    }
+
     // replica r's log holds an entry of value v (packed entries: by the
-    // value id of the entry)
+    // value id of the entry; CP06: through OpOf)
     template <int MODEL>
     __device__ int has_op(int r, int v) const {
-        const int* l = log_row(r);
         for (int o = 0; o < OPS; ++o) {
-            const int vid = PACKED_ENTRIES<MODEL> ? l[o] >> ENTRY_VIEW_BITS
-                                                  : l[o];
+            const int e = op_of<MODEL>(r, o);
+            const int vid = PACKED_ENTRIES<MODEL> ? e >> ENTRY_VIEW_BITS : e;
             if (vid == v + 1) return 1;
         }
         return 0;
@@ -518,7 +645,7 @@ struct St {
                 for (int b = 0; b < R; ++b)
                     for (int o = 0; o < OPS; ++o)
                         if (o < at(P_COMMIT, a) && o < at(P_COMMIT, b) &&
-                                log_row(a)[o] != log_row(b)[o])
+                                op_of<MODEL>(a, o) != op_of<MODEL>(b, o))
                             ok = false;
         if (mask & (1 << I_ACKNOWLEDGED_WRITE_NOT_LOST))
             for (int v = 0; v < V; ++v) {
@@ -583,14 +710,26 @@ struct St {
         if (mask & (1 << I_NO_APP_STATE_DIVERGENCE))
             // no two replicas, both committed at an op, whose app entries
             // differ there while the first's log agrees with its app
-            // (AS04:852-865)
+            // (AS04:852-865); CP06's asks no agreement of the log and
+            // also fails on a committed NoOp app entry (CP06:1234-1240)
             for (int a = 0; a < R; ++a)
-                for (int b = 0; b < R; ++b)
-                    for (int o = 0; o < OPS; ++o)
-                        if (o < at(P_COMMIT, a) && o < at(P_COMMIT, b) &&
+                for (int o = 0; o < OPS; ++o) {
+                    if (!(o < at(P_COMMIT, a))) continue;
+                    if (CHECKPOINTS<MODEL> && app_row(a)[o] == V + 1)
+                        ok = false;
+                    for (int b = 0; b < R; ++b)
+                        if (o < at(P_COMMIT, b) &&
                                 app_row(a)[o] != app_row(b)[o] &&
-                                log_row(a)[o] == app_row(a)[o])
+                                (CHECKPOINTS<MODEL> ||
+                                 log_row(a)[o] == app_row(a)[o]))
                             ok = false;
+                }
+        if (mask & (1 << I_COMMIT_NUMBER_MATCHES_APP_STATE))
+            // CP06:1279-1281 on the planes: app nonzero exactly below
+            // the commit
+            for (int r = 0; r < R; ++r)
+                for (int o = 0; o < OPS; ++o)
+                    ok = ok && (app_row(r)[o] != 0) == (o < at(P_COMMIT, r));
         // TestInv holds
         return ok;
     }
@@ -623,7 +762,7 @@ __device__ bool timer_send_svc(St& g, int i, int timer_limit) {
     g.at(P_AUX_SVC, 0) = wadd(g.at(P_AUX_SVC, 0), 1);
     g.row(M_SVC, new_view, 0, 0, 0, r, 0, 0);
     g.broadcast(r);
-    if constexpr (APP_STATE<MODEL>) g.clear_dvc(i);
+    if constexpr (APP_STATE<MODEL>) g.clear_dvc<MODEL>(i);
     return en;
 }
 
@@ -650,10 +789,16 @@ __device__ bool receive_higher(St& g, int k, int mtype) {
                              g.mh[H_OP], g.mh[H_COMMIT], g.m_log(k), en);
     }
     if constexpr (APP_STATE<MODEL>) {
-        g.clear_dvc(i);
-        if (mtype == M_DVC)
-            g.dvc_slot_add(i, j, g.mh[H_LNV], g.mh[H_OP], g.mh[H_COMMIT],
-                           g.m_log(k), true);
+        g.clear_dvc<MODEL>(i);
+        if (mtype == M_DVC) {
+            if constexpr (CHECKPOINTS<MODEL>)
+                g.dvc_slot_add_cp(i, j, g.mh[H_LNV], g.mh[H_OP],
+                                  g.mh[H_COMMIT], g.m_log(k), g.m_cp(k),
+                                  g.mh[H_CP], true);
+            else
+                g.dvc_slot_add(i, j, g.mh[H_LNV], g.mh[H_OP],
+                               g.mh[H_COMMIT], g.m_log(k), true);
+        }
     }
     g.discard(k);
     g.row(M_SVC, new_view, 0, 0, 0, r, 0, 0);
@@ -680,34 +825,57 @@ __device__ bool receive_matching(St& g, int k, int mtype) {
             g.update_tracker(i, view, j, g.mh[H_VIEW], g.mh[H_LNV],
                              g.mh[H_OP], g.mh[H_COMMIT], g.m_log(k), en);
     g.discard(k);
-    if constexpr (APP_STATE<MODEL>)
+    if constexpr (CHECKPOINTS<MODEL>) {
+        if (mtype == M_DVC)
+            g.dvc_slot_add_cp(i, j, g.mh[H_LNV], g.mh[H_OP], g.mh[H_COMMIT],
+                              g.m_log(k), g.m_cp(k), g.mh[H_CP], en);
+    } else if constexpr (APP_STATE<MODEL>) {
         if (mtype == M_DVC)
             g.dvc_slot_add(i, j, g.mh[H_LNV], g.mh[H_OP], g.mh[H_COMMIT],
                            g.m_log(k), en);
+    }
     return en;
 }
 
-// SendDVC (ST03:577-614); the new primary's own DVC also enters I01's
-// tracker and AS04's slots
+// SendDVC (ST03:577-614), lane i; the new primary's own DVC also enters
+// I01's tracker and AS04's slots.  CP06 (CP06:785-816): lane i * C + cp,
+// cp in HighestGCedOp + 1 .. commit, the DVC carrying the checkpoint
+// (the app state below cp) and the log suffix above it
 template <int MODEL>
-__device__ bool send_dvc(St& g, int i) {
+__device__ bool send_dvc(St& g, int lane) {
+    int i = lane, cp = 0;
+    if constexpr (CHECKPOINTS<MODEL>) {
+        i = lane / (g.OPS + 1);
+        cp = lane - i * (g.OPS + 1);
+    }
     const int R = g.R, r = i + 1;
     const int view = g.at(P_VIEW, i), prim = primary(view, R);
     int tomb = 0;
     for (int m = 0; m < g.M; ++m) tomb += g.tombstone(m, i, M_SVC);
-    const bool en = g.can_progress(i) && g.at(P_STATUS, i) == VIEWCHANGE &&
-                    g.at(P_SENT_DVC, i) == 0 && tomb >= R / 2;
+    const int* l = g.log_row(i);
+    bool en = g.can_progress(i) && g.at(P_STATUS, i) == VIEWCHANGE &&
+              g.at(P_SENT_DVC, i) == 0 && tomb >= R / 2;
+    if constexpr (CHECKPOINTS<MODEL>)
+        en = en && cp >= g.hgc(l) + 1 && cp <= g.at(P_COMMIT, i);
     g.at(P_SENT_DVC, i) = 1;
     g.row(M_DVC, view, g.at(P_OP, i), g.at(P_COMMIT, i), prim, r, 0,
           g.at(P_LNV, i));
-    const int* l = g.log_row(i);
-    for (int o = 0; o < g.OPS; ++o) g.rl[o] = l[o];
+    if constexpr (CHECKPOINTS<MODEL>) {
+        g.rh[H_CP] = cp;
+        g.log_suffix(l, cp + 1, g.rl);
+        g.checkpoint(i, cp, g.rc);
+    } else {
+        for (int o = 0; o < g.OPS; ++o) g.rl[o] = l[o];
+    }
     // the new primary's own DVC is born processed (SendAsReceived)
     g.send(true, prim == r ? 0 : 1);
     if constexpr (MODEL == MODEL_I01)
         g.update_tracker(i, view, i, view, g.at(P_LNV, i), g.at(P_OP, i),
                          g.at(P_COMMIT, i), l, prim == r && en);
-    if constexpr (APP_STATE<MODEL>)
+    if constexpr (CHECKPOINTS<MODEL>)
+        g.dvc_slot_add_cp(i, i, g.at(P_LNV, i), g.at(P_OP, i),
+                          g.at(P_COMMIT, i), g.rl, g.rc, cp, prim == r && en);
+    else if constexpr (APP_STATE<MODEL>)
         g.dvc_slot_add(i, i, g.at(P_LNV, i), g.at(P_OP, i),
                        g.at(P_COMMIT, i), l, prim == r && en);
     return en;
@@ -817,7 +985,7 @@ __device__ bool send_sv(St& g, int i) {
         g.at(P_VIEW, i) = new_vn;
         g.clear_tracker(i);
     }
-    if constexpr (APP_STATE<MODEL>) g.clear_dvc(i);
+    if constexpr (APP_STATE<MODEL>) g.clear_dvc<MODEL>(i);
     g.broadcast(r);
     return en;
 }
@@ -836,18 +1004,25 @@ __device__ bool receive_sv(St& g, int k) {
     const int old_commit = g.at(P_COMMIT, i);
     g.at(P_STATUS, i) = NORMAL;
     g.at(P_VIEW, i) = hv;
-    int* l = g.log_row(i);
-    const int* ml = g.m_log(k);
-    for (int o = 0; o < g.OPS; ++o) l[o] = ml[o];
-    if constexpr (APP_STATE<MODEL>)
-        g.exec_ops(i, l, g.mh[H_COMMIT]);
-    else
-        g.at(P_COMMIT, i) = g.mh[H_COMMIT];
-    g.at(P_OP, i) = g.mh[H_OP];
+    if constexpr (CHECKPOINTS<MODEL>) {
+        // ApplyCheckpoint of the StartView's checkpoint and suffix
+        // (CP06:939-971)
+        g.apply_checkpoint(i, g.m_log(k), g.m_cp(k), g.mh[H_CP], g.mh[H_OP],
+                           g.mh[H_COMMIT]);
+    } else {
+        int* l = g.log_row(i);
+        const int* ml = g.m_log(k);
+        for (int o = 0; o < g.OPS; ++o) l[o] = ml[o];
+        if constexpr (APP_STATE<MODEL>)
+            g.exec_ops(i, l, g.mh[H_COMMIT]);
+        else
+            g.at(P_COMMIT, i) = g.mh[H_COMMIT];
+        g.at(P_OP, i) = g.mh[H_OP];
+    }
     g.at(P_LNV, i) = hv;
     g.reset_sent<MODEL>(i);
     if constexpr (MODEL == MODEL_I01) g.clear_tracker(i);
-    if constexpr (APP_STATE<MODEL>) g.clear_dvc(i);
+    if constexpr (APP_STATE<MODEL>) g.clear_dvc<MODEL>(i);
     g.discard(k);
     g.row(M_PREPAREOK, hv, g.mh[H_OP], 0, primary(hv, g.R), r, 0, 0);
     g.send(old_commit < g.mh[H_OP], 1);
@@ -970,13 +1145,8 @@ __device__ bool receive_new_state(St& g, int k) {
                     g.mh[H_VIEW] > g.at(P_VIEW, i);
     // the new log over 1..m.op_number: the replica's own prefix below
     // first_op, the message's suffix (stored re-based at 0) from there
-    const int first1 = wsub(g.mh[H_FIRST], 1);
     int* l = g.log_row(i);
-    const int* ml = g.m_log(k);
-    for (int o = 0; o < g.OPS; ++o)
-        if (!(o < first1))
-            l[o] = o < g.mh[H_OP]
-                       ? ml[clipl((long long)o - first1, 0, g.OPS - 1)] : 0;
+    g.splice(l, g.m_log(k), g.mh[H_FIRST], g.mh[H_OP], l);
     g.at(P_STATUS, i) = NORMAL;
     g.at(P_VIEW, i) = g.mh[H_VIEW];
     g.at(P_LNV, i) = g.mh[H_VIEW];
@@ -1053,7 +1223,7 @@ __device__ bool crash(St& g, int lane, int crash_limit) {
     for (int j = 0; j < g.R; ++j) g.peer(i, j) = 0;
     g.at(P_LNV, i) = 0;
     g.reset_sent<MODEL>(i);
-    g.clear_dvc(i);
+    g.clear_dvc<MODEL>(i);
     g.clear_rec<MODEL>(i);
     g.at(P_REC_NUMBER, i) = u;
     g.at(P_AUX_RESTART, 0) = wadd(g.at(P_AUX_RESTART, 0), 1);
@@ -1183,9 +1353,331 @@ __device__ bool retry_recovery(St& g, int i) {
     return en;
 }
 
+// -- CP06's checkpointed view change, state transfer and recovery
+// (CP06:644-712, 785-1170) -------------------------------------------------
+// A checkpoint lane dimension of C = OPS + 1: SendDVC and Crash lane
+// i * C + cp, ReceiveGetState and ReceiveGetCheckpointMsg lane
+// k * R * C + i * C + cp, ReceiveRecoveryMsg lane k * C + cp.
+
+// WinningDVC (CP06:885-896): among replica i's DVC slots, the maximal
+// (lnv, op), ties to the least (checkpoint, commit, cp_number,
+// log_suffix keyed (cp_number + 1 + position) * 64 + entry, source), the
+// first such (0 when none)
+__device__ int winning_dvc(const St& g, int i) {
+    const int R = g.R, OPS = g.OPS;
+    auto cand = [&](int j) { return g.slot(P_DVC, i, j) == 1; };
+    auto pair = [&](int j) {
+        return wadd(wmul(g.slot(P_DVC_LNV, i, j), OPS + 1),
+                    g.slot(P_DVC_OP, i, j));
+    };
+    int best_pair = INT_MIN;
+    for (int j = 0; j < R; ++j)
+        best_pair = imax(best_pair, cand(j) ? pair(j) : -1);
+    auto key = [&](int j, int w) {
+        if (w < OPS) return g.dvc_cp(i, j)[w];
+        if (w == OPS) return g.slot(P_DVC_COMMIT, i, j);
+        const int cpn = g.slot(P_DVC_CPN, i, j);
+        if (w == OPS + 1) return cpn;
+        if (w < 2 * OPS + 2) {
+            const int o = w - OPS - 2;
+            return o < wsub(g.slot(P_DVC_OP, i, j), cpn)
+                ? wadd(wmul(wadd(wadd(cpn, 1), o), 64), g.dvc_log(i, j)[o])
+                : 0;
+        }
+        return j + 1;
+    };
+    int best = -1;
+    for (int j = 0; j < R; ++j) {
+        if (!(cand(j) && pair(j) == best_pair)) continue;
+        bool less = best < 0;
+        for (int w = 0; w < 2 * OPS + 3 && !less; ++w) {
+            const int a = key(j, w), b = key(best, w);
+            if (a != b) {
+                less = a < b;
+                break;
+            }
+        }
+        if (less) best = j;
+    }
+    return best < 0 ? 0 : best;
+}
+
+// SendSV, lane i (CP06:898-937): WinningDVC's checkpoint and suffix
+// applied, HighestCommitNumber the commit, the StartView broadcast
+template <int MODEL>
+__device__ bool cp_send_sv(St& g, int i) {
+    const int R = g.R, r = i + 1, view = g.at(P_VIEW, i);
+    int n = 0, new_cn = INT_MIN;
+    for (int j = 0; j < R; ++j) {
+        const bool has = g.slot(P_DVC, i, j) == 1;
+        n += has;
+        new_cn = imax(new_cn, has ? g.slot(P_DVC_COMMIT, i, j) : -1);
+    }
+    const bool en = g.can_progress(i) && g.at(P_STATUS, i) == VIEWCHANGE &&
+                    g.at(P_SENT_SV, i) == 0 && n >= R / 2 + 1;
+    const int j = winning_dvc(g, i);
+    const int w_cpn = g.slot(P_DVC_CPN, i, j), w_op = g.slot(P_DVC_OP, i, j);
+    g.row(M_SV, view, w_op, new_cn, 0, r, 0, 0);
+    g.rh[H_CP] = w_cpn;
+    const int* wl = g.dvc_log(i, j);
+    const int* wc = g.dvc_cp(i, j);
+    for (int o = 0; o < g.OPS; ++o) {
+        g.rl[o] = wl[o];
+        g.rc[o] = wc[o];
+    }
+    g.at(P_STATUS, i) = NORMAL;
+    g.apply_checkpoint(i, g.rl, g.rc, w_cpn, w_op, new_cn);
+    for (int jj = 0; jj < R; ++jj) g.peer(i, jj) = 0;
+    g.at(P_SENT_SV, i) = 1;
+    g.at(P_LNV, i) = view;
+    g.clear_dvc<MODEL>(i);
+    g.broadcast(r);
+    return en;
+}
+
+// ReceiveGetState (CP06:644-680): a checkpoint reply (flag 1) when the
+// replica's log is GC'd at m.op + 1, one lane per cp; else the suffix
+// reply on the cp = 0 lane
+__device__ bool cp_receive_get_state(St& g, int lane) {
+    const int C = g.OPS + 1, RC = g.R * C;
+    const int k = lane / RC, rest = lane - k * RC, i = rest / C;
+    const int cp = rest - i * C, r = i + 1;
+    g.msg_lane(k);
+    const int dest = g.mh[H_DEST], op_i = g.at(P_OP, i);
+    const int commit_i = g.at(P_COMMIT, i);
+    const int* l = g.log_row(i);
+    const bool base = g.at(P_M_PRESENT, k) == 1 && g.at(P_M_COUNT, k) > 0 &&
+                      g.mh[H_TYPE] == M_GETSTATE &&
+                      (dest == r || (dest == ANYDEST && g.mh[H_SRC] != r)) &&
+                      g.can_progress(i) && g.at(P_STATUS, i) == NORMAL &&
+                      g.at(P_VIEW, i) == g.mh[H_VIEW] && op_i > g.mh[H_OP];
+    const bool gced = l[clipi(g.mh[H_OP], 0, g.OPS - 1)] == g.V + 1;
+    const bool en = base && (gced ? cp >= g.hgc(l) + 1 && cp <= commit_i
+                                  : cp == 0);
+    const int first_ls = wadd(g.mh[H_OP], 1);
+    g.row(M_NEWSTATE, g.at(P_VIEW, i), op_i, gced ? cp : commit_i,
+          g.mh[H_SRC], r, gced ? 0 : first_ls, 0);
+    g.rh[H_FLAG] = gced;
+    g.rh[H_CP] = gced ? cp : 0;
+    g.log_suffix(l, gced ? cp + 1 : first_ls, g.rl);
+    if (gced) g.checkpoint(i, cp, g.rc);
+    g.discard(k);
+    g.send(true, 1);
+    return en;
+}
+
+// ReceiveNewState (CP06:682-712): to a StateTransfer replica of the
+// message's view; flag 1 applies the checkpoint, flag 0 splices the
+// replica's prefix below first_op under the suffix
+template <int MODEL>
+__device__ bool cp_receive_new_state(St& g, int k) {
+    const int i = g.msg_lane(k);
+    const bool en = g.recv_en(k, M_NEWSTATE) && g.can_progress(i) &&
+                    g.at(P_STATUS, i) == STATETRANSFER &&
+                    g.at(P_VIEW, i) == g.mh[H_VIEW];
+    if (g.mh[H_FLAG] == 1) {
+        g.apply_checkpoint(i, g.m_log(k), g.m_cp(k), g.mh[H_CP], g.mh[H_OP],
+                           g.mh[H_COMMIT]);
+    } else {
+        int* l = g.log_row(i);
+        g.splice(l, g.m_log(k), g.mh[H_FIRST], g.mh[H_OP], l);
+        g.exec_ops(i, l, g.mh[H_COMMIT]);
+        g.at(P_OP, i) = g.mh[H_OP];
+    }
+    g.at(P_STATUS, i) = NORMAL;
+    g.at(P_VIEW, i) = g.mh[H_VIEW];
+    g.at(P_LNV, i) = g.mh[H_VIEW];
+    g.discard(k);
+    return en;
+}
+
+// Crash, lane i * C + cp (CP06:985-1009): the log NoOp below cp, the app
+// state kept below cp, op = commit = cp, Recovering with a fresh nonce,
+// and the GetCheckpoint sent once (SendOnce: not while its record is in
+// the bag at all)
+template <int MODEL>
+__device__ bool cp_crash(St& g, int lane, int crash_limit) {
+    const int C = g.OPS + 1, i = lane / C, cp = lane - i * C, r = i + 1;
+    g.row(M_GETCP, 0, 0, 0, ANYDEST, r, 0, 0);
+    const bool en = g.at(P_AUX_RESTART, 0) < crash_limit &&
+                    cp <= g.at(P_COMMIT, i) && !g.any_eq();
+    const int u = g.unique_number();
+    g.at(P_STATUS, i) = RECOVERING;
+    int* l = g.log_row(i);
+    int* app = g.app_row(i);
+    for (int o = 0; o < g.OPS; ++o) {
+        l[o] = o < cp ? g.V + 1 : 0;
+        if (!(o < cp)) app[o] = 0;
+    }
+    g.at(P_VIEW, i) = 0;
+    g.at(P_OP, i) = cp;
+    g.at(P_COMMIT, i) = cp;
+    for (int j = 0; j < g.R; ++j) g.peer(i, j) = 0;
+    g.at(P_LNV, i) = 0;
+    g.reset_sent<MODEL>(i);
+    g.clear_dvc<MODEL>(i);
+    g.clear_rec<MODEL>(i);
+    g.at(P_REC_NUMBER, i) = u;
+    g.at(P_AUX_RESTART, 0) = wadd(g.at(P_AUX_RESTART, 0), 1);
+    g.send(true, 1);
+    return en;
+}
+
+// ReceiveGetCheckpointMsg, lane k * R * C + i * C + cp (CP06:1017-1043):
+// a replica not Recovering answers with its app state below cp
+__device__ bool cp_receive_get_checkpoint(St& g, int lane) {
+    const int C = g.OPS + 1, RC = g.R * C;
+    const int k = lane / RC, rest = lane - k * RC, i = rest / C;
+    const int cp = rest - i * C, r = i + 1;
+    g.msg_lane(k);
+    const int dest = g.mh[H_DEST];
+    const bool en = g.at(P_M_PRESENT, k) == 1 && g.at(P_M_COUNT, k) > 0 &&
+                    g.mh[H_TYPE] == M_GETCP &&
+                    (dest == r || (dest == ANYDEST && g.mh[H_SRC] != r)) &&
+                    g.can_progress(i) && g.at(P_STATUS, i) != RECOVERING &&
+                    cp <= g.at(P_COMMIT, i);
+    g.row(M_NEWCP, 0, 0, 0, g.mh[H_SRC], r, 0, 0);
+    g.rh[H_CP] = cp;
+    g.checkpoint(i, cp, g.rc);
+    g.discard(k);
+    g.send(true, 1);
+    return en;
+}
+
+// ReceiveNewCheckpointMsg (CP06:1051-1079): the Recovering receiver takes
+// the checkpoint (log NoOp below cp_number, op = commit = cp_number) and
+// broadcasts a RecoveryMsg with a fresh nonce and op = cp_number
+__device__ bool cp_receive_new_checkpoint(St& g, int k) {
+    const int i = g.msg_lane(k), r = g.mh[H_DEST];
+    const bool en = g.recv_en(k, M_NEWCP) && g.can_progress(i) &&
+                    g.at(P_STATUS, i) == RECOVERING;
+    const int cpn = g.mh[H_CP];
+    const int u = g.unique_number();
+    int* l = g.log_row(i);
+    int* app = g.app_row(i);
+    const int* c = g.m_cp(k);
+    for (int o = 0; o < g.OPS; ++o) {
+        l[o] = o < cpn ? g.V + 1 : 0;
+        app[o] = c[o];
+    }
+    g.at(P_OP, i) = cpn;
+    g.at(P_COMMIT, i) = cpn;
+    g.discard(k);
+    g.row(M_RECOVERY, 0, cpn, 0, 0, r, 0, 0);
+    g.rh[H_X] = u;
+    g.broadcast(r);
+    return en;
+}
+
+// ReceiveRecoveryMsg, lane k * C + cp (CP06:1081-1105): a Normal replica
+// answers; the primary with its log GC'd at m.op + 1 in the checkpoint
+// form (one lane per cp), the primary otherwise with its suffix from
+// m.op + 1, a backup with the Nil form (commit = first = -1)
+__device__ bool cp_receive_recovery(St& g, int lane) {
+    const int C = g.OPS + 1, k = lane / C, cp = lane - k * C;
+    const int i = g.msg_lane(k), r = g.mh[H_DEST];
+    const int op_i = g.at(P_OP, i), commit_i = g.at(P_COMMIT, i);
+    const int m_op = g.mh[H_OP];
+    const int* l = g.log_row(i);
+    const bool base = g.recv_en(k, M_RECOVERY) &&
+                      g.at(P_STATUS, i) == NORMAL;
+    const bool prim = g.normal_primary(i, r);
+    const bool gced = op_i > m_op &&
+                      l[clipi(m_op, 0, g.OPS - 1)] == g.V + 1;
+    const bool pg = prim && gced;
+    const bool en = base && (pg ? cp >= g.hgc(l) + 1 && cp <= commit_i
+                                : cp == 0);
+    const int first_ls = wadd(m_op, 1);
+    g.row(M_RECOVERYRESP, g.at(P_VIEW, i), op_i,
+          !prim ? -1 : gced ? cp : commit_i, g.mh[H_SRC], r,
+          !prim ? -1 : gced ? 0 : first_ls, 0);
+    g.rh[H_X] = g.mh[H_X];
+    g.rh[H_FLAG] = pg;
+    g.rh[H_CP] = pg ? cp : 0;
+    if (prim) g.log_suffix(l, gced ? cp + 1 : first_ls, g.rl);
+    if (pg) g.checkpoint(i, cp, g.rc);
+    g.discard(k);
+    g.send(true, 1);
+    return en;
+}
+
+// ReceiveRecoveryResponseMsg (CP06:1107-1121): the response, in any of
+// its forms, into the Recovering receiver's slot for its source; a
+// different record there already sets ERR_REC_OVERFLOW
+__device__ bool cp_receive_recovery_response(St& g, int k) {
+    const int i = g.msg_lane(k);
+    const int j = clipi(wsub(g.mh[H_SRC], 1), 0, g.R - 1);
+    const bool en = g.recv_en(k, M_RECOVERYRESP) &&
+                    g.at(P_REC_NUMBER, i) == g.mh[H_X] &&
+                    g.at(P_STATUS, i) == RECOVERING;
+    const bool collide = en && g.slot(P_REC, i, j) == 1 &&
+                         (g.slot(P_REC_VIEW, i, j) != g.mh[H_VIEW] ||
+                          g.slot(P_REC_OP, i, j) != g.mh[H_OP]);
+    g.slot(P_REC, i, j) = 1;
+    g.slot(P_REC_VIEW, i, j) = g.mh[H_VIEW];
+    g.slot(P_REC_OP, i, j) = g.mh[H_OP];
+    g.slot(P_REC_HAS_LOG, i, j) =
+        !(g.mh[H_FIRST] == -1 && g.mh[H_COMMIT] == -1);
+    g.slot(P_REC_FLAG, i, j) = g.mh[H_FLAG];
+    g.slot(P_REC_FIRST, i, j) = g.mh[H_FLAG] == 1 ? wadd(g.mh[H_CP], 1)
+                                                  : g.mh[H_FIRST];
+    g.slot(P_REC_CPN, i, j) = g.mh[H_CP];
+    g.slot(P_REC_COMMIT, i, j) = g.mh[H_COMMIT];
+    int* rl = g.rec_log(i, j);
+    int* rc = g.rec_cp(i, j);
+    const int* ml = g.m_log(k);
+    const int* mc = g.m_cp(k);
+    for (int o = 0; o < g.OPS; ++o) {
+        rl[o] = ml[o];
+        rc[o] = mc[o];
+    }
+    if (collide) g.at(P_ERR, 0) |= ERR_REC_OVERFLOW;
+    g.discard(k);
+    return en;
+}
+
+// CompleteRecovery, lane i (CP06:1138-1170): with a majority of
+// responses, the has-log one of the highest view installed, in its form
+// (flag 1: ApplyCheckpoint; flag 0: the replica's prefix below first_op
+// under the suffix, its committed ops executed), the slots cleared
+template <int MODEL>
+__device__ bool cp_complete_recovery(St& g, int i) {
+    bool any;
+    const int j = g.best_rec(i, &any);
+    const bool en = g.at(P_STATUS, i) == RECOVERING && g.rec_quorum(i) &&
+                    any;
+    const int rv = g.slot(P_REC_VIEW, i, j), m_op = g.slot(P_REC_OP, i, j);
+    const int m_commit = g.slot(P_REC_COMMIT, i, j);
+    if (g.slot(P_REC_FLAG, i, j) == 1) {
+        g.apply_checkpoint(i, g.rec_log(i, j), g.rec_cp(i, j),
+                           g.slot(P_REC_CPN, i, j), m_op, m_commit);
+    } else {
+        int* l = g.log_row(i);
+        g.splice(l, g.rec_log(i, j), g.slot(P_REC_FIRST, i, j), m_op, l);
+        g.exec_ops(i, l, m_commit);
+        g.at(P_OP, i) = m_op;
+    }
+    g.at(P_STATUS, i) = NORMAL;
+    g.at(P_VIEW, i) = rv;
+    g.at(P_LNV, i) = rv;
+    g.clear_rec<MODEL>(i);
+    return en;
+}
+
 // the replica a lane's action mutates (lane_replica), from the parent
 template <int MODEL>
 __device__ int lane_replica(const St& g, int a, int lane) {
+    if constexpr (CHECKPOINTS<MODEL>) {
+        const int C = g.OPS + 1;
+        switch (a) {
+        case A_SEND_DVC: case A_CRASH:
+            return lane / C;
+        case A_RECEIVE_GET_STATE: case A_RECEIVE_GET_CHECKPOINT:
+            return (lane % (g.R * C)) / C;
+        case A_RECEIVE_RECOVERY:
+            return clipi(wsub(g.hdr(lane / C, H_DEST), 1), 0, g.R - 1);
+        }
+    }
     switch (a) {
     case A_TIMER_SEND_SVC: case A_SEND_DVC: case A_SEND_SV:
     case A_EXECUTE_OP: case A_COMPLETE_RECOVERY: case A_RETRY_RECOVERY:
@@ -1209,6 +1701,22 @@ __device__ int lane_replica(const St& g, int a, int lane) {
 template <int MODEL>
 __device__ bool apply(St& g, int a, int lane, int timer_limit, int np_limit,
                       int crash_limit) {
+    if constexpr (CHECKPOINTS<MODEL>) {
+        switch (a) {
+        case A_SEND_SV: return cp_send_sv<MODEL>(g, lane);
+        case A_RECEIVE_GET_STATE: return cp_receive_get_state(g, lane);
+        case A_RECEIVE_NEW_STATE: return cp_receive_new_state<MODEL>(g, lane);
+        case A_CRASH: return cp_crash<MODEL>(g, lane, crash_limit);
+        case A_RECEIVE_GET_CHECKPOINT:
+            return cp_receive_get_checkpoint(g, lane);
+        case A_RECEIVE_NEW_CHECKPOINT:
+            return cp_receive_new_checkpoint(g, lane);
+        case A_RECEIVE_RECOVERY: return cp_receive_recovery(g, lane);
+        case A_RECEIVE_RECOVERY_RESPONSE:
+            return cp_receive_recovery_response(g, lane);
+        case A_COMPLETE_RECOVERY: return cp_complete_recovery<MODEL>(g, lane);
+        }
+    }
     switch (a) {
     case A_TIMER_SEND_SVC: return timer_send_svc<MODEL>(g, lane,
                                                         timer_limit);
@@ -1232,7 +1740,7 @@ __device__ bool apply(St& g, int a, int lane, int timer_limit, int np_limit,
     case A_NO_PROGRESS_CHANGE: return no_progress_change(g, lane, np_limit);
     case A_RESEND_SVC: return resend_svc(g, lane);
     }
-    if constexpr (RECOVERY<MODEL>) {
+    if constexpr (RECOVERY<MODEL> && !CHECKPOINTS<MODEL>) {
         switch (a) {
         case A_CRASH: return crash<MODEL>(g, lane, crash_limit);
         case A_RECEIVE_RECOVERY: return receive_recovery<MODEL>(g, lane);
@@ -1272,7 +1780,8 @@ __global__ void actions_kernel(
         g.mh = scratch;
         g.rh = g.mh + NHDR;
         g.rl = g.rh + NHDR;
-        g.ts = g.rl + OPS;
+        g.rc = CHECKPOINTS<MODEL> ? g.rl + OPS : nullptr;
+        g.ts = g.rl + 2 * OPS;
         g.re = 0;
         for (int t = 0; t <= R; ++t) g.ts[t] = -1;
         g.tn = 0;
@@ -1300,9 +1809,10 @@ int launch_actions(const void* flat, int lanes, const void* pidx,
                    void* ri, void* iok, void* stream) {
     if (N > 0) {
         // the row and the scratch words of one block
-        const size_t smem = (size_t)(lanes + 2 * NHDR + OPS + R + 1) *
+        const size_t smem = (size_t)(lanes + 2 * NHDR + 2 * OPS + R + 1) *
                             sizeof(int);
-        if (NHDR < N_ROWHDR || smem > 48 * 1024)
+        if (NHDR < (CHECKPOINTS<MODEL> ? H_CP + 1 : N_ROWHDR) ||
+                smem > 48 * 1024)
             return (int)cudaErrorInvalidValue;
         cudaStream_t st = (cudaStream_t)stream;
         KLAUNCH_SMEM(actions_kernel<MODEL>, N, THREADS, smem, st,
@@ -1346,3 +1856,4 @@ TPUVSR_ACTIONS_ENTRY(i01, MODEL_I01)
 TPUVSR_ACTIONS_ENTRY(as04, MODEL_AS04)
 TPUVSR_ACTIONS_ENTRY(rr05, MODEL_RR05)
 TPUVSR_ACTIONS_ENTRY(al05, MODEL_AL05)
+TPUVSR_ACTIONS_ENTRY(cp06, MODEL_CP06)

@@ -1,7 +1,7 @@
 // K13: the guard matrix of the ST03 (VR_STATE_TRANSFER) family: ST03,
 // A01 (VR_ASSUME_NEWVIEWCHANGE), I01 (VR_INC_RESEND), AS04
-// (VR_APP_STATE), RR05 (VR_REPLICA_RECOVERY) and AL05
-// (VR_REPLICA_RECOVERY_ASYNC_LOG).
+// (VR_APP_STATE), RR05 (VR_REPLICA_RECOVERY), AL05
+// (VR_REPLICA_RECOVERY_ASYNC_LOG) and CP06 (VR_REPLICA_RECOVERY_CP).
 //
 // Replaces tpuvsr/engine/device_bfs.py:_guard_matrix (:398), the vmapped
 // sweep of the guards of tpuvsr/models/st03_kernel.py:578-710 over every
@@ -11,8 +11,8 @@
 // ReceiveMatchingDVC, SendSV, ReceivePrepareMsg), as04_kernel.py:
 // 319,324 (ReceiveMatchingSVC, SendSV), rr05_kernel.py:132,141,150,159
 // (the not-Recovering conjunct), :189, :212, :245, :279, :308 (Crash and
-// the four other recovery actions) and al05_kernel.py:102 (Crash over
-// R x (MAX_OPS + 1) lanes).  The port's plain version is the
+// the four other recovery actions), al05_kernel.py:102 (Crash over
+// R x (MAX_OPS + 1) lanes) and cp06_kernel.py:183-664 (CP06's guards).  The port's plain version is the
 // loop over the model's _guard_fns (models/st03_kernel.py and its
 // subclasses); this kernel computes the same [B, n_lanes] enabled matrix
 // (lane-table order: action-major, then the action's lane parameter)
@@ -20,7 +20,8 @@
 //
 // The family.  The kernel is a template on the model, with one entry
 // point each (tpuvsr_st03_guards, tpuvsr_a01_guards, tpuvsr_i01_guards,
-// tpuvsr_as04_guards, tpuvsr_rr05_guards, tpuvsr_al05_guards); a
+// tpuvsr_as04_guards, tpuvsr_rr05_guards, tpuvsr_al05_guards,
+// tpuvsr_cp06_guards); a
 // model's deltas are if-constexpr branches, so
 // ST03's instantiation does ST03's work alone.  The host's lane table
 // names each lane's action by its family id (enum Action, then
@@ -44,6 +45,14 @@
 // a log in the highest view) and RetryRecovery (RR05: a majority, none
 // with a log in the highest view, and no present undelivered message
 // with the nonce that can still bring one: a scan of the bag a lane).
+// CP06 (cp_recovery_guard and the CP06 branches of guard) adds the
+// checkpoint lane dimension C = OPS + 1 to SendDVC and Crash (i * C + cp),
+// ReceiveGetState and ReceiveGetCheckpointMsg (k * R * C + i * C + cp) and
+// ReceiveRecoveryMsg (k * C + cp), cp in HighestGCedOp + 1 .. commit for a
+// GC'd reply (0 .. commit for Crash and ReceiveGetCheckpointMsg) or 0
+// for a suffix reply; Crash's SendOnce scans for its GetCheckpoint
+// (checkpoint plane included), ReceiveNewState asks the replica's own
+// view, and its recovery guards do not ask CanProgress.
 //
 // ST03's guards, against VSR's (K6, csrc/vsr_guards.cu): every guard
 // but NoProgressChange's asks CanProgress of its replica (no_prog = 0);
@@ -83,25 +92,28 @@ enum Plane {
 // the family's planes K13 reads (FAMILY_GUARD_PLANES)
 enum FamilyPlane {
     P_SENT_SVC = N_PLANES, P_DVC, P_DVC_VIEW, P_REC_NUMBER, P_REC,
-    P_REC_VIEW, P_REC_HAS_LOG, P_AUX_RESTART, N_FAMILY_PLANES
+    P_REC_VIEW, P_REC_HAS_LOG, P_AUX_RESTART, P_LOG, P_M_CP, N_FAMILY_PLANES
 };
 
 // the models (one instantiation and entry point each)
 enum Model {
-    MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04, MODEL_RR05, MODEL_AL05
+    MODEL_ST03, MODEL_A01, MODEL_I01, MODEL_AS04, MODEL_RR05, MODEL_AL05,
+    MODEL_CP06
 };
 
 // the family ids of the actions beyond ST03's (csrc/st03_actions.cu enum
 // FamilyAction)
 constexpr int A_RESEND_SVC = 16, A_CRASH = 17, A_RECEIVE_RECOVERY = 18,
               A_RECEIVE_RECOVERY_RESPONSE = 19, A_COMPLETE_RECOVERY = 20,
-              A_RETRY_RECOVERY = 21;
+              A_RETRY_RECOVERY = 21, A_RECEIVE_GET_CHECKPOINT = 22,
+              A_RECEIVE_NEW_CHECKPOINT = 23;
 
-// the codec's encodings (models/st03.py, models/rr05.py, models/vsr.py)
+// the codec's encodings (models/st03.py, models/rr05.py, models/cp06.py,
+// models/vsr.py)
 constexpr int NORMAL = 0, VIEWCHANGE = 1, STATETRANSFER = 2, RECOVERING = 3;
 constexpr int M_PREPARE = 1, M_PREPAREOK = 2, M_SVC = 3, M_DVC = 4,
               M_SV = 5, M_GETSTATE = 6, M_NEWSTATE = 7, M_RECOVERY = 8,
-              M_RECOVERYRESP = 9;
+              M_RECOVERYRESP = 9, M_GETCP = 10, M_NEWCP = 11;
 constexpr int H_TYPE = 0, H_VIEW = 1, H_OP = 2, H_COMMIT = 3, H_DEST = 4,
               H_SRC = 5, H_X = 6;
 constexpr int ANYDEST = -1;
@@ -146,10 +158,16 @@ __device__ __forceinline__ bool normal_primary(const Row& g, int i, int r) {
     return primary(g.at(P_VIEW, i), g.R) == r && g.at(P_STATUS, i) == NORMAL;
 }
 
+// a deliverable mtype record, whatever its receiver's CanProgress (CP06's
+// recovery guards do not ask it)
+__device__ bool recv_any(const Row& g, int k, int mtype) {
+    return g.at(P_M_PRESENT, k) == 1 && g.at(P_M_COUNT, k) > 0 &&
+           g.hdr(k, H_TYPE) == mtype;
+}
+
 // a deliverable mtype record whose receiver can progress
 __device__ bool recv(const Row& g, int k, int mtype) {
-    return g.at(P_M_PRESENT, k) == 1 && g.at(P_M_COUNT, k) > 0 &&
-           g.hdr(k, H_TYPE) == mtype && can_progress(g, dest_rep(g, k));
+    return recv_any(g, k, mtype) && can_progress(g, dest_rep(g, k));
 }
 
 // processed (count-0) mtype records addressed to replica r in its view
@@ -163,7 +181,8 @@ __device__ int tombstones(const Row& g, int r, int mtype) {
     return n;
 }
 
-__device__ bool send_get_state(const Row& g, int k) {
+// (cp_plane: the bag has CP06's checkpoint plane, compared too)
+__device__ bool send_get_state(const Row& g, int k, bool cp_plane) {
     const int i = dest_rep(g, k), r = g.hdr(k, H_DEST);
     const int view_i = g.at(P_VIEW, i);
     if (!(recv(g, k, M_PREPARE) && !normal_primary(g, i, r) &&
@@ -185,7 +204,8 @@ __device__ bool send_get_state(const Row& g, int k) {
             eq = g.hdr(s, c) == want;
         }
         for (int o = 0; o < g.OPS && eq; ++o)
-            eq = g.at(P_M_LOG, s * g.OPS + o) == 0;
+            eq = g.at(P_M_LOG, s * g.OPS + o) == 0 &&
+                 (!cp_plane || g.at(P_M_CP, s * g.OPS + o) == 0);
         if (eq) return false;
     }
     return true;
@@ -245,9 +265,89 @@ __device__ bool rec_pending(const Row& g, int i) {
     return false;
 }
 
+// CP06: HighestGCedOp of replica i's log (the largest 1-based position
+// of a NoOp entry, id V + 1; 0 when none), and whether its entry at
+// position o is NoOp
+__device__ int hgc(const Row& g, int i) {
+    int h = 0;
+    for (int o = 0; o < g.OPS; ++o)
+        if (g.at(P_LOG, i * g.OPS + o) == g.V + 1) h = o + 1;
+    return h;
+}
+
+__device__ bool gced_at(const Row& g, int i, int o) {
+    return g.at(P_LOG, i * g.OPS + clipi(o, 0, g.OPS - 1)) == g.V + 1;
+}
+
+// CP06's recovery guards: the checkpoint lane dimension C = OPS + 1
+__device__ bool cp_recovery_guard(const Row& g, int a, int p,
+                                  int crash_limit) {
+    const int C = g.OPS + 1;
+    switch (a) {
+    case A_CRASH: {     // lane i * C + cp
+        const int i = p / C, cp = p - i * C;
+        if (!(g.at(P_AUX_RESTART, 0) < crash_limit &&
+              cp <= g.at(P_COMMIT, i)))
+            return false;
+        // SendOnce: the record [GetCheckpoint, AnyDest, source i + 1,
+        // every other field 0] in the bag at all
+        for (int s = 0; s < g.M; ++s) {
+            if (g.at(P_M_PRESENT, s) != 1 || g.at(P_M_ENTRY, s) != 0)
+                continue;
+            bool eq = true;
+            for (int c = 0; c < g.NHDR && eq; ++c)
+                eq = g.hdr(s, c) == (c == H_TYPE ? M_GETCP
+                                     : c == H_DEST ? ANYDEST
+                                     : c == H_SRC ? i + 1 : 0);
+            for (int o = 0; o < g.OPS && eq; ++o)
+                eq = g.at(P_M_LOG, s * g.OPS + o) == 0 &&
+                     g.at(P_M_CP, s * g.OPS + o) == 0;
+            if (eq) return false;
+        }
+        return true;
+    }
+    case A_RECEIVE_GET_CHECKPOINT: {    // lane k * R * C + i * C + cp
+        const int k = p / (g.R * C), rest = p - k * g.R * C;
+        const int i = rest / C, cp = rest - i * C, r = i + 1;
+        const int dest = g.hdr(k, H_DEST);
+        return recv_any(g, k, M_GETCP) &&
+               (dest == r || (dest == ANYDEST && g.hdr(k, H_SRC) != r)) &&
+               can_progress(g, i) && g.at(P_STATUS, i) != RECOVERING &&
+               cp <= g.at(P_COMMIT, i);
+    }
+    case A_RECEIVE_NEW_CHECKPOINT:      // lane k
+        return recv(g, p, M_NEWCP) &&
+               g.at(P_STATUS, dest_rep(g, p)) == RECOVERING;
+    case A_RECEIVE_RECOVERY: {          // lane k * C + cp
+        const int k = p / C, cp = p - k * C, i = dest_rep(g, k);
+        if (!(recv_any(g, k, M_RECOVERY) && g.at(P_STATUS, i) == NORMAL))
+            return false;
+        const int m_op = g.hdr(k, H_OP);
+        const bool pg = normal_primary(g, i, g.hdr(k, H_DEST)) &&
+                        g.at(P_OP, i) > m_op && gced_at(g, i, m_op);
+        return pg ? cp >= hgc(g, i) + 1 && cp <= g.at(P_COMMIT, i)
+                  : cp == 0;
+    }
+    case A_RECEIVE_RECOVERY_RESPONSE: {
+        const int i = dest_rep(g, p);
+        return recv_any(g, p, M_RECOVERYRESP) &&
+               g.at(P_REC_NUMBER, i) == g.hdr(p, H_X) &&
+               g.at(P_STATUS, i) == RECOVERING;
+    }
+    case A_COMPLETE_RECOVERY: {         // lane r
+        bool cand;
+        const bool q = rec_quorum(g, p, &cand);
+        return g.at(P_STATUS, p) == RECOVERING && q && cand;
+    }
+    }
+    return false;
+}
+
 // the recovery actions' guards (RR05, AL05)
 template <int MODEL>
 __device__ bool recovery_guard(const Row& g, int a, int p, int crash_limit) {
+    if constexpr (MODEL == MODEL_CP06)
+        return cp_recovery_guard(g, a, p, crash_limit);
     switch (a) {
     case A_CRASH: {     // lane r (AL05: r * (OPS + 1) + last_op)
         int i = p, last_op = 0;
@@ -288,11 +388,45 @@ template <int MODEL>
 __device__ bool guard(const Row& g, int a, int p, int timer_limit,
                       int np_limit, int crash_limit) {
     constexpr bool A01_LIKE = MODEL == MODEL_A01 || MODEL == MODEL_I01;
-    // AS04's app state and DVC slots (AS04, RR05, AL05)
-    constexpr bool APP_STATE =
-        MODEL == MODEL_AS04 || MODEL == MODEL_RR05 || MODEL == MODEL_AL05;
-    constexpr bool RECOVERY = MODEL == MODEL_RR05 || MODEL == MODEL_AL05;
-    const int R = g.R;
+    // AS04's app state and DVC slots (AS04, RR05, AL05, CP06)
+    constexpr bool APP_STATE = MODEL == MODEL_AS04 || MODEL == MODEL_RR05 ||
+                               MODEL == MODEL_AL05 || MODEL == MODEL_CP06;
+    constexpr bool RECOVERY =
+        MODEL == MODEL_RR05 || MODEL == MODEL_AL05 || MODEL == MODEL_CP06;
+    // CP06's checkpoint lanes: SendDVC i * C + cp, ReceiveGetState
+    // k * R * C + i * C + cp, cp in HighestGCedOp + 1 .. commit (the
+    // GC'd reply) or 0 (the suffix reply)
+    constexpr bool CP06 = MODEL == MODEL_CP06;
+    const int R = g.R, C = g.OPS + 1;
+    if constexpr (CP06) {
+        if (a == 3) {       // SendDVC
+            const int i = p / C, cp = p - i * C;
+            return can_progress(g, i) && g.at(P_STATUS, i) == VIEWCHANGE &&
+                   g.at(P_SENT_DVC, i) == 0 &&
+                   tombstones(g, i, M_SVC) >= R / 2 &&
+                   cp >= hgc(g, i) + 1 && cp <= g.at(P_COMMIT, i);
+        }
+        if (a == 13) {      // ReceiveGetState
+            const int k = p / (R * C), rest = p - k * R * C;
+            const int i = rest / C, cp = rest - i * C, r = i + 1;
+            const int dest = g.hdr(k, H_DEST);
+            if (!(g.at(P_M_PRESENT, k) == 1 && g.at(P_M_COUNT, k) > 0 &&
+                  g.hdr(k, H_TYPE) == M_GETSTATE &&
+                  (dest == r || (dest == ANYDEST && g.hdr(k, H_SRC) != r)) &&
+                  can_progress(g, i) && g.at(P_STATUS, i) == NORMAL &&
+                  g.at(P_VIEW, i) == g.hdr(k, H_VIEW) &&
+                  g.at(P_OP, i) > g.hdr(k, H_OP)))
+                return false;
+            return gced_at(g, i, g.hdr(k, H_OP))
+                ? cp >= hgc(g, i) + 1 && cp <= g.at(P_COMMIT, i) : cp == 0;
+        }
+        if (a == 14) {      // ReceiveNewState: of the replica's own view
+            const int i = dest_rep(g, p);
+            return recv(g, p, M_NEWSTATE) &&
+                   g.at(P_STATUS, i) == STATETRANSFER &&
+                   g.hdr(p, H_VIEW) == g.at(P_VIEW, i);
+        }
+    }
     if constexpr (RECOVERY) {
         if (a >= A_CRASH) return recovery_guard<MODEL>(g, a, p, crash_limit);
         // TimerSendSVC, ReceiveHigherSVC, ReceiveHigherDVC, ReceiveSV:
@@ -392,7 +526,7 @@ __device__ bool guard(const Row& g, int a, int p, int timer_limit,
                g.at(P_COMMIT, p) < g.at(P_OP, p) && n >= R / 2;
     }
     case 12:    // SendGetState, lane k
-        return send_get_state(g, p);
+        return send_get_state(g, p, CP06);
     case 13: {  // ReceiveGetState, lane k * R + (receiver - 1)
         const int k = p / R, i = p - k * R, r = i + 1;
         const int dest = g.hdr(k, H_DEST);
@@ -500,3 +634,4 @@ TPUVSR_GUARDS_ENTRY(i01, MODEL_I01)
 TPUVSR_GUARDS_ENTRY(as04, MODEL_AS04)
 TPUVSR_GUARDS_ENTRY(rr05, MODEL_RR05)
 TPUVSR_GUARDS_ENTRY(al05, MODEL_AL05)
+TPUVSR_GUARDS_ENTRY(cp06, MODEL_CP06)

@@ -70,7 +70,8 @@ def symmetry_perms(module: str, cfg: CfgModel) -> list:
 def load_binding(cfg_path: str, module: str) -> SpecBinding:
     """Bind a cfg file to the TLA+ module ``module`` (the name its spec
     declares; a cfg does not name it).  ``registry.make_model`` refuses
-    a module with no hand model kernel (the port has one, VSR's)."""
+    a module with no hand model kernel (the port has VSR's and the
+    analysis family's, ``models/registry._resolve``)."""
     cfg = parse_cfg_file(cfg_path)
     return SpecBinding(module=module, cfg=cfg,
                        init=lambda codec: [codec.init_dense()],

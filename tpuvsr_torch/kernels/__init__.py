@@ -162,6 +162,22 @@ KERNELS = {
                     "(+ rr05, as04, st03 guards)"),
     "al05_actions": ("st03_actions", "tpuvsr/models/al05_kernel.py:60-168 "
                      "(+ rr05_kernel.py, as04_kernel.py, st03_kernel.py)"),
+    "cp06_fp_full": ("vsr_fingerprint",
+                     "tpuvsr/models/st03_kernel.py:841 fingerprint on "
+                     "tpuvsr/models/cp06_kernel.py's rows (REP_KEYS :48, "
+                     "ROW_PLANES :59)"),
+    "cp06_fp_parts": ("vsr_fingerprint",
+                      "tpuvsr/models/st03_kernel.py:847 parent_parts on "
+                      "tpuvsr/models/cp06_kernel.py's rows"),
+    "cp06_fp_incremental": (
+        "vsr_fingerprint", "tpuvsr/models/st03_kernel.py:879 "
+        "fingerprint_incremental on tpuvsr/models/cp06_kernel.py's rows"),
+    "cp06_guards": ("st03_guards", "tpuvsr/engine/device_bfs.py:398 "
+                    "_guard_matrix over tpuvsr/models/cp06_kernel.py:183-664 "
+                    "guard_* (+ rr05, as04, st03 guards)"),
+    "cp06_actions": ("st03_actions", "tpuvsr/models/cp06_kernel.py:155-759 "
+                     "act_*, inv_* (+ rr05_kernel.py, as04_kernel.py, "
+                     "st03_kernel.py)"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -190,7 +206,7 @@ _ENTRY = {
     "tpuvsr_edge_emit": "ppppi" + "piii" + "pppp" + "p",
 }
 # K13 and K14 take one signature for every model of the ST03 family
-for _m in ("st03", "a01", "i01", "as04", "rr05", "al05"):
+for _m in ("st03", "a01", "i01", "as04", "rr05", "al05", "cp06"):
     _ENTRY[f"tpuvsr_{_m}_guards"] = ("piii" + "iiiiiiii" + "ppp" + "ppp"
                                      + "p")
     _ENTRY[f"tpuvsr_{_m}_actions"] = ("pipppi" + "pp" + "iiiii" + "iiii"

@@ -293,19 +293,13 @@ class AS04Kernel(ST03Kernel):
 
     def act_receive_new_state(self, st, lane):    # AS04:515-539
         k = lane
-        dev = lane.device
         hdr, _r, i = self._msg_lane(st, k)
         en = (self._recv_en(st, k, hdr, M_NEWSTATE)
               & self._can_progress(st, i)
               & (_take(st["status"], i) == STATETRANSFER)
               & (hdr[:, H_VIEW] > _take(st["view"], i)))
-        first = hdr[:, H_FIRST][:, None]
-        pos = _iota(self.MAX_OPS, dev)[None, :]
-        suffix = _take(st["m_log"], k).gather(
-            1, _clip(pos - (first - 1), 0, self.MAX_OPS - 1).long())
-        new_log = torch.where(pos < first - 1, _take(st["log"], i),
-                              torch.where(pos < hdr[:, H_OP][:, None],
-                                          suffix, 0))
+        new_log = self._splice(_take(st["log"], i), _take(st["m_log"], k),
+                               hdr[:, H_FIRST], hdr[:, H_OP])
         s2 = dict(st)
         s2["status"] = _put(st["status"], i, NORMAL)
         s2["view"] = _put(st["view"], i, hdr[:, H_VIEW])

@@ -1,0 +1,361 @@
+"""Dense state layout for VR_REPLICA_RECOVERY_CP (reference: CP06,
+analysis/06-replica-recovery-cp/VR_REPLICA_RECOVERY_CP.tla).
+
+A copy of ``tpuvsr/models/cp06.py`` (``M_GETCP``, ``M_NEWCP``,
+``CP06Codec``) with one change: it imports the ``H_LNV`` header column
+its DoViewChange encoder and decoder write and read.  The JAX module
+names ``H_LNV`` without importing it (``tpuvsr/models/cp06.py:33-34``),
+so its ``encode_msg_row`` and ``decode_msg_row`` raise NameError on a
+DoViewChangeMsg (ROADMAP queue 3).
+
+The checkpointing spec.  Its deltas over the recovery family:
+
+* log entries are ``[operation: Values \\union {NoOp}]`` (CP06:117-121):
+  ``NoLogEntry`` marks the garbage-collected prefix, and NoOp takes the
+  dense id V+1, which a value permutation leaves fixed;
+* a message carries up to two logs: a ``checkpoint`` (the app-state
+  prefix 1..cp_number) and a ``log_suffix`` (domain cp+1.. or
+  first_op..), so a bag slot has a second log plane ``m_cp``, and the
+  H_FLAG/H_CP header columns tell the reply forms apart (CP06:404-431):
+  flag 0 with first_op and a suffix, flag 0 with a Nil suffix (a
+  backup's recovery response: H_COMMIT = H_FIRST = -1), or flag 1 with
+  a checkpoint;
+* DoViewChange and StartView carry checkpoint + cp_number + log_suffix
+  in place of the whole log (CP06:785-823, 898-927): more tracker
+  planes;
+* recovery is GetCheckpoint -> NewCheckpoint -> Recovery ->
+  RecoveryResponse -> CompleteRecovery (CP06:985-1170);
+* ``rep_app_state`` still has Len(app) == commit_number (every path
+  executes exactly up to the new commit, and new_commit >= cp_number
+  on every ApplyCheckpoint path), so the app plane needs no length
+  column.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.values import FnVal, TLAError, mk_record
+from .rr05 import RR05Codec
+from .st03 import MSGTYPE_NAMES as ST03_MSGTYPE_NAMES
+from .vsr import (CP_NHDR, H_COMMIT, H_CP, H_DEST, H_FIRST, H_FLAG, H_LNV,
+                  H_OP, H_SRC, H_TYPE, H_VIEW, H_X)
+
+M_RECOVERY, M_RECOVERYRESP = 8, 9          # RR05's and AL05's codes
+M_GETCP, M_NEWCP = 10, 11
+MSGTYPE_NAMES = dict(ST03_MSGTYPE_NAMES)
+MSGTYPE_NAMES[M_RECOVERY] = "RecoveryMsg"
+MSGTYPE_NAMES[M_RECOVERYRESP] = "RecoveryResponseMsg"
+MSGTYPE_NAMES[M_GETCP] = "GetCheckpointMsg"
+MSGTYPE_NAMES[M_NEWCP] = "NewCheckpointMsg"
+
+
+class CP06Codec(RR05Codec):
+    NHDR = CP_NHDR       # + the H_FLAG and H_CP columns
+
+    def __init__(self, constants, shape=None, max_msgs=None):
+        super().__init__(constants, shape=shape, max_msgs=max_msgs)
+        self.noop = constants["NoOp"]
+        self.noop_id = self.shape.V + 1
+        for code in (M_GETCP, M_NEWCP):
+            mv = constants[MSGTYPE_NAMES[code]]
+            self.mtype_id[mv] = code
+            self.mtype_mv[code] = mv
+
+    def _entry_code_hi(self, view_hi):
+        return self.noop_id        # plain ids, NoOp = V + 1
+
+    def _hdr_bounds(self, ranges, view_hi, ops_hi):
+        b = super()._hdr_bounds(ranges, view_hi, ops_hi)
+        b[H_FLAG] = (0, 1)
+        b[H_CP] = (0, ops_hi)      # cp_number <= commit <= ops
+        return b
+
+    def plane_bounds(self, ranges):
+        b = super().plane_bounds(ranges)
+        s = self.shape
+        view = self._range_hi(ranges, "view_number", s.MAX_VIEW)
+        ops = self._range_hi(ranges, "op_number", s.MAX_OPS)
+        ent = self._entry_code_hi(view)
+        b.update({
+            "m_cp": (0, ent),
+            "dvc_cp": (0, ent), "dvc_cpn": (0, ops),
+            "rec_flag": (0, 1), "rec_first": (-1, ops + 1),
+            "rec_cp": (0, ent), "rec_cpn": (0, ops),
+        })
+        return b
+
+    # -- entries: [operation: Values u {NoOp}] --------------------------
+    def _enc_entry(self, e: FnVal) -> int:
+        op = e.apply("operation")
+        if op is self.noop:
+            return self.noop_id
+        return self.value_id[op]
+
+    def _dec_entry(self, code):
+        code = int(code)
+        if code == self.noop_id:
+            return mk_record(operation=self.noop)
+        return mk_record(operation=self.values[code - 1])
+
+    # -- dense planes ----------------------------------------------------
+    def zero_state(self):
+        d = super().zero_state()
+        s = self.shape
+        z = lambda *sh: np.zeros(sh, np.int32)
+        d["m_cp"] = z(s.MAX_MSGS, s.MAX_OPS)      # checkpoint payloads
+        d["dvc_cp"] = z(s.R, s.R, s.MAX_OPS)      # tracker checkpoints
+        d["dvc_cpn"] = z(s.R, s.R)
+        d["rec_flag"] = z(s.R, s.R)               # response form
+        d["rec_first"] = z(s.R, s.R)
+        d["rec_cp"] = z(s.R, s.R, s.MAX_OPS)
+        d["rec_cpn"] = z(s.R, s.R)
+        return d
+
+    MSG_KEYS = RR05Codec.MSG_KEYS + ("m_cp",)
+
+    # -- recv_dvc slots (checkpointed DVCs, CP06:785-823) ---------------
+    def _encode_dvc_slot(self, d, i, j, m):
+        d["dvc"][i][j] = 1
+        d["dvc_lnv"][i][j] = m.apply("last_normal_vn")
+        d["dvc_op"][i][j] = m.apply("op_number")
+        d["dvc_commit"][i][j] = m.apply("commit_number")
+        cpn = m.apply("cp_number")
+        d["dvc_cpn"][i][j] = cpn
+        d["dvc_cp"][i][j] = self._enc_log(m.apply("checkpoint"))
+        d["dvc_log"][i][j] = self._enc_log(m.apply("log_suffix"),
+                                           first_op=cpn + 1)
+
+    def encode(self, st: dict):
+        d = self._encode_common(st)
+        s = self.shape
+        for r in range(1, s.R + 1):
+            i = r - 1
+            app = st["rep_app_state"].apply(r)
+            if len(app) != int(d["commit"][i]):
+                raise TLAError("CP06 layout invariant violated: "
+                               "Len(rep_app_state) != rep_commit_number")
+            d["app"][i] = self._enc_log(app)
+            self._encode_rec(st, d, r)
+            for m in st["rep_recv_dvc"].apply(r):
+                if m.apply("view_number") != int(d["view"][i]) or \
+                        m.apply("dest") != r:
+                    raise TLAError("recv_dvc implied-field invariant "
+                                   "violated")
+                j = m.apply("source") - 1
+                if d["dvc"][i][j]:
+                    raise TLAError("DVC slot collision")
+                self._encode_dvc_slot(d, i, j, m)
+        self._encode_aux_restart(st, d)
+        return d
+
+    def _encode_rec(self, st, d, r):
+        i = r - 1
+        d["rec_number"][i] = st["rep_rec_number"].apply(r)
+        for m in st["rep_rec_recv"].apply(r):
+            if m.apply("x") != d["rec_number"][i] or m.apply("dest") != r:
+                raise TLAError("rec_recv implied-field invariant violated")
+            j = m.apply("source") - 1
+            if d["rec"][i][j]:
+                raise TLAError("recovery-response slot collision")
+            d["rec"][i][j] = 1
+            d["rec_view"][i][j] = m.apply("view_number")
+            d["rec_op"][i][j] = m.apply("op_number")
+            lg = m.apply("log_suffix")
+            if not isinstance(lg, FnVal):       # Nil form
+                d["rec_commit"][i][j] = -1
+                d["rec_first"][i][j] = -1
+                continue
+            d["rec_has_log"][i][j] = 1
+            d["rec_commit"][i][j] = m.apply("commit_number")
+            if m.apply("flag") == 1:
+                cpn = m.apply("cp_number")
+                d["rec_flag"][i][j] = 1
+                d["rec_cpn"][i][j] = cpn
+                d["rec_cp"][i][j] = self._enc_log(m.apply("checkpoint"))
+                d["rec_log"][i][j] = self._enc_log(lg, first_op=cpn + 1)
+                d["rec_first"][i][j] = cpn + 1
+            else:
+                first = m.apply("first_op")
+                d["rec_first"][i][j] = first
+                d["rec_log"][i][j] = self._enc_log(lg, first_op=first)
+
+    # -- messages --------------------------------------------------------
+    def _store_msg_row(self, d, k, m):
+        hdr, entry, log, cp = self.encode_msg_row(m)
+        d["m_hdr"][k] = hdr
+        d["m_entry"][k] = entry
+        d["m_log"][k] = log
+        d["m_cp"][k] = cp
+
+    def encode_msg_row(self, m: FnVal):
+        t = self.mtype_id[m.apply("type")]
+        hdr = np.zeros(self.NHDR, np.int32)
+        entry = 0
+        log = np.zeros(self.shape.MAX_OPS, np.int32)
+        cp = np.zeros(self.shape.MAX_OPS, np.int32)
+        get = m.get
+        hdr[H_TYPE] = t
+        hdr[H_DEST] = self._enc_dest(get("dest"))
+        hdr[H_SRC] = get("source")
+        if t in (1, 2, 3, 6):       # Prepare/PrepareOk/SVC/GetState
+            hdr2, entry, log = super(RR05Codec, self).encode_msg_row(m)
+            return hdr2, entry, log, cp
+        if t == M_GETCP:
+            pass
+        elif t == M_NEWCP:
+            cpn = get("cp_number")
+            hdr[H_CP] = cpn
+            cp = self._enc_log(get("checkpoint"))
+        elif t == M_RECOVERY:
+            hdr[H_X] = get("x")
+            hdr[H_OP] = get("op_number")
+        elif t in (4, 5):           # DVC / SV: checkpointed payload
+            hdr[H_VIEW] = get("view_number")
+            hdr[H_OP] = get("op_number")
+            hdr[H_COMMIT] = get("commit_number")
+            cpn = get("cp_number")
+            hdr[H_CP] = cpn
+            if t == 4:
+                hdr[H_LNV] = get("last_normal_vn")
+            cp = self._enc_log(get("checkpoint"))
+            log = self._enc_log(get("log_suffix"), first_op=cpn + 1)
+        elif t in (7, M_RECOVERYRESP):   # NewState / RecoveryResponse
+            hdr[H_VIEW] = get("view_number")
+            hdr[H_OP] = get("op_number")
+            if t == M_RECOVERYRESP:
+                hdr[H_X] = get("x")
+            lg = get("log_suffix")
+            if not isinstance(lg, FnVal):       # Nil form (resp only)
+                hdr[H_COMMIT] = -1
+                hdr[H_FIRST] = -1
+            elif get("flag") == 1:
+                cpn = get("cp_number")
+                hdr[H_FLAG] = 1
+                hdr[H_CP] = cpn
+                hdr[H_COMMIT] = get("commit_number")
+                cp = self._enc_log(get("checkpoint"))
+                log = self._enc_log(lg, first_op=cpn + 1)
+            else:
+                first = get("first_op")
+                hdr[H_FIRST] = first
+                hdr[H_COMMIT] = get("commit_number")
+                log = self._enc_log(lg, first_op=first)
+        else:
+            raise TLAError(f"unencodable CP06 message type {t}")
+        return hdr, entry, log, cp
+
+    def decode_msg_row(self, hdr, entry, log, cp=None):
+        if cp is None:
+            cp = np.zeros(self.shape.MAX_OPS, np.int32)
+        t = int(hdr[H_TYPE])
+        if t in (1, 2, 3, 6):
+            return super(RR05Codec, self).decode_msg_row(hdr, entry, log)
+        mv = self.mtype_mv[t]
+        f = {"type": mv, "dest": self._dec_dest(hdr[H_DEST]),
+             "source": int(hdr[H_SRC])}
+        op = int(hdr[H_OP])
+        cpn = int(hdr[H_CP])
+        if t == M_GETCP:
+            pass
+        elif t == M_NEWCP:
+            f.update(cp_number=cpn, checkpoint=self._dec_log(cp, cpn))
+        elif t == M_RECOVERY:
+            f.update(x=int(hdr[H_X]), op_number=op)
+        elif t in (4, 5):
+            f.update(view_number=int(hdr[H_VIEW]), op_number=op,
+                     commit_number=int(hdr[H_COMMIT]), cp_number=cpn,
+                     checkpoint=self._dec_log(cp, cpn),
+                     log_suffix=self._dec_log(log, op - cpn,
+                                              first_op=cpn + 1))
+            if t == 4:
+                f["last_normal_vn"] = int(hdr[H_LNV])
+        else:                       # NewState / RecoveryResponse
+            f.update(view_number=int(hdr[H_VIEW]), op_number=op)
+            if t == M_RECOVERYRESP:
+                f["x"] = int(hdr[H_X])
+            if int(hdr[H_FIRST]) == -1 and int(hdr[H_COMMIT]) == -1:
+                f.update(flag=0, log_suffix=self.nil, first_op=self.nil)
+            elif int(hdr[H_FLAG]) == 1:
+                f.update(flag=1, cp_number=cpn,
+                         commit_number=int(hdr[H_COMMIT]),
+                         checkpoint=self._dec_log(cp, cpn),
+                         log_suffix=self._dec_log(log, op - cpn,
+                                                  first_op=cpn + 1))
+            else:
+                first = int(hdr[H_FIRST])
+                f.update(flag=0, first_op=first,
+                         commit_number=int(hdr[H_COMMIT]),
+                         log_suffix=self._dec_log(log, op - first + 1,
+                                                  first_op=first))
+        return FnVal(f.items())
+
+    def _bag_row_args(self, d, k):
+        return (d["m_hdr"][k], d["m_entry"][k], d["m_log"][k],
+                d["m_cp"][k])
+
+    def decode(self, d: dict):
+        # the shared part (the bag decodes once, through _bag_row_args),
+        # then the trackers in CP06's record shapes
+        st = super(RR05Codec, self).decode(d)     # AS04's layers
+        dn = {k: np.asarray(v) for k, v in d.items()}
+        s = self.shape
+        reps = range(1, s.R + 1)
+        dvc_mv = self.constants["DoViewChangeMsg"]
+        st["rep_recv_dvc"] = FnVal(
+            (r, frozenset(
+                FnVal([("type", dvc_mv),
+                       ("view_number", int(dn["view"][r - 1])),
+                       ("log_suffix", self._dec_log(
+                           dn["dvc_log"][r - 1][j],
+                           int(dn["dvc_op"][r - 1][j])
+                           - int(dn["dvc_cpn"][r - 1][j]),
+                           first_op=int(dn["dvc_cpn"][r - 1][j]) + 1)),
+                       ("checkpoint", self._dec_log(
+                           dn["dvc_cp"][r - 1][j],
+                           dn["dvc_cpn"][r - 1][j])),
+                       ("cp_number", int(dn["dvc_cpn"][r - 1][j])),
+                       ("last_normal_vn", int(dn["dvc_lnv"][r - 1][j])),
+                       ("op_number", int(dn["dvc_op"][r - 1][j])),
+                       ("commit_number", int(dn["dvc_commit"][r - 1][j])),
+                       ("dest", r), ("source", j + 1)])
+                for j in range(s.R) if dn["dvc"][r - 1][j]))
+            for r in reps)
+        st["rep_rec_number"] = FnVal((r, int(dn["rec_number"][r - 1]))
+                                     for r in reps)
+        resp_mv = self.constants["RecoveryResponseMsg"]
+
+        def rec_msg(r, j):
+            f = {"type": resp_mv,
+                 "view_number": int(dn["rec_view"][r - 1][j]),
+                 "x": int(dn["rec_number"][r - 1]),
+                 "op_number": int(dn["rec_op"][r - 1][j]),
+                 "dest": r, "source": j + 1}
+            if not dn["rec_has_log"][r - 1][j]:
+                f.update(flag=0, log_suffix=self.nil, first_op=self.nil)
+            elif dn["rec_flag"][r - 1][j]:
+                cpn = int(dn["rec_cpn"][r - 1][j])
+                f.update(flag=1, cp_number=cpn,
+                         commit_number=int(dn["rec_commit"][r - 1][j]),
+                         checkpoint=self._dec_log(dn["rec_cp"][r - 1][j],
+                                                  cpn),
+                         log_suffix=self._dec_log(
+                             dn["rec_log"][r - 1][j],
+                             int(dn["rec_op"][r - 1][j]) - cpn,
+                             first_op=cpn + 1))
+            else:
+                first = int(dn["rec_first"][r - 1][j])
+                f.update(flag=0, first_op=first,
+                         commit_number=int(dn["rec_commit"][r - 1][j]),
+                         log_suffix=self._dec_log(
+                             dn["rec_log"][r - 1][j],
+                             int(dn["rec_op"][r - 1][j]) - first + 1,
+                             first_op=first))
+            return FnVal(f.items())
+
+        st["rep_rec_recv"] = FnVal(
+            (r, frozenset(rec_msg(r, j)
+                          for j in range(s.R) if dn["rec"][r - 1][j]))
+            for r in reps)
+        st["aux_restart"] = int(dn["aux_restart"])
+        return st

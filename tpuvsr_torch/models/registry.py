@@ -4,8 +4,8 @@ and how to build (codec, kernel) for a binding.
 The counterpart of ``tpuvsr/models/registry.py`` for the modules
 ``VSR``, ``VR_STATE_TRANSFER`` (ST03), ``VR_ASSUME_NEWVIEWCHANGE``
 (A01), ``VR_INC_RESEND`` (I01), ``VR_APP_STATE`` (AS04),
-``VR_REPLICA_RECOVERY`` (RR05) and ``VR_REPLICA_RECOVERY_ASYNC_LOG``
-(AL05), with an identity-only
+``VR_REPLICA_RECOVERY`` (RR05), ``VR_REPLICA_RECOVERY_ASYNC_LOG``
+(AL05) and ``VR_REPLICA_RECOVERY_CP`` (CP06), with an identity-only
 permutation table (``fold_symmetry=False``, what the device BFS asks
 for: symmetry is reduced by ``engine/canon.py``, not folded into the
 fingerprint).  The kernel
@@ -70,6 +70,10 @@ def _resolve(module):
         from .al05 import AL05Codec
         from .al05_kernel import AL05Kernel
         return AL05Codec, AL05Kernel
+    if module == "VR_REPLICA_RECOVERY_CP":
+        from .cp06 import CP06Codec
+        from .cp06_kernel import CP06Kernel
+        return CP06Codec, CP06Kernel
     raise KeyError(f"no hand model kernel for module {module!r} in the port")
 
 

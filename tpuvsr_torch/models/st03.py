@@ -351,6 +351,11 @@ class ST03Codec:
             raise TLAError(f"bad message type code {t}")
         return FnVal(f.items())
 
+    def _bag_row_args(self, d, k):
+        """Slot k's planes as decode_msg_row takes them (CP06 adds its
+        checkpoint plane)."""
+        return (d["m_hdr"][k], d["m_entry"][k], d["m_log"][k])
+
     def decode(self, d: dict):
         s = self.shape
         d = {k: np.asarray(v) for k, v in d.items()}
@@ -378,8 +383,8 @@ class ST03Codec:
                                   for r in reps)
         st["no_progress_ctr"] = int(d["np_ctr"])
         st["messages"] = FnVal(
-            (self.decode_msg_row(d["m_hdr"][k], d["m_entry"][k],
-                                 d["m_log"][k]), int(d["m_count"][k]))
+            (self.decode_msg_row(*self._bag_row_args(d, k)),
+             int(d["m_count"][k]))
             for k in range(s.MAX_MSGS) if d["m_present"][k])
         st["aux_svc"] = int(d["aux_svc"])
         st["aux_client_acked"] = FnVal(

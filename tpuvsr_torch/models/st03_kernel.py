@@ -33,10 +33,10 @@ version ``successors_plain`` runs the ``act_*`` functions.  Every call
 of ``_action_fns`` and ``_guard_fns`` (the plain functions' only doors)
 is counted in ``PLAIN_CALLS``.
 
-The family.  A01, I01, AS04, RR05 and AL05
-(``models/{a01,i01,as04,rr05,al05}_kernel.py``) subclass this kernel as
-their JAX counterparts subclass JAX's, and run
-on the same two CUDA sources: K13 and K14 are templated on the model,
+The family.  A01, I01, AS04, RR05, AL05 and CP06
+(``models/{a01,i01,as04,rr05,al05,cp06}_kernel.py``) subclass this
+kernel as their JAX counterparts subclass JAX's, and run on the same
+two CUDA sources: K13 and K14 are templated on the model,
 with one C entry point each (``GUARDS_KERNEL``, ``ACTIONS_KERNEL``).  A
 subclass names its planes beyond ST03's in ``FAMILY_PLANES`` order
 (``PLANE_KEYS``, ``GUARD_KEYS``; a plane a model lacks has offset -1 and
@@ -91,21 +91,27 @@ GUARD_PLANES = ("status", "view", "op", "commit", "peer_op", "sent_dvc",
 # the family's planes beyond ST03's, in the order of the FamilyPlane enum
 # of csrc/st03_actions.cu (I01's tracker and sent flag, AS04's DVC slots
 # and app plane, RR05's recovery nonce and response slots, AL05's prefix
-# ceilings, RR05's crash counter)
+# ceilings, RR05's crash counter, CP06's checkpoint fields of the DVC and
+# response slots and its bag's checkpoint plane)
 FAMILY_PLANES = ("sent_svc", "dvc", "dvc_view", "dvc_lnv", "dvc_op",
                  "dvc_commit", "dvc_log", "app", "rec_number", "rec",
                  "rec_view", "rec_has_log", "rec_log", "rec_op",
-                 "rec_commit", "rec_ceil", "aux_restart")
+                 "rec_commit", "rec_ceil", "aux_restart", "dvc_cpn",
+                 "dvc_cp", "rec_flag", "rec_first", "rec_cp", "rec_cpn",
+                 "m_cp")
 # the ones K13 reads, in the order of its FamilyPlane enum
-# (csrc/st03_guards.cu)
+# (csrc/st03_guards.cu; CP06's guards read the log and the bag's
+# checkpoint plane)
 FAMILY_GUARD_PLANES = ("sent_svc", "dvc", "dvc_view", "rec_number", "rec",
-                       "rec_view", "rec_has_log", "aux_restart")
+                       "rec_view", "rec_has_log", "aux_restart", "log",
+                       "m_cp")
 # the family's action ids (csrc/st03_actions.cu enums Action and
 # FamilyAction); a model's action takes the id of its name, or of the
 # ST03 action it replaces
 FAMILY_ACTIONS = ACTION_NAMES + (
     "ResendSVC", "Crash", "ReceiveRecoveryMsg",
-    "ReceiveRecoveryResponseMsg", "CompleteRecovery", "RetryRecovery")
+    "ReceiveRecoveryResponseMsg", "CompleteRecovery", "RetryRecovery",
+    "ReceiveGetCheckpointMsg", "ReceiveNewCheckpointMsg")
 ACTION_ALIASES = {"PrimaryExecuteOp": "ExecuteOp"}
 # the family's invariant bits (enums Invariant and FamilyInvariant)
 FAMILY_INVARIANTS = (
@@ -113,7 +119,8 @@ FAMILY_INVARIANTS = (
     "AcknowledgedWritesExistOnMajority",
     "CommitNumberNeverHigherThanOpNumber", "TestInv",
     "AllReplicasMoveToSameView", "NoReplicaMoreThanOneViewAheadOfMajority",
-    "ReceivedDVCsAllSameView", "NoAppStateDivergence")
+    "ReceivedDVCsAllSameView", "NoAppStateDivergence",
+    "CommitNumberMatchesAppState")
 # calls of the family's _action_fns and _guard_fns, the doors to the
 # plain action and guard functions
 PLAIN_CALLS = {"actions": 0, "guards": 0}
@@ -123,6 +130,9 @@ class ST03Kernel(RowFingerprint):
     action_names = ACTION_NAMES
     REP_KEYS = REP_KEYS
     SLOT_KEYS = ("m_hdr", "m_entry", "m_log", "m_count")
+    # (record field, bag plane) of a message's payload beyond its header
+    # (CP06 adds its checkpoint plane)
+    ROW_PLANES = (("entry", "m_entry"), ("log", "m_log"))
     GLOB_KEYS = GLOBAL_KEYS
     FP_KERNELS = {"full": "st03_fp_full", "parts": "st03_fp_parts",
                   "incremental": "st03_fp_incremental"}
@@ -164,7 +174,7 @@ class ST03Kernel(RowFingerprint):
         rng = np.random.default_rng(0x57A7E03)
         self.nrep = 1 + sum(int(np.prod(self._rep_shape(k))) // s.R
                             for k in self.REP_KEYS)
-        self.nmsg = self.NHDR + 1 + self.MAX_OPS + 1
+        self.nmsg = self._nmsg()
 
         def keys(n):
             return (rng.integers(1, 2**32, size=(4, n), dtype=np.uint64)
@@ -186,6 +196,11 @@ class ST03Kernel(RowFingerprint):
             "commit": (s.R,), "lnv": (s.R,), "log": (s.R, s.MAX_OPS),
             "peer_op": (s.R, s.R), "sent_dvc": (s.R,), "sent_sv": (s.R,),
         }[k]
+
+    def _nmsg(self):
+        """Columns of a slot row: the header, the entry, the log and the
+        count."""
+        return self.NHDR + 1 + self.MAX_OPS + 1
 
     def _lane_count(self, name):
         R, V, M = self.R, self.V, self.M
@@ -210,10 +225,12 @@ class ST03Kernel(RowFingerprint):
 
     def _row_eq(self, st, row):
         """[B, M] mask: a present slot holding the record ``row``."""
-        return ((st["m_present"] == 1)
-                & (st["m_hdr"] == row["hdr"][:, None, :]).all(-1)
-                & (st["m_entry"] == row["entry"][:, None])
-                & (st["m_log"] == row["log"][:, None, :]).all(-1))
+        eq = ((st["m_present"] == 1)
+              & (st["m_hdr"] == row["hdr"][:, None, :]).all(-1))
+        for rk, plane in self.ROW_PLANES:
+            cmp = st[plane] == row[rk][:, None]
+            eq = eq & (cmp if cmp.dim() == 2 else cmp.all(-1))
+        return eq
 
     def _touch(self, st, idx, pred):
         if "_ts" not in st:
@@ -250,8 +267,8 @@ class ST03Kernel(RowFingerprint):
                                  st["m_present"])
         st["m_count"] = put(st["m_count"], new_count)
         st["m_hdr"] = put(st["m_hdr"], row["hdr"])
-        st["m_entry"] = put(st["m_entry"], row["entry"])
-        st["m_log"] = put(st["m_log"], row["log"])
+        for rk, plane in self.ROW_PLANES:
+            st[plane] = put(st[plane], row[rk])
         st["err"] = st["err"] | torch.where(overflow, ERR_BAG_OVERFLOW, 0
                                             ).to(I32)
         return st
@@ -292,13 +309,28 @@ class ST03Kernel(RowFingerprint):
         st["sent_sv"] = _put(st["sent_sv"], i, 0)
         return st
 
-    def _valid_dvc(self, st, i):
-        """[B, M] ValidDvc(r, m) mask (ST03:669-674)."""
+    def _processed(self, st, i, mtype):
+        """[B, M]: processed (count-0) ``mtype`` records of replica i's
+        view addressed to it (ValidDvc, ST03:669-674; the SVC quorum,
+        ST03:595-600)."""
         h = st["m_hdr"]
         return ((st["m_present"] == 1) & (st["m_count"] == 0)
-                & (h[:, :, H_TYPE] == M_DVC)
+                & (h[:, :, H_TYPE] == mtype)
                 & (h[:, :, H_DEST] == (i + 1)[:, None])
                 & (h[:, :, H_VIEW] == _take(st["view"], i)[:, None]))
+
+    def _svc_tombstones(self, st, i):
+        return self._processed(st, i, M_SVC).sum(dim=1)
+
+    def _splice(self, own, suffix, first, op):
+        """The log a NewState installs over 1..op: ``own`` [B, OPS] below
+        first_op, the suffix (stored re-based at 0) from there, zero
+        above op."""
+        pos = _iota(self.MAX_OPS, own.device)[None, :]
+        f1 = (first - 1)[:, None]
+        sfx = suffix.gather(1, _clip(pos - f1, 0, self.MAX_OPS - 1).long())
+        return torch.where(pos < f1, own,
+                           torch.where(pos < op[:, None], sfx, 0))
 
     def _msg_lane(self, st, k):
         """Header and destination replica of message lane k ([B])."""
@@ -366,13 +398,10 @@ class ST03Kernel(RowFingerprint):
         B, dev = lane.shape[0], lane.device
         view = _take(st["view"], i)
         prim = self._primary(view, self.R)
-        h = st["m_hdr"]
-        tomb = ((st["m_present"] == 1) & (st["m_count"] == 0)
-                & (h[:, :, H_TYPE] == M_SVC) & (h[:, :, H_DEST] == r[:, None])
-                & (h[:, :, H_VIEW] == view[:, None])).sum(dim=1)
         en = (self._can_progress(st, i)
               & (_take(st["status"], i) == VIEWCHANGE)
-              & (_take(st["sent_dvc"], i) == 0) & (tomb >= self.R // 2))
+              & (_take(st["sent_dvc"], i) == 0)
+              & (self._svc_tombstones(st, i) >= self.R // 2))
         s2 = dict(st)
         s2["sent_dvc"] = _put(st["sent_dvc"], i, 1)
         row = self._row(B, dev, M_DVC, view=view, op=_take(st["op"], i),
@@ -394,7 +423,7 @@ class ST03Kernel(RowFingerprint):
         """HighestLog/-OpNumber/-CommitNumber (ST03:676-697): the maximal
         (lnv, op) ValidDvc, CHOOSE ties by lex (commit, log, source);
         commit maximized independently."""
-        valid = self._valid_dvc(st, i)                       # [B, M]
+        valid = self._processed(st, i, M_DVC)                # [B, M]
         h = st["m_hdr"]
         pair = h[:, :, H_LNV] * (self.MAX_OPS + 1) + h[:, :, H_OP]
         best_pair = torch.where(valid, pair, -1).amax(dim=1)
@@ -582,21 +611,13 @@ class ST03Kernel(RowFingerprint):
 
     def act_receive_new_state(self, st, lane):    # ST03:479-507
         k = lane
-        dev = lane.device
         hdr, _r, i = self._msg_lane(st, k)
         en = (self._recv_en(st, k, hdr, M_NEWSTATE)
               & self._can_progress(st, i)
               & (_take(st["status"], i) == STATETRANSFER)
               & (hdr[:, H_VIEW] > _take(st["view"], i)))
-        # the new log over 1..m.op_number: the replica's own prefix below
-        # first_op, the message's suffix (stored re-based at 0) from there
-        first = hdr[:, H_FIRST][:, None]
-        pos = _iota(self.MAX_OPS, dev)[None, :]
-        suffix = _take(st["m_log"], k).gather(
-            1, _clip(pos - (first - 1), 0, self.MAX_OPS - 1).long())
-        new_log = torch.where(pos < first - 1, _take(st["log"], i),
-                              torch.where(pos < hdr[:, H_OP][:, None],
-                                          suffix, 0))
+        new_log = self._splice(_take(st["log"], i), _take(st["m_log"], k),
+                               hdr[:, H_FIRST], hdr[:, H_OP])
         s2 = dict(st)
         s2["status"] = _put(st["status"], i, NORMAL)
         s2["view"] = _put(st["view"], i, hdr[:, H_VIEW])
@@ -745,8 +766,12 @@ class ST03Kernel(RowFingerprint):
         base = ((st["m_present"] == 1)
                 & (hdr[:, :, H_TYPE] == M_GETSTATE)
                 & zero(H_COMMIT) & zero(H_X) & zero(H_FIRST) & zero(H_LNV)
-                & (hdr[:, :, H_DEST] == ANYDEST) & (st["m_entry"] == 0)
-                & (st["m_log"] == 0).all(-1))                     # [B, M]
+                & (hdr[:, :, H_DEST] == ANYDEST))                 # [B, M]
+        for c in range(H_LNV + 1, self.NHDR):     # CP06: H_FLAG, H_CP
+            base = base & zero(c)
+        for _rk, plane in self.ROW_PLANES:
+            v = st[plane]
+            base = base & ((v == 0) if v.dim() == 2 else (v == 0).all(-1))
         commit_i = self._g(st["commit"], i)
         a = (base[:, None, :]
              & (hdr[:, None, :, H_VIEW] == hdr[:, :, None, H_VIEW])

@@ -17,6 +17,12 @@ drives the table action of ``engine/canon.py``.  The Ticker (a
 stoppable counter modulo ``modulus`` whose wrap edge leads back to a
 level-0 state) is the behaviour-graph fixture of ``PagedBFS(edges=True)``
 and ``engine/device_liveness.DeviceGraph``.
+
+``checkpoint_rows`` builds the three dense rows of VR_REPLICA_RECOVERY_CP
+(CP06) that exercise its checkpoint forms, which no short walk and no
+recording run of its cfgs to a budgeted depth meets: the parity tests
+(``tests/test_torch_cp06.py``) and ``chip_smoke.py`` phase 13 hold CP06's
+kernels to their plain versions on them.
 """
 
 from __future__ import annotations
@@ -454,3 +460,130 @@ def stub_graph_engine(binding=None, modulus=3, stop=True, device=None,
         next_capacity=kw.pop("next_capacity", 1 << 6),
         retain_levels=kw.pop("retain_levels", True),
         edges=kw.pop("edges", True), device=device, **kw)
+
+
+# ----------------------------------------------------------------------
+# CP06's hand-built rows
+# ----------------------------------------------------------------------
+def _cp_msg(row, k, hdr, count=1, log=(), cp=(), entry=0):
+    """Bag slot k of a dense CP06 row holding the record whose header
+    columns are ``hdr``."""
+    row["m_present"][k] = 1
+    row["m_count"][k] = count
+    row["m_hdr"][k, :] = 0
+    for c, v in hdr.items():
+        row["m_hdr"][k, c] = v
+    row["m_entry"][k] = entry
+    row["m_log"][k] = 0
+    row["m_log"][k, :len(log)] = log
+    row["m_cp"][k] = 0
+    row["m_cp"][k, :len(cp)] = cp
+
+
+def checkpoint_rows(codec):
+    """Three dense rows of a ``models/cp06.CP06Codec`` layout (MAX_MSGS
+    >= 9), built from Init:
+
+    * replies: replica 1, the Normal primary of view 1, all committed with
+      its first op GC'd (NoOp), answers a RecoveryMsg and a GetState from
+      op 0 in the checkpoint form (flag 1; a lane per cp when two values
+      leave a cp above HighestGCedOp) and a RecoveryMsg and a GetState
+      from op 1 in the suffix form; replica 2 is in StateTransfer with a flag-1 NewState
+      to take; replica 3 is Recovering (nonce 1) with a flag-1 response
+      from replica 1 and a Nil one from replica 2 in its slots (so
+      CompleteRecovery takes the checkpoint form), a flag-1 response,
+      a first_op response from replica 2 (different from its slot: it
+      sets ERR_REC_OVERFLOW), a NewCheckpoint and its GetCheckpoint in
+      the bag;
+    * a view change to view 2: replica 2, its primary, holds two
+      DoViewChange slots equal in (lnv, op) that part on their
+      checkpoints (WinningDVC's tie), a higher DoViewChange and a
+      StartView with checkpoints go to replica 3, a different second
+      DoViewChange from replica 3 to replica 2 (ERR_DVC_OVERFLOW), a
+      processed SVC lets replica 2 send its own DoViewChange, and with
+      two values a Prepare two ops ahead of replica 3 opens state
+      transfer;
+    * a NoOp prefix: replicas 1 and 2 committed v1, replica 1's log slot
+      GC'd and its app state holding v1 (the invariants read it through
+      OpOf).
+    """
+    from .models.rr05 import M_RECOVERY, M_RECOVERYRESP, RECOVERING
+    from .models.cp06 import M_GETCP, M_NEWCP
+    from .models.st03 import (ANYDEST, M_DVC, M_GETSTATE, M_NEWSTATE,
+                              M_PREPARE, M_SV, M_SVC, STATETRANSFER,
+                              VIEWCHANGE)
+    from .models.vsr import (H_COMMIT, H_CP, H_DEST, H_FIRST, H_FLAG,
+                             H_LNV, H_OP, H_SRC, H_TYPE, H_VIEW, H_X)
+    OPS, NOOP = codec.shape.MAX_OPS, codec.noop_id
+    full = list(range(1, OPS + 1))          # v1..v_OPS committed
+    gcd = [NOOP] + full[1:]                 # the first op GC'd
+
+    def pad(vals):
+        row = np.zeros(OPS, np.int32)
+        row[:len(vals)] = vals
+        return row
+
+    def new():
+        return {k: np.array(v) for k, v in codec.init_dense().items()}
+
+    a = new()
+    a["op"][0] = a["commit"][0] = OPS
+    a["log"][0], a["app"][0] = pad(gcd), pad(full)
+    a["status"][1] = STATETRANSFER
+    a["status"][2], a["view"][2] = RECOVERING, 0
+    a["rec_number"][2], a["aux_restart"][()] = 1, 1
+    a["aux_acked"][0] = 2
+    for key, val in (("rec", 1), ("rec_view", 1), ("rec_op", OPS),
+                     ("rec_commit", OPS), ("rec_has_log", 1),
+                     ("rec_flag", 1), ("rec_cpn", 1), ("rec_first", 2)):
+        a[key][2, 0] = val
+    a["rec_cp"][2, 0], a["rec_log"][2, 0] = pad([1]), pad(full[1:])
+    a["rec"][2, 1], a["rec_view"][2, 1] = 1, 1
+    a["rec_commit"][2, 1] = a["rec_first"][2, 1] = -1
+    cp1 = dict(log=full[1:], cp=[1])
+    _cp_msg(a, 0, {H_TYPE: M_RECOVERY, H_DEST: 1, H_SRC: 3, H_X: 1})
+    _cp_msg(a, 1, {H_TYPE: M_GETSTATE, H_VIEW: 1, H_DEST: ANYDEST,
+                   H_SRC: 2})
+    _cp_msg(a, 2, {H_TYPE: M_NEWSTATE, H_VIEW: 1, H_OP: OPS, H_COMMIT: 1,
+                   H_DEST: 2, H_SRC: 1, H_FLAG: 1, H_CP: 1}, **cp1)
+    _cp_msg(a, 3, {H_TYPE: M_RECOVERYRESP, H_VIEW: 1, H_OP: OPS,
+                   H_COMMIT: OPS, H_DEST: 3, H_SRC: 1, H_X: 1, H_FLAG: 1,
+                   H_CP: 1}, **cp1)
+    _cp_msg(a, 4, {H_TYPE: M_NEWCP, H_DEST: 3, H_SRC: 2, H_CP: 1}, cp=[1])
+    _cp_msg(a, 5, {H_TYPE: M_GETCP, H_DEST: ANYDEST, H_SRC: 3})
+    _cp_msg(a, 6, {H_TYPE: M_RECOVERYRESP, H_VIEW: 1, H_OP: OPS,
+                   H_COMMIT: OPS, H_DEST: 3, H_SRC: 2, H_X: 1, H_FIRST: 1},
+            log=full)
+    _cp_msg(a, 7, {H_TYPE: M_GETSTATE, H_VIEW: 1, H_OP: 1, H_DEST: ANYDEST,
+                   H_SRC: 2})
+    _cp_msg(a, 8, {H_TYPE: M_RECOVERY, H_OP: 1, H_DEST: 1, H_SRC: 3, H_X: 1})
+
+    b = new()
+    b["status"][:2], b["view"][:2] = VIEWCHANGE, 2
+    b["op"][:2] = b["commit"][:2] = OPS
+    b["log"][0], b["log"][1] = pad(full), pad(gcd)
+    b["app"][:2] = pad(full)
+    b["sent_dvc"][0] = 1
+    for j, cpn in ((0, 1), (2, 0)):
+        b["dvc"][1, j], b["dvc_cpn"][1, j] = 1, cpn
+        b["dvc_op"][1, j] = b["dvc_commit"][1, j] = OPS
+        b["dvc_cp"][1, j] = pad(full[:cpn])
+        b["dvc_log"][1, j] = pad(full[cpn:])
+    _cp_msg(b, 0, {H_TYPE: M_DVC, H_VIEW: 2, H_OP: OPS, H_COMMIT: OPS,
+                   H_DEST: 3, H_SRC: 1, H_CP: 1}, **cp1)
+    _cp_msg(b, 1, {H_TYPE: M_SV, H_VIEW: 2, H_OP: OPS, H_COMMIT: OPS,
+                   H_DEST: 3, H_SRC: 2, H_CP: 1}, **cp1)
+    _cp_msg(b, 2, {H_TYPE: M_DVC, H_VIEW: 2, H_OP: OPS, H_COMMIT: OPS,
+                   H_DEST: 2, H_SRC: 3, H_LNV: 1}, log=full)
+    _cp_msg(b, 3, {H_TYPE: M_SVC, H_VIEW: 2, H_DEST: 2, H_SRC: 1},
+            count=0)
+    if OPS >= 2:
+        _cp_msg(b, 4, {H_TYPE: M_PREPARE, H_VIEW: 2, H_OP: OPS, H_DEST: 3,
+                       H_SRC: 2}, entry=OPS)
+
+    c = new()
+    c["op"][:2] = c["commit"][:2] = 1
+    c["log"][0], c["log"][1] = pad([NOOP]), pad([1])
+    c["app"][:2] = pad([1])
+    c["aux_acked"][0] = 2
+    return [a, b, c]
