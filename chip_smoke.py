@@ -241,6 +241,40 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         suffix) of ReceiveGetState and ReceiveRecoveryMsg enabled; with
         a, c and d every action but NoProgressChange held in both K13's
         and K14's inputs;
+  14. the family with symmetry on: each model on its
+     tpuvsr_torch/configs/<module>_{shipped,wide}_symmetry.cfg (the base
+     cfg plus SYMMETRY symmValues, Permutations({v1, v2}): a group of
+     order 2), on its own K13, K14, K3 (full, on the canonical images)
+     and its instantiation of K9 in the model's relabel mode (plain:
+     ST03, AS04, AL05; packed entries: A01, I01, RR05; a fixed NoOp:
+     CP06); as in phase 11, launch counts reset just before each run and
+     read just after: the model's K13, K14, K3 full and K9 launched, its
+     incremental K3, the other models' kernels, the VSR kernels and the
+     plain functions not; symmetry_perms 2 in each run:
+     a. an untimed recording run() to depth 8 (its levels and generated
+        counts the record's) keeps the largest K9 call; K9 held bit for
+        bit against its plain version (CanonSpec.canonicalize_plain
+        through the kernel's _permuted) on it, its images invariant
+        under every group row, timed with its bound (a kernels-line row
+        a model, naming the model and the mode);
+     b. run_fused() to depth 16 (_shipped) or 12 (_wide), run_fused() and
+        run() to depth 12 (_shipped) or 10 (_wide): the levels through
+        the record's depth those of
+        tpuvsr_torch/configs/records/family_symmetry_levels.json (the
+        JAX CanonSpec host BFS on the CPU, python
+        tests/test_torch_family_symmetry.py record N), run()'s levels,
+        generated count and trace-pointer tables run_fused()'s at the
+        same depth, and the deeper run_fused()'s tables through run()'s
+        depth;
+     c. the symmetric cumulative distinct count ``on`` at the depth of
+        the unsymmetric run_fused of phase 10d, 11d, 12d or 13b (same
+        constants) and that run's ``off``: ceil(off / 2) <= on <= off
+        (every orbit has one or two members);
+     d. PagedBFS on VR_REPLICA_RECOVERY_CP_wide_symmetry.cfg to depth 10:
+        14b's run()'s levels, counts and trace-pointer tables, K9
+        launched;
+     each run prints its distinct states, seconds, peak memory and
+     orbit_ratio;
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
@@ -462,6 +496,29 @@ CHECKPOINT = {
 # enabled lanes by depth on the card, through depth 12, found none of
 # them), which 13d holds on built rows
 CHECKPOINT_WIDE = {"fused": 12, "run": 10, "cover": 12}
+# phase 14: the family with symmetry on.  The levels and cumulative
+# generated counts (Init counted) are the JAX package's CanonSpec host BFS
+# on the CPU (python tests/test_torch_family_symmetry.py record N, each
+# model to the deepest level that ends in about five minutes), read from
+# the record file (chip_smoke imports no JAX)
+FAMILY_SYMMETRY = {
+    "ST03": ("VR_STATE_TRANSFER", "shipped"),
+    "A01": ("VR_ASSUME_NEWVIEWCHANGE", "shipped"),
+    "I01": ("VR_INC_RESEND", "shipped"),
+    "AS04": ("VR_APP_STATE", "shipped"),
+    "RR05": ("VR_REPLICA_RECOVERY", "wide"),
+    "AL05": ("VR_REPLICA_RECOVERY_ASYNC_LOG", "wide"),
+    "CP06": ("VR_REPLICA_RECOVERY_CP", "wide")}
+FAMILY_SYMMETRY_RECORD = os.path.join(
+    ROOT, "tpuvsr_torch", "configs", "records",
+    "family_symmetry_levels.json")
+# 14b's depths (the fused ones those of the unsymmetric runs 14c reads:
+# 10d and 11d for the shipped constants, 12d and 13b for the wide), and
+# 14a's recording depth
+SYMMETRY_DEPTHS = {"shipped": {"fused": 16, "run": 12},
+                   "wide": {"fused": 12, "run": 10}}
+SYMMETRY_RECORD_DEPTH = 8
+SYMMETRY_PAGED = ("CP06", 10)
 PAGED = {"next_capacity": 1 << 14, "spill_ram_rows": 1 << 16,
          "edge_capacity": 1 << 15, "min_drains": 3}
 MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
@@ -523,45 +580,104 @@ def same_pointers(got, want, levels, what, args):
         f"order: {perm}; lengths {len(got[0])} and {len(want[0])}")
 
 
-def cuda_ms(fn, reps=20, warm=3, skip=None, evict=None):
-    """(device ms, issue ms) of one fn() call: the device time is the
-    sum of the kernels, copies and memsets torch.profiler records over
-    ``reps`` calls; the issue time is CUDA events around the same calls
-    back to back, which the host's launch rate bounds when the kernels
-    are short.  With ``evict`` (``l2_evict()``), each call comes after a
-    device-to-device copy that flushes the 50 MB L2, so that fn reads
-    its inputs from HBM; all such copies are left out of the device
-    time (the issue time keeps them), so fn must make none of its own.
-    The profiled calls are made again once if the profiler records no
-    device time; a second miss fails the phase."""
+def cuda_ms(fn, reps=20, warm=3, evict=None, pre=None):
+    """(device ms, issue ms, timed_by) of one fn() call: the device time
+    is the sum of the kernels, copies and memsets torch.profiler records
+    over ``reps`` calls; the issue time is CUDA events around the same
+    calls back to back, which the host's launch rate bounds when the
+    kernels are short.  ``pre()``, when given, runs before each call and
+    makes device-to-device copies only (a carry restored); with
+    ``evict`` (``l2_evict()``) a copy that flushes the 50 MB L2 comes
+    before each call too, so that fn reads its inputs from HBM.  All
+    such copies are left out of the device time (the issue time keeps
+    them), so fn must make none of its own.  The profiled calls are made
+    again once if the profiler records no device time; after a second
+    miss the device time is that of CUDA events around one replay of a
+    CUDA graph of ``reps`` calls, less that of a graph of the copies
+    alone (no host time in either), and ``timed_by`` says "cuda_graph";
+    where fn cannot be captured (it syncs), CUDA events around ``reps``
+    calls back to back, less the copies alone ("cuda_events": the host's
+    launch rate bounds it).  ``timed_by`` is "torch.profiler" otherwise.
+    """
     import torch
     from torch.profiler import ProfilerActivity, profile
-    if evict is not None:
-        inner, skip = fn, "Memcpy DtoD"
+    steps = ([lambda: evict[0].copy_(evict[1])] if evict is not None
+             else []) + ([pre] if pre is not None else [])
 
-        def fn():
-            evict[0].copy_(evict[1])
-            inner()
-    for _ in range(warm):
+    def copies():
+        for s in steps:
+            s()
+
+    def call():
+        copies()
         fn()
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+
+    def events_ms(f):
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(reps):
+            f()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    for _ in range(warm):
+        call()
+    issue = events_ms(call) / reps
+    skip = "Memcpy DtoD" if steps else None
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        dev_us = device_us(prof, skip)
+        if dev_us > 0:
+            return dev_us / reps / 1e3, issue, "torch.profiler"
+    try:
+        ms, how = (graph_ms(call, reps) - (graph_ms(copies, reps)
+                                           if steps else 0.0),
+                   "cuda_graph")
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"  (no CUDA graph: {str(e).splitlines()[0]})", flush=True)
+        ms, how = (events_ms(call) - (events_ms(copies) if steps else 0.0),
+                   "cuda_events")
+    ms /= reps
+    print(f"  (torch.profiler recorded no device time twice: timed by "
+          f"{how}, {reps} calls, {ms:.4f} ms a call)", flush=True)
+    return ms, issue, how
+
+
+def graph_ms(f, reps):
+    """Milliseconds of one replay of a CUDA graph of ``reps`` f() calls,
+    by CUDA events (the device's time alone); RuntimeError where f
+    cannot be captured.  Captured through kernels.capture, as hand
+    kernels must be (its replays count their launches, as any timing
+    call's do; the main-path runs reset the counts first)."""
+    import torch
+    from tpuvsr_torch import kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        f()
+    torch.cuda.current_stream().wait_stream(side)
+
+    def body():
+        for _ in range(reps):
+            f()
+    replay = kernels.capture(body)
+    replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(reps):
-        fn()
+    replay()
     b.record()
     torch.cuda.synchronize()
-    issue = a.elapsed_time(b) / reps
-    for _attempt in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        dev_us = device_us(prof, skip)
-        if dev_us > 0:
-            return dev_us / reps / 1e3, issue
-    raise SmokeError("torch.profiler recorded no device time")
+    return a.elapsed_time(b)
 
 
 def bound(nbytes, nops):
@@ -779,9 +895,11 @@ def kernel_row(out, name, ms, plain_ms, err, nbytes, nops,
     """Append one kernels-line row (``label`` names a kernel measured
     on another path than the BFS one) and fail on a disagreement."""
     from tpuvsr_torch import kernels
-    (ms, issue_ms), (plain_ms, plain_issue_ms) = ms, plain_ms
+    (ms, issue_ms, timed_by), (plain_ms, plain_issue_ms, plain_timed_by) \
+        = ms, plain_ms
+    library_timed_by = None
     if library_ms is not None:
-        library_ms = library_ms[0]
+        library_ms, _issue, library_timed_by = library_ms
     b, by = bound(nbytes, nops)
     r = {"name": label or name, "route": "cuda",
          "source": "tpuvsr_torch/csrc/" + kernels.KERNELS[name][0] + ".cu",
@@ -790,9 +908,17 @@ def kernel_row(out, name, ms, plain_ms, err, nbytes, nops,
          "bound_ms": b, "bound_by": by, "library_ms": library_ms}
     r.update(extra or {}, kernel=name, issue_ms=issue_ms,
              plain_issue_ms=plain_issue_ms, bytes=nbytes, ops=nops)
+    # the kernels line says which of the row's times are not the
+    # profiler's device time, and how they were taken
+    other = {k: t for k, t in (("ms", timed_by), ("plain_ms", plain_timed_by),
+                               ("library_ms", library_timed_by))
+             if t not in (None, "torch.profiler")}
+    if other:
+        r["timed_by"] = other
     out.append(r)
     print(f"  {r['name']}: err {err} ms {ms:.4f} plain {plain_ms:.4f} "
-          f"bound {b:.5f} ({by}) library {library_ms}", flush=True)
+          f"bound {b:.5f} ({by}) library {library_ms}"
+          + (f" (timed by {other})" if other else ""), flush=True)
     need(err == 0, f"{r['name']} disagrees with its plain version")
 
 
@@ -1482,12 +1608,8 @@ def restored_ms(fn, carry, saved, reps=20, warm=3, evict=None):
     (``l2_evict()``) where the call would otherwise find its rows in
     L2; those device-to-device copies are left out of the device time
     (the issue time keeps them)."""
-    def call():
-        carry.copy_(saved)
-        fn()
-    if evict is None:
-        return cuda_ms(call, reps=reps, warm=warm, skip="Memcpy DtoD")
-    return cuda_ms(call, reps=reps, warm=warm, evict=evict)
+    return cuda_ms(fn, reps=reps, warm=warm, evict=evict,
+                   pre=lambda: carry.copy_(saved))
 
 
 def check_fused_kernels(rec):
@@ -1741,8 +1863,9 @@ def profile_quantum(doc, key, eng, depth):
 
 class CanonRecorder:
     """Keeps, during a symmetric run, the inputs of the largest K9 call
-    and of the largest full K3 call (the canonical images), and counts
-    the rows K9 met and those whose image differs from the row."""
+    (under the CanonSpec's kernel name) and of the largest full VSR K3
+    call (the canonical images), and counts the rows K9 met and those
+    whose image differs from the row."""
 
     def __init__(self):
         self.calls = {}
@@ -1757,7 +1880,7 @@ class CanonRecorder:
         canon, full = CanonSpec.canonicalize, VSRKernel.fingerprint
 
         def p_canon(self, rows, out=None):
-            rec.keep("vsr_canon", rows.shape[0],
+            rec.keep(self.kernel, rows.shape[0],
                      lambda: (self, rows.clone()))
             img = canon(self, rows, out)
             rec.rows += rows.shape[0]
@@ -2734,6 +2857,13 @@ VSR_KERNELS = ["vsr_guards", "vsr_actions", "vsr_canon", "vsr_fp_parts",
                "vsr_fp_full", "vsr_fp_incremental"]
 
 
+def family_canon_kernels():
+    """{model: the name its K9 launches count under}, as family_kernels."""
+    from tpuvsr_torch.models.registry import _resolve
+    return {m: _resolve(module)[1].CANON_KERNEL
+            for m, (module, _size) in FAMILY_SYMMETRY.items()}
+
+
 def family_cfg(module, size):
     return os.path.join(ROOT, "tpuvsr_torch", "configs",
                         f"{module}_{size}.cfg")
@@ -2747,16 +2877,19 @@ def trace_pointers(eng):
 
 def model_run(m, module, size, entry, depth=None, constants=None,
               log=None, label=None, setup=None, violation=None,
-              invariants=None):
+              invariants=None, engine_cls=None, **engine_kw):
     """One run of the family model ``m`` on its ``size`` cfg (cfg
     constants overridden by ``constants``; ``setup(engine)``, when given,
     installs a probe and returns its removal), launch counts reset just
     before and read just after: the model's K13, K14 and K3 (parts,
     incremental) launched, the other models' kernels, the VSR kernels and
-    the plain functions of the family not.  The run must end without a
-    violation, or with the invariant ``violation``.  Returns (engine,
+    the plain functions of the family not; no K9.  With symmetry on (a
+    ``_symmetry`` cfg) the model's K9 and full K3 launch instead of the
+    incremental K3, and the group has order 2.  The run must end without
+    a violation, or with the invariant ``violation``.  Returns (engine,
     result, info).  ``invariants``, when given, replaces the cfg's
-    INVARIANT list."""
+    INVARIANT list; ``engine_cls`` (DeviceBFS by default) and
+    ``engine_kw`` build the engine."""
     import torch
     from tpuvsr_torch import kernels
     from tpuvsr_torch.engine.device_bfs import DeviceBFS
@@ -2770,8 +2903,9 @@ def model_run(m, module, size, entry, depth=None, constants=None,
     b.cfg.constants.update(constants or {})
     if invariants is not None:
         b.invariants = list(invariants)
-    eng = DeviceBFS(b, tile_size=128, chunk_tiles=64,
-                    fpset_capacity=1 << 26, device="cuda")
+    eng = (engine_cls or DeviceBFS)(b, tile_size=128, chunk_tiles=64,
+                                    fpset_capacity=1 << 26, device="cuda",
+                                    **engine_kw)
     undo = setup(eng) if setup else None
     try:
         t0 = time.time()
@@ -2785,10 +2919,21 @@ def model_run(m, module, size, entry, depth=None, constants=None,
     what = f"{label or m + ' ' + size} {entry}"
     need(type(eng.kern).__name__ == f"{m}Kernel",
          f"{what} ran on {type(eng.kern).__name__}")
-    for k in model_kernels[m]:
+    K = type(eng.kern)
+    canons = [c for o, c in family_canon_kernels().items() if o != m]
+    if eng._canon is None:
+        used, unused = model_kernels[m], [K.CANON_KERNEL]
+    else:
+        used = [K.GUARDS_KERNEL[0], K.ACTIONS_KERNEL[0],
+                K.FP_KERNELS["full"], K.CANON_KERNEL]
+        unused = [K.FP_KERNELS["parts"], K.FP_KERNELS["incremental"]]
+        need(res.metrics["gauges"]["symmetry_perms"] == 2,
+             f"{what}: symmetry_perms "
+             f"{res.metrics['gauges']['symmetry_perms']}")
+    for k in used:
         need(counts[k] > 0, f"{k} was not launched on {what}")
     others = [k for o, ks in model_kernels.items() if o != m
-              for k in ks] + VSR_KERNELS
+              for k in ks] + VSR_KERNELS + canons + unused
     for k in others:
         need(counts[k] == 0, f"{k} was launched on {what}")
     if entry == "run_fused":
@@ -2806,13 +2951,15 @@ def model_run(m, module, size, entry, depth=None, constants=None,
             "diameter": res.diameter, "wall_s": wall,
             "distinct_per_s": res.distinct_states / wall,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "orbit_ratio": res.metrics["gauges"].get("orbit_ratio"),
             "launches": counts, "metrics": res.metrics,
             "violated": res.violated_invariant}
     print(f"  {what}: distinct {res.distinct_states} generated "
           f"{res.states_generated} diameter {res.diameter} wall "
           f"{wall:.3f}s distinct/s {info['distinct_per_s']:.1f} "
-          f"max_memory_allocated {info['max_memory_allocated']}",
-          flush=True)
+          f"max_memory_allocated {info['max_memory_allocated']}"
+          + (f" orbit_ratio {info['orbit_ratio']}"
+             if eng._canon is not None else ""), flush=True)
     print(f"    host_reads {c.get('host_reads')} graph_captures "
           f"{c.get('graph_captures')} growth_pauses "
           f"{c.get('growth_pauses', 0)} tiles {c.get('tiles')} "
@@ -3518,6 +3665,185 @@ def checkpoint_phase(args, doc):
     return rows
 
 
+def check_family_canon(rec, K, m, cfg):
+    """Phase 14a: model ``m``'s K9 bit for bit against its plain version
+    on the largest call of the recording run, its images invariant under
+    every group row; timed with its bound (each row read once and written
+    once)."""
+    import torch
+    from tpuvsr_torch.engine.canon import MODES
+    out = []
+    name = K.CANON_KERNEL
+    canon, rows = rec.calls[name][1]
+    pk = canon.kern.pk
+    n, L = rows.shape
+    got = canon.canonicalize(rows)
+    err = max_abs(got, canon.canonicalize_plain(rows))
+    for g in canon.tables(rows.device)["group"]:
+        moved = pk.flatten(canon.kern._permuted(pk.unflatten(rows), g))
+        need(torch.equal(canon.canonicalize(moved), got),
+             f"{name}: K9's images are not invariant under the group")
+    mode = MODES[canon.mode]
+    dst = torch.empty_like(rows)
+    kernel_row(out, name, cuda_ms(lambda: canon.canonicalize(rows, dst)),
+               cuda_ms(lambda: canon.canonicalize_plain(rows), reps=5), err,
+               2 * n * L * 4, 0,
+               extra={"shape": [n, L], "perms": canon.perms, "mode": mode,
+                      "shift": canon.shift, "model": m,
+                      "key_lanes": int(canon.pos.shape[0])},
+               label=f"{name} (K9, {mode} mode, {m} {cfg})")
+    torch.cuda.synchronize()
+    return out
+
+
+def unsymmetric_fused(doc, m):
+    """(depth, cumulative distinct) of model ``m``'s unsymmetric
+    run_fused on the same constants in phase 10d, 11d, 12d or 13b."""
+    if m == "ST03":
+        return (ST03_SHIPPED_DEPTH,
+                doc["st03_shipped"]["run_fused"]["distinct"])
+    if m in FAMILY:
+        return (FAMILY_FUSED_DEPTH,
+                doc["family"][m]["shipped"]["run_fused"]["distinct"])
+    if m in RECOVERY:
+        return (RECOVERY_WIDE["fused"],
+                doc["recovery"][f"{m}_wide"]["run_fused"]["distinct"])
+    return (CHECKPOINT_WIDE["fused"],
+            doc["checkpoint"]["wide"]["run_fused"]["distinct"])
+
+
+def family_symmetry_phase(args, doc):
+    """Phase 14: the family with symmetry on.  Returns K9's kernels-line
+    rows, one a model, with the launch counts of its deeper run_fused
+    (14b)."""
+    from tpuvsr_torch.engine.paged_bfs import PagedBFS
+    from tpuvsr_torch.models.registry import _resolve
+    with open(FAMILY_SYMMETRY_RECORD) as f:
+        record = json.load(f)
+    out = doc.setdefault("family_symmetry", {})
+    rows = []
+    t_phase = time.time()
+    paged_m, paged_d = SYMMETRY_PAGED
+    for m, (module, size) in FAMILY_SYMMETRY.items():
+        K = _resolve(module)[1]
+        cfg = f"{size}_symmetry"
+        D = SYMMETRY_DEPTHS[size]
+        want = record[m]
+        rd = want["depth"]
+        info_m = out.setdefault(m, {"record_depth": rd})
+
+        def held(res, what):
+            """The run's levels through the record's depth the record's,
+            and its generated count where its depth is within it."""
+            d = len(res.levels) - 1
+            n = min(d, rd) + 1
+            need(res.levels[:n] == want["levels"][:n],
+                 f"{m} {what} levels {res.levels[:n]}, the record "
+                 f"{want['levels'][:n]}")
+            if d <= rd:
+                need(res.states_generated == want["generated"][d],
+                     f"{m} {what} generated {res.states_generated}, the "
+                     f"record {want['generated'][d]}")
+
+        d = SYMMETRY_RECORD_DEPTH
+        print(f"phase 14a: {m} {cfg} cfg, recording run() to depth {d}; "
+              f"K9 ({K.CANON_MODE[0]} mode) against its plain version",
+              flush=True)
+        rec = CanonRecorder()
+        uninstall = rec.install()
+        try:
+            e, res, info = model_run(m, module, cfg, "run", d)
+        finally:
+            uninstall()
+        del e
+        held(res, "recording run()")
+        need(rec.relabelled > 0,
+             f"{m}: K9 relabelled no row in the recording run")
+        info_m["record"] = {"wall_s": info["wall_s"],
+                            "canon_rows": rec.rows,
+                            "canon_relabelled": rec.relabelled}
+        print(f"  K9 relabelled {rec.relabelled} of {rec.rows} rows",
+              flush=True)
+        mrows = check_family_canon(rec, K, m, cfg)
+        del rec
+
+        print(f"phase 14b: {m} {cfg} cfg, run_fused() to depth "
+              f"{D['fused']}, run_fused() and run() to depth {D['run']}",
+              flush=True)
+        e, fres, finfo = model_run(m, module, cfg, "run_fused", D["fused"])
+        fused_ptr = trace_pointers(e)
+        del e
+        e, sres, sinfo = model_run(m, module, cfg, "run_fused", D["run"])
+        short_ptr = trace_pointers(e)
+        del e
+        e, rres, rinfo = model_run(m, module, cfg, "run", D["run"])
+        run_ptr = trace_pointers(e)
+        del e
+        fused_host_reads(fres, m)
+        fused_host_reads(sres, m)
+        for what, r in (("run_fused()", fres), ("run_fused()", sres),
+                        ("run()", rres)):
+            held(r, what)
+        need(len(fres.levels) == D["fused"] + 1
+             and len(rres.levels) == D["run"] + 1
+             and rres.levels == fres.levels[:D["run"] + 1]
+             and sres.levels == rres.levels,
+             f"{m} symmetric run_fused levels {fres.levels}, run() "
+             f"{rres.levels}")
+        need((rres.distinct_states, rres.states_generated)
+             == (sres.distinct_states, sres.states_generated),
+             f"{m} symmetric run() {rres.distinct_states} / "
+             f"{rres.states_generated}, run_fused() {sres.distinct_states}"
+             f" / {sres.states_generated} at depth {D['run']}")
+        same_pointers(short_ptr, run_ptr, rres.levels,
+                      f"{m} symmetric run_fused", args)
+        n_run = sum(rres.levels)
+        same_pointers([a[:n_run] for a in fused_ptr], run_ptr, rres.levels,
+                      f"{m} symmetric deeper run_fused", args)
+        info_m.update({"run_fused": finfo, "run_fused_short": sinfo,
+                       "run": rinfo})
+        print(f"  levels {fres.levels} (the JAX record through depth "
+              f"{min(rd, D['fused'])}); run()'s levels, counts and pointer "
+              f"tables run_fused()'s", flush=True)
+        for k in mrows:
+            k["launches"] = finfo["launches"][k["kernel"]]
+        rows += mrows
+
+        depth, off = unsymmetric_fused(doc, m)
+        need(depth == D["fused"], f"{m}: the unsymmetric run went to "
+             f"{depth}, the symmetric one to {D['fused']}")
+        on = fres.distinct_states
+        print(f"phase 14c: {m} at depth {depth}: {on} orbits, {off} states "
+              f"(ceil(off / 2) = {-(-off // 2)})", flush=True)
+        need(-(-off // 2) <= on <= off, f"{m} at depth {depth}: {on} "
+             f"orbits against {off} states")
+        info_m["orbits_vs_states"] = {"depth": depth, "on": on, "off": off}
+
+        if m == paged_m:
+            print(f"phase 14d: PagedBFS, {m} {cfg} cfg to depth {paged_d}",
+                  flush=True)
+            need(paged_d == D["run"], "14d's depth is not 14b's run()'s")
+            e, pres, pinfo = model_run(
+                m, module, cfg, "run", paged_d,
+                label=f"{m} {cfg} PagedBFS", engine_cls=PagedBFS,
+                next_capacity=PAGED["next_capacity"])
+            need(pres.levels == rres.levels
+                 and (pres.distinct_states, pres.states_generated)
+                 == (rres.distinct_states, rres.states_generated),
+                 f"{m} symmetric PagedBFS levels {pres.levels}, "
+                 f"{pres.distinct_states} / {pres.states_generated}")
+            same_pointers(trace_pointers(e), run_ptr, rres.levels,
+                          f"{m} symmetric PagedBFS", args)
+            del e
+            out["paged"] = pinfo
+            print(f"  levels {pres.levels}, counts and pointer tables "
+                  f"run()'s; drains {pres.metrics['counters'].get('drains')}",
+                  flush=True)
+    out["wall_s"] = time.time() - t_phase
+    print(f"  phase 14: {out['wall_s']:.1f} s", flush=True)
+    return rows
+
+
 def gpu_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -3568,11 +3894,12 @@ def kernels_line(rows):
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms")}
+        | ({"timed_by": r["timed_by"]} if "timed_by" in r else {})
         for r in rows]})
 
 
 def run_phases(args, doc, t_all):
-    """Phases 1-13 (the module docstring); returns the exit code."""
+    """Phases 1-14 (the module docstring); returns the exit code."""
     import numpy as np
     import torch
     from tpuvsr_torch import kernels
@@ -3689,6 +4016,7 @@ def run_phases(args, doc, t_all):
     rows += family_phase(args, doc)
     rows += recovery_phase(args, doc)
     rows += checkpoint_phase(args, doc)
+    rows += family_symmetry_phase(args, doc)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
     write_doc(args, doc)

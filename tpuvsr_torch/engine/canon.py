@@ -4,26 +4,39 @@ A copy of ``tpuvsr/engine/canon.py`` for the port's flat rows.  Before a
 successor is fingerprinted it is mapped to the least element of its
 orbit under the cfg's SYMMETRY group, so every orbit-mate dedups against
 one FPSet entry (TLC's SYMMETRY; VSR.cfg declares
-``Permutations(Values)``).  The image is used only to compute the
-fingerprint: the frontier keeps the generated successor, so trace replay
-walks real states.
+``Permutations(Values)``, and the family's cfgs bind the same name).
+The image is used only to compute the fingerprint: the frontier keeps
+the generated successor, so trace replay walks real states.
 
 The group is an identity-first ``[P, V+1]`` value-id table
 (``group_table``), and it acts on a state through the kernel's
-``_permuted`` where it has one (VSR), else through its ``SYM_PLANES``
-table (``{plane: "all" | ("col", i)}``).  ``orbit_planes`` reads that
-table.  An image's key is the concatenation of the symmetric planes in
-sorted plane-name order, each in C order of its dense shape, compared as
+``_permuted`` where it has one (VSR and the family), else through its
+``SYM_PLANES`` table (``{plane: "all" | ("col", i)}``).  ``orbit_planes``
+reads that table, or the family's ``PERM_REP_KEYS`` / ``PERM_MSG_KEYS``.
+An image's key is the concatenation of the symmetric planes in sorted
+plane-name order, each in C order of its dense shape, compared as
 uint32; the least image wins, a tie keeps the earlier one.
+
+A permutation relabels each code ``c`` of those planes (or columns) in
+one of three ways, K9's modes (``MODES``, ``relabel_by_mode``); a
+kernel states its own in ``CANON_MODE``, which its ``_permuted`` and K9
+both follow:
+
+* ``plain``: ``c`` is a value id, ``perm[c]`` with JAX's gather
+  semantics (``relabel``): VSR's operation columns, ST03, AS04, AL05;
+* ``packed``: ``c`` is ``vid << shift | view`` (A01's entries, I01,
+  RR05): for ``c > 0`` only ``vid`` is relabelled, ``c <= 0`` stays;
+* ``noop``: ids above V are fixed (CP06's NoOp, V + 1), the others are
+  clipped into ``0..V`` and relabelled.
 
 ``CanonSpec.canonicalize`` takes a batch of flat rows ``[n, lanes]``
 int32 (the layout of ``engine/pack.py``): a CPU tensor goes to
 ``canonicalize_plain``, the plain PyTorch version of the JAX function, a
-CUDA tensor to kernel K9 (``csrc/canon.cu``).  Images of a row differ
-only at the lanes a permutation relabels, so the first difference of two
-keys lies at one of them: K9 compares images at those lanes alone, read
-through a host-built table of their flat-lane indices in key order
-(``CanonSpec.pos``).
+CUDA tensor to kernel K9 (``csrc/canon.cu``) in the kernel's mode.
+Images of a row differ only at the lanes a permutation relabels, so the
+first difference of two keys lies at one of them: K9 compares images at
+those lanes alone, read through a host-built table of their flat-lane
+indices in key order (``CanonSpec.pos``).
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ from ..core.values import TLAError
 from .pack import to_u32
 
 I32 = torch.int32
+# K9's relabel modes, in the order of csrc/canon.cu's enum Mode
+MODES = ("plain", "packed", "noop")
 
 
 def kernel_fold_order(kern):
@@ -111,6 +126,43 @@ def relabel(perm, v):
     return perm[i].to(v.dtype)
 
 
+def relabel_by_mode(perm, v, mode, shift=0, V=0):
+    """A permutation ``perm`` [V+1] on a plane of codes ``v`` in one of
+    K9's modes (``MODES``):
+
+    * ``plain``: ``relabel`` (``tpuvsr/models/st03_kernel.py:773``);
+    * ``packed``: codes ``vid << shift | view``; for ``v > 0`` the value
+      id relabelled and the view kept, ``v <= 0`` unchanged
+      (``tpuvsr/models/a01_kernel.py:42``);
+    * ``noop``: ids past V unchanged, the others clipped into ``0..V``
+      and relabelled (``tpuvsr/models/cp06_kernel.py:66``)."""
+    if mode == "plain":
+        return relabel(perm, v)
+    if mode == "packed":
+        vid = relabel(perm, v >> shift)
+        return torch.where(v > 0, (vid << shift) | (v & ((1 << shift) - 1)),
+                           v)
+    if mode == "noop":
+        return torch.where(v > V, v, perm[v.clamp(0, V).long()].to(v.dtype))
+    raise TLAError(f"no K9 relabel mode {mode!r} (one of {MODES})")
+
+
+def relabel_mode(kern):
+    """K9's (mode, shift) for a kernel: its ``CANON_MODE``, by which its
+    ``_permuted`` relabels too; a kernel with no ``_permuted`` relabels
+    through its ``SYM_PLANES`` table, plainly.  A kernel with a
+    ``_permuted`` and no known mode is refused."""
+    if not hasattr(kern, "_permuted"):
+        return "plain", 0
+    mode = getattr(kern, "CANON_MODE", None)
+    if mode is None or mode[0] not in MODES:
+        raise TLAError(
+            f"{type(kern).__name__} relabels through its _permuted but "
+            f"names no K9 mode (CANON_MODE = (one of {MODES}, shift)), "
+            f"but {mode!r}: the device canonicalization cannot follow it")
+    return mode[0], int(mode[1])
+
+
 def _lex_less(a, b):
     """Row-wise lexicographic a < b over two ``[n, K]`` key matrices:
     the first differing column decides."""
@@ -121,7 +173,9 @@ def _lex_less(a, b):
 
 class CanonSpec:
     """Canonicalization for one (binding, codec, kernel): ``canonicalize``
-    maps flat rows to the least elements of their orbits."""
+    maps flat rows to the least elements of their orbits.  ``mode`` and
+    ``shift`` are K9's relabelling (``relabel_mode``), ``kernel`` the
+    name its launches count under (the model's ``CANON_KERNEL``)."""
 
     def __init__(self, group, planes, kern):
         self.group = np.asarray(group, np.int32)     # [P, V+1], id 1st
@@ -137,6 +191,9 @@ class CanonSpec:
         self.version = "canon/1:" + hashlib.sha256(
             payload.encode()).hexdigest()[:16]
         self.pos = self._positions(kern.pk)
+        name, self.shift = relabel_mode(kern)
+        self.mode = MODES.index(name)
+        self.kernel = getattr(kern, "CANON_KERNEL", "vsr_canon")
         self._dev = {}
 
     @property
@@ -235,11 +292,12 @@ class CanonSpec:
             out = torch.empty_like(rows)
         ck = kernels.check
         kernels.launch(
-            "vsr_canon", "tpuvsr_canon",
+            self.kernel, "tpuvsr_canon",
             ck(rows, "rows", I32, (n, self.kern.pk.lanes)), n, lanes,
             t["group"].data_ptr(), self.perms, self.group.shape[1],
-            t["pos"].data_ptr(), int(self.pos.shape[0]),
-            ck(out, "out", I32, (n, lanes)), kernels.stream_of(rows))
+            t["pos"].data_ptr(), int(self.pos.shape[0]), self.mode,
+            self.shift, ck(out, "out", I32, (n, lanes)),
+            kernels.stream_of(rows))
         return out
 
     def fingerprint_fn(self, kern):

@@ -53,9 +53,10 @@ same loop runs eagerly on the plain versions.
 Symmetry (``symmetry="auto" | True | False``) has the JAX engine's
 meaning: auto is on iff the cfg declares SYMMETRY.  When it is on, the
 fingerprint of a successor (and of an initial state) is that of its
-orbit's least element (``engine/canon.py``), the incremental hash is
-off, and the frontier keeps the generated successor, so traces replay
-real states.
+orbit's least element (``engine/canon.py``; on the card K9 in the
+model's relabel mode, VSR's and the family's alike), the incremental
+hash is off, and the frontier keeps the generated successor, so traces
+replay real states.
 
 Edge emission (``edges=True``) streams the behaviour graph out of the
 chunked level pass: after K1, K11 stores each fresh state's gid beside

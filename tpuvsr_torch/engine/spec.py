@@ -5,9 +5,9 @@ The port has no TLA+ frontend: a binding is read from a cfg file and
 holds the module name, the cfg, the invariant names in cfg order, a
 function that builds the dense initial states for a codec (VSR.tla's
 ``Init`` through ``VSRCodec.init_dense``) and the evaluated SYMMETRY
-set.  Of the definitions a cfg may name, the binding knows the one the
-VSR module's cfgs use: ``symmValues == Permutations(Values)``
-(VSR.tla:151).
+set.  Of the definitions a cfg may name, the binding knows one:
+``symmValues == Permutations(Values)`` (VSR.tla:151), for VSR and for
+the seven models of its analysis family (``_SYMMETRY_DEFS``).
 """
 
 from __future__ import annotations
@@ -19,8 +19,14 @@ from typing import Callable
 from ..core.values import FnVal, TLAError, value_key
 from ..frontend.cfg import CfgModel, parse_cfg_file
 
-# (module, SYMMETRY name) -> the constant whose Permutations it is
-_SYMMETRY_DEFS = {("VSR", "symmValues"): "Values"}
+# (module, SYMMETRY name) -> the constant whose Permutations it is.  The
+# family's .tla files are not in this repository: their symmValues is
+# taken as VSR's Permutations(Values) (VSR.tla:151), as the JAX package's
+# tests bind it for them (tests/test_st03_kernel.py:36-37).
+_SYMMETRY_DEFS = {(module, "symmValues"): "Values" for module in (
+    "VSR", "VR_STATE_TRANSFER", "VR_ASSUME_NEWVIEWCHANGE", "VR_INC_RESEND",
+    "VR_APP_STATE", "VR_REPLICA_RECOVERY", "VR_REPLICA_RECOVERY_ASYNC_LOG",
+    "VR_REPLICA_RECOVERY_CP")}
 
 
 @dataclass
@@ -69,9 +75,10 @@ def symmetry_perms(module: str, cfg: CfgModel) -> list:
 
 def load_binding(cfg_path: str, module: str) -> SpecBinding:
     """Bind a cfg file to the TLA+ module ``module`` (the name its spec
-    declares; a cfg does not name it).  ``registry.make_model`` refuses
-    a module with no hand model kernel (the port has VSR's and the
-    analysis family's, ``models/registry._resolve``)."""
+    declares; a cfg does not name it).  A SYMMETRY the port does not know
+    for the module is a loud error (``symmetry_perms``);
+    ``registry.make_model`` refuses a module with no hand model kernel (the
+    port has VSR's and the analysis family's, ``models/registry._resolve``)."""
     cfg = parse_cfg_file(cfg_path)
     return SpecBinding(module=module, cfg=cfg,
                        init=lambda codec: [codec.init_dense()],

@@ -178,6 +178,29 @@ KERNELS = {
     "cp06_actions": ("st03_actions", "tpuvsr/models/cp06_kernel.py:155-759 "
                      "act_*, inv_* (+ rr05_kernel.py, as04_kernel.py, "
                      "st03_kernel.py)"),
+    # K9 on the family: one source, the model's relabelling a launch
+    # argument (engine/canon.MODES)
+    "st03_canon": ("canon", "tpuvsr/engine/canon.py:202 "
+                   "CanonSpec.canonicalize over tpuvsr/models/"
+                   "st03_kernel.py:773 _perm_vals, :779 _permuted (plain)"),
+    "a01_canon": ("canon", "tpuvsr/engine/canon.py:202 CanonSpec."
+                  "canonicalize over tpuvsr/models/a01_kernel.py:42 "
+                  "_perm_vals (packed entries)"),
+    "i01_canon": ("canon", "tpuvsr/engine/canon.py:202 CanonSpec."
+                  "canonicalize over tpuvsr/models/i01_kernel.py:53 "
+                  "PERM_REP_KEYS (a01_kernel.py:42 _perm_vals, packed)"),
+    "as04_canon": ("canon", "tpuvsr/engine/canon.py:202 CanonSpec."
+                   "canonicalize over tpuvsr/models/as04_kernel.py:51 "
+                   "PERM_REP_KEYS (st03_kernel.py:773 _perm_vals, plain)"),
+    "rr05_canon": ("canon", "tpuvsr/engine/canon.py:202 CanonSpec."
+                   "canonicalize over tpuvsr/models/rr05_kernel.py:57 "
+                   "PERM_REP_KEYS, :83 _perm_vals (packed)"),
+    "al05_canon": ("canon", "tpuvsr/engine/canon.py:202 CanonSpec."
+                   "canonicalize over tpuvsr/models/al05_kernel.py:55 "
+                   "_perm_vals (plain, RR05's planes)"),
+    "cp06_canon": ("canon", "tpuvsr/engine/canon.py:202 CanonSpec."
+                   "canonicalize over tpuvsr/models/cp06_kernel.py:56-58 "
+                   "PERM_*_KEYS, :66 _perm_vals (NoOp fixed)"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -198,7 +221,7 @@ _ENTRY = {
     "tpuvsr_commit_prefix": "ppppppppp" + "ii" + "pp" + "p",
     "tpuvsr_commit_finish": "ppppppp" + "ipi" + "ppi" + "pppp" + "p",
     "tpuvsr_level_step": "pppppp" + "i" + "pppp" + "ii" + "p",
-    "tpuvsr_canon": "pii" + "pii" + "pi" + "p" + "p",
+    "tpuvsr_canon": "pii" + "pii" + "pi" + "ii" + "p" + "p",
     "tpuvsr_vsr_actions": "pipppi" + "p" + "iiiiiii" + "iii" + "p"
                           + "ppppppp" + "p",
     "tpuvsr_fpset_store_gids": "pqppppi" + "p",

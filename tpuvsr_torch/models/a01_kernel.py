@@ -52,6 +52,10 @@ class A01Kernel(ST03Kernel):
     ACTIONS_KERNEL = ("a01_actions", "tpuvsr_a01_actions")
     PLANE_KEYS = ALL_KEYS + FAMILY_PLANES
     GUARD_KEYS = GUARD_PLANES + FAMILY_GUARD_PLANES
+    # packed entries: the value-id field relabelled, the view kept, codes
+    # <= 0 fixed (tpuvsr/models/a01_kernel.py:42 _perm_vals)
+    CANON_MODE = ("packed", ENTRY_VIEW_BITS)
+    CANON_KERNEL = "a01_canon"
 
     def _is_primary(self, st, i, r):
         return self._primary(_take(st["view"], i), self.R) == r

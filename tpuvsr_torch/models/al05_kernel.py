@@ -65,6 +65,9 @@ class AL05Kernel(RR05Kernel):
         return super()._rep_shape(k)
 
     # plain value-id entries again: undo RR05's packed-entry borrowings
+    # (the relabelling too, tpuvsr/models/al05_kernel.py:55)
+    CANON_MODE = ST03Kernel.CANON_MODE
+    CANON_KERNEL = "al05_canon"
     _replica_has_op = ST03Kernel._replica_has_op
     act_receive_client_request = ST03Kernel.act_receive_client_request
     act_execute_op = AS04Kernel.act_execute_op

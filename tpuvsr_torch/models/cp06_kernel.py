@@ -78,6 +78,14 @@ class CP06Kernel(RR05Kernel):
     ACTIONS_KERNEL = ("cp06_actions", "tpuvsr_cp06_actions")
     REC_PLANES = RR05Kernel.REC_PLANES + ("rec_flag", "rec_first",
                                           "rec_cp", "rec_cpn")
+    # tpuvsr/models/cp06_kernel.py:56-58: the checkpoints relabel too
+    PERM_REP_KEYS = ("log", "app", "dvc_log", "dvc_cp", "rec_log",
+                     "rec_cp")
+    PERM_MSG_KEYS = ("m_entry", "m_log", "m_cp")
+    # plain value ids with the NoOp id (V + 1) fixed
+    # (tpuvsr/models/cp06_kernel.py:66 _perm_vals)
+    CANON_MODE = ("noop", 0)
+    CANON_KERNEL = "cp06_canon"
 
     def __init__(self, codec: CP06Codec, perms=None, pack_spec=None):
         self.NOOP = codec.noop_id

@@ -77,6 +77,11 @@ class RR05Kernel(AS04Kernel):
     GUARDS_KERNEL = ("rr05_guards", "tpuvsr_rr05_guards")
     ACTIONS_KERNEL = ("rr05_actions", "tpuvsr_rr05_actions")
     REC_PLANES = REC_PLANES
+    # tpuvsr/models/rr05_kernel.py:57, 83: A01's packed relabelling over
+    # every plane named here, the app state included
+    PERM_REP_KEYS = ("log", "app", "dvc_log", "rec_log")
+    CANON_MODE = A01Kernel.CANON_MODE
+    CANON_KERNEL = "rr05_canon"
 
     def __init__(self, codec: RR05Codec, perms=None, pack_spec=None):
         self.crash_limit = codec.constants.get("CrashLimit", 0)

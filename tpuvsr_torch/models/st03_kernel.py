@@ -44,9 +44,14 @@ is never read), its actions by their family ids (``FAMILY_ACTIONS``,
 ``ACTION_ALIASES``) and its invariants by their family bits
 (``FAMILY_INVARIANTS``).
 
-The engine builds the kernel with the identity permutation table only:
-the port reduces no symmetry on the family (``engine/spec._SYMMETRY_DEFS``
-knows VSR's definition alone).
+Symmetry.  The engine builds the kernel with the identity permutation
+table only: ``engine/canon.CanonSpec`` owns the reduction.  It reads the
+planes a value permutation relabels (``PERM_REP_KEYS``,
+``PERM_MSG_KEYS``), applies ``_permuted`` in its plain version, and runs
+K9 (``csrc/canon.cu``, launches counted under ``CANON_KERNEL``) in the
+mode ``CANON_MODE`` names, the one statement of how a class relabels
+(``_perm_vals`` reads it too): ST03's value ids are ``plain``, A01's
+packed entries ``packed``, CP06's ids with a fixed NoOp ``noop``.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import kernels
+from ..engine.canon import relabel_by_mode
 from .fingerprint import RowFingerprint
 from .st03 import (ANYDEST, ERR_BAG_OVERFLOW, M_DVC, M_GETSTATE,
                    M_NEWSTATE, M_PREPARE, M_PREPAREOK, M_SV, M_SVC, NORMAL,
@@ -145,6 +151,14 @@ class ST03Kernel(RowFingerprint):
     ERR_BAG_OVERFLOW = ERR_BAG_OVERFLOW
     # CrashLimit, which K13 and K14 take (a model with recovery sets it)
     crash_limit = 0
+    # the value-id planes a symmetry permutation relabels
+    # (tpuvsr/models/st03_kernel.py:86-87; engine/canon.orbit_planes reads
+    # them), their relabelling (_perm_vals and K9) and the name K9's
+    # launches count under
+    PERM_REP_KEYS = ("log",)
+    PERM_MSG_KEYS = ("m_entry", "m_log")
+    CANON_MODE = ("plain", 0)
+    CANON_KERNEL = "st03_canon"
 
     def __init__(self, codec: ST03Codec, perms: np.ndarray = None,
                  pack_spec=None):
@@ -188,6 +202,23 @@ class ST03Kernel(RowFingerprint):
         self._fp_tables = {}
         if pack_spec is not None:
             self._build_row_tables(pack_spec)
+
+    def _perm_vals(self, arr, perm):
+        """A value permutation on one plane, in the class's
+        ``CANON_MODE`` (``tpuvsr/models/st03_kernel.py:773``; A01's
+        packed entries ``a01_kernel.py:42``, CP06's NoOp
+        ``cp06_kernel.py:66``)."""
+        mode, shift = self.CANON_MODE
+        return relabel_by_mode(perm, arr, mode, shift, self.V)
+
+    def _permuted(self, st, perm):
+        """A batch relabelled through one symmetry permutation (``perm``
+        [V+1]): the ``PERM_REP_KEYS`` and ``PERM_MSG_KEYS`` planes through
+        ``_perm_vals`` (``tpuvsr/models/st03_kernel.py:779``)."""
+        st = dict(st)
+        for k in self.PERM_REP_KEYS + self.PERM_MSG_KEYS:
+            st[k] = self._perm_vals(st[k], perm)
+        return st
 
     def _rep_shape(self, k):
         s = self.shape

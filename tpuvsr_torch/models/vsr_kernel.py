@@ -188,6 +188,9 @@ class VSRKernel(RowFingerprint):
     SYM_PLANES = {"log": ("col", E_OPER), "dvc_log": ("col", E_OPER),
                   "rec_log": ("col", E_OPER), "m_log": ("col", E_OPER),
                   "m_entry": ("col", E_OPER)}
+    # K9 relabels those columns as _permuted does: plain value ids
+    CANON_MODE = ("plain", 0)
+    CANON_KERNEL = "vsr_canon"
 
     def __init__(self, codec: VSRCodec, perms: np.ndarray = None,
                  pack_spec=None):
