@@ -275,6 +275,50 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         launched;
      each run prints its distinct states, seconds, peak memory and
      orbit_ratio;
+  15. the per-action commit (DeviceBFS(commit="per-action"): K15's
+     action_gate and action_finish around K7, K10, K3, K2, K1 and K4 an
+     action), launch counts reset just before each timed run and read
+     just after (K15 launched, K8's commit_prefix and commit_finish
+     not):
+     a. an untimed recording run() to depth 8 keeps K15's largest calls;
+        then run() and run_fused() on the defect config to depth 10:
+        levels, distinct and generated counts and per-action counters
+        those of phases 5 and 7c, the trace-pointer tables through
+        level 6 the JAX per-action run's (PER_ACTION_RECORD), and
+        run_fused()'s tables run()'s; the walls beside the fused
+        commit's;
+     b. the shipped model with symmetry on, run_fused() to depth 12 in
+        both commits: the same levels (the record's), counts and
+        per-action counters;
+     c. ST03's small cfg to its fixpoint (42,753 / 106,794 / 24)
+        through run_fused();
+     d. RR05's small cfg through run_fused(): NoLogDivergence at depth
+        17, levels through 16 the record's (whether its trace is the
+        fused run's is printed);
+     e. PagedBFS(commit="per-action", edges=True) to depth 9: the
+        fingerprint-labelled edge multiset that of phase 9c's run out of
+        the same levels;
+     f. K15 against its plain version on 15a's recorded calls (the
+        finish also on a tile's last action), timed with its bound;
+  16. DeviceSimulator (one shared key stream, K5's shared layout; one
+     CUDA graph a chunk), on the defect config at MAX_MSGS 48, 4096
+     walkers, chunks of 32, depth 40, seed 0, launch counts reset just
+     before each timed run and read just after (K6, K5 shared and K10
+     launched, the fleet's K5 layout not), one host read a chunk:
+     a. uniform, dense dispatch: the first chunk run eagerly with every
+        K5 call held bit for bit against its plain version; then 4 x
+        4096 walks through the graphs, whose first round's (action,
+        param) histories must equal an eager run of the plain versions
+        on the card;
+     b. the same with uniform action weights and swarm noise of sigma
+        0.5 (K5's shared noise held against its plain version) and the
+        grouped dispatch, against the eager plain dense run;
+     c. guided (split_beta 1.5, the hunt's weights, swarm 1.0) for 60
+        s: whether it finds AcknowledgedWriteNotLost, and when; a found
+        trace must replay (check_replay);
+     d. ST03's shipped cfg, one round to depth 30 on K13 and K14, its
+        histories those of the eager plain run;
+     each prints steps/s and walks/s;
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
@@ -521,6 +565,30 @@ SYMMETRY_RECORD_DEPTH = 8
 SYMMETRY_PAGED = ("CP06", 10)
 PAGED = {"next_capacity": 1 << 14, "spill_ram_rows": 1 << 16,
          "edge_capacity": 1 << 15, "min_drains": 3}
+# phase 15: the per-action commit.  PER_ACTION_RECORD holds the JAX
+# package's per-action and fused runs of the defect config at tile 128,
+# 64 tiles a chunk, to depth 6, on the CPU (python
+# tests/test_torch_per_action.py record, about five minutes): the
+# digests of their trace-pointer tables, which differ where an action's
+# batch holds equal successors (the JAX insert names the last of them
+# fresh, the fused commit's dedup the first)
+PER_ACTION = {"record_depth": 8, "shipped_depth": 12,
+              "paged_depth": 9, "recovery_depth": 30}
+PER_ACTION_RECORD = os.path.join(ROOT, "tpuvsr_torch", "configs",
+                                 "records", "per_action_defect.json")
+# and each commit's first counterexample of RR05's small cfg at tile 128:
+# a host BFS over the JAX package's kernel in the engines' order
+# (python tests/test_torch_rr05.py record-counterexamples), whose fused
+# steps are COUNTEREXAMPLE
+RR05_COUNTEREXAMPLES = os.path.join(ROOT, "tpuvsr_torch", "configs",
+                                    "records", "rr05_counterexamples.json")
+# phase 16: DeviceSimulator on the defect config (MAX_MSGS 48) and on
+# ST03's shipped cfg; the walks are held against an eager run of the
+# plain versions on the card (the JAX package's are held on the CPU at
+# small sizes, tests/test_torch_device_sim.py)
+SIM = {"walkers": 4096, "chunk": 32, "depth": 40, "seed": 0, "rounds": 4,
+       "max_msgs": 48, "sigma": 0.5, "guided_s": 60.0, "guided_sigma": 1.0,
+       "st03_depth": 30}
 MEM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
 OPS_RATE = 67e12             # H100 SXM float32 outside the tensor cores
 
@@ -534,17 +602,23 @@ def need(cond, msg):
         raise SmokeError(msg)
 
 
-def device_us(prof, skip=None):
-    """Microseconds of device activity (kernels, copies, memsets) in a
+def device_events(prof, skip=None):
+    """The device activities (kernels, copies, memsets) of a
     torch.profiler trace: the device-side events only, since a CPU op's
     device time repeats that of the kernels it launched, and no
     profiler range (its span on the device timeline includes idle gaps);
     events whose name starts with ``skip`` are left out."""
     from torch.autograd import DeviceType
-    return sum(e.device_time_total for e in prof.events()
-               if e.device_type != DeviceType.CPU
-               and not getattr(e, "is_user_annotation", False)
-               and not (skip and e.name.startswith(skip)))
+    return [e for e in prof.events()
+            if e.device_type != DeviceType.CPU
+            and not getattr(e, "is_user_annotation", False)
+            and not (skip and e.name.startswith(skip))]
+
+
+def device_us(prof, skip=None):
+    """Microseconds of device activity in a torch.profiler trace (the
+    events of ``device_events``)."""
+    return sum(e.device_time_total for e in device_events(prof, skip))
 
 
 def same_pointers(got, want, levels, what, args):
@@ -590,17 +664,17 @@ def cuda_ms(fn, reps=20, warm=3, evict=None, pre=None):
     ``evict`` (``l2_evict()``) a copy that flushes the 50 MB L2 comes
     before each call too, so that fn reads its inputs from HBM.  All
     such copies are left out of the device time (the issue time keeps
-    them), so fn must make none of its own.  The profiled calls are made
-    again once if the profiler records no device time; after a second
-    miss the device time is that of CUDA events around one replay of a
-    CUDA graph of ``reps`` calls, less that of a graph of the copies
-    alone (no host time in either), and ``timed_by`` says "cuda_graph";
-    where fn cannot be captured (it syncs), CUDA events around ``reps``
-    calls back to back, less the copies alone ("cuda_events": the host's
-    launch rate bounds it).  ``timed_by`` is "torch.profiler" otherwise.
+    them), so fn must make none of its own.  The profiler's record is
+    taken only where it is whole (``profiled_ms``); the profiled calls
+    are made again once where it is not.  After a second miss the
+    device time is that of CUDA events around one replay of a CUDA graph
+    of ``reps`` calls, less that of a graph of the copies alone (no host
+    time in either), and ``timed_by`` says "cuda_graph"; where fn cannot
+    be captured (it syncs), CUDA events around ``reps`` calls back to
+    back, less the copies alone ("cuda_events": the host's launch rate
+    bounds it).  ``timed_by`` is "torch.profiler" otherwise.
     """
     import torch
-    from torch.profiler import ProfilerActivity, profile
     steps = ([lambda: evict[0].copy_(evict[1])] if evict is not None
              else []) + ([pre] if pre is not None else [])
 
@@ -628,14 +702,12 @@ def cuda_ms(fn, reps=20, warm=3, evict=None, pre=None):
         call()
     issue = events_ms(call) / reps
     skip = "Memcpy DtoD" if steps else None
+    seen = []
     for _attempt in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                call()
-            torch.cuda.synchronize()
-        dev_us = device_us(prof, skip)
-        if dev_us > 0:
-            return dev_us / reps / 1e3, issue, "torch.profiler"
+        ms, counts = profiled_ms(call, reps, skip)
+        if ms is not None:
+            return ms, issue, "torch.profiler"
+        seen.append(counts)
     try:
         ms, how = (graph_ms(call, reps) - (graph_ms(copies, reps)
                                            if steps else 0.0),
@@ -646,9 +718,41 @@ def cuda_ms(fn, reps=20, warm=3, evict=None, pre=None):
         ms, how = (events_ms(call) - (events_ms(copies) if steps else 0.0),
                    "cuda_events")
     ms /= reps
-    print(f"  (torch.profiler recorded no device time twice: timed by "
-          f"{how}, {reps} calls, {ms:.4f} ms a call)", flush=True)
+    print(f"  (torch.profiler's record was not whole twice: (one call, "
+          f"{reps} calls) {seen} device activities; timed by {how}, "
+          f"{ms:.4f} ms a call)", flush=True)
     return ms, issue, how
+
+
+PROFILE_MARK = "spin_kernel"        # torch.cuda._sleep's kernel
+
+
+def profiled_ms(call, reps, skip):
+    """(device ms a call or None, (activities of one call, of ``reps``
+    calls)) from one torch.profiler session of a call, a marker kernel,
+    one call, a marker and ``reps`` calls.  The trace may lose a few of
+    its first activities, which the first call absorbs.  The ``reps``
+    calls after the second marker are timed only where they hold
+    ``reps`` times the activities between the markers (one call's), so
+    that a record that lost some calls gives no per-call time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda._sleep(100)
+        call()
+        torch.cuda._sleep(100)
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    evs = sorted(device_events(prof, skip), key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(evs) if PROFILE_MARK in e.name]
+    if len(marks) != 2:
+        return None, (None, len(evs))
+    one, timed = marks[1] - marks[0] - 1, evs[marks[1] + 1:]
+    if one == 0 or len(timed) != reps * one:
+        return None, (one, len(timed))
+    return sum(e.device_time_total for e in timed) / reps / 1e3, None
 
 
 def graph_ms(f, reps):
@@ -956,9 +1060,10 @@ def check_insert(out, fps, mask, table_fps, cap, label=None):
     def fresh_batch():
         return torch.randint(-2**31, 2**31 - 1, (n, 4), dtype=torch.int32,
                              device=dev, generator=gen)
-    it = iter([fresh_batch() for _ in range(46)])
+    # enough for every call cuda_ms may make, fallbacks included
+    it = iter([fresh_batch() for _ in range(100)])
     ms = cuda_ms(lambda: F.insert_core(ta, next(it), canon), reps=20, warm=3)
-    it2 = iter([fresh_batch() for _ in range(8)])
+    it2 = iter([fresh_batch() for _ in range(30)])
     plain_ms = cuda_ms(lambda: F.insert_core_plain(tb, next(it2), canon),
                        reps=3, warm=1)
     # bytes the data needs: mask, fresh, fps, one 20-byte probe read per
@@ -2402,8 +2507,14 @@ def paged_phase(args, doc, binding, run_pointers):
          f"edge multiset out of levels 0-{EDGE_RECORD['depth'] - 1}: "
          f"{count} edges, digest {digest}; the JAX record {EDGE_RECORD}")
     g = res.metrics["gauges"]
+    # phase 15e's comparison: the edges out of its levels
+    d15 = min(PER_ACTION["paged_depth"], args.depth)
+    to15 = src < sum(levels[:d15])
     doc["paged_edges"].update(edges=int(indptr[-1]), csr_s=csr_s,
-                              record=[count, digest])
+                              record=[count, digest],
+                              per_action_depth=d15,
+                              edges_to_depth=triple_digest(
+                                  fp, src[to15], aid[to15], tid[to15]))
     print(f"  {int(indptr[-1])} edges ({g['edges_per_s']} /s), edge drains "
           f"{res.metrics['counters']['edge_drains']} (flushes "
           f"{res.metrics['counters'].get('edge_flushes', 0)}), buffer high "
@@ -2936,7 +3047,16 @@ def model_run(m, module, size, entry, depth=None, constants=None,
               for k in ks] + VSR_KERNELS + canons + unused
     for k in others:
         need(counts[k] == 0, f"{k} was launched on {what}")
-    if entry == "run_fused":
+    if engine_kw.get("commit") == "per-action":
+        # the per-action commit: K15 an action, no fused K8 commit
+        for k in ("compact", "action_gate", "action_finish"):
+            need(counts[k] > 0, f"{k} was not launched on {what}")
+        for k in ("commit_prefix", "commit_finish"):
+            need(counts[k] == 0, f"{k} was launched on {what}")
+        if entry == "run_fused":
+            need(counts["level_step"] > 0,
+                 f"level_step was not launched on {what}")
+    elif entry == "run_fused":
         for k in ("compact", "commit_prefix", "commit_finish",
                   "level_step"):
             need(counts[k] > 0, f"{k} was not launched on {what}")
@@ -3844,6 +3964,634 @@ def family_symmetry_phase(args, doc):
     return rows
 
 
+class PaRecorder:
+    """Keeps the inputs of the K15 calls of an eager per-action run
+    (cloned before each call, which steps the carry): the gate with the
+    most enabled items, the finish with the most fresh items, and the
+    finish of a tile's last action (the verdict's fold) with the most."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def keep(self, name, size, snap):
+        if size > self.calls.get(name, (-1, None))[0]:
+            self.calls[name] = (size, snap)
+
+    def install(self):
+        from tpuvsr_torch.engine import device_bfs as D
+        gate, finish = D.action_gate, D.action_finish
+        rec = self
+
+        def action_gate(carry, pa, q, o, a, total_e, mcommit):
+            snap = (carry.clone(), pa.clone(),
+                    {k: v.clone() for k, v in q.items()},
+                    {k: o[k].clone() for k in ("en2", "iok", "err")},
+                    a, total_e)
+            out = gate(carry, pa, q, o, a, total_e, mcommit)
+            rec.keep("action_gate", int((o["en2"] & q["ok"]).sum()), snap)
+            return out
+
+        def action_finish(carry, pa, q, fresh, ovf_i, a, cnts, en_any,
+                          valid, bufs, dest):
+            snap = (carry.clone(), pa.clone(),
+                    {k: q[k].clone() for k in ("pidx", "lane", "aid")},
+                    fresh.clone(), ovf_i.clone(), a, cnts.clone(),
+                    en_any.clone(), valid.clone(), bufs.cap)
+            out = finish(carry, pa, q, fresh, ovf_i, a, cnts, en_any,
+                         valid, bufs, dest)
+            n = int(fresh.sum())
+            rec.keep("action_finish", n, snap)
+            if a == cnts.shape[0] - 1:
+                rec.keep("action_finish_last", n, snap)
+            return out
+
+        D.action_gate, D.action_finish = action_gate, action_finish
+
+        def uninstall():
+            D.action_gate, D.action_finish = gate, finish
+        return uninstall
+
+
+def check_k15(rec):
+    """Phase 15f: K15's two entries against their plain versions on the
+    recorded calls, bit for bit (the carry, the chain, the masks, the
+    rows and the pointer columns), each timed (carry and chain restored
+    before every call) with its bound."""
+    import torch
+    from tpuvsr_torch.engine import tile as TL
+    from tpuvsr_torch.engine.device_bfs import _Bufs
+    out = []
+    carry, pa, q, o, a, total_e = rec.calls["action_gate"][1]
+    dev = carry.device
+    E = o["en2"].shape[0]
+    ca, cb, pa_a, pa_b = carry.clone(), carry.clone(), pa.clone(), pa.clone()
+    ma, mb = (torch.zeros((E,), dtype=torch.bool, device=dev)
+              for _ in range(2))
+    TL.action_gate(ca, pa_a, q, o, a, total_e, ma)
+    TL.action_gate_plain(cb, pa_b, q, o, a, total_e, mb)
+    err = max(max_abs(ca, cb), max_abs(pa_a, pa_b), max_abs(ma, mb))
+    n_ok = int((o["en2"] & q["ok"]).sum())
+    kernel_row(out, "action_gate",
+               cuda_ms(lambda: TL.action_gate(ca, pa_a, q, o, a, total_e,
+                                              ma),
+                       pre=lambda: pa_a.copy_(pa)),
+               cuda_ms(lambda: TL.action_gate_plain(cb, pa_b, q, o, a,
+                                                    total_e, mb),
+                       reps=5, pre=lambda: pa_b.copy_(pa)),
+               err, 8 * E + 2 * 8 * pa.numel() + 32, 6 * E,
+               extra={"shape": [E], "action": a, "enabled": n_ok,
+                      "mcommit": int(ma.sum())})
+    for key in ("action_finish", "action_finish_last"):
+        (carry, pa, q, fresh, ovf_i, a, cnts, en_any, valid,
+         cap) = rec.calls[key][1]
+        E, T, n_act = fresh.shape[0], valid.shape[0], cnts.shape[0]
+        ca, cb = carry.clone(), carry.clone()
+        pa_a, pa_b = pa.clone(), pa.clone()
+        ba, bb = _Bufs(cap, 1, dev), _Bufs(cap, 1, dev)
+        da, db = (torch.zeros((E,), dtype=torch.int32, device=dev)
+                  for _ in range(2))
+        args_a = (q, fresh, ovf_i, a, cnts, en_any, valid, ba, da)
+        args_b = (q, fresh, ovf_i, a, cnts, en_any, valid, bb, db)
+        TL.action_finish(ca, pa_a, *args_a)
+        TL.action_finish_plain(cb, pa_b, *args_b)
+        err = max(max_abs(ca, cb), max_abs(pa_a, pa_b), max_abs(da, db),
+                  *(max_abs(getattr(ba, k), getattr(bb, k))
+                    for k in ("par", "act", "prm")))
+        need(err == 0, f"{key}: K15 differs from its plain version")
+        n_fresh = int(fresh.sum())
+        last = a == n_act - 1
+        if key == "action_finish_last":
+            print(f"  action_finish of the last action ({n_fresh} fresh, "
+                  f"reason {int(ca[TL.C_REASON])}): equal to its plain "
+                  f"version", flush=True)
+            continue
+
+        def restore(c, p_, saved=(carry, pa)):
+            return lambda: (c.copy_(saved[0]), p_.copy_(saved[1]))
+        kernel_row(out, "action_finish",
+                   cuda_ms(lambda: TL.action_finish(ca, pa_a, *args_a),
+                           pre=restore(ca, pa_a)),
+                   cuda_ms(lambda: TL.action_finish_plain(cb, pa_b,
+                                                          *args_b),
+                           reps=5, pre=restore(cb, pa_b)),
+                   err, 13 * E + 12 * n_fresh
+                   + (2 * T + 8 * n_act if last else 0)
+                   + 2 * 8 * (carry.numel() + pa.numel()), 2 * E,
+                   extra={"shape": [E], "action": a, "fresh": n_fresh})
+    torch.cuda.synchronize()
+    return out
+
+
+def pa_counts_ok(counts, what):
+    """The per-action commit's kernels launched on a path, the fused
+    commit's K8 entries not."""
+    for k in ("action_gate", "action_finish", "compact", "dedup_batch",
+              "fpset_insert", "pack"):
+        need(counts[k] > 0, f"{k} was not launched on {what}")
+    for k in ("commit_prefix", "commit_finish"):
+        need(counts[k] == 0, f"{k} was launched on {what}")
+
+
+def per_action_phase(args, doc):
+    """Phase 15: the per-action commit through run(), run_fused() and
+    PagedBFS.  Returns K15's kernels-line rows, with the launch counts of
+    15a's run_fused."""
+    import hashlib
+    import numpy as np
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS
+    from tpuvsr_torch.engine.paged_bfs import PagedBFS
+    from tpuvsr_torch.engine.spec import load_binding
+    P = PER_ACTION
+    t_phase = time.time()
+    out = doc["per_action"] = {}
+    binding = load_binding(DEFECT, "VSR")
+    depth = args.depth
+    levels = LEVELS[:depth + 1]
+    record = json.load(open(PER_ACTION_RECORD))
+
+    def engine(cls=DeviceBFS, **kw):
+        return cls(binding, tile_size=128, chunk_tiles=64,
+                   fpset_capacity=1 << 26, device="cuda",
+                   commit="per-action", **kw)
+
+    def digest(tables, n):
+        h = hashlib.sha256()
+        for t, dt in zip(tables, (np.int64, np.int32, np.int32)):
+            h.update(np.ascontiguousarray(t[:n].astype(dt)).tobytes())
+        return h.hexdigest()
+
+    print(f"phase 15a: the per-action commit, defect config: an untimed "
+          f"recording run() to depth {P['record_depth']}, then run() and "
+          f"run_fused() to depth {depth}", flush=True)
+    rec = PaRecorder()
+    uninstall = rec.install()
+    try:
+        eng = engine()
+        r = eng.run(max_depth=P["record_depth"])
+    finally:
+        uninstall()
+    need(r.levels == LEVELS[:P["record_depth"] + 1],
+         f"per-action recording levels {r.levels}")
+    del eng
+    ref = {"run": doc["main"], "run_fused": doc["fused"]}
+    n_rec = sum(record["levels"])
+    tables = {}
+    for entry in ("run", "run_fused"):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        plain0 = plain_calls()
+        eng = engine()
+        t0 = time.time()
+        res = getattr(eng, entry)(max_depth=depth)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        what = f"per-action {entry}"
+        k10_only(counts, plain0, what)
+        pa_counts_ok(counts, what)
+        if entry == "run_fused":
+            need(counts["level_step"] > 0, f"level_step not launched on "
+                 f"{what}")
+        want = ref[entry]
+        need(res.ok and res.levels == levels
+             and res.distinct_states == want["distinct"]
+             and res.states_generated == want["generated"],
+             f"{what}: levels {res.levels}, distinct "
+             f"{res.distinct_states}, generated {res.states_generated}")
+        acts = res.metrics["gauges"]["action_expansions"]
+        need(acts == want["metrics"]["gauges"]["action_expansions"],
+             f"{what}: per-action counters {acts}")
+        g = res.metrics["gauges"]
+        need((g["commit_mode"], g["inserts_per_tile"]) == (
+            "per-action", len(eng.kern.action_names)),
+             f"{what}: gauges {g['commit_mode']} {g['inserts_per_tile']}")
+        tables[entry] = trace_pointers(eng)
+        dg = digest(tables[entry], n_rec)
+        need(dg == record["per-action"]["digest"],
+             f"{what}: trace-pointer tables through level "
+             f"{record['depth']} have digest {dg}, the JAX per-action "
+             f"record {record['per-action']['digest']}")
+        c = res.metrics["counters"]
+        if entry == "run_fused":
+            fused_host_reads(res, what)
+            out["launches"] = counts
+        else:
+            # at most one a tile: a tile the host's headroom gate stops
+            # runs nothing on the card and is read from no one
+            need(0 < c["tile_reads"] <= c["tiles"],
+                 f"{what}: {c['tile_reads']} host reads of a tile's "
+                 f"results for {c['tiles']} tiles")
+        out[entry] = {"levels": res.levels, "wall_s": wall,
+                      "distinct_per_s": res.distinct_states / wall,
+                      "counters": c, "gauges": g}
+        print(f"  {what}: levels, counts and per-action counters those of "
+              f"phase {'5' if entry == 'run' else '7c'}; pointer tables "
+              f"through level {record['depth']} the JAX per-action "
+              f"record's; wall {wall:.3f}s against the fused commit's "
+              f"{want['wall_s']:.3f}s; host_reads "
+              f"{c.get('host_reads', c.get('tile_reads'))} graph_captures "
+              f"{c.get('graph_captures')} tiles {c.get('tiles')}",
+              flush=True)
+        del eng
+    same_pointers(tables["run_fused"], tables["run"], levels,
+                  "per-action run_fused", args)
+    diff = [int((a != b).sum()) for a, b in
+            zip(tables["run"], doc["main_pointers"])]
+    out["rows_unlike_fused"] = diff
+    print(f"  per-action run_fused()'s pointer tables run()'s; they differ "
+          f"from the fused commit's in {diff} entries (parent, action, "
+          f"lane), where an action's batch holds equal successors",
+          flush=True)
+    del tables
+
+    print(f"phase 15b: shipped VSR, symmetry on, run_fused() to depth "
+          f"{P['shipped_depth']}, per-action and fused", flush=True)
+    sb = load_binding(SHIPPED, "VSR")
+    runs = {}
+    for commit in ("per-action", "fused"):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        eng = DeviceBFS(sb, tile_size=128, chunk_tiles=64,
+                        fpset_capacity=1 << 26, device="cuda",
+                        commit=commit)
+        t0 = time.time()
+        res = eng.run_fused(max_depth=P["shipped_depth"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        need(counts["vsr_canon"] > 0 and counts["vsr_fp_full"] > 0
+             and counts["vsr_fp_incremental"] == 0,
+             f"shipped {commit}: K9/K3 launches {counts}")
+        if commit == "per-action":
+            pa_counts_ok(counts, "shipped per-action run_fused")
+        runs[commit] = (res, wall)
+        del eng
+    (pr, pw), (fr, fw) = runs["per-action"], runs["fused"]
+    need(pr.levels == fr.levels == SHIPPED_LEVELS[:P["shipped_depth"] + 1]
+         and (pr.distinct_states, pr.states_generated)
+         == (fr.distinct_states, fr.states_generated)
+         and pr.metrics["gauges"]["action_expansions"]
+         == fr.metrics["gauges"]["action_expansions"],
+         f"shipped per-action: levels {pr.levels}, the fused run's "
+         f"{fr.levels}")
+    out["shipped"] = {"levels": pr.levels, "wall_s": pw, "fused_wall_s": fw}
+    print(f"  levels those of the fused run and the record, generated "
+          f"{pr.states_generated}; wall {pw:.3f}s per-action, {fw:.3f}s "
+          f"fused", flush=True)
+
+    print("phase 15c: ST03 small cfg to its fixpoint through run_fused(), "
+          "per-action", flush=True)
+    eng, res, info = model_run("ST03", "VR_STATE_TRANSFER", "small",
+                               "run_fused", commit="per-action",
+                               label="ST03 small per-action")
+    need((res.distinct_states, res.states_generated, res.diameter)
+         == ST03_FIXPOINT and res.levels == ST03_SMALL_LEVELS,
+         f"ST03 per-action: {res.distinct_states} {res.states_generated} "
+         f"{res.diameter}")
+    fused_host_reads(res, "ST03 per-action")
+    out["ST03"] = info
+    del eng
+
+    print("phase 15d: RR05 small cfg, per-action run_fused(): it stops on "
+          "NoLogDivergence at depth 17 with the per-action record's trace",
+          flush=True)
+    rr = RECOVERY["RR05"]
+    inv, vdepth, _actions = rr["violation"]
+    cex = json.load(open(RR05_COUNTEREXAMPLES))
+    want = cex["per-action"]["steps"]
+    eng, res, info = model_run("RR05", rr["module"], "small", "run_fused",
+                               P["recovery_depth"], violation=inv,
+                               commit="per-action",
+                               label="RR05 small per-action")
+    got = [e.action_name for e in res.trace[1:]]
+    need(res.diameter == vdepth and res.levels == rr["small"][:vdepth]
+         and len(res.trace) == vdepth + 1,
+         f"RR05 per-action: diameter {res.diameter}, levels {res.levels}")
+    need(got == [a for a, _lane in want], f"RR05 per-action trace {got}, "
+         f"the record's {[a for a, _lane in want]}")
+    # the record's (action, lane) steps replayed on the card give the
+    # trace's states
+    st = eng._init_flat[:1]
+    for i, (name, lane) in enumerate(want):
+        st = eng._materialize_one(st, eng.kern.action_names.index(name),
+                                  lane)
+        need(eng._decode(st) == res.trace[i + 1].state,
+             f"RR05 per-action: step {i + 1} of the trace is not the "
+             f"record's state")
+    info["trace_actions"] = got
+    out["RR05"] = info
+    print(f"  {inv} at depth {res.diameter}, levels through {vdepth - 1} "
+          f"the record's; the trace the per-action record's, step by step "
+          f"(the fused commit's differs from step "
+          f"{cex['first_step_unlike']}; their pointer tables from level "
+          f"{cex['first_level_unlike']})", flush=True)
+    del eng
+
+    d9 = doc["paged_edges"]["per_action_depth"]
+    print(f"phase 15e: PagedBFS(commit='per-action', edges=True), defect "
+          f"config to depth {d9}", flush=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    eng = engine(PagedBFS, next_capacity=PAGED["next_capacity"],
+                 edges=True, edge_capacity=PAGED["edge_capacity"])
+    t0 = time.time()
+    res = eng.run(max_depth=d9)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    pa_counts_ok(counts, "the per-action edge stream")
+    c = res.metrics["counters"]
+    need(0 < c["tile_reads"] <= c["tiles"], f"per-action paged: "
+         f"{c['tile_reads']} host reads of a tile's results for "
+         f"{c['tiles']} tiles")
+    for k in ("fpset_store_gids", "fpset_probe", "edge_emit"):
+        need(counts[k] > 0, f"{k} was not launched on the per-action "
+             f"edge stream")
+    need(res.ok and res.levels == LEVELS[:d9 + 1],
+         f"per-action paged levels {res.levels}")
+    n = res.distinct_states
+    indptr, aid, tid = eng.edge_sink.finalize(n)
+    src = np.repeat(np.arange(n), np.diff(indptr))
+    slots, gids = eng.table["slots"], eng.table["gids"]
+    occ = torch.nonzero((slots[:, 0] != 0) & (gids >= 0)).squeeze(1)
+    need(occ.numel() == n, f"{occ.numel()} gids stored for {n} states")
+    fp_dev = torch.zeros((n, 4), dtype=torch.int32, device="cuda")
+    fp_dev[gids[occ].long()] = slots[occ, :4]
+    got = triple_digest(fp_dev.cpu().numpy().view(np.uint32), src, aid, tid)
+    want = tuple(doc["paged_edges"]["edges_to_depth"])
+    need(got == want, f"per-action edges {got}, the fused paged run's "
+         f"{want}")
+    out["paged_edges"] = {"levels": res.levels, "wall_s": wall,
+                          "edges": got[0]}
+    print(f"  {got[0]} edges, fingerprint-labelled multiset that of phase "
+          f"9c's out of levels 0-{d9 - 1}; wall {wall:.3f}s", flush=True)
+    del eng
+
+    print("phase 15f: K15 against its plain version", flush=True)
+    rows = check_k15(rec)
+    for k in rows:
+        k["launches"] = out["launches"][k["kernel"]]
+        need(k["launches"] > 0, f"{k['name']} was not launched on 15a's "
+             f"run_fused")
+    out["phase_s"] = time.time() - t_phase
+    print(f"  phase 15 in {out['phase_s']:.1f}s", flush=True)
+    return rows
+
+
+class SimRec:
+    """Keeps the committed chunks' histories of a DeviceSimulator run
+    (its first ``rounds`` rounds) and, with ``record_k5``, the inputs of
+    every K5 shared-layout call (an eager run)."""
+
+    def __init__(self, sim, rounds=1, record_k5=False):
+        from tpuvsr_torch.sim import rng
+        self.sim, self.chunks, self.k5 = sim, [], []
+        per = -(-SIM["depth"] // SIM["chunk"])
+        orig = sim._chunk
+
+        def chunk(*a):
+            o = orig(*a)
+            if not o[4] and not o[5].any() and \
+                    len(self.chunks) < rounds * per:
+                self.chunks.append((o[7][0].clone(), o[7][1].clone()))
+            return o
+        sim._chunk = chunk
+        self._rng = rng
+        self._saved = rng.choose_shared
+        if record_k5:
+            def choose(keys, t, en, lane_aid, wlogw=None):
+                self.k5.append((keys.clone(), t.clone(), en.clone(),
+                                lane_aid, None if wlogw is None
+                                else wlogw.clone()))
+                return self._saved(keys, t, en, lane_aid, wlogw)
+            rng.choose_shared = choose
+
+    def close(self):
+        self._rng.choose_shared = self._saved
+
+    def same(self, other):
+        import torch
+        return len(self.chunks) == len(other.chunks) and all(
+            torch.equal(a, c) and torch.equal(b, d)
+            for (a, b), (c, d) in zip(self.chunks, other.chunks))
+
+
+def plain_sim_run(make, num, depth):
+    """One eager run of a DeviceSimulator with the plain versions of its
+    kernels on the card (the guard matrix, the successors, K5's shared
+    draw and noise); returns its SimRec."""
+    from tpuvsr_torch.sim import rng
+    sim = make()
+    sim.graphs = False
+    k = sim.kern
+    k.guard_matrix, k.successors = k.guard_matrix_plain, k.successors_plain
+    saved = rng.choose_shared, rng.shared_noise
+    rng.choose_shared = rng.choose_shared_plain
+    rng.shared_noise = rng.shared_noise_plain
+    rec = SimRec(sim)
+    try:
+        sim.run(num=num, depth=depth, seed=SIM["seed"])
+    finally:
+        rec.close()
+        rng.choose_shared, rng.shared_noise = saved
+        del k.guard_matrix, k.successors
+    return rec
+
+
+def check_k5_shared(rec, label, name="fleet_choose_shared"):
+    """K5's shared layout against its plain version on every recorded
+    call of a chunk, bit for bit; the call with the most enabled lanes
+    timed with its bound."""
+    import torch
+    from tpuvsr_torch.sim import rng
+    out = []
+    err = 0
+    for keys, t, en, lane_aid, wlogw in rec.k5:
+        lk, ck = rng.choose_shared(keys, t, en, lane_aid, wlogw)
+        lp, cp = rng.choose_shared_plain(keys, t, en, lane_aid, wlogw)
+        err = max(err, max_abs(lk, lp), max_abs(ck, cp))
+    need(err == 0, f"{label}: K5 shared differs from its plain version")
+    keys, t, en, lane_aid, wlogw = max(rec.k5,
+                                       key=lambda c: int(c[2].sum()))
+    W, L = en.shape
+    n_act = 0 if wlogw is None else wlogw.shape[1]
+    lk, _ck = rng.choose_shared(keys, t, en, lane_aid, wlogw)
+    aid = lane_aid.long()
+    if n_act:
+        act_en = torch.zeros((W, n_act), dtype=torch.int32,
+                             device=en.device).index_add_(
+            1, aid, en.to(torch.int32)) > 0
+        chosen = int((en & (aid[None, :] == aid[lk.long()][:, None]))
+                     .sum())
+        n_g = int(act_en.sum())
+        blocks = 2 * W + n_g + chosen
+        nops = threefry_ops(blocks) + 60 * n_g + 2 * W * L
+    else:
+        blocks = int(en.sum())
+        nops = threefry_ops(blocks) + 2 * W * L
+    nbytes = W * L + W * n_act * 4 + L * 4 + 8 + 4 + W * 4 + W
+    kernel_row(out, name,
+               cuda_ms(lambda: rng.choose_shared(keys, t, en, lane_aid,
+                                                 wlogw)),
+               cuda_ms(lambda: rng.choose_shared_plain(keys, t, en,
+                                                       lane_aid, wlogw),
+                       reps=5), err, nbytes, nops,
+               extra={"shape": [W, L], "n_act": n_act,
+                      "enabled": int(en.sum()), "blocks": blocks,
+                      "calls_checked": len(rec.k5)}, label=label)
+    return out
+
+
+def sim_phase(args, doc):
+    """Phase 16: DeviceSimulator.  Returns K5's shared-layout rows."""
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_sim import DeviceSimulator
+    from tpuvsr_torch.engine.spec import load_binding
+    from tpuvsr_torch.sim import rng
+    from tpuvsr_torch.sim.defect_hunt import WEIGHTS
+    S = SIM
+    t_phase = time.time()
+    out = doc["sim"] = {}
+    rows = []
+    defect = load_binding(DEFECT, "VSR")
+    W = S["walkers"]
+
+    def make(binding=defect, **kw):
+        kw.setdefault("dispatch", "dense")
+        return lambda: DeviceSimulator(binding, max_msgs=S["max_msgs"],
+                                       walkers=W, chunk_steps=S["chunk"],
+                                       device="cuda", **kw)
+
+    def timed(key, mk, num, depth, want_kernels, max_seconds=None):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        sim = mk()
+        rec = SimRec(sim)
+        t0 = time.time()
+        try:
+            res = sim.run(num=num, depth=depth, seed=S["seed"],
+                          max_seconds=max_seconds)
+        finally:
+            rec.close()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        for k in want_kernels:
+            need(counts[k] > 0, f"{k} was not launched on {key}")
+        need(counts["fleet_choose"] == 0 and counts["fleet_swarm_noise"]
+             == 0, f"the fleet's K5 layout was launched on {key}")
+        c = res.metrics["counters"]
+        need(c["host_reads"] == c["chunks"], f"{key}: host reads {c}")
+        info = {"ok": res.ok, "walks": res.walks, "steps": res.steps,
+                "violated": res.violated_invariant, "wall_s": wall,
+                "steps_per_s": res.steps / wall,
+                "walks_per_s": res.walks / wall, "launches": counts,
+                "metrics": res.metrics}
+        out[key] = info
+        print(f"  {key}: walks {res.walks} steps {res.steps} wall "
+              f"{wall:.3f}s steps/s {info['steps_per_s']:.1f} walks/s "
+              f"{info['walks_per_s']:.1f} {res.violated_invariant or ''}; "
+              f"chunks {c.get('chunks')} graph_captures "
+              f"{c.get('graph_captures')}", flush=True)
+        return sim, res, rec, counts
+
+    vsr_k = ("vsr_guards", "fleet_choose_shared", "vsr_actions")
+    for key, kw, name in (
+            ("16a", {}, "fleet_choose_shared"),
+            ("16b", {"action_weights": [1.0] * 19,
+                     "swarm_sigma": S["sigma"], "dispatch": "grouped"},
+             "fleet_choose_shared (weighted)")):
+        print(f"phase {key}: DeviceSimulator, defect config, {W} walkers, "
+              f"chunk {S['chunk']}, depth {S['depth']}, seed {S['seed']}, "
+              f"{S['rounds']} rounds, {kw or 'uniform'}", flush=True)
+        # the first chunk eagerly on the kernels, K5's inputs recorded
+        sim = make(**kw)()
+        sim.graphs = False
+        krec = SimRec(sim, record_k5=True)
+        try:
+            sim.run(num=W, depth=S["chunk"], seed=S["seed"])
+        finally:
+            krec.close()
+        rows += check_k5_shared(krec, name)
+        if kw:
+            # the first round's key and its uniform log-weights
+            wk = rng.split(rng.prng_key(S["seed"]))[1].cuda()
+            logw = torch.zeros((19,), dtype=torch.float32, device="cuda")
+            a = rng.shared_noise(wk, logw, S["sigma"], W)
+            b = rng.shared_noise_plain(wk, logw, S["sigma"], W)
+            err = max_abs(a.view(torch.int32), b.view(torch.int32))
+            kernel_row(rows, "fleet_noise_shared",
+                       cuda_ms(lambda: rng.shared_noise(wk, logw,
+                                                        S["sigma"], W)),
+                       cuda_ms(lambda: rng.shared_noise_plain(
+                           wk, logw, S["sigma"], W), reps=5), err,
+                       8 + 19 * 4 + W * 19 * 4,
+                       threefry_ops(W * 19) + 45 * W * 19,
+                       extra={"shape": [W, 19], "sigma": S["sigma"]})
+        del sim, krec
+        want = vsr_k + (("fleet_noise_shared",) if kw else ())
+        sim, res, rec, counts = timed(key, make(**kw), S["rounds"] * W,
+                                      S["depth"], want)
+        for r in rows:
+            if r["kernel"] in counts and r["launches"] is None:
+                r["launches"] = counts[r["kernel"]]
+        need(res.ok and res.walks == S["rounds"] * W,
+             f"{key}: {res.violated_invariant} after {res.walks} walks")
+        plain = plain_sim_run(make(**dict(kw, dispatch="dense")), W,
+                              S["depth"])
+        need(rec.same(plain), f"{key}: the first round's histories differ "
+             f"from the eager plain run's")
+        print(f"  the first round's (action, param) histories those of an "
+              f"eager dense run of the plain versions on the card", flush=True)
+        del sim, rec, plain
+
+    print(f"phase 16c: DeviceSimulator, guided (split_beta 1.5, the hunt's "
+          f"weights, swarm {S['guided_sigma']}), max_seconds "
+          f"{S['guided_s']}", flush=True)
+    mk = make(action_weights=WEIGHTS, swarm_sigma=S["guided_sigma"],
+              guided=True, split_beta=1.5)
+    sim, res, _rec, _c = timed("16c", mk, 10 ** 9, S["depth"], vsr_k,
+                               max_seconds=S["guided_s"])
+    out["16c"]["best_score"] = sim.best_score
+    if not res.ok:
+        need(res.violated_invariant == "AcknowledgedWriteNotLost",
+             f"16c: {res.violated_invariant}")
+        check_replay(sim, res.trace)
+        out["16c"]["event"] = sim.event
+        out["16c"]["trace_len"] = len(res.trace)
+        print(f"  AcknowledgedWriteNotLost found after {res.elapsed:.1f}s "
+              f"({res.walks} walks completed before its round), walker "
+              f"{sim.event['walker']}, step {sim.event['step']}; the trace "
+              f"replays and its last state fails the invariant", flush=True)
+    else:
+        print(f"  no violation in {res.elapsed:.1f}s ({res.walks} walks); "
+              f"best hunt score {sim.best_score}", flush=True)
+    del sim
+
+    st03 = load_binding(ST03_SHIPPED, "VR_STATE_TRANSFER")
+    print(f"phase 16d: DeviceSimulator, ST03 shipped cfg, {W} walkers, "
+          f"depth {S['st03_depth']}, one round", flush=True)
+    fam = family_kernels()["ST03"]
+    sim, res, rec, counts = timed(
+        "16d", make(st03), W, S["st03_depth"],
+        (fam[0], fam[1], "fleet_choose_shared"))
+    for k in VSR_KERNELS:
+        need(counts[k] == 0, f"{k} was launched on 16d")
+    need(res.walks == W, f"16d: {res.violated_invariant} {res.walks}")
+    plain = plain_sim_run(make(st03), W, S["st03_depth"])
+    need(rec.same(plain), "16d: histories differ from the eager plain "
+         "run's")
+    print("  histories those of an eager run of the plain versions on the "
+          "card", flush=True)
+    del sim, rec, plain
+    out["phase_s"] = time.time() - t_phase
+    print(f"  phase 16 in {out['phase_s']:.1f}s", flush=True)
+    return rows
+
+
 def gpu_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -3899,7 +4647,7 @@ def kernels_line(rows):
 
 
 def run_phases(args, doc, t_all):
-    """Phases 1-14 (the module docstring); returns the exit code."""
+    """Phases 1-16 (the module docstring); returns the exit code."""
     import numpy as np
     import torch
     from tpuvsr_torch import kernels
@@ -3982,6 +4730,7 @@ def run_phases(args, doc, t_all):
     k10_only(counts, plain0, "the BFS path")
     run_pointers = [np.concatenate(getattr(eng, k))
                     for k in ("_h_parent", "_h_action", "_h_param")]
+    doc["main_pointers"] = run_pointers
     del eng
     need(res.ok, f"main path: {res.violated_invariant} {res.error}")
     need(res.levels == LEVELS[:args.depth + 1],
@@ -4017,6 +4766,9 @@ def run_phases(args, doc, t_all):
     rows += recovery_phase(args, doc)
     rows += checkpoint_phase(args, doc)
     rows += family_symmetry_phase(args, doc)
+    rows += per_action_phase(args, doc)
+    rows += sim_phase(args, doc)
+    doc.pop("main_pointers", None)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all
     write_doc(args, doc)

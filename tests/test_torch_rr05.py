@@ -22,6 +22,7 @@ Run as a script it prints the JAX-kernel host BFS's records that
 cfg: levels, cumulative generated counts with Init, and the largest
 nonce by depth) and ``... wide DEPTH``."""
 
+import functools
 import os
 import sys
 
@@ -40,6 +41,7 @@ from tests.test_torch_a01 import (  # noqa: E402
     check_plain_calls, check_round_trip, check_successors, check_tables,
     check_counterexample, engine, family_case, jax_codec, jax_fns,
     one_torch_thread)
+from tests.test_torch_st03 import _batch, _fps, _run  # noqa: E402
 from tests.test_torch_st03_bfs import level_bfs  # noqa: E402
 from tpuvsr.analysis.passes.widths import (  # noqa: E402
     derive_ranges_from as j_ranges)
@@ -47,6 +49,7 @@ from tpuvsr.engine.pack import build_pack_spec as j_pack_spec  # noqa: E402
 from tpuvsr.models.rr05_kernel import RR05Kernel as JRR05Kernel  # noqa: E402
 from tpuvsr_torch.core.values import TLAError  # noqa: E402
 from tpuvsr_torch.engine.device_bfs import DeviceBFS  # noqa: E402
+from tpuvsr_torch.engine.spec import load_binding  # noqa: E402
 from tpuvsr_torch.models.rr05 import M_RECOVERY  # noqa: E402
 from tpuvsr_torch.models.vsr import H_SRC, H_TYPE, H_X  # noqa: E402
 
@@ -266,9 +269,182 @@ def test_counterexample_replays_in_both_packages():
     check_counterexample(KEY, COUNTEREXAMPLE)
 
 
+# ----------------------------------------------------------------------
+# the engines' order: the counterexample each commit reports
+# ----------------------------------------------------------------------
+RECORD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tpuvsr_torch", "configs", "records",
+    "rr05_counterexamples.json")
+
+
+def ordered_bfs(J, depth, commit, tile):
+    """Host BFS over a JAX kernel of the family (``J``: its ``jk`` and
+    ``fp``, and ``step``, the all-lanes step whose last output is the
+    conjunction of the cfg's invariants) in the order of the port's
+    DeviceBFS at ``tile`` rows a tile: the frontier tile by tile, a
+    tile's actions in order, an action's enabled (row, lane) items row
+    by row (K7's work queue).  A successor is new where its fingerprint
+    was not seen before; among equal ones the fused commit makes the
+    first of the tile new (its dedup), the per-action commit the last of
+    the action's batch (the JAX insert's scatter on the CPU).  The
+    first tile holding a successor that fails an invariant ends the
+    search, at its first such action and that action's first such item
+    (both commits' record of a violation).  Returns (levels, the pointer
+    tables (parent gid, action, lane) of every state, Init's -1, -1, 0,
+    and the violating (action, lane) steps from Init, or None)."""
+    jk = J.jk
+    acts = [np.nonzero(jk.lane_action == a)[0]
+            for a in range(len(jk.action_names))]
+    init = jk.codec.zero_state()
+    init["view"][:] = 1
+    seen = {_fps(J, {k: v[None] for k, v in init.items()})[0].tobytes()}
+    par, act, prm = [-1], [-1], [0]
+    frontier, levels, base = [init], [1], 0
+    for _ in range(depth):
+        nxt = []
+        for lo in range(0, len(frontier), tile):
+            out = _run(J.step, _batch(frontier[lo:lo + tile]))
+            clean, en, ok = out[0], out[1], out[-1]
+            groups = [np.nonzero(en[:, la]) for la in acts]
+            rows = np.concatenate([r for r, _j in groups])
+            lanes = np.concatenate([la[j] for la, (_r, j)
+                                    in zip(acts, groups)])
+            if not len(rows):
+                continue
+            succ = {k: v[rows, lanes] for k, v in clean.items()}
+            assert not succ["err"].any()
+            keys = [f.tobytes() for f in _fps(J, succ)]
+            bad = ~ok[rows, lanes]
+            at = 0
+            for a, (r, _j) in enumerate(groups):
+                idx = range(at, at + len(r))
+                at += len(r)
+                hit = [i for i in idx if bad[i]]
+                if hit:
+                    i = hit[0]
+                    steps = [(a, int(jk.lane_param[lanes[i]]))]
+                    g = base + lo + int(rows[i])
+                    while act[g] >= 0:
+                        steps.append((act[g], prm[g]))
+                        g = par[g]
+                    return levels, (par, act, prm), steps[::-1]
+                if commit == "fused":
+                    new = []
+                    for i in idx:
+                        if keys[i] not in seen:
+                            seen.add(keys[i])
+                            new.append(i)
+                else:
+                    last = {keys[i]: i for i in idx if keys[i] not in seen}
+                    new = sorted(last.values())
+                    seen.update(last)
+                for i in new:
+                    par.append(base + lo + int(rows[i]))
+                    act.append(a)
+                    prm.append(int(jk.lane_param[lanes[i]]))
+                    nxt.append({k: v[i] for k, v in succ.items()})
+        base += len(frontier)
+        levels.append(len(nxt))
+        frontier = nxt
+    return levels, (par, act, prm), None
+
+
+@functools.lru_cache(maxsize=None)
+def _ordered_jax():
+    """The small cfg's JAX kernel (MAX_MSGS 32) with its all-lanes step
+    checking the cfg's four invariants."""
+    from tests.test_torch_st03 import _jax_all_lanes, jax_fns_of
+    jc = jax_codec(MODEL, MODEL.small, 0, 32)
+    J = jax_fns_of(JRR05Kernel(jc))
+    J.step = _jax_all_lanes(J.jk, load_binding(
+        MODEL.small, MODEL.module).invariants)
+    return J
+
+
+@functools.lru_cache(maxsize=None)
+def _ordered(commit):
+    """ordered_bfs and the port's run() under ``commit``, small cfg,
+    depth 6, tile 64: (levels, pointer tables) of each, and the
+    counterexample ordered_bfs met."""
+    levels, tables, steps = ordered_bfs(_ordered_jax(), 6, commit, 64)
+    eng = engine(MODEL, MODEL.small, commit=commit)
+    res = eng.run(max_depth=6)
+    return (levels, tables), (res.levels, [
+        np.concatenate(getattr(eng, k)).tolist()
+        for k in ("_h_parent", "_h_action", "_h_param")]), steps
+
+
+@pytest.mark.parametrize("commit", ["per-action", "fused"])
+def test_engine_order_is_the_ordered_jax_bfs(commit):
+    """The port's run() on the small cfg to depth 6 at tile 64 has the
+    pointer tables of ordered_bfs over the JAX kernel, under each commit:
+    so the record of each commit's first counterexample that ordered_bfs
+    writes (RECORD, at tile 128) is what the engines must report, and
+    chip_smoke.py holds the card's runs to it."""
+    want, got, steps = _ordered(commit)
+    assert got[0] == want[0] == MODEL.bfs["small"][2] and steps is None
+    assert got[1] == list(want[1])
+
+
+def test_the_two_commits_order_differently():
+    """There the two commits' pointer tables differ (equal successors in
+    one action's batch), so the test above tells them apart."""
+    pa, fu = _ordered("per-action")[0][1], _ordered("fused")[0][1]
+    assert [sum(x != y for x, y in zip(a, b)) for a, b in zip(pa, fu)] \
+        == [914, 64, 768]
+
+
+def test_counterexample_record():
+    """The record's fused trace is the one run() and run_fused() report
+    with the fused commit (COUNTEREXAMPLE, phase 12 on the card); the
+    per-action trace differs from it and replays in both packages to a
+    state that fails the invariants."""
+    import json
+    rec = json.load(open(RECORD))
+    assert [tuple(x) for x in rec["fused"]["steps"]] == COUNTEREXAMPLE
+    pa = [tuple(x) for x in rec["per-action"]["steps"]]
+    assert len(pa) == len(COUNTEREXAMPLE) and pa != COUNTEREXAMPLE
+    check_counterexample(KEY, pa)
+
+
+def _record_counterexamples():
+    """Both commits' first counterexample of the small cfg at tile 128
+    (chip_smoke.py's), and where their pointer tables and traces first
+    differ (run as a script: ``record-counterexamples``)."""
+    import json
+    import time
+    J = _ordered_jax()
+    doc = {"config": "tpuvsr_torch/configs/VR_REPLICA_RECOVERY_small.cfg"
+                     " (CrashLimit 1), MAX_MSGS 32", "tile": 128}
+    tables = {}
+    for commit in ("fused", "per-action"):
+        t0 = time.time()
+        levels, tab, steps = ordered_bfs(J, 17, commit, 128)
+        names = [(J.jk.action_names[a], p) for a, p in steps]
+        doc[commit] = {"levels": levels, "steps": names,
+                       "cpu_s": round(time.time() - t0, 1)}
+        tables[commit] = tab
+        print(commit, doc[commit], flush=True)
+    f, p = doc["fused"]["steps"], doc["per-action"]["steps"]
+    doc["first_step_unlike"] = next(
+        (i + 1 for i, (x, y) in enumerate(zip(f, p)) if x != y), None)
+    ends = np.cumsum(doc["fused"]["levels"])
+    n = int(ends[-1])
+    diff = np.zeros(n, bool)
+    for x, y in zip(tables["fused"], tables["per-action"]):
+        diff |= np.asarray(x[:n]) != np.asarray(y[:n])
+    doc["first_level_unlike"] = int(np.searchsorted(
+        ends, int(np.argmax(diff)), side="right")) if diff.any() else None
+    with open(RECORD, "w") as fh:
+        json.dump(doc, fh, indent=1)
+        fh.write("\n")
+
+
 def _records(argv):
     """The JAX-kernel host BFS's records (run as a script)."""
     import time
+    if argv[0] == "record-counterexamples":
+        return _record_counterexamples()
     t0 = time.time()
     if argv[0] == "wide":
         print(level_bfs(jax_fns(KEY, "wide"), int(argv[1])),
@@ -296,4 +472,5 @@ def _records(argv):
 
 if __name__ == "__main__":
     # python tests/test_torch_rr05.py record CRASHLIMIT DEPTH | wide DEPTH
+    #   | record-counterexamples
     _records(sys.argv[1:])

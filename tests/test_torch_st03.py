@@ -79,12 +79,13 @@ def _jax_codec(path, np_limit, max_msgs):
     return JCodec(cfg.constants, max_msgs=max_msgs)
 
 
-def _jax_all_lanes(jk):
+def _jax_all_lanes(jk, invariants=None):
     """jit(vmap over states) of every lane of every action of a JAX
     kernel of the family, from ``seed_touch``: (successor, enabled,
-    _ts, _tn, lane replica, all invariants), each with a [B, n_lanes]
-    leading pair of axes."""
-    inv = jk.invariant_fn(list(jk.INVARIANT_FNS))
+    _ts, _tn, lane replica, the conjunction of ``invariants``, by default
+    all of the kernel's), each with a [B, n_lanes] leading pair of
+    axes."""
+    inv = jk.invariant_fn(list(invariants or jk.INVARIANT_FNS))
 
     def per_state(st):
         outs = []

@@ -23,7 +23,10 @@
 // writes each enabled item at the running count plus its rank while
 // that is below E_a.  Blocks share nothing, so each action's order is
 // the item order, as the stable nonzero keeps it.  With a carry whose
-// halt word is set the kernel does nothing.
+// halt word is set the kernel does nothing.  The per-action commit
+// compacts one action at a time: it passes that action's row of the
+// segment table and a0, the action's id, which the queue's action
+// column takes (a0 + the block's row).
 #include "common.cuh"
 
 namespace {
@@ -33,7 +36,7 @@ constexpr int THREADS = 512;
 __global__ void compact_kernel(const uint8_t* __restrict__ en,
                                const uint8_t* __restrict__ valid, int T,
                                int n_lanes, const int* __restrict__ segs,
-                               int* __restrict__ q_pidx,
+                               int a0, int* __restrict__ q_pidx,
                                int* __restrict__ q_lane,
                                int* __restrict__ q_aid,
                                uint8_t* __restrict__ q_ok,
@@ -70,7 +73,7 @@ __global__ void compact_kernel(const uint8_t* __restrict__ en,
         if (x && pos < E) {
             q_pidx[qo + pos] = row;
             q_lane[qo + pos] = lane;
-            q_aid[qo + pos] = a;
+            q_aid[qo + pos] = a0 + a;
             q_ok[qo + pos] = 1;
         }
         __syncthreads();
@@ -81,7 +84,7 @@ __global__ void compact_kernel(const uint8_t* __restrict__ en,
     for (int p = cnt + tid; p < E; p += THREADS) {
         q_pidx[qo + p] = T - 1;
         q_lane[qo + p] = 0;
-        q_aid[qo + p] = a;
+        q_aid[qo + p] = a0 + a;
         q_ok[qo + p] = 0;
     }
     if (tid == 0) {
@@ -94,22 +97,24 @@ __global__ void compact_kernel(const uint8_t* __restrict__ en,
 }  // namespace
 
 // en: [T, n_lanes] uint8 guard matrix; valid: [T] uint8; segs: [n_act,
-// 4] int32 (first lane, L_a, E_a, queue offset); q_*: [total] queue
-// (int32 row, lane, action; uint8 ok); cnts: [n_act] int64; ovf:
-// [n_act] uint8; carry: int64 words or null, its halt word at c_halt
-// and need[n_act] from c_need.
+// 4] int32 (first lane, L_a, E_a, queue offset); a0: the id of the
+// action of segs' first row; q_*: [total] queue (int32 row, lane,
+// action; uint8 ok); cnts: [n_act] int64; ovf: [n_act] uint8; carry:
+// int64 words or null, its halt word at c_halt and need[n_act] from
+// c_need.
 TPUVSR_EXPORT int tpuvsr_compact(const void* en, const void* valid, int T,
                                  int n_lanes, const void* segs, int n_act,
-                                 void* q_pidx, void* q_lane, void* q_aid,
-                                 void* q_ok, void* cnts, void* ovf,
+                                 int a0, void* q_pidx, void* q_lane,
+                                 void* q_aid, void* q_ok, void* cnts,
+                                 void* ovf,
                                  void* carry, int c_halt, int c_need,
                                  void* stream) {
     if (n_act > 0) {
         long long* c = (long long*)carry;
         KLAUNCH(compact_kernel, n_act, THREADS, (cudaStream_t)stream,
                 (const uint8_t*)en, (const uint8_t*)valid, T, n_lanes,
-                (const int*)segs, (int*)q_pidx, (int*)q_lane, (int*)q_aid,
-                (uint8_t*)q_ok, (long long*)cnts, (uint8_t*)ovf,
+                (const int*)segs, a0, (int*)q_pidx, (int*)q_lane,
+                (int*)q_aid, (uint8_t*)q_ok, (long long*)cnts, (uint8_t*)ovf,
                 c ? c + c_halt : nullptr, c ? c + c_need : nullptr);
     }
     return (int)cudaGetLastError();

@@ -1,8 +1,9 @@
 // K5: the walker fleet's per-step draw and two-stage lane choice, and
-// the per-round swarm noise.
+// the per-round swarm noise, in two layouts of the random stream.
 //
-// Replaces the draws of tpuvsr/sim/fleet.py:chunk_fn (fleet.py:374-415):
-// per walker w at step d, keys = fold_in(wkey[w], d), then
+// Per-walker layout (LAYOUT_WALKER): the draws of
+// tpuvsr/sim/fleet.py:chunk_fn (fleet.py:374-415): per walker w at step
+// d, keys = fold_in(wkey[w], d), then
 //   weighted:   k1 = fold_in(keys, 1), k2 = fold_in(keys, 2);
 //               a* = argmax(where(act_en, gumbel(k1, n_act) + wlogw, -inf))
 //               lane = argmax(where(en & lane_aid == a*, uniform(k2, L), -1))
@@ -10,19 +11,34 @@
 //   can = any(en)
 // and the swarm entry (fleet.py:375-385):
 //   wlogw[w] = logw + sigma * normal(fold_in(wkey[w], 0xA5A5), n_act).
+//
+// Shared layout (LAYOUT_SHARED): the draws of
+// tpuvsr/engine/device_sim.py:chunk_fn's step (:247-267), one key a step
+// for every walker, key = keys[step] (the step's row of the chunk's key
+// table), and walker w's counters offset into one [W, L] draw:
+//   weighted:   k1, k2 = split(key) = fold_in(key, 0), fold_in(key, 1);
+//               g[w, a] = gumbel(k1, (W, n_act))[w, a] (counter w*n_act+a)
+//               v[w, l] = uniform(k2, (W, L))[w, l]     (counter w*L+l)
+//   unweighted: u[w, l] = uniform(key, (W, L))[w, l]
+// with the same two-stage choice; and the round's noise (_round_logw
+// :325-336), which JAX runs op by op outside the chunk's jit, so each
+// operation rounds on its own:
+//   wlogw[w, a] = logw[a] + (sqrt(2) * erf_inv(u)) * sigma,
+//   u = uniform(key, (W, n_act), nextafter(-1, 0), 1)[w, a].
 // jnp.argmax takes the first index among equal maxima and index 0 for a
 // row that is all -inf; the warp reductions here keep that rule.
 //
 // The random numbers are jax.random's (threefry2x32, partitionable
 // layout: word i of random_bits(key, n) is x0 ^ x1 of the hash of the
-// counter pair (0, i)), so each lane's number depends only on its
-// index.  The float functions are XLA's CPU code, operation for
-// operation, with its fused multiply-adds: the Cephes log/log1p and
-// Giles' erf_inv polynomial (tpuvsr_torch/sim/rng.py is the plain twin
-// and says where each comes from).  Every float operation is written
-// with an explicit rounding intrinsic (__fmul_rn, __fadd_rn,
-// __fmaf_rn, __fdiv_rn, __fsqrt_rn) so the compiler cannot contract or
-// reorder it, and the file must not be built with --use_fast_math.
+// counter pair (0, i), and a draw of shape (W, L) is the flat draw of
+// W*L words), so each lane's number depends only on its counter.  The
+// float functions are XLA's CPU code, operation for operation, with its
+// fused multiply-adds: the Cephes log/log1p and Giles' erf_inv
+// polynomial (tpuvsr_torch/sim/rng.py is the plain twin and says where
+// each comes from).  Every float operation is written with an explicit
+// rounding intrinsic (__fmul_rn, __fadd_rn, __fmaf_rn, __fdiv_rn,
+// __fsqrt_rn) so the compiler cannot contract or reorder it, and the
+// file must not be built with --use_fast_math.
 //
 // What bounds it on the H100: a walker reads its [L] enabled row once
 // (L bytes: 699 lanes at MAX_MSGS=48) and its n_act log-weights, and
@@ -36,6 +52,7 @@
 // (value, index); a shuffle reduction with a lowest-index tie-break
 // names the winner.  The action-enabled mask is a 32-bit OR reduction
 // (n_act <= 32), and the gumbel draw puts one action on each thread.
+// The layout changes only where the keys and counters come from.
 #include "common.cuh"
 
 namespace {
@@ -70,6 +87,8 @@ __constant__ float ERFINV_GE5[9] = {
 constexpr float SQRT2 = 1.41421354f;
 constexpr float NORMAL_LO = -0.99999994f;
 constexpr uint32_t SWARM_SALT = 0xA5A5u;
+constexpr int LAYOUT_WALKER = 0;
+constexpr int LAYOUT_SHARED = 1;
 
 __device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
     return (v << r) | (v >> (32 - r));
@@ -193,7 +212,7 @@ __global__ void fleet_choose_kernel(const uint32_t* __restrict__ wkeys,
                                     const uint8_t* __restrict__ en, int L,
                                     const int* __restrict__ lane_aid,
                                     const float* __restrict__ wlogw,
-                                    int n_act, int W,
+                                    int n_act, int W, int layout,
                                     int* __restrict__ lane_out,
                                     uint8_t* __restrict__ can_out) {
     const int w = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x)
@@ -201,15 +220,26 @@ __global__ void fleet_choose_kernel(const uint32_t* __restrict__ wkeys,
     const int t = threadIdx.x & 31;
     if (w >= W) return;                      // whole warps exit together
     const uint8_t* row = en + (size_t)w * L;
-    uint32_t k0 = wkeys[2 * (size_t)w], k1 = wkeys[2 * (size_t)w + 1];
-    fold_in(k0, k1, (uint32_t)*step);
+    uint32_t k0, k1, lane0 = 0, act0 = 0;
+    if (layout == LAYOUT_SHARED) {
+        const size_t s = (size_t)*step;
+        k0 = wkeys[2 * s];
+        k1 = wkeys[2 * s + 1];
+        lane0 = (uint32_t)w * (uint32_t)L;
+        act0 = (uint32_t)w * (uint32_t)n_act;
+    } else {
+        k0 = wkeys[2 * (size_t)w];
+        k1 = wkeys[2 * (size_t)w + 1];
+        fold_in(k0, k1, (uint32_t)*step);
+    }
     int any = 0;
     float best = -1.0f;
     int bidx = 0x7FFFFFFF;
     if (wlogw != nullptr) {
         uint32_t a0 = k0, a1 = k1, b0 = k0, b1 = k1;
-        fold_in(a0, a1, 1u);
-        fold_in(b0, b1, 2u);
+        const uint32_t s1 = layout == LAYOUT_SHARED ? 0u : 1u;
+        fold_in(a0, a1, s1);
+        fold_in(b0, b1, s1 + 1u);
         uint32_t amask = 0;
         for (int l = t; l < L; l += 32)
             if (row[l]) amask |= 1u << lane_aid[l];
@@ -218,7 +248,8 @@ __global__ void fleet_choose_kernel(const uint32_t* __restrict__ wkeys,
         float g = -INFINITY;
         int gi = t < n_act ? t : 0x7FFFFFFF;
         if (t < n_act && ((amask >> t) & 1u)) {
-            const float u = uniform(a0, a1, (uint32_t)t, MIN_NORM, 1.0f);
+            const float u = uniform(a0, a1, act0 + (uint32_t)t, MIN_NORM,
+                                    1.0f);
             g = __fadd_rn(-xla_log(-xla_log(u)),
                           wlogw[(size_t)w * n_act + t]);
         }
@@ -226,7 +257,8 @@ __global__ void fleet_choose_kernel(const uint32_t* __restrict__ wkeys,
         const int a_star = gi;
         for (int l = t; l < L; l += 32) {
             if (row[l] && lane_aid[l] == a_star) {
-                const float v = uniform(b0, b1, (uint32_t)l, 0.0f, 1.0f);
+                const float v = uniform(b0, b1, lane0 + (uint32_t)l, 0.0f,
+                                        1.0f);
                 if (v > best) {
                     best = v;
                     bidx = l;
@@ -237,7 +269,8 @@ __global__ void fleet_choose_kernel(const uint32_t* __restrict__ wkeys,
         for (int l = t; l < L; l += 32) {
             if (row[l]) {
                 any = 1;
-                const float v = uniform(k0, k1, (uint32_t)l, 0.0f, 1.0f);
+                const float v = uniform(k0, k1, lane0 + (uint32_t)l, 0.0f,
+                                        1.0f);
                 if (v > best) {
                     best = v;
                     bidx = l;
@@ -259,10 +292,19 @@ __global__ void fleet_choose_kernel(const uint32_t* __restrict__ wkeys,
 __global__ void fleet_swarm_kernel(const uint32_t* __restrict__ wkeys,
                                    const float* __restrict__ logw,
                                    int n_act, float sigma, int W,
-                                   float* __restrict__ out) {
+                                   int layout, float* __restrict__ out) {
     const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
     if (i >= (size_t)W * n_act) return;
     const int w = (int)(i / n_act), a = (int)(i % n_act);
+    if (layout == LAYOUT_SHARED) {
+        // one key for the round, counter w * n_act + a; each operation
+        // rounds on its own (JAX runs them outside a jit)
+        const float u = uniform(wkeys[0], wkeys[1], (uint32_t)i, NORMAL_LO,
+                                1.0f);
+        out[i] = __fadd_rn(logw[a], __fmul_rn(__fmul_rn(SQRT2, erf_inv(u)),
+                                              sigma));
+        return;
+    }
     uint32_t k0 = wkeys[2 * (size_t)w], k1 = wkeys[2 * (size_t)w + 1];
     fold_in(k0, k1, SWARM_SALT);
     const float u = uniform(k0, k1, (uint32_t)a, NORMAL_LO, 1.0f);
@@ -272,15 +314,17 @@ __global__ void fleet_swarm_kernel(const uint32_t* __restrict__ wkeys,
 
 }  // namespace
 
-// wkeys: [W, 2] uint32 walker keys; step: one int32 on the device (so
-// a CUDA graph can replay the launch at every step); en: [W, L] uint8;
-// lane_aid: [L] int32; wlogw: [W, n_act] float32 or null (unweighted);
-// lane: [W] int32 and can: [W] uint8 out.  n_act <= 32.
+// wkeys: [W, 2] uint32 walker keys (layout 0), or the [steps, 2] step
+// keys of a chunk (layout 1); step: one int32 on the device (so a CUDA
+// graph can replay the launch at every step): the step d (layout 0) or
+// the row of the step's key (layout 1); en: [W, L] uint8; lane_aid: [L]
+// int32; wlogw: [W, n_act] float32 or null (unweighted); lane: [W]
+// int32 and can: [W] uint8 out.  n_act <= 32.
 TPUVSR_EXPORT int tpuvsr_fleet_choose(const void* wkeys, const void* step,
                                       const void* en, int L,
                                       const void* lane_aid,
                                       const void* wlogw, int n_act, int W,
-                                      void* lane, void* can,
+                                      void* lane, void* can, int layout,
                                       void* stream) {
     if (n_act > 32) return (int)cudaErrorInvalidValue;
     if (W > 0) {
@@ -289,22 +333,24 @@ TPUVSR_EXPORT int tpuvsr_fleet_choose(const void* wkeys, const void* step,
                 threads, (cudaStream_t)stream, (const uint32_t*)wkeys,
                 (const int*)step, (const uint8_t*)en, L,
                 (const int*)lane_aid, (const float*)wlogw, n_act, W,
-                (int*)lane, (uint8_t*)can);
+                layout, (int*)lane, (uint8_t*)can);
     }
     return (int)cudaGetLastError();
 }
 
-// wkeys: [W, 2] uint32; logw: [n_act] float32; out: [W, n_act] float32.
+// wkeys: [W, 2] uint32 walker keys (layout 0) or the round's one key
+// [2] (layout 1); logw: [n_act] float32; out: [W, n_act] float32.
 TPUVSR_EXPORT int tpuvsr_fleet_swarm_noise(const void* wkeys,
                                            const void* logw, int n_act,
                                            float sigma, int W, void* out,
-                                           void* stream) {
+                                           int layout, void* stream) {
     const long long n = (long long)W * n_act;
     if (n > 0) {
         const int threads = 256;
         KLAUNCH(fleet_swarm_kernel, tpuvsr_blocks(n, threads), threads,
                 (cudaStream_t)stream, (const uint32_t*)wkeys,
-                (const float*)logw, n_act, sigma, W, (float*)out);
+                (const float*)logw, n_act, sigma, W, layout,
+                (float*)out);
     }
     return (int)cudaGetLastError();
 }

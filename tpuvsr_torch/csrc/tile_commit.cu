@@ -1,6 +1,7 @@
-// K8: the fused tile's commit and the level step, three entries.
+// K8: the fused tile's commit and the level step, three entries; and
+// K15: the per-action commit, two entries.
 //
-// Replaces the single-commit stage of
+// K8 replaces the single-commit stage of
 // tpuvsr/engine/device_bfs.py:_fused_body_factory and the level tail of
 // _make_multilevel's obody, as DeviceBFS.run_fused runs them:
 //   commit_prefix  the headroom gate (:806-820), the per-action
@@ -16,23 +17,42 @@
 //                  n_front, its size recorded, its rows made the next
 //                  frontier (a row copy), and the JAX ocond terms
 //                  (:1182) turned into a stop flag.
-// All three read the carry (enum Carry, engine/tile.py CARRY_FIELDS)
-// and, once its halt word is set, commit nothing: the prefix masks
-// every item out, the finish writes dest = -1 and counts an idle
-// replay, the level step does nothing.
+// K15 replaces the commit of the per-action body,
+// tpuvsr/engine/device_bfs.py:_tile_body_factory's make_body (:458-673),
+// one insert an action, in action order, with the chain between the
+// actions kept in a per-tile state vector (enum PaTile) on the device:
+//   action_gate    before action a's insert: at a = 0 the headroom gate
+//                  (:500-511) opens the chain; then a's flags over its
+//                  queue segment, the first violating item (:568-577),
+//                  a's expansion overflow, and commit_a = commit &
+//                  ~have_v & ~a_slot & ~a_bag & ~ovf_a (:584-587): the
+//                  mask a's dedup (K2) and insert (K1) take;
+//   action_finish  after a's insert: dest = nn + cumsum(fresh) - 1, the
+//                  scatter of a's trace pointers, nn and the distinct
+//                  count by a's fresh count, commit = commit_a &
+//                  ~a_ovf_i (:589-609); after the last action the
+//                  reason by its priority (:626-636), deadlock, and gen,
+//                  act and t gated on the final commit (:637-667).
+// All five read the carry (enum Carry, engine/tile.py CARRY_FIELDS)
+// and, once its halt word is set, commit nothing: the prefix and the
+// gate mask every item out, the finishes write dest = -1 and count an
+// idle replay (K15's at the last action), the level step does nothing.
 //
 // What bounds it on the H100: the prefix and the finish touch a few
 // bytes per queue item (a few thousand items a tile) and are
-// latency-bound; the level step moves the level's packed rows (476
+// latency-bound, as are K15's entries (an action's segment, a few
+// hundred items); the level step moves the level's packed rows (476
 // bytes a row, 143 MB at the defect config's depth 10) and its
 // pointers once a level, bound by bytes.
 //
-// Design.  The prefix and the finish are one block each (the queue is
-// small): per-action flags by shared-memory atomics, the fresh ranks by
-// a chunked Hillis-Steele scan, thread 0 writes the verdict and steps
-// the carry after the block has read it.  The level step is a
-// grid-stride copy whose blocks only read the carry, then a one-thread
-// kernel that updates it.
+// Design.  The prefix, the finish and K15's entries are one block each
+// (the queue is small): per-action flags by shared-memory atomics, the
+// fresh ranks by a chunked Hillis-Steele scan, thread 0 writes the
+// verdict and steps the carry after the block has read it.  The two
+// finishes share the scan and scatter (rank_scatter) and the verdict's
+// fold (fold_verdict); they differ only in where the flags come from.  The level
+// step is a grid-stride copy whose blocks only read the carry, then a
+// one-thread kernel that updates it.
 #include "common.cuh"
 
 namespace {
@@ -47,6 +67,12 @@ enum Carry {
 enum Tile {
     F_FIRST_BAD, F_ROOM, F_VIOL, F_SLOT, F_BAG, F_OVF, F_GROW_AID, F_VROW,
     F_VAID, F_VLANE, F_AFLAGS
+};
+
+// K15's per-tile chain (engine/tile.py PA_FIELDS)
+enum PaTile {
+    P_COMMIT, P_COMMIT_A, P_ROOM, P_VIOL, P_SLOT, P_BAG, P_OVF_E, P_OVF_I,
+    P_GROW_AID, P_VROW, P_VAID, P_VLANE, P_FIELDS
 };
 
 enum Reason {
@@ -123,36 +149,31 @@ __global__ void prefix_kernel(const long long* __restrict__ carry,
         mcommit[i] = s_room && en2[i] && q_ok[i] && q_aid[i] < s_first_bad;
 }
 
-__global__ void finish_kernel(long long* __restrict__ carry,
-                              const long long* __restrict__ tile,
-                              const uint8_t* __restrict__ fresh,
-                              const int* __restrict__ ovf_i,
-                              const int* __restrict__ q_pidx,
-                              const int* __restrict__ q_lane,
-                              const int* __restrict__ q_aid, int total,
-                              const long long* __restrict__ cnts, int n_act,
-                              const uint8_t* __restrict__ en_any,
-                              const uint8_t* __restrict__ valid, int T,
-                              int* __restrict__ par, int* __restrict__ act,
-                              int* __restrict__ prm,
+// The two finishes' shared steps.  A halted carry commits nothing: dest
+// all -1, and one more idle replay where ``idle`` (the tile's last
+// call).
+__device__ void halted_finish(long long* carry, int total, bool idle,
                               int* __restrict__ dest) {
+    for (int i = threadIdx.x; i < total; i += THREADS) dest[i] = -1;
+    if (threadIdx.x == 0 && idle) carry[C_IDLE] += 1;
+}
+
+// The block's rank scan of fresh [total] (a chunked Hillis-Steele
+// scan): dest = nn + rank for the fresh items and -1 for the rest, and
+// each fresh item's trace pointers (tile base + row, action, lane) at
+// dest.  Returns the fresh count, to every thread.
+__device__ int rank_scatter(const uint8_t* __restrict__ fresh, int total,
+                            long long nn, int row0,
+                            const int* __restrict__ q_pidx,
+                            const int* __restrict__ q_lane,
+                            const int* __restrict__ q_aid,
+                            int* __restrict__ par, int* __restrict__ act,
+                            int* __restrict__ prm, int* __restrict__ dest) {
     __shared__ int scan[THREADS];
-    __shared__ int base, dmin;
+    __shared__ int base;
     const int tid = threadIdx.x;
-    const long long halted = carry[C_HALT];
-    const long long nn = carry[C_NN], t = carry[C_T];
+    if (tid == 0) base = 0;
     __syncthreads();
-    if (halted) {
-        for (int i = tid; i < total; i += THREADS) dest[i] = -1;
-        if (tid == 0) carry[C_IDLE] += 1;
-        return;
-    }
-    if (tid == 0) {
-        base = 0;
-        dmin = INT_BIG;
-    }
-    __syncthreads();
-    const int row0 = (int)(t * T);
     for (int c0 = 0; c0 < total; c0 += THREADS) {
         const int i = c0 + tid;
         const int x = i < total ? fresh[i] != 0 : 0;
@@ -177,34 +198,57 @@ __global__ void finish_kernel(long long* __restrict__ carry,
         if (tid == THREADS - 1) base += scan[THREADS - 1];
         __syncthreads();
     }
-    for (int r = tid; r < T; r += THREADS)
+    return base;
+}
+
+// The first valid row of the tile with no enabled lane (INT_BIG when
+// there is none), to every thread.
+__device__ int first_dead(const uint8_t* __restrict__ en_any,
+                          const uint8_t* __restrict__ valid, int T) {
+    __shared__ int dmin;
+    if (threadIdx.x == 0) dmin = INT_BIG;
+    __syncthreads();
+    for (int r = threadIdx.x; r < T; r += THREADS)
         if (valid[r] && !en_any[r]) atomicMin(&dmin, r);
     __syncthreads();
-    if (tid != 0) return;
-    const long long nfi = base;
-    const bool room = tile[F_ROOM] != 0, oi = *ovf_i != 0;
-    const bool commit = room && tile[F_FIRST_BAD] >= n_act && !oi;
+    return dmin;
+}
+
+// A tile's flags, from K8's prefix or from K15's chain
+struct Verdict {
+    bool room, viol, slot, bag, ovf_e, ovf_i, commit;
+    long long grow_aid, vrow, vaid, vlane;
+};
+
+// Thread 0 of both finishes, at the tile's end: the reason by its
+// priority (next-buffer gate > violation > slot > bag > expand >
+// fpset), then deadlock (the first dead row ``dmin``, when the carry
+// asks for it and the tile commits); the violation's and the first
+// overflow's ids; on a commit gen and act by the tile's counts, and t
+// and tiles by one while the reason stays RUNNING; halt on any reason.
+__device__ void fold_verdict(long long* carry, const Verdict& v, int dmin,
+                             long long t, int T,
+                             const long long* __restrict__ cnts,
+                             int n_act) {
     int reason = RUNNING;
-    if (!room) reason = R_NEXT_GROW;
-    else if (tile[F_VIOL]) reason = R_VIOLATION;
-    else if (tile[F_SLOT]) reason = R_SLOT_ERR;
-    else if (tile[F_BAG]) reason = R_BAG_GROW;
-    else if (tile[F_OVF]) reason = R_EXPAND_GROW;
-    else if (oi) reason = R_FPSET_GROW;
-    if (reason == RUNNING && carry[C_WANT_DEADLOCK] && commit &&
+    if (!v.room) reason = R_NEXT_GROW;
+    else if (v.viol) reason = R_VIOLATION;
+    else if (v.slot) reason = R_SLOT_ERR;
+    else if (v.bag) reason = R_BAG_GROW;
+    else if (v.ovf_e) reason = R_EXPAND_GROW;
+    else if (v.ovf_i) reason = R_FPSET_GROW;
+    if (reason == RUNNING && carry[C_WANT_DEADLOCK] && v.commit &&
             dmin < T) {
         reason = R_DEADLOCK;
         carry[C_DEAD] = t * T + dmin;
     }
     if (reason == R_VIOLATION) {
-        carry[C_VIOL_ROW] = t * T + tile[F_VROW];
-        carry[C_VIOL_AID] = tile[F_VAID];
-        carry[C_VIOL_LANE] = tile[F_VLANE];
+        carry[C_VIOL_ROW] = t * T + v.vrow;
+        carry[C_VIOL_AID] = v.vaid;
+        carry[C_VIOL_LANE] = v.vlane;
     }
-    if (tile[F_OVF]) carry[C_GROW_AID] = tile[F_GROW_AID];
-    carry[C_NN] = nn + nfi;
-    carry[C_FP_COUNT] += nfi;
-    if (commit) {
+    if (v.ovf_e) carry[C_GROW_AID] = v.grow_aid;
+    if (v.commit) {
         long long sum = 0;
         for (int a = 0; a < n_act; ++a) {
             sum += cnts[a];
@@ -218,6 +262,147 @@ __global__ void finish_kernel(long long* __restrict__ carry,
     }
     carry[C_REASON] = reason;
     if (reason != RUNNING) carry[C_HALT] = 1;
+}
+
+__global__ void finish_kernel(long long* __restrict__ carry,
+                              const long long* __restrict__ tile,
+                              const uint8_t* __restrict__ fresh,
+                              const int* __restrict__ ovf_i,
+                              const int* __restrict__ q_pidx,
+                              const int* __restrict__ q_lane,
+                              const int* __restrict__ q_aid, int total,
+                              const long long* __restrict__ cnts, int n_act,
+                              const uint8_t* __restrict__ en_any,
+                              const uint8_t* __restrict__ valid, int T,
+                              int* __restrict__ par, int* __restrict__ act,
+                              int* __restrict__ prm,
+                              int* __restrict__ dest) {
+    const long long halted = carry[C_HALT];
+    const long long nn = carry[C_NN], t = carry[C_T];
+    __syncthreads();
+    if (halted) {
+        halted_finish(carry, total, true, dest);
+        return;
+    }
+    const int nfi = rank_scatter(fresh, total, nn, (int)(t * T), q_pidx,
+                                 q_lane, q_aid, par, act, prm, dest);
+    const int dmin = first_dead(en_any, valid, T);
+    if (threadIdx.x != 0) return;
+    const bool room = tile[F_ROOM] != 0, oi = *ovf_i != 0;
+    carry[C_NN] = nn + nfi;
+    carry[C_FP_COUNT] += nfi;
+    const Verdict v{room, tile[F_VIOL] != 0, tile[F_SLOT] != 0,
+                    tile[F_BAG] != 0, tile[F_OVF] != 0, oi,
+                    room && tile[F_FIRST_BAD] >= n_act && !oi,
+                    tile[F_GROW_AID], tile[F_VROW], tile[F_VAID],
+                    tile[F_VLANE]};
+    fold_verdict(carry, v, dmin, t, T, cnts, n_act);
+}
+
+// K15 action_gate: action a's flags over its queue segment [E] and its
+// commit mask; a = 0 opens the chain with the headroom gate
+__global__ void gate_kernel(const long long* __restrict__ carry,
+                            long long* __restrict__ pa,
+                            const uint8_t* __restrict__ en2,
+                            const uint8_t* __restrict__ iok,
+                            const int* __restrict__ err,
+                            const int* __restrict__ q_pidx,
+                            const int* __restrict__ q_lane,
+                            const uint8_t* __restrict__ q_ok,
+                            const uint8_t* __restrict__ ovf_a, int a, int E,
+                            long long total_e,
+                            uint8_t* __restrict__ mcommit) {
+    __shared__ int flags, vmin, s_commit;
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+        flags = 0;
+        vmin = INT_BIG;
+        if (a == 0) {
+            const int room = carry[C_NEXT_CAP] - carry[C_NN] >= total_e;
+            pa[P_ROOM] = room;
+            pa[P_COMMIT] = room;
+            pa[P_COMMIT_A] = 0;
+            pa[P_VIOL] = pa[P_SLOT] = pa[P_BAG] = 0;
+            pa[P_OVF_E] = pa[P_OVF_I] = 0;
+            pa[P_GROW_AID] = pa[P_VROW] = pa[P_VAID] = pa[P_VLANE] = -1;
+        }
+    }
+    __syncthreads();
+    for (int i = tid; i < E; i += THREADS) {
+        const bool ok = en2[i] && q_ok[i];
+        const int e = ok ? err[i] : 0;
+        const bool v = ok && !iok[i] && e == 0;
+        const int f = (v ? 1 : 0) | ((e & ERR_BAG_OVERFLOW) ? 2 : 0) |
+                      ((e & ~ERR_BAG_OVERFLOW) ? 4 : 0);
+        if (f) atomicOr(&flags, f);
+        if (v) atomicMin(&vmin, i);
+    }
+    __syncthreads();
+    if (tid == 0) {
+        const int f = flags;
+        const bool have_v = f & 1, bag = f & 2, slot = f & 4;
+        const bool ovf = *ovf_a != 0;
+        if (have_v && pa[P_VROW] < 0) {
+            pa[P_VROW] = q_pidx[vmin];
+            pa[P_VAID] = a;
+            pa[P_VLANE] = q_lane[vmin];
+        }
+        if (ovf && !pa[P_OVF_E]) pa[P_GROW_AID] = a;
+        pa[P_VIOL] |= have_v;
+        pa[P_BAG] |= bag;
+        pa[P_SLOT] |= slot;
+        pa[P_OVF_E] |= ovf;
+        const int commit_a = pa[P_COMMIT] && !have_v && !slot && !bag &&
+                             !ovf && carry[C_HALT] == 0;
+        pa[P_COMMIT_A] = commit_a;
+        s_commit = commit_a;
+    }
+    __syncthreads();
+    for (int i = tid; i < E; i += THREADS)
+        mcommit[i] = s_commit && en2[i] && q_ok[i];
+}
+
+// K15 action_finish: a's fresh items get their next-buffer rows and
+// trace pointers; the last action folds the tile's verdict into the
+// carry
+__global__ void action_finish_kernel(long long* __restrict__ carry,
+                                     long long* __restrict__ pa,
+                                     const uint8_t* __restrict__ fresh,
+                                     const int* __restrict__ ovf_i,
+                                     const int* __restrict__ q_pidx,
+                                     const int* __restrict__ q_lane,
+                                     const int* __restrict__ q_aid, int a,
+                                     int E, int n_act,
+                                     const long long* __restrict__ cnts,
+                                     const uint8_t* __restrict__ en_any,
+                                     const uint8_t* __restrict__ valid,
+                                     int T, int* __restrict__ par,
+                                     int* __restrict__ act,
+                                     int* __restrict__ prm,
+                                     int* __restrict__ dest) {
+    const bool last = a == n_act - 1;
+    const long long halted = carry[C_HALT];
+    const long long nn = carry[C_NN], t = carry[C_T];
+    __syncthreads();
+    if (halted) {
+        halted_finish(carry, E, last, dest);
+        return;
+    }
+    const int nfi = rank_scatter(fresh, E, nn, (int)(t * T), q_pidx, q_lane,
+                                 q_aid, par, act, prm, dest);
+    const int dmin = last ? first_dead(en_any, valid, T) : INT_BIG;
+    if (threadIdx.x != 0) return;
+    const bool oi = *ovf_i != 0;
+    carry[C_NN] = nn + nfi;
+    carry[C_FP_COUNT] += nfi;
+    pa[P_OVF_I] |= oi;
+    pa[P_COMMIT] = pa[P_COMMIT_A] && !oi;
+    if (!last) return;
+    const Verdict v{pa[P_ROOM] != 0, pa[P_VIOL] != 0, pa[P_SLOT] != 0,
+                    pa[P_BAG] != 0, pa[P_OVF_E] != 0, pa[P_OVF_I] != 0,
+                    pa[P_COMMIT] != 0, pa[P_GROW_AID], pa[P_VROW],
+                    pa[P_VAID], pa[P_VLANE]};
+    fold_verdict(carry, v, dmin, t, T, cnts, n_act);
 }
 
 // true when the level's tile loop is done and nothing stopped it
@@ -332,5 +517,46 @@ TPUVSR_EXPORT int tpuvsr_level_step(void* carry, const void* nb,
             (int*)tpm, T);
     KLAUNCH(level_update_kernel, 1, 1, st, (long long*)carry,
             (long long*)lvl_buf, lvl_cap, T);
+    return (int)cudaGetLastError();
+}
+
+// K15.  carry: int64 words (enum Carry); pa: int64 [P_FIELDS]; en2,
+// iok, q_ok, mcommit: uint8 [E] (action a's queue segment); err, q_*:
+// int32 [E]; ovf_a: one uint8 (K7's overflow flag of a); total_e: the
+// tile's expansion lanes (the headroom gate).
+TPUVSR_EXPORT int tpuvsr_action_gate(const void* carry, void* pa,
+                                     const void* en2, const void* iok,
+                                     const void* err, const void* q_pidx,
+                                     const void* q_lane, const void* q_ok,
+                                     const void* ovf_a, int a, int E,
+                                     long long total_e, void* mcommit,
+                                     void* stream) {
+    KLAUNCH(gate_kernel, 1, THREADS, (cudaStream_t)stream,
+            (const long long*)carry, (long long*)pa, (const uint8_t*)en2,
+            (const uint8_t*)iok, (const int*)err, (const int*)q_pidx,
+            (const int*)q_lane, (const uint8_t*)q_ok,
+            (const uint8_t*)ovf_a, a, E, total_e, (uint8_t*)mcommit);
+    return (int)cudaGetLastError();
+}
+
+// fresh: [E] uint8 (K1); ovf_i: one int32 (K1's overflow); q_*: int32
+// [E] (a's queue segment, q_aid = a); cnts: [n_act] int64 (K7's exact
+// counts of the tile); en_any, valid: [T] uint8; par, act, prm:
+// next-buffer pointer columns (int32); dest: [E] int32 out.
+TPUVSR_EXPORT int tpuvsr_action_finish(void* carry, void* pa,
+                                       const void* fresh, const void* ovf_i,
+                                       const void* q_pidx,
+                                       const void* q_lane,
+                                       const void* q_aid, int a, int E,
+                                       int n_act, const void* cnts,
+                                       const void* en_any, const void* valid,
+                                       int T, void* par, void* act,
+                                       void* prm, void* dest, void* stream) {
+    KLAUNCH(action_finish_kernel, 1, THREADS, (cudaStream_t)stream,
+            (long long*)carry, (long long*)pa, (const uint8_t*)fresh,
+            (const int*)ovf_i, (const int*)q_pidx, (const int*)q_lane,
+            (const int*)q_aid, a, E, n_act, (const long long*)cnts,
+            (const uint8_t*)en_any, (const uint8_t*)valid, T, (int*)par,
+            (int*)act, (int*)prm, (int*)dest);
     return (int)cudaGetLastError();
 }

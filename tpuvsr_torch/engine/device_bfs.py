@@ -1,10 +1,11 @@
 """Device-resident breadth-first model checking engine (PyTorch/CUDA).
 
-The counterpart of ``tpuvsr/engine/device_bfs.py`` for the fused
-commit (``commit="fused"``), packing on, through two entry points that
-give the same results: ``run``, the chunked level pass, and
-``run_fused``, the fused pass.  A frontier tile flows through the same
-three stages in both:
+The counterpart of ``tpuvsr/engine/device_bfs.py``, packing on, through
+two entry points that give the same results: ``run``, the chunked level
+pass, and ``run_fused``, the fused pass; each takes either commit of the
+JAX engine (``commit="fused"``, the default, or ``"per-action"``).  With
+the fused commit a frontier tile flows through the same three stages in
+both:
 
   guard matrix  --> every action's guard over every lane of the tile
                     (kernel K6 on the VSR model, after K4 unpacks the
@@ -58,6 +59,25 @@ model's relabel mode, VSR's and the family's alike), the incremental
 hash is off, and the frontier keeps the generated successor, so traces
 replay real states.
 
+The per-action commit (``commit="per-action"``) is the JAX engine's
+historical body (``make_body``, :458-673) and its oracle: the tile's
+actions commit one after another, each with its own compaction (K7 on
+the action's segment), successors (K10), fingerprints (K3; K9 then K3
+with symmetry on), dedup (K2), insert (K1), the commit around them
+(K15 ``action_gate`` and ``action_finish``) and pack-scatter (K4).  The
+chain from one action to the next lives on the device (``engine/tile``
+``PA_FIELDS``), so ``run`` reads the host once a tile and ``run_fused``
+captures the whole tile in its CUDA graph.  Its caps are the JAX
+per-action caps (``tile * expand_mults[a]`` lanes, the multiple 2 to
+start and doubled for the action a tile overflowed), and a level's fit
+before it runs sizes only the buffers, not those caps.  Among equal
+fingerprints in one action's batch the JAX insert names the last lane
+fresh (its scatter's last writer on the CPU); K2 runs over the reversed
+batch so the same one is kept.  The fused commit keeps the first, so
+the two commits give the same counts and levels and, where an action's
+batch holds equal successors, other trace pointers (as the two JAX
+commits do).
+
 Edge emission (``edges=True``) streams the behaviour graph out of the
 chunked level pass: after K1, K11 stores each fresh state's gid beside
 its fingerprint and looks up every enabled item's destination gid, and
@@ -69,11 +89,10 @@ and only with symmetry off (a graph's nodes are concrete states).
 Left out of this port (see ROADMAP.md): the interpreter checks (preflight,
 and the violation cross-check is done with the kernel's own invariant
 functions on the state rebuilt on the host), bounds facts, partial-order
-reduction, the dispatch window, ``run_chained``, checkpoints,
-the fused pass's checkpoint and rescue seams and wall-clock budget, and
-the per-action commit.  Results match the JAX engine with bounds off,
-POR off and a window of 1, which its own tests show give the same
-results as the defaults.
+reduction, the dispatch window, ``run_chained``, checkpoints, and the
+fused pass's checkpoint and rescue seams and wall-clock budget.  Results
+match the JAX engine with bounds off, POR off and a window of 1, which
+its own tests show give the same results as the defaults.
 """
 
 from __future__ import annotations
@@ -100,9 +119,10 @@ from .tile import (C_DEAD, C_DEPTH, C_FP_COUNT, C_GEN, C_HALT, C_IDLE,
                    CARRY_FIELDS, ERR_BAG_OVERFLOW, F_AFLAGS, R_BAG_GROW,
                    R_DEADLOCK, R_EDGE_FLUSH, R_EXPAND_GROW, R_FPSET_GROW,
                    R_NEXT_GROW,
-                   R_SLOT_ERR, R_VIOLATION, RUNNING, Segments,
-                   commit_finish, commit_prefix, compact, level_step,
-                   new_carry, queue_buffers)
+                   R_SLOT_ERR, R_VIOLATION, RUNNING, PA_FIELDS, P_COMMIT,
+                   Segments, action_finish, action_gate, commit_finish,
+                   commit_prefix, compact, level_step, new_carry,
+                   queue_buffers)
 from .trace import TraceEntry
 
 I32 = torch.int32
@@ -145,7 +165,10 @@ class DeviceBFS:
                  fpset_capacity=1 << 20,
                  next_capacity=1 << 14, chunk_tiles=64,
                  model_factory=None, device=None, symmetry="auto",
-                 edges=False):
+                 edges=False, commit="fused"):
+        if commit not in ("fused", "per-action"):
+            raise TLAError(f"commit must be 'fused' or 'per-action' "
+                           f"(got {commit!r})")
         if edges and not getattr(self, "_edges_on", False):
             # the level pass emits edges on any engine, but their drain
             # (R_EDGE_FLUSH -> the host CSR) is the paged loop's
@@ -162,6 +185,11 @@ class DeviceBFS:
         self.chunk_tiles = int(chunk_tiles)
         self.inv_names = list(spec.invariants)
         self._model_factory = model_factory or registry.make_model
+        # the level-kernel commit (module docstring); the per-action
+        # caps are tile x expand_mults[a] lanes (the JAX default
+        # multiple 2), each doubled on its own R_EXPAND_GROW
+        self.commit = commit
+        self.expand_mults = None
         self.expand_caps = None
         self._need_seen = None
         self.level_sizes = []
@@ -188,6 +216,8 @@ class DeviceBFS:
                 f"{type(kern).__name__}.ERR_BAG_OVERFLOW = {self._bag_bit}: "
                 f"the engine's commit reads bit {ERR_BAG_OVERFLOW}")
         names = kern.action_names
+        if self.expand_mults is None:
+            self.expand_mults = [2] * len(names)
         tl = [self.tile * kern._lane_count(n) for n in names]
         if self.expand_caps is None:
             self.expand_caps = [min(t, max(8, _align8(self.tile)))
@@ -221,7 +251,13 @@ class DeviceBFS:
             np.repeat(np.arange(len(names)), self._lanes), device=self.device)
 
     def _expand_caps(self):
+        """Per-action compaction capacities, in lanes: the fused
+        commit's exact-count caps, or the per-action commit's tile
+        multiples (JAX ``_expand_caps``)."""
         kern, T = self.kern, self.tile
+        if self.commit == "per-action":
+            return [min(T * kern._lane_count(n), max(64, int(T * m)))
+                    for n, m in zip(kern.action_names, self.expand_mults)]
         return [min(T * kern._lane_count(n), max(8, int(c)))
                 for n, c in zip(kern.action_names, self.expand_caps)]
 
@@ -263,19 +299,19 @@ class DeviceBFS:
         if hasattr(kern, "successors"):
             return kern.successors(flat, q["pidx"], q["aid"], q["lane"],
                                    self._inv_mask, out, halt)
-        parts = {"succ": [], "en2": [], "err": [], "iok": []}
-        for aid, fn in enumerate(kern._action_fns()):
-            _lo, _L, E, qo = segs.host[aid]
-            if E == 0:
-                continue
-            st = self._pk.unflatten(flat[q["pidx"][qo:qo + E].long()])
-            succ, en2 = fn(st, q["lane"][qo:qo + E].long())
-            clean = {k: v for k, v in succ.items() if not k.startswith("_")}
-            parts["succ"].append(self._pk.flatten(clean))
-            parts["en2"].append(en2)
-            parts["err"].append(clean["err"].to(I32))
-            parts["iok"].append(self._inv(clean))
-        return {k: torch.cat(v) for k, v in parts.items()}
+        parts = [self._action_successors(flat, fn, q["pidx"][qo:qo + E],
+                                         q["lane"][qo:qo + E])
+                 for fn, (_lo, _L, E, qo) in zip(kern._action_fns(),
+                                                  segs.host) if E]
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+    def _action_successors(self, flat, fn, pidx, lane):
+        """One action's function on the items (``pidx``, ``lane``) of
+        the parents ``flat``: ``succ``, ``en2``, ``err``, ``iok``."""
+        succ, en2 = fn(self._pk.unflatten(flat[pidx.long()]), lane.long())
+        clean = {k: v for k, v in succ.items() if not k.startswith("_")}
+        return {"succ": self._pk.flatten(clean), "en2": en2,
+                "err": clean["err"].to(I32), "iok": self._inv(clean)}
 
     # ------------------------------------------------------------------
     # one chunk of tiles (the body of the JAX level pass)
@@ -311,10 +347,11 @@ class DeviceBFS:
         counts = torch.zeros((kk, n_act), dtype=I64, device=dev).index_add_(
             1, self._lane_aid, lane_sum).cpu().numpy()         # [kk, n_act]
         out["need"] = counts.max(axis=0)
+        tile = self._tile if self.commit == "fused" else self._tile_pa
         while out["t"] < n_tiles and out["t"] < start_t + K:
             self._count("tiles")
-            self._tile(out, table, bufs, cflat, en, en_any, cvalid,
-                       counts, start_t, caps, total_E, want_deadlock, eb)
+            tile(out, table, bufs, cflat, en, en_any, cvalid, counts,
+                 start_t, caps, total_E, want_deadlock, eb)
             if out["reason"] != RUNNING:
                 break
         return out
@@ -446,6 +483,146 @@ class DeviceBFS:
                           eb.src_base + base)
 
     # ------------------------------------------------------------------
+    # the per-action commit (commit="per-action")
+    # ------------------------------------------------------------------
+    def _pa_buffers(self):
+        """The tensors a per-action tile writes, for the current kernel
+        and caps: the whole tile's queue (action a at its segment), the
+        successors, the canonical images, the fingerprints (an edge run
+        emits them at the tile's end), the commit masks, the rows K4
+        scatters to, and K15's chain.  Kept while the kernel and the
+        caps stay (``run``); ``run_fused`` holds them in its state."""
+        kern, dev = self.kern, self.device
+        caps = tuple(self._expand_caps())
+        S = getattr(self, "_pa_cache", None)
+        if S is not None and S["kern"] is kern and S["caps"] == caps:
+            return S
+        n_act = len(kern.action_names)
+        segs = Segments(self._lane_off, self._lanes, caps, dev)
+        z = lambda *shape, dtype=torch.bool: torch.zeros(
+            shape, dtype=dtype, device=dev)
+        S = {"kern": kern, "caps": caps, "segs": segs,
+             "q": queue_buffers(segs.total, n_act, dev),
+             "succ": (kern.successor_buffers(segs.total, dev)
+                      if hasattr(kern, "successors") else None),
+             "canon": (None if self._canon is None else
+                       z(segs.total, self._pk.lanes, dtype=I32)),
+             "fpq": z(segs.total, 4, dtype=I32),
+             "mcommit": z(segs.total), "dest": z(segs.total, dtype=I32),
+             "pa": z(len(PA_FIELDS), dtype=I64)}
+        self._pa_cache = S
+        return S
+
+    def _pa_successors(self, flat, q, a, out, halt):
+        """The successors of action ``a``'s queue segment ``q``: K10 into
+        ``out`` where the model has it, else the action's function."""
+        kern = self.kern
+        if hasattr(kern, "successors"):
+            return kern.successors(flat, q["pidx"], q["aid"], q["lane"],
+                                   self._inv_mask, out, halt)
+        return self._action_successors(flat, kern._action_fns()[a],
+                                       q["pidx"], q["lane"])
+
+    def _pa_body(self, S, carry, flat, en, en_any, valid, table, bufs,
+                 eb=None, base=0):
+        """One per-action tile on the device (no host sync): for each
+        action in order, K7 on its segment, its successors (K10), their
+        fingerprints (K3; K9 then K3 with symmetry on), K15's gate, K2
+        over the reversed batch (the JAX insert's fresh lane among equal
+        fingerprints is the last), K1, K15's finish and K4's
+        pack-scatter.  An edge run (``eb``) stores each action's fresh
+        gids (K11) after its insert, whatever the commit, and appends
+        the tile's edges (K11's lookup, K12) once at its end, on the
+        final commit flag."""
+        kern, pk = self.kern, self._pk
+        segs, q, pa = S["segs"], S["q"], S["pa"]
+        total_e = segs.total
+        halt = carry[C_HALT:C_HALT + 1]
+        parts = kern.parent_parts(flat) if self._incremental else None
+        en2_all = []
+        for a, (_lo, _L, E, qo) in enumerate(segs.host):
+            compact(en, valid, segs, q, carry, action=a)
+            qa = {k: q[k][qo:qo + E] for k in ("pidx", "lane", "aid", "ok")}
+            qa["ovf"] = q["ovf"][a:a + 1]
+            out = (None if S["succ"] is None else
+                   {k: v[qo:qo + E] for k, v in S["succ"].items()})
+            o = self._pa_successors(flat, qa, a, out, halt)
+            if self._incremental:
+                fp = kern.fingerprint_incremental(
+                    o["succ"], o["ri"], o["ts"], qa["pidx"], flat, parts)
+            else:
+                fp = self._fp(o["succ"], None if S["canon"] is None
+                              else S["canon"][qo:qo + E])
+            mcommit = S["mcommit"][qo:qo + E]
+            dest = S["dest"][qo:qo + E]
+            action_gate(carry, pa, qa, o, a, total_e, mcommit)
+            keep = dedup_keep(fp.flip(0), mcommit.flip(0)).flip(0)
+            _tbl, fresh, ovf_i = insert_core(table, fp, keep)
+            if not isinstance(ovf_i, torch.Tensor):
+                ovf_i = torch.tensor(int(ovf_i), dtype=I32)
+            action_finish(carry, pa, qa, fresh, ovf_i, a, q["cnts"], en_any,
+                          valid, bufs, dest)
+            pk.pack(o["succ"], out=bufs.nb, dest=dest)
+            if eb is not None:
+                store_gids(table["slots"], table["gids"], fp,
+                           (eb.gid_base + dest).to(I32), fresh)
+                S["fpq"][qo:qo + E] = fp
+                en2_all.append(o["en2"] & qa["ok"])
+        if eb is None:
+            return None
+        en_q = torch.cat(en2_all)
+        commit = pa[P_COMMIT] != 0
+        dst = lookup_gids(table, table["gids"], S["fpq"], en_q & commit)
+        return emit_edges(eb, en_q, q["pidx"], q["aid"], dst, commit,
+                          eb.src_base + base)
+
+    def _tile_pa(self, out, table, bufs, cflat, en, en_any, cvalid, counts,
+                 start_t, caps, total_E, want_deadlock, eb=None):
+        """One tile of ``run``'s level pass with the per-action commit:
+        the headroom gates on the host (as ``_tile``), then the tile on
+        the device (``_pa_body``) against a carry made for it, and one
+        host read of the carry, K4's range flag and the edges
+        appended."""
+        T, pk, dev = self.tile, self._pk, self.device
+        n_act = len(self.kern.action_names)
+        t = out["t"]
+        off = (t - start_t) * T
+        if bufs.cap - out["nn"] < total_E:
+            out["reason"] = R_NEXT_GROW
+            return
+        if eb is not None and eb.cap - eb.n < total_E:
+            out["reason"] = R_EDGE_FLUSH
+            return
+        S = self._pa_buffers()
+        carry = new_carry(n_act, dev, t=t, nn=out["nn"], next_cap=bufs.cap,
+                          want_deadlock=bool(want_deadlock))
+        emitted = self._pa_body(S, carry, cflat[off:off + T],
+                                en[off:off + T], en_any[off:off + T],
+                                cvalid[off:off + T], table, bufs, eb, t * T)
+        extra = [] if emitted is None else [emitted.long()[None]]
+        h = torch.cat([carry, pk.range_flag(dev).long()] + extra
+                      ).cpu().tolist()
+        if eb is not None:
+            eb.n += h.pop()
+        pk.raise_if_out_of_range(h.pop())
+        self._count("tile_reads")
+        nfi = h[C_FP_COUNT]
+        out["nn"] += nfi
+        out["dist"] += nfi
+        reason = h[C_REASON]
+        if reason == R_VIOLATION:
+            out["viol"] = (h[C_VIOL_ROW], h[C_VIOL_AID], h[C_VIOL_LANE])
+        if reason == R_DEADLOCK:
+            out["dead"] = h[C_DEAD]
+        if h[C_GROW_AID] >= 0:
+            out["grow_aid"] = h[C_GROW_AID]
+        out["gen"] += h[C_GEN]
+        out["act"] += np.asarray(h[C_NEED + n_act:C_NEED + 2 * n_act],
+                                 np.int64)
+        out["reason"] = reason
+        out["t"] = h[C_T]
+
+    # ------------------------------------------------------------------
     # growth handlers
     # ------------------------------------------------------------------
     def _grow_msgs(self, bufs_list):
@@ -473,8 +650,16 @@ class DeviceBFS:
 
     def _grow_expand(self, aid, emit):
         """R_EXPAND_GROW: grow every action whose observed exact need
-        exceeds its cap (the chunk-wide guard matrix measured it)."""
+        exceeds its cap (the chunk-wide guard matrix measured it); with
+        the per-action commit, double the overflowing action's tile
+        multiple (the JAX per-action growth)."""
         kern = self.kern
+        if self.commit == "per-action":
+            self.expand_mults[aid] *= 2
+            self._count("grow_expand_buffer")
+            emit(f"expand buffer for {kern.action_names[aid]} grown to "
+                 f"tile x {self.expand_mults[aid]}")
+            return
         caps = self._expand_caps()
         grown = []
         for a, name in enumerate(kern.action_names):
@@ -494,8 +679,9 @@ class DeviceBFS:
 
     def _calibrate_caps(self, emit, level_states):
         """Level-boundary calibration: shrink the expansion caps onto the
-        observed per-tile maxima when that saves >= 20% of the lanes."""
-        if level_states < 4 * self.tile:
+        observed per-tile maxima when that saves >= 20% of the lanes
+        (the fused commit's caps only)."""
+        if self.commit != "fused" or level_states < 4 * self.tile:
             return False
         kern, T = self.kern, self.tile
         tgt = [min(T * kern._lane_count(n), max(8, _align8(max(int(s), 1))))
@@ -737,13 +923,17 @@ class DeviceBFS:
                 "en": z(T, sum(self._lanes)), "en_any": z(T),
                 "tile": z(F_AFLAGS + n_act, dtype=I64),
                 "mcommit": z(segs.total), "dest": z(segs.total, dtype=I32),
-                "ar": torch.arange(T, device=dev)}
+                "ar": torch.arange(T, device=dev),
+                # K15's chain (the per-action commit)
+                "pa": z(len(PA_FIELDS), dtype=I64)}
 
     def _fused_tile(self, S):
         """One tile of the fused pass, with no host sync (the body the
         CUDA graph captures): the tile at the carry's ``t`` of the
         frontier through K6, K7, K10 over the queue at the fixed caps,
-        K8's commit around K2/K1/K4, and K8's level step."""
+        K8's commit around K2/K1/K4, and K8's level step; with the
+        per-action commit K6, then ``_pa_body`` (K15's commit an
+        action), then the level step."""
         T, kern, pk = self.tile, self.kern, self._pk
         carry, front, bufs, q = S["carry"], S["front"], S["bufs"], S["q"]
         sidx = carry[C_T] * T + S["ar"]
@@ -751,6 +941,11 @@ class DeviceBFS:
         tile_flat = pk.unpack(front.nb, torch.clamp(sidx, 0, front.cap - 1))
         en, en_any = self._guards(tile_flat, (S["en"], S["en_any"]),
                                   carry[C_HALT:C_HALT + 1])
+        if self.commit == "per-action":
+            self._pa_body(S, carry, tile_flat, en, en_any, valid,
+                          S["table"], bufs)
+            level_step(carry, bufs, front.nb, S["tp"], S["lvl"], T)
+            return
         compact(en, valid, S["segs"], q, carry)
         parts = kern.parent_parts(tile_flat) if self._incremental else None
         o = self._successors(tile_flat, q, S["segs"], S["succ"],
@@ -835,7 +1030,8 @@ class DeviceBFS:
         maxima (grown where short, shrunk when that saves >= 20% of the
         lanes), and the next buffer (x4 steps) so its headroom gate
         cannot fail, since the level adds at most its enabled count.
-        Returns the buffers and whether anything changed."""
+        The per-action commit keeps its caps and takes only the
+        buffers.  Returns the buffers and whether anything changed."""
         kern, T = self.kern, self.tile
         need, gen_ub = self._level_need(front, h[C_T], h[C_N_FRONT])
         self._need_seen = np.maximum(self._need_seen, need)
@@ -843,8 +1039,9 @@ class DeviceBFS:
                for n, x in zip(kern.action_names, need)]
         cur = self._expand_caps()
         changed = False
-        if any(a > b for a, b in zip(tgt, cur)) or \
-                sum(tgt) * 5 <= sum(cur) * 4:
+        if self.commit == "fused" and (
+                any(a > b for a, b in zip(tgt, cur))
+                or sum(tgt) * 5 <= sum(cur) * 4):
             self.expand_caps = tgt
             changed = tgt != cur
             self._count("fit_expand_caps")
@@ -1061,7 +1258,9 @@ class DeviceBFS:
         acts = getattr(self, "_act_counts", None)
         gauges = {"fpset_capacity": int(table["slots"].shape[0]),
                   "fpset_occupancy": fp_count / table["slots"].shape[0],
-                  "inserts_per_tile": 1, "commit_mode": "fused",
+                  "inserts_per_tile": (1 if self.commit == "fused"
+                                       else len(self.kern.action_names)),
+                  "commit_mode": self.commit,
                   "max_msgs": int(self.codec.shape.MAX_MSGS),
                   # the group order this run reduced by (1 = off), and
                   # generated / distinct, which folds the orbit factor

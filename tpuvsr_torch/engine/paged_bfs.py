@@ -31,9 +31,13 @@ level's pages live in an ``engine/spill.SpillTier``: at most
 ``spill_ram_rows`` rows in RAM, the rest in the level's files.
 
 Everything else (growth of the message table, the FPSet and the
-expansion caps, violations, deadlocks, trace replay) is DeviceBFS's, and
-the two engines run the same level pass, so levels, counts and trace
-pointer tables are ``DeviceBFS.run()``'s.  Symmetry works as there:
+expansion caps, violations, deadlocks, trace replay, the ``commit``
+argument) is DeviceBFS's, and the two engines run the same level pass,
+so levels, counts and trace pointer tables are ``DeviceBFS.run()``'s.
+With ``commit="per-action"`` and edges on, K11 stores each action's
+fresh gids after its insert whatever the tile's fate, and K12 appends
+the tile's edges once at its end, on the final commit flag (the JAX
+per-action edge block).  Symmetry works as there:
 every insert goes through ``_fp``.
 
 Left out of this port (see ROADMAP.md): the dispatch window (one level

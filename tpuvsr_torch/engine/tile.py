@@ -1,6 +1,6 @@
-"""The fused BFS's tile pipeline on the device: kernels K7 (work-queue
-compaction) and K8 (the tile commit and the level step), and the carry
-they share.
+"""The BFS's tile pipeline on the device: kernels K7 (work-queue
+compaction), K8 (the fused tile commit and the level step) and K15 (the
+per-action commit), and the carry they share.
 
 The counterpart of the device code of ``tpuvsr/engine/device_bfs.py``
 that ``run_fused`` runs: the per-action ``jnp.nonzero(size=E_a)``
@@ -8,7 +8,12 @@ compaction of ``_fused_body_factory`` (:838), its committed-action
 prefix and headroom gate (:806-931), the rank scatter, commit flag and
 reason priority (:942-985), and the tail of ``_make_multilevel``'s
 ``obody`` (:1231-1300) that appends a finished level's trace pointers,
-records its size and makes the next buffer the frontier.
+records its size and makes the next buffer the frontier; and the commit
+of the per-action body ``make_body`` (:458-673), one insert an action,
+whose chain from one action to the next (the commit flag, the flags of
+the tile's verdict, the first violating item) lives in a per-tile state
+vector on the device (``PA_FIELDS``, ``enum PaTile``), so a per-action
+tile needs no host read between its actions.
 
 **The carry** is one int64 vector on the device that holds the whole
 loop state of the fused pass (``C_*`` below, then ``need`` and ``act``,
@@ -23,9 +28,10 @@ layout is ``enum Carry`` of ``csrc/tile_commit.cu``.
 
 Each wrapper sends CPU tensors to its plain PyTorch version (in this
 module) and CUDA tensors to its kernel (``csrc/compact.cu``,
-``csrc/tile_commit.cu``).  Both write their outputs into the buffers
-they are given, so a CUDA graph can hold them; the plain versions read
-values to the host where that is simpler and never run inside a graph.
+``csrc/tile_commit.cu``: K8 and K15).  Both write their outputs into the
+buffers they are given, so a CUDA graph can hold them; the plain
+versions read values to the host where that is simpler and never run
+inside a graph.
 """
 
 from __future__ import annotations
@@ -77,6 +83,15 @@ F_AFLAGS = len(TILE_FIELDS)
 
 MAX_ACTIONS = 64     # the kernels' per-action shared arrays
 
+# K15's per-tile chain (csrc/tile_commit.cu enum PaTile): the commit
+# flag carried from one action to the next, the last action's commit_a,
+# the headroom gate, the verdict's flags, the first overflowing action
+# and the first violating item (tile row, action, lane)
+PA_FIELDS = ("commit", "commit_a", "room", "viol", "slot", "bag", "ovf_e",
+             "ovf_i", "grow_aid", "vrow", "vaid", "vlane")
+(P_COMMIT, P_COMMIT_A, P_ROOM, P_VIOL, P_SLOT, P_BAG, P_OVF_E, P_OVF_I,
+ P_GROW_AID, P_VROW, P_VAID, P_VLANE) = range(len(PA_FIELDS))
+
 
 def new_carry(n_act, device, **vals):
     """A carry vector with every field 0 except ``vals`` (by name) and
@@ -116,7 +131,7 @@ def queue_buffers(total, n_act, device):
 # ----------------------------------------------------------------------
 # K7: work-queue compaction
 # ----------------------------------------------------------------------
-def compact(en, valid, segs, q, carry=None):
+def compact(en, valid, segs, q, carry=None, action=None):
     """K7 wrapper.  ``en`` [T, n_lanes] bool guard matrix of a tile,
     ``valid`` [T] bool rows in the frontier, ``segs`` a ``Segments``.
     Writes into the queue buffers ``q`` (``queue_buffers``): for action
@@ -126,10 +141,11 @@ def compact(en, valid, segs, q, carry=None):
     fill_value=T*L_a)`` split into row and lane; ``aid`` the action;
     ``cnts`` the exact enabled count, ``ovf`` count > E_a.  With a
     ``carry`` it does nothing once the carry is halted and otherwise
-    raises ``need`` to the counts."""
+    raises ``need`` to the counts.  With ``action`` = a it compacts
+    that action's segment alone (the per-action commit)."""
     if en.device.type == "cpu":
-        return compact_plain(en, valid, segs, q, carry)
-    return _compact_kernel(en, valid, segs, q, carry)
+        return compact_plain(en, valid, segs, q, carry, action)
+    return _compact_kernel(en, valid, segs, q, carry, action)
 
 
 def _select(m, cap, fill):
@@ -140,12 +156,14 @@ def _select(m, cap, fill):
     return out[:cap]
 
 
-def compact_plain(en, valid, segs, q, carry=None):
+def compact_plain(en, valid, segs, q, carry=None, action=None):
     if carry is not None and bool(carry[C_HALT] != 0):
         return q
     T = en.shape[0]
     n_act = len(segs.host)
     for a, (lo, L, E, qo) in enumerate(segs.host):
+        if action is not None and a != action:
+            continue
         TL = T * L
         en_f = (en[:, lo:lo + L] & valid[:, None]).reshape(TL)
         sel = _select(en_f, E, TL)
@@ -154,32 +172,34 @@ def compact_plain(en, valid, segs, q, carry=None):
         q["aid"][qo:qo + E] = a
         q["ok"][qo:qo + E] = sel < TL
         q["cnts"][a] = en_f.sum()
-    q["ovf"].copy_(q["cnts"] > torch.tensor([E for _l, _L, E, _q in
-                                             segs.host], device=en.device))
-    if carry is not None:
-        need = carry[C_NEED:C_NEED + n_act]
-        torch.maximum(need, q["cnts"], out=need)
+        q["ovf"][a] = q["cnts"][a] > E
+        if carry is not None:
+            carry[C_NEED + a] = torch.maximum(carry[C_NEED + a],
+                                              q["cnts"][a])
     return q
 
 
-def _compact_kernel(en, valid, segs, q, carry):
+def _compact_kernel(en, valid, segs, q, carry, action=None):
     T, n_lanes = en.shape
     n_act = len(segs.host)
     ck = kernels.check
     total = segs.total
+    a0, rows = (0, n_act) if action is None else (int(action), 1)
+    ck(segs.dev, "segs", I32, (n_act, 4))
+    ck(q["cnts"], "cnts", I64, (n_act,))
+    ck(q["ovf"], "ovf", torch.bool, (n_act,))
     kernels.launch(
         "compact", "tpuvsr_compact",
         ck(en, "en", torch.bool, (T, n_lanes)), ck(valid, "valid",
                                                    torch.bool, (T,)),
-        T, n_lanes, ck(segs.dev, "segs", I32, (n_act, 4)), n_act,
+        T, n_lanes, segs.dev[a0].data_ptr(), rows, a0,
         ck(q["pidx"], "pidx", I32, (total,)),
         ck(q["lane"], "lane", I32, (total,)),
         ck(q["aid"], "aid", I32, (total,)),
         ck(q["ok"], "ok", torch.bool, (total,)),
-        ck(q["cnts"], "cnts", I64, (n_act,)),
-        ck(q["ovf"], "ovf", torch.bool, (n_act,)),
+        q["cnts"][a0].data_ptr(), q["ovf"][a0].data_ptr(),
         None if carry is None else ck(carry, "carry", I64),
-        C_HALT, C_NEED, kernels.stream_of(en))
+        C_HALT, C_NEED + a0, kernels.stream_of(en))
     return q
 
 
@@ -288,34 +308,65 @@ def commit_finish_plain(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
                         dest):
     c = carry.tolist()
     if c[C_HALT]:
-        dest.fill_(-1)
-        carry[C_IDLE] += 1
-        return dest
+        return _halted_plain(carry, dest, True)
     n_act = q["cnts"].shape[0]
-    T = valid.shape[0]
-    t, nn = c[C_T], c[C_NN]
+    nn = c[C_NN]
+    nfi = _rank_scatter_plain(fresh, nn, c[C_T] * valid.shape[0], q, bufs,
+                              dest)
+    f = tile.tolist()
+    oi = bool(ovf_i)
+    c[C_NN] = nn + nfi
+    c[C_FP_COUNT] += nfi
+    _fold_verdict_plain(
+        c, f[F_ROOM], f[F_VIOL], f[F_SLOT], f[F_BAG], f[F_OVF], oi,
+        f[F_ROOM] and f[F_FIRST_BAD] >= n_act and not oi, f[F_GROW_AID],
+        f[F_VROW], f[F_VAID], f[F_VLANE], en_any, valid, q["cnts"])
+    carry.copy_(torch.tensor(c, dtype=I64, device=carry.device))
+    return dest
+
+
+def _halted_plain(carry, dest, idle):
+    """The two finishes on a halted carry: ``dest`` all -1, and one more
+    idle replay where ``idle`` (the tile's last call)."""
+    dest.fill_(-1)
+    if idle:
+        carry[C_IDLE] += 1
+    return dest
+
+
+def _rank_scatter_plain(fresh, nn, row0, q, bufs, dest):
+    """The two finishes' scatter: ``dest`` = ``nn`` + the rank of each
+    fresh item (-1 for the rest), and each fresh item's (``row0`` + row,
+    action, lane) in ``bufs`` at ``dest``; returns the fresh count."""
     rank = torch.cumsum(fresh.long(), 0) - 1 + nn
     dest.copy_(torch.where(fresh, rank, -1))
     idx = torch.nonzero(fresh)[:, 0]
     rows = rank[idx]
-    bufs.par[rows] = (t * T + q["pidx"][idx]).to(I32)
+    bufs.par[rows] = (row0 + q["pidx"][idx]).to(I32)
     bufs.act[rows] = q["aid"][idx]
     bufs.prm[rows] = q["lane"][idx]
-    nfi = int(fresh.sum())
-    f = tile.tolist()
-    oi = bool(ovf_i)
-    commit = f[F_ROOM] and f[F_FIRST_BAD] >= n_act and not oi
-    if not f[F_ROOM]:
+    return int(fresh.sum())
+
+
+def _fold_verdict_plain(c, room, viol, slot, bag, ovf_e, ovf_i, commit,
+                        grow_aid, vrow, vaid, vlane, en_any, valid, cnts):
+    """The two finishes' verdict at the tile's end, on the carry list
+    ``c``: the reason by its priority, then deadlock; the violation's and
+    the first overflow's ids; on a commit ``gen`` and ``act`` by
+    ``cnts``, and ``t`` and ``tiles`` by one while the reason stays
+    RUNNING; ``halt`` on any reason."""
+    T, t = valid.shape[0], c[C_T]
+    if not room:
         reason = R_NEXT_GROW
-    elif f[F_VIOL]:
+    elif viol:
         reason = R_VIOLATION
-    elif f[F_SLOT]:
+    elif slot:
         reason = R_SLOT_ERR
-    elif f[F_BAG]:
+    elif bag:
         reason = R_BAG_GROW
-    elif f[F_OVF]:
+    elif ovf_e:
         reason = R_EXPAND_GROW
-    elif oi:
+    elif ovf_i:
         reason = R_FPSET_GROW
     else:
         reason = RUNNING
@@ -324,25 +375,22 @@ def commit_finish_plain(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
         reason = R_DEADLOCK
         c[C_DEAD] = t * T + dead.index(True)
     if reason == R_VIOLATION:
-        c[C_VIOL_ROW] = t * T + f[F_VROW]
-        c[C_VIOL_AID], c[C_VIOL_LANE] = f[F_VAID], f[F_VLANE]
-    if f[F_OVF]:
-        c[C_GROW_AID] = f[F_GROW_AID]
-    c[C_NN] = nn + nfi
-    c[C_FP_COUNT] += nfi
+        c[C_VIOL_ROW] = t * T + vrow
+        c[C_VIOL_AID], c[C_VIOL_LANE] = vaid, vlane
+    if ovf_e:
+        c[C_GROW_AID] = grow_aid
     if commit:
-        cnts = q["cnts"].tolist()
-        c[C_GEN] += sum(cnts)
+        counts = cnts.tolist()
+        n_act = len(counts)
+        c[C_GEN] += sum(counts)
         for a in range(n_act):
-            c[C_NEED + n_act + a] += cnts[a]
+            c[C_NEED + n_act + a] += counts[a]
         if reason == RUNNING:
             c[C_T] = t + 1
             c[C_TILES] += 1
     c[C_REASON] = reason
     if reason != RUNNING:
         c[C_HALT] = 1
-    carry.copy_(torch.tensor(c, dtype=I64, device=carry.device))
-    return dest
 
 
 def _finish_kernel(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
@@ -432,3 +480,144 @@ def _level_kernel(carry, bufs, front, tp, lvl_buf, tile_size):
         ck(lvl_buf, "lvl_buf", I64), lvl_buf.shape[0], tile_size,
         kernels.stream_of(carry))
     return carry
+
+
+# ----------------------------------------------------------------------
+# K15: the per-action commit, action_gate and action_finish
+# ----------------------------------------------------------------------
+def action_gate(carry, pa, q, o, a, total_e, mcommit):
+    """K15 wrapper, first entry, before action ``a``'s insert.  ``q``
+    holds a's queue segment (``pidx``, ``lane``, ``ok``: [E] views) and
+    its overflow flag ``ovf`` (a one-element view of K7's), ``o`` a's
+    successors (``en2``, ``iok``, ``err``: [E]).  At ``a`` = 0 it opens
+    the tile's chain in ``pa`` (int64 ``[len(PA_FIELDS)]``): the
+    headroom gate ``next_cap - nn >= total_e`` is the first commit flag.
+    Then it raises the tile's violation/slot/bag/overflow flags by a's
+    items, records the first violating item (row, a, lane) and the
+    first overflowing action, and writes ``commit_a`` = commit and no
+    violation, slot error, full bag or overflow in a, nothing once the
+    carry is halted, and ``mcommit`` [E] = a's enabled items when
+    commit_a holds."""
+    if mcommit.device.type == "cpu":
+        return action_gate_plain(carry, pa, q, o, a, total_e, mcommit)
+    return _gate_kernel(carry, pa, q, o, a, total_e, mcommit)
+
+
+def action_gate_plain(carry, pa, q, o, a, total_e, mcommit):
+    c = carry.tolist()
+    p = pa.tolist()
+    if a == 0:
+        room = int(c[C_NEXT_CAP] - c[C_NN] >= total_e)
+        p = [room, 0, room, 0, 0, 0, 0, 0, -1, -1, -1, -1]
+    ok = o["en2"] & q["ok"]
+    errv = torch.where(ok, o["err"], 0)
+    viol = ok & ~o["iok"] & (errv == 0)
+    have_v = bool(viol.any())
+    bag = bool(((errv & ERR_BAG_OVERFLOW) != 0).any())
+    slot = bool(((errv & ~ERR_BAG_OVERFLOW) != 0).any())
+    ovf = bool(q["ovf"][0])
+    if have_v and p[P_VROW] < 0:
+        i = int(torch.nonzero(viol)[0, 0])
+        p[P_VROW], p[P_VAID], p[P_VLANE] = (int(q["pidx"][i]), a,
+                                            int(q["lane"][i]))
+    if ovf and not p[P_OVF_E]:
+        p[P_GROW_AID] = a
+    p[P_VIOL] |= have_v
+    p[P_BAG] |= bag
+    p[P_SLOT] |= slot
+    p[P_OVF_E] |= ovf
+    commit_a = bool(p[P_COMMIT]) and not (have_v or slot or bag or ovf) \
+        and c[C_HALT] == 0
+    p[P_COMMIT_A] = int(commit_a)
+    pa.copy_(torch.tensor(p, dtype=I64, device=pa.device))
+    mcommit.copy_(ok & commit_a)
+    return mcommit
+
+
+def _gate_kernel(carry, pa, q, o, a, total_e, mcommit):
+    E = mcommit.shape[0]
+    ck = kernels.check
+    kernels.launch(
+        "action_gate", "tpuvsr_action_gate",
+        ck(carry, "carry", I64), ck(pa, "pa", I64, (len(PA_FIELDS),)),
+        ck(o["en2"], "en2", torch.bool, (E,)),
+        ck(o["iok"], "iok", torch.bool, (E,)),
+        ck(o["err"], "err", I32, (E,)),
+        ck(q["pidx"], "pidx", I32, (E,)), ck(q["lane"], "lane", I32, (E,)),
+        ck(q["ok"], "ok", torch.bool, (E,)),
+        ck(q["ovf"], "ovf", torch.bool, (1,)), int(a), E, int(total_e),
+        ck(mcommit, "mcommit", torch.bool, (E,)), kernels.stream_of(mcommit))
+    return mcommit
+
+
+def action_finish(carry, pa, q, fresh, ovf_i, a, cnts, en_any, valid, bufs,
+                  dest):
+    """K15 wrapper, second entry, after action ``a``'s insert (K1's
+    ``fresh`` [E] bool over a's segment ``q``, whose ``aid`` is a, and
+    its overflow ``ovf_i``, a 0-dim int32 tensor or a bool).  Writes
+    ``dest`` [E] int32 = ``nn + cumsum(fresh) - 1`` for fresh items and
+    -1 for the rest (K4's pack-scatter rows), scatters each fresh item's
+    (tile base + row, a, lane) into ``bufs`` (``par``, ``act``,
+    ``prm``), adds a's fresh
+    count to the carry's ``nn`` and ``fp_count``, and carries the chain
+    on: commit = commit_a and no probe overflow.  After the last action
+    (``a`` = n_act - 1, ``cnts`` [n_act] K7's exact counts of the tile)
+    it folds the tile's verdict into the carry as ``commit_finish``
+    does: the reason by the priority next-buffer gate > violation >
+    slot > bag > expand > fpset, then deadlock (a valid row of
+    ``en_any`` [T] with nothing enabled, when the carry asks for it);
+    on the final commit ``gen`` and ``act`` by the counts; ``t`` and
+    ``tiles`` by one when it commits and the reason stays RUNNING;
+    ``halt`` on any reason.  A halted carry gets ``dest`` all -1, and
+    one more ``idle`` replay at the last action."""
+    if fresh.device.type == "cpu":
+        return action_finish_plain(carry, pa, q, fresh, ovf_i, a, cnts,
+                                   en_any, valid, bufs, dest)
+    return _action_finish_kernel(carry, pa, q, fresh, ovf_i, a, cnts,
+                                 en_any, valid, bufs, dest)
+
+
+def action_finish_plain(carry, pa, q, fresh, ovf_i, a, cnts, en_any, valid,
+                        bufs, dest):
+    last = a == cnts.shape[0] - 1
+    c = carry.tolist()
+    if c[C_HALT]:
+        return _halted_plain(carry, dest, last)
+    nn = c[C_NN]
+    nfi = _rank_scatter_plain(fresh, nn, c[C_T] * valid.shape[0], q, bufs,
+                              dest)
+    oi = bool(ovf_i)
+    p = pa.tolist()
+    c[C_NN] = nn + nfi
+    c[C_FP_COUNT] += nfi
+    p[P_OVF_I] |= int(oi)
+    p[P_COMMIT] = int(bool(p[P_COMMIT_A]) and not oi)
+    if last:
+        _fold_verdict_plain(
+            c, p[P_ROOM], p[P_VIOL], p[P_SLOT], p[P_BAG], p[P_OVF_E],
+            p[P_OVF_I], p[P_COMMIT], p[P_GROW_AID], p[P_VROW], p[P_VAID],
+            p[P_VLANE], en_any, valid, cnts)
+    carry.copy_(torch.tensor(c, dtype=I64, device=carry.device))
+    pa.copy_(torch.tensor(p, dtype=I64, device=pa.device))
+    return dest
+
+
+def _action_finish_kernel(carry, pa, q, fresh, ovf_i, a, cnts, en_any,
+                          valid, bufs, dest):
+    E = fresh.shape[0]
+    n_act = cnts.shape[0]
+    T = valid.shape[0]
+    ck = kernels.check
+    kernels.launch(
+        "action_finish", "tpuvsr_action_finish",
+        ck(carry, "carry", I64), ck(pa, "pa", I64, (len(PA_FIELDS),)),
+        ck(fresh, "fresh", torch.bool, (E,)), ck(ovf_i, "ovf_i", I32, ()),
+        ck(q["pidx"], "pidx", I32, (E,)), ck(q["lane"], "lane", I32, (E,)),
+        ck(q["aid"], "aid", I32, (E,)), int(a), E, n_act,
+        ck(cnts, "cnts", I64, (n_act,)),
+        ck(en_any, "en_any", torch.bool, (T,)),
+        ck(valid, "valid", torch.bool, (T,)), T,
+        ck(bufs.par, "par", I32), ck(bufs.act, "act", I32),
+        ck(bufs.prm, "prm", I32), ck(dest, "dest", I32, (E,)),
+        kernels.stream_of(fresh))
+    return dest

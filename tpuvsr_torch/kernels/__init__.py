@@ -52,6 +52,10 @@ KERNELS = {
     "unpack": ("pack", "tpuvsr/engine/pack.py:220 PackSpec.unpack"),
     "fleet_choose": ("fleet_draw",
                      "tpuvsr/sim/fleet.py:387 chunk_fn step draws"),
+    "fleet_choose_shared": ("fleet_draw", "tpuvsr/engine/device_sim.py:245 "
+                            "chunk_fn step draws (:247-267)"),
+    "fleet_noise_shared": ("fleet_draw", "tpuvsr/engine/device_sim.py:325 "
+                           "_round_logw"),
     "fleet_swarm_noise": ("fleet_draw",
                           "tpuvsr/sim/fleet.py:374 chunk_fn swarm noise"),
     "vsr_guards": ("vsr_guards",
@@ -66,6 +70,12 @@ KERNELS = {
                       "reason (:942-985)"),
     "level_step": ("tile_commit", "tpuvsr/engine/device_bfs.py:1191 "
                    "_make_multilevel obody level step (:1231-1300)"),
+    "action_gate": ("tile_commit", "tpuvsr/engine/device_bfs.py:458 "
+                    "make_body headroom gate, an action's flags and commit "
+                    "(:500-511, :560-587)"),
+    "action_finish": ("tile_commit", "tpuvsr/engine/device_bfs.py:458 "
+                      "make_body rank scatter, chain and reason "
+                      "(:589-609, :626-667)"),
     "vsr_canon": ("canon", "tpuvsr/engine/canon.py:202 "
                   "CanonSpec.canonicalize"),
     "vsr_actions": ("vsr_actions", "tpuvsr/models/vsr_kernel.py:331-894 "
@@ -214,13 +224,15 @@ _ENTRY = {
     "tpuvsr_vsr_fp_incremental": _LAYOUT + "pippipppppp" + "p",
     "tpuvsr_pack": "piii" + "pppppppppp" + "p",
     "tpuvsr_unpack": "ppiiipppppp" + "p",
-    "tpuvsr_fleet_choose": "pppippiipp" + "p",
-    "tpuvsr_fleet_swarm_noise": "ppifip" + "p",
+    "tpuvsr_fleet_choose": "pppippiipp" + "i" + "p",
+    "tpuvsr_fleet_swarm_noise": "ppifip" + "i" + "p",
     "tpuvsr_vsr_guards": "piii" + "iiiiiiiii" + "ppp" + "ppp" + "p",
-    "tpuvsr_compact": "ppiipi" + "pppppp" + "pii" + "p",
+    "tpuvsr_compact": "ppiipi" + "i" + "pppppp" + "pii" + "p",
     "tpuvsr_commit_prefix": "ppppppppp" + "ii" + "pp" + "p",
     "tpuvsr_commit_finish": "ppppppp" + "ipi" + "ppi" + "pppp" + "p",
     "tpuvsr_level_step": "pppppp" + "i" + "pppp" + "ii" + "p",
+    "tpuvsr_action_gate": "pppppppp" + "p" + "ii" + "q" + "p" + "p",
+    "tpuvsr_action_finish": "ppppppp" + "iii" + "p" + "ppi" + "pppp" + "p",
     "tpuvsr_canon": "pii" + "pii" + "pi" + "ii" + "p" + "p",
     "tpuvsr_vsr_actions": "pipppi" + "p" + "iiiiiii" + "iii" + "p"
                           + "ppppppp" + "p",

@@ -11,9 +11,13 @@ The plain PyTorch counterpart of the parts of ``jax.random`` that
   ``(seed >> 32, seed & 0xFFFFFFFF)``, i.e. ``(0, seed)`` for a 32-bit
   seed;
 * ``fold_in(key, d)`` hashes the counter pair ``(0, d)`` and takes the
-  two output words as the new key;
+  two output words as the new key; ``split(key, n)`` key ``i`` is
+  ``fold_in(key, i)``;
 * ``random_bits(key, n)`` word ``i`` is ``x0 ^ x1`` of the hash of the
-  counter pair ``(0, i)`` (the uint64 iota split into hi/lo words);
+  counter pair ``(0, i)`` (the uint64 iota split into hi/lo words); a
+  draw of shape ``(W, L)`` is the flat draw of ``W * L`` words, so word
+  ``w * L + l`` is element ``(w, l)`` (the shared-stream draws of
+  ``engine/device_sim.py``);
 * ``uniform`` puts the top 23 bits in the mantissa of a float in
   [1, 2), subtracts 1, scales to [minval, maxval) and clamps below at
   minval;
@@ -49,6 +53,7 @@ TINY = float(np.finfo(np.float32).tiny)
 NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 SQRT2 = float(np.float32(np.sqrt(2)))
 SWARM_SALT = 0xA5A5           # fold_in data of the per-walker swarm key
+LAYOUT_WALKER, LAYOUT_SHARED = 0, 1    # K5's two streams (fleet_draw.cu)
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -88,6 +93,11 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     o0, o1 = threefry_2x32(key[..., 0], key[..., 1],
                            torch.zeros_like(d), d & MASK32)
     return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` of one key [2]: [num, 2]."""
+    return fold_in(key[None, :], torch.arange(int(num), device=key.device))
 
 
 def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -301,7 +311,7 @@ def choose_lanes(wkeys, d, en, lane_aid, wlogw=None):
         ck(en, "en", torch.bool, (W, L)), L,
         ck(lane_aid, "lane_aid", torch.int32, (L,)),
         None if wlogw is None else ck(wlogw, "wlogw", F32, (W, n_act)),
-        n_act, W, lane.data_ptr(), can.data_ptr(),
+        n_act, W, lane.data_ptr(), can.data_ptr(), LAYOUT_WALKER,
         kernels.stream_of(en))
     return lane, can
 
@@ -318,5 +328,93 @@ def swarm_noise(wkeys, logw, sigma):
         "fleet_swarm_noise", "tpuvsr_fleet_swarm_noise",
         ck(keys, "wkeys", torch.int32, (W, 2)),
         ck(logw, "logw", F32, (n_act,)), n_act, float(sigma), W,
-        out.data_ptr(), kernels.stream_of(wkeys))
+        out.data_ptr(), LAYOUT_WALKER, kernels.stream_of(wkeys))
+    return out
+
+
+# ----------------------------------------------------------------------
+# K5, shared-stream layout: DeviceSimulator's draw (engine/device_sim.py)
+# ----------------------------------------------------------------------
+def choose_shared_plain(keys, t, en, lane_aid, wlogw=None):
+    """Plain version of K5's shared layout (the step of
+    ``tpuvsr/engine/device_sim.py:chunk_fn``, :247-267).  ``keys`` [k, 2]
+    the chunk's step keys, ``t`` the step's row (an int or a
+    one-element int tensor), ``en`` [W, L] enabled lanes, ``lane_aid``
+    [L] action ids, ``wlogw`` [W, n_act] float32 log-weights (None:
+    uniform over the enabled lanes).  One key serves every walker:
+    walker w's numbers are row w of the draw of shape (W, L) (and (W,
+    n_act) for the gumbel stage, under ``split(key)``'s first key; the
+    lane stage takes its second).  Returns (lane [W] int32, can [W]
+    bool)."""
+    key = keys[int(torch.as_tensor(t).reshape(()))].long() & MASK32
+    W, L = en.shape
+    if wlogw is not None:
+        n_act = wlogw.shape[1]
+        k1, k2 = split(key)
+        aid = lane_aid.long()
+        act_en = torch.zeros((W, n_act), dtype=torch.int32,
+                             device=en.device).index_add_(
+            1, aid, en.to(torch.int32)) > 0
+        g = gumbel(k1, W * n_act).reshape(W, n_act) + wlogw
+        a_star = _argmax_first(torch.where(act_en, g, _c(float("-inf"),
+                                                         g)))
+        v = uniform(k2, W * L).reshape(W, L)
+        in_act = en & (aid[None, :] == a_star[:, None])
+        lane = _argmax_first(torch.where(in_act, v, _c(-1.0, v)))
+    else:
+        u = uniform(key, W * L).reshape(W, L)
+        lane = _argmax_first(torch.where(en, u, _c(-1.0, u)))
+    return lane.to(torch.int32), en.any(dim=1)
+
+
+def choose_shared(keys, t, en, lane_aid, wlogw=None):
+    """K5 wrapper, shared layout: CPU tensors go to
+    ``choose_shared_plain``, CUDA tensors to the kernel (``t`` then a
+    one-element int32 tensor on the card, so a CUDA graph replays the
+    launch at every step)."""
+    if en.device.type == "cpu":
+        return choose_shared_plain(keys, t, en, lane_aid, wlogw)
+    W, L = en.shape
+    n_act = 0 if wlogw is None else wlogw.shape[1]
+    if n_act > 32:
+        raise ValueError(f"K5 takes at most 32 actions, got {n_act}")
+    ck = kernels.check
+    lane = torch.empty((W,), dtype=torch.int32, device=en.device)
+    can = torch.empty((W,), dtype=torch.bool, device=en.device)
+    kernels.launch(
+        "fleet_choose_shared", "tpuvsr_fleet_choose",
+        ck(keys, "keys", torch.int32, (keys.shape[0], 2)),
+        ck(t, "t", torch.int32, (1,)),
+        ck(en, "en", torch.bool, (W, L)), L,
+        ck(lane_aid, "lane_aid", torch.int32, (L,)),
+        None if wlogw is None else ck(wlogw, "wlogw", F32, (W, n_act)),
+        n_act, W, lane.data_ptr(), can.data_ptr(), LAYOUT_SHARED,
+        kernels.stream_of(en))
+    return lane, can
+
+
+def shared_noise_plain(key, logw, sigma, W):
+    """Plain version of K5's shared round noise
+    (``tpuvsr/engine/device_sim.py:_round_logw``): ``logw + normal(key,
+    (W, n_act)) * sigma``, each operation rounded on its own as JAX runs
+    them outside a jit ([W, n_act] float32)."""
+    n_act = logw.shape[0]
+    noise = normal(key.long() & MASK32, W * n_act).reshape(W, n_act) \
+        * _c(sigma, logw)
+    return logw[None, :] + noise
+
+
+def shared_noise(key, logw, sigma, W):
+    """K5 wrapper, shared round noise (``key`` [2] the round's key)."""
+    if logw.device.type == "cpu":
+        return shared_noise_plain(key, logw, sigma, W)
+    n_act = logw.shape[0]
+    k = key.to(torch.int32).contiguous()
+    out = torch.empty((W, n_act), dtype=F32, device=logw.device)
+    ck = kernels.check
+    kernels.launch(
+        "fleet_noise_shared", "tpuvsr_fleet_swarm_noise",
+        ck(k, "key", torch.int32, (2,)), ck(logw, "logw", F32, (n_act,)),
+        n_act, float(sigma), W, out.data_ptr(), LAYOUT_SHARED,
+        kernels.stream_of(logw))
     return out

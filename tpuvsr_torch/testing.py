@@ -1,6 +1,7 @@
 """The counter stub and the SymPair stub, as torch codecs and kernels.
 
 A port of ``tpuvsr/testing.py:stub_model_factory``, ``stub_fleet``,
+``stub_device_engine``, a ``stub_simulator`` beside them,
 ``stub_sym_factory``, ``stub_sym_engine``, ``stub_ticker_factory``,
 ``canon_csr`` and ``stub_graph_engine``.
 It implements the kernel contract the device BFS and the walker fleet
@@ -82,10 +83,19 @@ class StubKern:
     lane_action = np.array([0, 1], np.int32)
     lane_param = np.array([0, 0], np.int32)
 
-    def __init__(self, codec, limit=3, inv_bound=None, inv_x_bound=None):
+    def __init__(self, codec, limit=3, inv_bound=None, inv_x_bound=None,
+                 dead_action=False):
         self.limit = limit
         self.inv_bound = inv_bound
         self.inv_x_bound = inv_x_bound
+        self.dead_action = dead_action
+        if dead_action:
+            # the never-enabled Jump lane of the JAX stub's dead-action
+            # fixture
+            self.action_names = ("IncX", "IncY", "Jump")
+            self.n_lanes = 3
+            self.lane_action = np.array([0, 1, 2], np.int32)
+            self.lane_param = np.array([0, 0, 0], np.int32)
         self.pk = build_pack_spec(codec)
 
     def _lane_count(self, name):
@@ -93,8 +103,12 @@ class StubKern:
 
     def _guard_fns(self):
         lim = self.limit
-        return [lambda st: (st["x"] < lim)[:, None],
-                lambda st: (st["y"] < lim)[:, None]]
+        fns = [lambda st: (st["x"] < lim)[:, None],
+               lambda st: (st["y"] < lim)[:, None]]
+        if self.dead_action:
+            fns.append(lambda st: torch.zeros_like(st["x"],
+                                                   dtype=torch.bool)[:, None])
+        return fns
 
     def _action_fns(self):
         lim = self.limit
@@ -108,7 +122,12 @@ class StubKern:
             return ({"status": st["status"], "x": st["x"],
                      "y": st["y"] + 1, "err": torch.zeros_like(st["err"])},
                     st["y"] < lim)
-        return [incx, incy]
+
+        def jump(st, lane):
+            return ({"status": st["status"], "x": st["x"] + 2,
+                     "y": st["y"], "err": torch.zeros_like(st["err"])},
+                    torch.zeros_like(st["x"], dtype=torch.bool))
+        return [incx, incy, jump] if self.dead_action else [incx, incy]
 
     def fingerprint(self, flat):
         st = self.pk.unflatten(flat)
@@ -155,20 +174,24 @@ def counter_binding():
                        invariants=list(cfg.invariants))
 
 
-def stub_model_factory(limit=3, inv_bound=None, inv_x_bound=None):
+def stub_model_factory(limit=3, inv_bound=None, inv_x_bound=None,
+                       dead_action=False):
     """A ``model_factory`` producing (codec, kernel) for the counter
     spec; ``inv_bound`` tightens Bound to x + y <= b (a reachable
     violation), ``inv_x_bound`` to x <= b (the unique-witness variant:
-    the first violating state is (b + 1, 0))."""
+    the first violating state is (b + 1, 0)); ``dead_action`` adds the
+    never-enabled Jump lane."""
     def make(binding, max_msgs=None):
         codec = StubCodec(limit)
-        return codec, StubKern(codec, limit, inv_bound, inv_x_bound)
+        return codec, StubKern(codec, limit, inv_bound, inv_x_bound,
+                               dead_action)
     return make
 
 
 def stub_device_engine(inv_bound=None, device=None, limit=3, **kw):
     """A small DeviceBFS over the counter stub (the JAX harness's
-    defaults: tile 4, FPSet 2^8 slots, next buffer 2^6 rows)."""
+    defaults: tile 4, FPSet 2^8 slots, next buffer 2^6 rows); keywords
+    such as ``commit="per-action"`` reach the engine."""
     from .engine.device_bfs import DeviceBFS
     return DeviceBFS(counter_binding(),
                      model_factory=stub_model_factory(
@@ -188,6 +211,20 @@ def stub_fleet(inv_bound=None, inv_x_bound=None, walkers=64, device=None,
         counter_binding(), walkers=walkers,
         model_factory=stub_model_factory(inv_bound=inv_bound,
                                          inv_x_bound=inv_x_bound),
+        chunk_steps=kw.pop("chunk_steps", 4), device=device, **kw)
+
+
+def stub_simulator(inv_bound=None, inv_x_bound=None, walkers=16,
+                   device=None, dead_action=False, **kw):
+    """A small ``DeviceSimulator`` over the counter stub (chunks of 4
+    steps); keywords such as ``dispatch``, ``guided``,
+    ``action_weights`` and ``swarm_sigma`` reach the simulator."""
+    from .engine.device_sim import DeviceSimulator
+    return DeviceSimulator(
+        counter_binding(), walkers=walkers,
+        model_factory=stub_model_factory(inv_bound=inv_bound,
+                                         inv_x_bound=inv_x_bound,
+                                         dead_action=dead_action),
         chunk_steps=kw.pop("chunk_steps", 4), device=device, **kw)
 
 
