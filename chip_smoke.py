@@ -319,6 +319,40 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
      d. ST03's shipped cfg, one round to depth 30 on K13 and K14, its
         histories those of the eager plain run;
      each prints steps/s and walks/s;
+  17. trace validation (validate.BatchValidator: the guard matrix, K16's
+     select, the successors and fingerprints, K16's commit a step; the
+     queue's size read from the card once a step, the chunk's flags once
+     a chunk), launch counts reset just before each timed run
+     and read just after (K16's select and commit launched; on VSR K6,
+     K10 and the incremental K3 too, and the plain action functions
+     not):
+     a. the counter stub, parsed by the port's frontend
+        (testing.counter_spec), 1024 traces of depth 6 (seed 0) with
+        confirm=True: genuine, mutated (trace 11 at event 2), one
+        variable dropped and every third event blank; each report equals
+        the port's host_validate_batch on the same traces, trace 11
+        diverges at event 2 and the others are accepted;
+     b. VSR on examples/VSR_defect.cfg at MAX_MSGS 48, a shim spec whose
+        only initial state is state 0 of
+        examples/found_violation_trace.txt (parsed by the port's
+        trace_parse), confirm=False (VSR's .tla is not in the
+        repository): the golden trace, actions observed only, is
+        accepted with the plain version's candidate-set sizes by event
+        (GOLDEN_SIZES; cand_cap grown to 256); a mutant with
+        ReceivePrepareOkMsg inserted before event 1 diverges there with
+        2 candidates and {ReceiveClientRequest, ReceiveHigherSVC,
+        TimerSendSVC} enabled; then 1024 walks of DeviceSimulator
+        (1024 walkers, seed 0, depth 12: cut from 40, see VALIDATE; 16
+        of them re-executed by materialize_walk), actions
+        observed only, rounds of 32 traces: every one accepted; each
+        prints traces/s, events/s, the final cand_cap and the
+        message-table size;
+     c. K16's select and commit held bit for bit against their plain
+        versions on the card on the call with the most queue items of
+        a's mutated run and of an untimed recording round of b's walks
+        (candidate rows, alive, div_at, div_en, div_cand, the chunk's
+        counts), each timed with its bound; each row's launches are
+        those of the timed run it was recorded from;
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
@@ -4592,6 +4626,351 @@ def sim_phase(args, doc):
     return rows
 
 
+VALIDATE = {"stub_traces": 1024, "stub_depth": 6, "stub_seed": 0,
+            "mutate": (11, 2), "max_msgs": 48, "walks": 1024,
+            "walk_depth": 12, "walk_seed": 0, "walk_batch": 32,
+            "replayed": 16,
+            "golden_cap": 256}
+# walk_depth: DeviceSimulator walks are cut from 40 steps to 12.  The
+# candidate sets of action-only walks about double a step (on the H100,
+# the largest set by depth 8: 588, 10: 2,436, 12: 5,217, 14: 11,982; by
+# 16 one outgrows a cap of 16,384), so a depth-40 round cannot be held;
+# at 12 all 1024 walks validate (cand_cap 8192) in rounds of 32 traces
+# the golden trace's candidate-set sizes after each of its 29 events,
+# action names observed only (the plain step on the CPU; held there by
+# tests/test_torch_validate_vsr.py)
+GOLDEN_SIZES = [2, 6, 6, 6, 6, 12, 18, 48, 120, 228, 108, 156, 60, 36, 12,
+                24, 48, 36, 72, 216, 216, 72, 144, 72, 144, 24, 24, 24, 48]
+GOLDEN_MUTANT = {"trace": "mutant", "step": 1, "candidates": 2,
+                 "enabled": ["ReceiveClientRequest", "ReceiveHigherSVC",
+                             "TimerSendSVC"]}
+K16_KERNELS = ("validate_select", "validate_commit")
+
+
+class K16Recorder:
+    """Keeps, for one run, the inputs of the K16 select and commit calls
+    with the most queue items (the round's state copied before the
+    commit updates it)."""
+
+    def __init__(self):
+        from tpuvsr_torch.validate import batch as vb
+        self.vb, self.sel, self.com = vb, None, None
+        self._saved = vb.select, vb.commit
+        sel0, com0 = self._saved
+
+        def select(en, alive, div_at, tlen, aid, lane_aid, lane_prm, K, s):
+            q, roff = sel0(en, alive, div_at, tlen, aid, lane_aid,
+                           lane_prm, K, s)
+            if self.sel is None or q["pidx"].shape[0] > self.sel[0]:
+                self.sel = (q["pidx"].shape[0],
+                            [x.clone() for x in (en, alive, div_at, tlen,
+                                                 aid, lane_aid, lane_prm)],
+                            K, s)
+            return q, roff
+
+        def commit(st, roff, succ, *rest):
+            if self.com is None or succ.shape[0] > self.com[0]:
+                self.com = (succ.shape[0],
+                            {k: v.clone() for k, v in st.items()},
+                            [x.clone() if hasattr(x, "clone") else x
+                             for x in (roff, succ) + rest])
+            return com0(st, roff, succ, *rest)
+        vb.select, vb.commit = select, commit
+
+    def close(self):
+        self.vb.select, self.vb.commit = self._saved
+
+
+def check_k16(rec, label):
+    """K16's select and commit against their plain versions on the card,
+    on the recorded calls, bit for bit; each timed with its bound."""
+    import torch
+    vb = rec.vb
+    rows = []
+    Q, args, K, s = rec.sel
+    q, roff = vb.select(*args, K, s)
+    qp, rp = vb.select_plain(*args, K, s)
+    same = torch.equal(roff, rp) and all(torch.equal(q[k], qp[k])
+                                         for k in q)
+    err = 0 if same else max([max_abs(roff, rp)] + [
+        max_abs(q[k], qp[k]) if q[k].shape == qp[k].shape else 1 << 30
+        for k in q])
+    en, alive, div_at, tlen = args[:4]
+    R, L = en.shape
+    T = div_at.shape[0]
+    # the guard rows read are those of live candidates of active traces;
+    # the queue's items are three int32 words
+    act = (s < tlen) & (div_at < 0)
+    rows_read = int((alive.view(T, K) & act[:, None]).sum())
+    nbytes = (rows_read * L + R + 3 * T * 4 + 2 * L * 4 + 12 * Q
+              + 8 * (R + 1))
+    # timed with the queue's size given, so without the host read that
+    # sizes the queue on the main path (one a step)
+    kernel_row(rows, "validate_select",
+               cuda_ms(lambda: vb._select_kernel(*args, K, s, Q=Q)),
+               cuda_ms(lambda: vb.select_plain(*args, K, s), reps=5), err,
+               nbytes, 0, extra={"shape": [R, L], "traces": T, "K": K,
+                                 "queue": Q, "rows_read": rows_read},
+               label=f"validate_select ({label})")
+    Qc, st0, cargs = rec.com
+    roff, succ, en2, errw, fp, en, o_lo, o_hi, obs_w, obs_v, s, last, \
+        step_end = cargs
+
+    def fresh():
+        return {k: v.clone() for k, v in st0.items()}
+    a, b = fresh(), fresh()
+    vb.commit(a, *cargs)
+    vb.commit_plain(b, *cargs)
+    err = max(max_abs(a[k], b[k]) for k in a)
+    T = st0["div_at"].shape[0]
+    R, W = st0["cands"].shape
+    K = R // T
+    L = en.shape[1]
+    act = (s < st0["tlen"]) & (st0["div_at"] < 0)
+    upd = act & (a["div_at"] < 0)
+    div_now = act & (a["div_at"] >= 0)
+    kept = int(a["alive"].view(T, K)[upd].sum())
+    npin = (o_hi - o_lo).clamp(min=0).long()
+    nobs = int(npin.sum())
+    # each item's pinned words, read by the observation filter
+    items = (roff[K::K] - roff[:-1:K]).long()
+    pinned = int((items * npin).sum())
+    nupd = int(upd.sum())
+    common = (Qc * (1 + 4 + 16) + 4 * pinned + 8 * (R + 1) + 8 * nobs
+              + kept * W * 4 + R + int(div_now.sum()) * K * L
+              + T * (4 * 4 + L))
+    # the dense layout writes every slot of an updated trace (the kept
+    # rows and zeros); the kept bytes alone are the kept rows and flags
+    nbytes = common + nupd * K * (W * 4 + 1)
+    kept_bound = bound(common + kept * W * 4 + nupd * K, 0)[0]
+    work = fresh()
+    saved = fresh()
+
+    def restore():
+        for k in work:
+            work[k].copy_(saved[k])
+    kernel_row(rows, "validate_commit",
+               cuda_ms(lambda: vb.commit(work, *cargs), pre=restore),
+               cuda_ms(lambda: vb.commit_plain(work, *cargs), reps=5,
+                       pre=restore), err, nbytes, 0,
+               extra={"shape": [R, W], "traces": T, "K": K, "queue": Qc,
+                      "kept": kept, "diverged": int(div_now.sum()),
+                      "updated": nupd, "kept_bound_ms": kept_bound},
+               label=f"validate_commit ({label})")
+    print(f"  validate_commit ({label}): the kept bytes' bound "
+          f"{kept_bound:.5f} ms ({kept} kept rows; the dense layout "
+          f"writes all {nupd * K} slots of the {nupd} updated traces)",
+          flush=True)
+    return rows
+
+
+def validate_phase(args, doc):
+    """Phase 17: trace validation (K16).  Returns K16's rows."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_sim import (DeviceSimulator,
+                                                materialize_walk)
+    from tpuvsr_torch.engine.spec import InitShim, load_binding
+    from tpuvsr_torch.frontend.cfg import parse_cfg_file
+    from tpuvsr_torch.frontend.parser import parse_module_text
+    from tpuvsr_torch.frontend.trace_parse import parse_trace_file
+    from tpuvsr_torch.interp.evalr import Evaluator
+    from tpuvsr_torch.testing import (counter_spec, stub_trace_records,
+                                      stub_validator)
+    from tpuvsr_torch.validate import (BatchValidator, Trace, TraceEvent,
+                                       host_validate_batch,
+                                       traces_from_records)
+    V = VALIDATE
+    t_phase = time.time()
+    out = doc["validate"] = {}
+    rows = []
+
+    def timed(key, make, traces, want):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        plain0 = plain_calls()
+        t0 = time.time()
+        bv = make()
+        res = bv.run(traces)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        for k in want:
+            need(counts[k] > 0, f"{k} was not launched on {key}")
+        need(plain_calls() == plain0, f"the plain action functions ran "
+             f"on {key}")
+        events = sum(len(t.events) for t in traces)
+        g = res.metrics["gauges"]
+        info = {"traces": len(traces), "events": events, "wall_s": wall,
+                "traces_per_s": len(traces) / wall,
+                "events_per_s": events / wall, "accepted": res.accepted,
+                "divergences": len(res.divergences),
+                "cand_cap": g["cand_cap"], "max_msgs": g["max_msgs"],
+                "max_candidates": g["max_candidates"],
+                "counters": res.metrics["counters"],
+                "launches": {k: counts[k] for k in counts if counts[k]}}
+        out[key] = info
+        print(f"  {key}: {len(traces)} traces, {events} events, wall "
+              f"{wall:.3f}s, traces/s {info['traces_per_s']:.1f}, events/s "
+              f"{info['events_per_s']:.1f}, accepted {res.accepted}, "
+              f"divergences {len(res.divergences)}, cand_cap "
+              f"{g['cand_cap']}, max_msgs {g['max_msgs']}, largest set "
+              f"{g['max_candidates']}; counters {res.metrics['counters']}; "
+              f"K16 launches {[counts[k] for k in K16_KERNELS]}", flush=True)
+        return bv, res, counts
+
+    # -- 17a: the counter stub, parsed by the port's frontend ----------
+    spec = counter_spec()
+    print(f"phase 17a: the counter stub (parsed by the port's frontend), "
+          f"{V['stub_traces']} traces of depth {V['stub_depth']}, "
+          f"confirm=True", flush=True)
+    stub_rec = None
+    for name, kw in (("genuine", {}), ("mutated", {"mutate": V["mutate"]}),
+                     ("partial", {"drop_vars": ("y",)}),
+                     ("blank", {"blank_every": 3})):
+        traces = traces_from_records(stub_trace_records(
+            n=V["stub_traces"], depth=V["stub_depth"], seed=V["stub_seed"],
+            **kw), spec)
+        if name == "mutated":
+            stub_rec = K16Recorder()
+        try:
+            _bv, res, counts = timed(f"17a_{name}", lambda: stub_validator(
+                batch=V["stub_traces"], device="cuda"), traces, K16_KERNELS)
+        finally:
+            if stub_rec is not None and name == "mutated":
+                stub_rec.close()
+        if name == "mutated":
+            stub_launches = {k: counts[k] for k in K16_KERNELS}
+        host = host_validate_batch(spec, traces)
+        need(res.divergences == host.divergences
+             and res.accepted == host.accepted,
+             f"17a {name}: the card's report differs from the host "
+             f"validator's: {res.divergences[:2]} / {host.divergences[:2]}")
+        if name == "mutated":
+            i, st = V["mutate"]
+            need([(d["trace"], d["step"]) for d in res.divergences]
+                 == [(f"t-{i:04d}", st)],
+                 f"17a: {[(d['trace'], d['step']) for d in res.divergences]}")
+        else:
+            need(res.ok, f"17a {name}: {res.divergences[:2]}")
+    print(f"  reports equal the host validator's; t-{V['mutate'][0]:04d} "
+          f"diverges at event {V['mutate'][1]}", flush=True)
+
+    # -- 17b: VSR at full width ----------------------------------------
+    cfg = parse_cfg_file(DEFECT)
+    mod = parse_module_text("---- MODULE VSR ----\nCONSTANTS "
+                            + ", ".join(cfg.constants) + "\n====\n")
+    entries = parse_trace_file(
+        os.path.join(ROOT, "examples", "found_violation_trace.txt"),
+        SimpleNamespace(cfg=cfg, ev=Evaluator(mod, cfg.constants)))
+    binding = load_binding(DEFECT, "VSR")
+    vspec = InitShim(binding, entries[0].state)
+    acts = [e.action_name for e in entries[1:]]
+    golden = Trace("golden", [TraceEvent(action=a) for a in acts])
+    mutant = Trace("mutant", [TraceEvent(action=a) for a in
+                              acts[:1] + ["ReceivePrepareOkMsg"] + acts[1:]])
+    print(f"phase 17b: VSR, {DEFECT.split(os.sep)[-1]}, MAX_MSGS "
+          f"{V['max_msgs']}: the golden trace (29 events, actions observed) "
+          f"and its mutant; confirm=False (VSR's .tla is not in the "
+          f"repository, so the interpreter cannot confirm a divergence)",
+          flush=True)
+    vsr_k = ("vsr_guards", "vsr_actions", "vsr_fp_incremental") + K16_KERNELS
+
+    def vsr_validator(batch):
+        return lambda: BatchValidator(vspec, batch=batch,
+                                      max_msgs=V["max_msgs"], confirm=False,
+                                      device="cuda")
+    bv, res, _c = timed("17b_golden", vsr_validator(2), [golden, mutant],
+                        vsr_k)
+    sizes = bv.sizes["golden"]
+    print(f"  golden: candidate sets by event {sizes}, the largest "
+          f"{max(sizes)}; cand_cap {bv.K}", flush=True)
+    out["17b_golden"]["sizes"] = sizes
+    need(sizes == GOLDEN_SIZES, f"17b: golden sizes {sizes}")
+    need(bv.K == V["golden_cap"], f"17b: cand_cap {bv.K}")
+    need(res.accepted == 1 and len(res.divergences) == 1,
+         f"17b: {res.divergences}")
+    d = res.divergences[0]
+    got = {"trace": d["trace"], "step": d["step"],
+           "candidates": d["candidates"],
+           "enabled": [e["action"] for e in d["enabled"]]}
+    print(f"  mutant: {got}", flush=True)
+    need(got == GOLDEN_MUTANT, f"17b: mutant {got}")
+
+    # genuine walks of the defect config, action names observed
+    sim = DeviceSimulator(binding, max_msgs=V["max_msgs"],
+                          walkers=V["walks"], chunk_steps=V["walk_depth"],
+                          dispatch="dense", device="cuda")
+    chunks = []
+    orig = sim._chunk
+
+    def chunk(*a):
+        o = orig(*a)
+        if not o[4] and not o[5].any():
+            chunks.append((o[7][0].clone(), o[7][1].clone()))
+        return o
+    sim._chunk = chunk
+    t0 = time.time()
+    sres = sim.run(num=V["walks"], depth=V["walk_depth"],
+                   seed=V["walk_seed"])
+    aids = torch.cat([c[0] for c in chunks]).cpu().numpy()
+    prms = torch.cat([c[1] for c in chunks]).cpu().numpy()
+    st0 = sim.codec.init_dense()
+    enc0 = sim.codec.encode(entries[0].state)
+    need(all(np.array_equal(np.asarray(enc0[k]), np.asarray(st0[k]))
+             for k in st0), "17b: the golden state 0 is not VSR's Init")
+    names = sim.kern.action_names
+    walks = []
+    for w in range(V["walks"]):
+        col = aids[:, w]
+        n = int(np.argmax(col < 0)) if (col < 0).any() else len(col)
+        walks.append(Trace(f"w-{w:04d}", [TraceEvent(action=names[a])
+                                          for a in col[:n]]))
+    # a sample re-executed through the kernel (materialize_walk): every
+    # recorded lane enabled, the actions the recorded ones
+    for w in range(V["replayed"]):
+        ent = materialize_walk(sim.kern, sim.codec, st0, aids[:, w],
+                               prms[:, w], V["walk_depth"], "cuda")
+        need([e.action_name for e in ent[1:]]
+             == [ev.action for ev in walks[w].events],
+             f"17b: walk {w} does not replay")
+    out["walks_s"] = time.time() - t0
+    lens = [len(t.events) for t in walks]
+    print(f"  {len(walks)} DeviceSimulator walks (seed {V['walk_seed']}, "
+          f"depth {V['walk_depth']}, {sres.violated_invariant or 'no'} "
+          f"violation; {V['replayed']} re-executed by materialize_walk) in "
+          f"{out['walks_s']:.1f}s; events {min(lens)}-{max(lens)}",
+          flush=True)
+    del sim, chunks
+    walk_rec = K16Recorder()
+    try:
+        BatchValidator(vspec, batch=V["walk_batch"], max_msgs=V["max_msgs"],
+                       confirm=False, device="cuda").run(
+                           walks[:V["walk_batch"]])
+    finally:
+        walk_rec.close()
+    bv, res, counts = timed("17b_walks", vsr_validator(V["walk_batch"]),
+                            walks, vsr_k)
+    need(res.ok and res.accepted == len(walks),
+         f"17b: genuine walks diverged: {res.divergences[:3]}")
+    walk_launches = {k: counts[k] for k in K16_KERNELS}
+
+    # -- 17c: K16 against its plain version ----------------------------
+    print("phase 17c: K16 against its plain version on the card",
+          flush=True)
+    for rec, label, launches in ((stub_rec, "stub", stub_launches),
+                                 (walk_rec, "VSR walks", walk_launches)):
+        for r in check_k16(rec, label):
+            r["launches"] = launches[r["kernel"]]
+            rows.append(r)
+    del stub_rec, walk_rec
+    out["phase_s"] = time.time() - t_phase
+    print(f"  phase 17 in {out['phase_s']:.1f}s", flush=True)
+    return rows
+
+
 def gpu_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -4647,7 +5026,7 @@ def kernels_line(rows):
 
 
 def run_phases(args, doc, t_all):
-    """Phases 1-16 (the module docstring); returns the exit code."""
+    """Phases 1-17 (the module docstring); returns the exit code."""
     import numpy as np
     import torch
     from tpuvsr_torch import kernels
@@ -4768,6 +5147,7 @@ def run_phases(args, doc, t_all):
     rows += family_symmetry_phase(args, doc)
     rows += per_action_phase(args, doc)
     rows += sim_phase(args, doc)
+    rows += validate_phase(args, doc)
     doc.pop("main_pointers", None)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all

@@ -267,7 +267,13 @@ def test_import_loads_no_jax():
             "tpuvsr_torch.models.a01_kernel, tpuvsr_torch.models.i01_kernel, "
             "tpuvsr_torch.models.as04_kernel, "
             "tpuvsr_torch.models.rr05_kernel, "
-            "tpuvsr_torch.models.al05_kernel\n"
+            "tpuvsr_torch.models.al05_kernel, "
+            "tpuvsr_torch.frontend.lexer, tpuvsr_torch.frontend.parser, "
+            "tpuvsr_torch.frontend.trace_parse, tpuvsr_torch.interp.evalr, "
+            "tpuvsr_torch.interp.actions, tpuvsr_torch.engine.spec, "
+            "tpuvsr_torch.engine.bfs, tpuvsr_torch.engine.trace, "
+            "tpuvsr_torch.validate, tpuvsr_torch.validate.batch, "
+            "tpuvsr_torch.validate.host, tpuvsr_torch.validate.traces\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuvsr' or "
             "m.startswith('tpuvsr.')]\n"

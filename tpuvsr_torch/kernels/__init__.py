@@ -11,7 +11,7 @@ The wrappers that call these kernels live beside their plain PyTorch
 versions (``engine/fpset.py``, ``engine/pack.py``, ``engine/tile.py``,
 ``engine/edges.py``, ``engine/canon.py``, ``models/fingerprint.py``,
 ``models/vsr_kernel.py``, ``models/st03_kernel.py`` and the family's
-subclasses, ``sim/rng.py``).
+subclasses, ``sim/rng.py``, ``validate/batch.py``).
 A wrapper sends a CPU tensor to the plain version and a CUDA tensor to
 ``launch()``, which raises when the C entry point reports a CUDA error
 and otherwise adds one to the kernel's launch count.  A launch recorded
@@ -211,6 +211,12 @@ KERNELS = {
     "cp06_canon": ("canon", "tpuvsr/engine/canon.py:202 CanonSpec."
                    "canonicalize over tpuvsr/models/cp06_kernel.py:56-58 "
                    "PERM_*_KEYS, :66 _perm_vals (NoOp fixed)"),
+    # K16: the trace-validation step
+    "validate_select": ("validate_step", "tpuvsr/validate/batch.py:260 "
+                        "chunk_fn, one_trace's lane mask (:220-223)"),
+    "validate_commit": ("validate_step", "tpuvsr/validate/batch.py:260 "
+                        "chunk_fn, one_trace's filter, dedup, rank "
+                        "scatter and divergence update (:224-258)"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -239,6 +245,10 @@ _ENTRY = {
     "tpuvsr_fpset_store_gids": "pqppppi" + "p",
     "tpuvsr_fpset_probe": "pqpppi" + "ppp" + "p",
     "tpuvsr_edge_emit": "ppppi" + "piii" + "pppp" + "p",
+    "tpuvsr_vstep_count": "pppppp" + "iiii" + "p" + "p",
+    "tpuvsr_vstep_fill": "pppppp" + "iiii" + "ppppp" + "p",
+    "tpuvsr_vstep_commit": "iiiiiii" + "pppppppppp" + "pppppp" + "ppppp"
+                           + "p",
 }
 # K13 and K14 take one signature for every model of the ST03 family
 for _m in ("st03", "a01", "i01", "as04", "rr05", "al05", "cp06"):

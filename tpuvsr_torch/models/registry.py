@@ -79,10 +79,10 @@ def _resolve(module):
 
 def make_model(binding, max_msgs=None):
     """(codec, kernel) for a bound spec (``engine/spec.SpecBinding``)."""
-    codec_cls, kern_cls = _resolve(binding.module)
+    codec_cls, kern_cls = _resolve(binding.module_name)
     constants = binding.cfg.constants
     codec = codec_cls(constants, max_msgs=max_msgs)
     pk = build_pack_spec(codec, ranges=derive_ranges_from(constants,
-                                                          binding.module))
+                                                          binding.module_name))
     return codec, kern_cls(codec, perms=value_perm_table(binding, codec),
                            pack_spec=pk)

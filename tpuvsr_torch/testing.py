@@ -1,9 +1,12 @@
 """The counter stub and the SymPair stub, as torch codecs and kernels.
 
-A port of ``tpuvsr/testing.py:stub_model_factory``, ``stub_fleet``,
-``stub_device_engine``, a ``stub_simulator`` beside them,
-``stub_sym_factory``, ``stub_sym_engine``, ``stub_ticker_factory``,
-``canon_csr`` and ``stub_graph_engine``.
+A port of ``tpuvsr/testing.py:counter_spec``, ``stub_model_factory``,
+``stub_fleet``, ``stub_device_engine``, a ``stub_simulator`` beside them,
+``stub_trace_records``, ``stub_validator``, ``stub_sym_factory``,
+``stub_sym_engine``, ``stub_ticker_factory``, ``canon_csr`` and
+``stub_graph_engine``.  ``counter_spec`` parses the inline counter module
+with the port's own frontend; the engines take it or the cfg-only
+``counter_binding``.
 It implements the kernel contract the device BFS and the walker fleet
 consume (``action_names``, ``_lane_count``, ``lane_action``,
 ``lane_param``, ``_guard_fns``, ``_action_fns``, ``fingerprint``,
@@ -33,9 +36,32 @@ import torch
 
 from .core.values import ModelValue
 from .engine.pack import build_pack_spec, to_i32
-from .engine.spec import SpecBinding, permutations
+from .engine.spec import SpecBinding, SpecModel, permutations
 from .frontend.cfg import parse_cfg_text
+from .frontend.parser import parse_module_text
 
+COUNTER = """---- MODULE ObsCounter ----
+EXTENDS Naturals
+CONSTANTS Limit
+VARIABLES x, y
+
+Init == x = 0 /\\ y = 0
+
+IncX ==
+    /\\ x < Limit
+    /\\ x' = x + 1
+    /\\ UNCHANGED y
+
+IncY ==
+    /\\ y < Limit
+    /\\ y' = y + 1
+    /\\ UNCHANGED x
+
+Next == IncX \\/ IncY
+
+Bound == x + y <= 2 * Limit
+====
+"""
 COUNTER_CFG = ("CONSTANTS\n    Limit = 3\n"
                "INIT Init\nNEXT Next\nINVARIANT Bound\n")
 
@@ -166,6 +192,25 @@ class StubKern:
         return check
 
 
+def counter_spec(inv_bound=None, inv_x_bound=None, limit=None):
+    """The inline two-counter spec (16 states, diameter 6), parsed by the
+    port's frontend (``tpuvsr/testing.py:78``).  ``inv_bound`` tightens
+    Bound to ``x + y <= inv_bound``, ``inv_x_bound`` to ``x <=
+    inv_x_bound`` (pair each with ``stub_model_factory``'s); ``limit``
+    overrides the cfg's Limit."""
+    src = COUNTER
+    if inv_x_bound is not None:
+        src = src.replace("Bound == x + y <= 2 * Limit",
+                          f"Bound == x <= {int(inv_x_bound)}")
+    elif inv_bound is not None:
+        src = src.replace("Bound == x + y <= 2 * Limit",
+                          f"Bound == x + y <= {int(inv_bound)}")
+    cfg = COUNTER_CFG
+    if limit is not None:
+        cfg = cfg.replace("Limit = 3", f"Limit = {int(limit)}")
+    return SpecModel(parse_module_text(src), parse_cfg_text(cfg))
+
+
 def counter_binding():
     """The counter spec's binding: Init is x = y = 0."""
     cfg = parse_cfg_text(COUNTER_CFG)
@@ -228,6 +273,68 @@ def stub_simulator(inv_bound=None, inv_x_bound=None, walkers=16,
         chunk_steps=kw.pop("chunk_steps", 4), device=device, **kw)
 
 
+def stub_trace_records(n=8, depth=6, seed=0, spec=None, mutate=None,
+                       drop_vars=(), blank_every=None, drop_actions=False):
+    """Deterministic TRACE.jsonl records from host random walks of the
+    counter spec (``tpuvsr/testing.py:326``: the same walks for the same
+    seed).  Each record fully observes a genuine walk (so it must
+    validate) unless mutated:
+
+    * ``mutate=(i, s[, delta])`` shifts the first observed variable of
+      trace i's event s by ``delta`` (default +7): off every reachable
+      transition, so trace i diverges at exactly event s;
+    * ``drop_vars`` removes variables from every observation and
+      ``blank_every=k`` blanks every k-th event (partial observation);
+    * ``drop_actions`` removes the recorded action names.
+    """
+    import random
+    spec = spec or counter_spec()
+    rng = random.Random(seed)
+    drop = set(drop_vars)
+    inits = list(spec.init_states())
+    records = []
+    for i in range(n):
+        st = rng.choice(inits)
+        init = {k: str(v) for k, v in sorted(st.items()) if k not in drop}
+        events = []
+        for s in range(depth):
+            succs = list(spec.successors(st))
+            if not succs:
+                break
+            action, st = rng.choice(succs)
+            if blank_every and (s + 1) % blank_every == 0:
+                events.append({})
+                continue
+            ev = {"vars": {k: str(v) for k, v in sorted(st.items())
+                           if k not in drop}}
+            if not drop_actions:
+                ev["action"] = action.name
+            if not ev["vars"]:
+                del ev["vars"]
+            events.append(ev)
+        records.append({"trace": f"t-{i:04d}", "init": init,
+                        "events": events})
+    if mutate is not None:
+        i, s = mutate[0], mutate[1]
+        delta = mutate[2] if len(mutate) > 2 else 7
+        ev = records[i]["events"][s]
+        var = sorted(ev.get("vars") or {"x": "0"})[0]
+        old = int(ev.get("vars", {}).get(var, 0))
+        ev.setdefault("vars", {})[var] = str(old + delta)
+    return records
+
+
+def stub_validator(spec=None, batch=64, cand_cap=4, chunk_steps=4,
+                   device=None, **kw):
+    """A small ``validate.BatchValidator`` over the counter spec and the
+    stub kernel (``tpuvsr/testing.py:381``)."""
+    from .validate.batch import BatchValidator
+    return BatchValidator(spec or counter_spec(), batch=batch,
+                          cand_cap=cand_cap, chunk_steps=chunk_steps,
+                          model_factory=stub_model_factory(), device=device,
+                          **kw)
+
+
 # ---------------------------------------------------------------------
 # SymPair: the symmetric fixture (tpuvsr/testing.py:403-470)
 # ---------------------------------------------------------------------
@@ -288,6 +395,12 @@ class SymCodec:
             i = int(np.asarray(x))
             return self.values[i - 1] if i else 0
         return {"a": dec(d["a"]), "b": dec(d["b"])}
+
+    def encode(self, st):
+        def enc(v):
+            return self.value_id[v] if isinstance(v, ModelValue) else int(v)
+        return {"status": np.int32(0), "a": np.int32(enc(st["a"])),
+                "b": np.int32(enc(st["b"])), "err": np.int32(0)}
 
     def pad_msgs(self, batch, old):
         return batch
