@@ -353,6 +353,37 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         (candidate rows, alive, div_at, div_en, div_cand, the chunk's
         counts), each timed with its bound; each row's launches are
         those of the timed run it was recorded from;
+  18. speclint's facts and the ample-set partial-order reduction (K17:
+     por_cand, por_probe, por_keep), each run with the launch counts
+     reset just before and read just after (K17 launched in every run
+     with a live reduction, never in one without):
+     a. the stub oracles through run(), run_fused() and PagedBFS: the
+        counter with an invariant that reads neither counter
+        (counter_spec(inv_free=True)) and check_deadlock, POR on: 7
+        distinct, levels [1]*7, kept/full 6/9, a deadlock at (3, 3); POR
+        off: 16, [1,2,3,4,3,2,1], the same deadlock; SymPair parsed,
+        symmetry off, POR on: 13, [1, 3, 9]; counter_spec(inv_x_bound=2)
+        at tile 4, POR on: Bound with the trace the port's CPU run gives;
+        the default Bound: POR inert, bit-identical to off (generated
+        included); bounds on against off (the dead-action fixture with
+        Bound x + y <= 3): bit-identical, Jump pruned, 6 bits a state
+        against the declared 8;
+     b. at scale: the inv_free counter at Limit POR["limit"] (2047:
+        4,194,304 states unreduced), check_deadlock, through run_fused()
+        with POR off and on and run() with POR on: the same deadlock at
+        (Limit, Limit), the reduced runs 4,095 distinct in 4,095 levels;
+        each prints distinct, generated, kept/full, amp and seconds;
+     c. K17 held bit for bit against its plain versions, stage by stage,
+        on the inputs of the largest tile of a's run() (the stub's
+        shape) and on a stress shape made on the card (8,192 rows x 64
+        actions with ineligible all-False rows, a queue of 65,536 items,
+        a 2^22-slot table half full, markers over pdepth-2..pdepth+1
+        and -1, half the queue present), each timed with its bound; the
+        stub rows' launches are a's run()'s, the stress rows' b's
+        run_fused() with POR on;
+     d. the defect and shipped bindings (cfg-only) resolve bounds and
+        POR to None and preflight runs no pass on them, so phases 5-9
+        ran as before;
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
@@ -1693,22 +1724,22 @@ class FusedRecorder:
             rec.keep("compact", int(q["cnts"].sum()), snap)
             return r
 
-        def p_prefix(carry, q, en2, iok, err, tile, mcommit):
-            if not halted(carry):
+        def p_prefix(carry, q, en2, iok, err, tile, mcommit, keep=None):
+            if not halted(carry) and keep is None:
                 rec.keep("commit_prefix", int(en2.sum()), (
                     carry.clone(), {k: v.clone() for k, v in q.items()},
                     en2.clone(), iok.clone(), err.clone(), tile.shape[0]))
-            return pre(carry, q, en2, iok, err, tile, mcommit)
+            return pre(carry, q, en2, iok, err, tile, mcommit, keep)
 
         def p_finish(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
-                     dest):
-            if not halted(carry):
+                     dest, kept=None, amp=None):
+            if not halted(carry) and kept is None:
                 rec.keep("commit_finish", int(fresh.sum()), (
                     carry.clone(), {k: v.clone() for k, v in q.items()},
                     tile.clone(), fresh.clone(), ovf_i.clone(),
                     en_any.clone(), valid.clone(), bufs.cap))
             return fin(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
-                       dest)
+                       dest, kept, amp)
 
         def p_level(carry, bufs, front, tp, lvl_buf, T):
             c = carry.tolist()
@@ -4971,6 +5002,407 @@ def validate_phase(args, doc):
     return rows
 
 
+# phase 18: speclint, the bounds facts and the ample-set reduction (K17).
+# 18b drives the counter stub's inv_free variant at Limit 2047: 2048^2 =
+# 4,194,304 states unreduced, 2 * 2047 + 1 = 4,095 reduced (one a
+# level); 18c's stress shape is a tile of 8,192 rows over 64 one-lane
+# actions, a queue of 65,536 items and a 2^22-slot table half full
+POR = {"limit": 2047, "tile": 512, "fpset": 1 << 24, "next": 1 << 14,
+       "rows": 8192, "actions": 64, "queue": 1 << 16, "slots": 1 << 22,
+       "pdepth": 5, "seed": 0}
+K17_KERNELS = ("por_cand", "por_probe", "por_keep")
+
+
+class K17Recorder:
+    """Keeps, for one run(), the inputs of the K17 chain of the tile with
+    the most queue items: cand's guard rows, and probe's table, marker
+    column, fingerprints and queue (cloned before K1's insert)."""
+
+    def __init__(self):
+        from tpuvsr_torch.engine import device_bfs as D
+        self.D, self.case = D, None
+        self._saved = D.por_cand, D.por_probe
+        cand0, probe0 = self._saved
+        pending = {}
+
+        def cand(en, valid, segs, pt, P):
+            pending["cand"] = (en.clone(), valid.clone(), segs, pt)
+            return cand0(en, valid, segs, pt, P)
+
+        def probe(table, gids, fps, en2, q, P, pdepth):
+            if self.case is None or \
+                    fps.shape[0] > self.case["fps"].shape[0]:
+                en, valid, segs, pt = pending["cand"]
+                self.case = {
+                    "en": en, "valid": valid, "segs": segs, "pt": pt,
+                    "slots": table["slots"].clone(), "gids": gids.clone(),
+                    "fps": fps.clone(), "en2": en2.clone(),
+                    "q": {k: v.clone() for k, v in q.items()},
+                    "pdepth": pdepth.clone()}
+            return probe0(table, gids, fps, en2, q, P, pdepth)
+        D.por_cand, D.por_probe = cand, probe
+
+    def close(self):
+        self.D.por_cand, self.D.por_probe = self._saved
+
+
+def k17_stress_case():
+    """18c's stress inputs, made on the card from POR["seed"]: a guard
+    matrix of POR["rows"] rows over POR["actions"] one-lane actions
+    (an eighth enabled), a matrix with ineligible all-False rows, the
+    matrix's compaction as the queue (POR["queue"] items, action-major),
+    a table of POR["slots"] slots half full with markers over pdepth-2
+    .. pdepth+1 and -1, and half the queue's fingerprints in it."""
+    import torch
+    from tpuvsr_torch.engine.fpset import empty_table, insert_core, \
+        store_gids
+    from tpuvsr_torch.engine.tile import Segments, por_tables
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(POR["seed"])
+    T, A, Q, cap, pd = (POR["rows"], POR["actions"], POR["queue"],
+                        POR["slots"], POR["pdepth"])
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev)
+    en = rand(T, A) < Q / (T * A)
+    valid = rand(T) < 0.97
+    amat = rand(A, A) < 0.97
+    amat[rand(A) < 0.3] = False                  # ineligible rows
+    eligible = amat.any(dim=1)
+    amat[torch.arange(A, device=dev), torch.arange(A, device=dev)] |= \
+        eligible
+    a_i, r_i = torch.nonzero((en & valid[:, None]).T, as_tuple=True)
+    n = min(Q, int(a_i.shape[0]))
+    q = {"pidx": torch.full((Q,), T - 1, dtype=torch.int32, device=dev),
+         "aid": torch.full((Q,), A - 1, dtype=torch.int32, device=dev),
+         "lane": torch.zeros((Q,), dtype=torch.int32, device=dev),
+         "ok": torch.zeros((Q,), dtype=torch.bool, device=dev)}
+    q["pidx"][:n] = r_i[:n].to(torch.int32)
+    q["aid"][:n] = a_i[:n].to(torch.int32)
+    q["ok"][:n] = True
+    table = empty_table(cap, dev)
+    n_in = cap // 2
+    fps_in = ints(-(1 << 31), 1 << 31, 4 * n_in).to(torch.int32).view(
+        n_in, 4)
+    ones = torch.ones((n_in,), dtype=torch.bool, device=dev)
+    _t, fresh, ovf = insert_core(table, fps_in, ones)
+    need(int(ovf) == 0, "18c: the stress table overflowed")
+    marks = ints(pd - 2, pd + 2, n_in).to(torch.int32)
+    marks[rand(n_in) < 0.1] = -1
+    gids = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    store_gids(table["slots"], gids, fps_in, marks, fresh)
+    fps = ints(-(1 << 31), 1 << 31, 4 * Q).to(torch.int32).view(Q, 4)
+    hit = rand(Q) < 0.5
+    fps[hit] = fps_in[ints(0, n_in, int(hit.sum()))]
+    return {"en": en, "valid": valid,
+            "segs": Segments(list(range(A)), [1] * A, [0] * A, dev),
+            "pt": por_tables(amat.cpu(), dev), "slots": table["slots"],
+            "gids": gids, "fps": fps.contiguous(),
+            "en2": (rand(Q) < 0.9) & q["ok"], "q": q,
+            "pdepth": torch.tensor([pd], dtype=torch.int64, device=dev)}
+
+
+def k17_chain(c, fns):
+    """cand, probe and keep (the wrappers or the plain versions ``fns``)
+    on a recorded case, in the engines' order; returns the outputs after
+    each stage."""
+    import torch
+    from tpuvsr_torch.engine.tile import por_buffers
+    cand, probe, keep = fns
+    T, total = c["en"].shape[0], c["fps"].shape[0]
+    P = por_buffers(T, total, len(c["segs"].host), "cuda")
+    cand(c["en"], c["valid"], c["segs"], c["pt"], P)
+    s1 = {k: v.clone() for k, v in P.items()}
+    probe({"slots": c["slots"]}, c["gids"], c["fps"], c["en2"], c["q"], P,
+          c["pdepth"])
+    s2 = {k: v.clone() for k, v in P.items()}
+    keep(c["en2"], c["q"], P, c["pdepth"])
+    torch.cuda.synchronize()
+    return s1, s2, {k: v.clone() for k, v in P.items()}
+
+
+def k17_probe_steps(c, P):
+    """(ample items, slot rows they read, of them found) of the probe:
+    each ample item walks its chain until its own slot or an empty one,
+    as the kernel does (the recorded chain lengths of the bound)."""
+    import torch
+    from tpuvsr_torch.engine.fpset import MAX_PROBES, _keyed
+    from tpuvsr_torch.engine.pack import to_u32
+    q = c["q"]
+    pidx = q["pidx"].long()
+    amp = (c["en2"] & q["ok"] & P["has_cand"][pidx]
+           & (q["aid"] == P["aid_star"][pidx]))
+    slots = c["slots"]
+    capm = slots.shape[0] - 1
+    keyed, h0 = _keyed(c["fps"])
+    unresolved = amp.clone()
+    steps = found = 0
+    for t in range(MAX_PROBES):
+        n = int(unresolved.sum())
+        if n == 0:
+            break
+        steps += n
+        cur = slots[(h0 + t) & capm]
+        mine = unresolved & (to_u32(cur[:, :4]) == keyed).all(dim=1)
+        found += int(mine.sum())
+        unresolved = unresolved & ~mine & (cur[:, 0] != 0)
+    return int(amp.sum()), steps, found
+
+
+def check_k17(c, label):
+    """K17's three entries against their plain versions on the card, bit
+    for bit at each stage of the chain, then each timed with its bound
+    (bytes: the guard rows or queue items read, 16-byte fingerprints and
+    one 20-byte slot row a probe step of the recorded chains)."""
+    from tpuvsr_torch.engine import tile as TL
+    rows = []
+    kern = k17_chain(c, (TL.por_cand, TL.por_probe, TL.por_keep))
+    plain = k17_chain(c, (TL.por_cand_plain, TL.por_probe_plain,
+                          TL.por_keep_plain))
+    errs = [max(max_abs(a[k], b[k]) for k in a)
+            for a, b in zip(kern, plain)]
+    T, L = c["en"].shape
+    total = c["fps"].shape[0]
+    n_act = len(c["segs"].host)
+    P = kern[1]
+    n_amp, steps, found = k17_probe_steps(c, kern[0])
+    shape = {"rows": T, "lanes": L, "actions": n_act, "queue": total,
+             "slots": c["slots"].shape[0]}
+    print(f"  {label}: {shape}; rows with a candidate "
+          f"{int(P['has_cand'].sum())}, vetoed by C3 "
+          f"{int((P['amp_bad'] != 0).sum())}; ample items {n_amp}, probe "
+          f"steps {steps}, found {found}; kept {int(kern[2]['keep'].sum())} "
+          f"of {int((c['en2'] & c['q']['ok']).sum())}", flush=True)
+    Pc = {k: v.clone() for k, v in P.items()}
+    args_c = (c["en"], c["valid"], c["segs"], c["pt"], Pc)
+    kernel_row(rows, "por_cand", cuda_ms(lambda: TL.por_cand(*args_c)),
+               cuda_ms(lambda: TL.por_cand_plain(*args_c), reps=5),
+               errs[0], T * L + T + n_act * 24 + T * 13 + n_act * 8 + 8, 0,
+               extra={"shape": shape}, label=f"por_cand ({label})")
+    table = {"slots": c["slots"]}
+    args_p = (table, c["gids"], c["fps"], c["en2"], c["q"], Pc,
+              c["pdepth"])
+    kernel_row(rows, "por_probe", cuda_ms(lambda: TL.por_probe(*args_p)),
+               cuda_ms(lambda: TL.por_probe_plain(*args_p), reps=5),
+               errs[1], total * 10 + T * 5 + n_amp * 16 + steps * 20
+               + found * 4 + T * 4 + 8, 0,
+               extra={"shape": shape, "ample_items": n_amp,
+                      "probe_steps": steps, "found": found},
+               label=f"por_probe ({label})")
+    args_k = (c["en2"], c["q"], Pc, c["pdepth"])
+    kernel_row(rows, "por_keep", cuda_ms(lambda: TL.por_keep(*args_k)),
+               cuda_ms(lambda: TL.por_keep_plain(*args_k), reps=5),
+               errs[2], total * 10 + T * 13 + total * 5 + n_act * 8 + 8, 0,
+               extra={"shape": shape}, label=f"por_keep ({label})")
+    return rows
+
+
+def por_phase(args, doc):
+    """Phase 18: speclint, bounds facts and the ample-set reduction
+    (K17).  Returns K17's rows."""
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.analysis import preflight
+    from tpuvsr_torch.engine.device_bfs import DeviceBFS
+    from tpuvsr_torch.engine.paged_bfs import PagedBFS
+    from tpuvsr_torch.engine.spec import load_binding
+    from tpuvsr_torch.testing import (
+        POR_STUB_DISTINCT, POR_STUB_FULL, POR_STUB_KEPT, POR_STUB_LEVELS,
+        STUB_DISTINCT, STUB_LEVELS, counter_spec, stub_device_engine,
+        stub_sym_engine, sym_pair_spec)
+    t_phase = time.time()
+    out = doc["por"] = {}
+
+    def drive(key, make, entry, k17, **run_kw):
+        """One main-path run, launch counts reset just before and read
+        just after: K17 must have launched (``k17``) or not."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        eng = make(PagedBFS if entry == "paged" else None)
+        res = (eng.run_fused(**run_kw) if entry == "run_fused"
+               else eng.run(**run_kw))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        got = {k: counts[k] for k in K17_KERNELS}
+        need(all(got.values()) if k17 else not any(got.values()),
+             f"{key}: K17 launches {got}")
+        out[key] = {"distinct": res.distinct_states,
+                    "generated": res.states_generated,
+                    "levels": len(res.levels), "error": res.error,
+                    "violated": res.violated_invariant,
+                    "kept": eng._por_kept, "full": eng._por_full,
+                    "amp": eng._por_amp, "wall_s": wall, "k17": got}
+        return eng, res, got
+
+    def inv_free(por, **kw):
+        return lambda cls: stub_device_engine(
+            spec=counter_spec(inv_free=True), device="cuda", por=por,
+            cls=cls, **({"chunk_tiles": 1} if cls else {}), **kw)
+
+    # -- 18a: the stub oracles through run(), run_fused() and PagedBFS --
+    print("phase 18a: the stub oracles (speclint's facts, the reduction) "
+          "through run(), run_fused() and PagedBFS", flush=True)
+    stub_rec = None
+    for entry in ("run", "run_fused", "paged"):
+        if entry == "run":
+            stub_rec = K17Recorder()
+        try:
+            eng, res, got = drive(f"18a_inv_free_on_{entry}",
+                                  inv_free("on"), entry, True,
+                                  check_deadlock=True)
+        finally:
+            if entry == "run":
+                stub_rec.close()
+        if entry == "run":
+            stub_launches = got
+        need(res.distinct_states == POR_STUB_DISTINCT
+             and res.levels == POR_STUB_LEVELS
+             and (eng._por_kept, eng._por_full) == (POR_STUB_KEPT,
+                                                    POR_STUB_FULL)
+             and res.error == "deadlock"
+             and res.deadlock_state == {"x": 3, "y": 3},
+             f"18a inv_free POR on ({entry}): {out[f'18a_inv_free_on_{entry}']}"
+             f" {res.deadlock_state}")
+        eng, res, _g = drive(f"18a_inv_free_off_{entry}", inv_free("off"),
+                             entry, False, check_deadlock=True)
+        need(res.distinct_states == STUB_DISTINCT
+             and res.levels == STUB_LEVELS and res.error == "deadlock"
+             and res.deadlock_state == {"x": 3, "y": 3},
+             f"18a inv_free POR off ({entry}): {res.distinct_states} "
+             f"{res.levels}")
+        eng, res, _g = drive(f"18a_sympair_{entry}", lambda cls: (
+            stub_sym_engine(symmetry=False, por="on", spec=sym_pair_spec(),
+                            device="cuda", cls=cls)), entry, True)
+        need(res.ok and res.distinct_states == 13
+             and res.levels == [1, 3, 9],
+             f"18a SymPair ({entry}): {res.distinct_states} {res.levels}")
+    print(f"  inv_free: POR on {POR_STUB_DISTINCT} distinct, levels "
+          f"{POR_STUB_LEVELS}, kept/full {POR_STUB_KEPT}/{POR_STUB_FULL}, "
+          f"deadlock at (3, 3); POR off {STUB_DISTINCT}, {STUB_LEVELS}, the "
+          f"same deadlock; SymPair (symmetry off) 13, [1, 3, 9]: through "
+          f"all three entry points; K17 {stub_launches} in the run() leg "
+          f"and never with POR off", flush=True)
+    want = stub_device_engine(spec=counter_spec(inv_x_bound=2),
+                              inv_x_bound=2, device="cpu", por="on").run()
+    want = [(t.action_name, t.state) for t in want.trace]
+    for entry in ("run", "run_fused", "paged"):
+        _e, res, _g = drive(f"18a_x2_{entry}", lambda cls: stub_device_engine(
+            spec=counter_spec(inv_x_bound=2), inv_x_bound=2, device="cuda",
+            por="on", cls=cls), entry, True)
+        got = [(t.action_name, t.state) for t in res.trace]
+        need(res.violated_invariant == "Bound" and got == want,
+             f"18a inv_x_bound=2 ({entry}): {got} against the CPU's {want}")
+    print(f"  counter_spec(inv_x_bound=2), tile 4, POR on: Bound, the CPU "
+          f"run's trace through all three ({len(want)} states)", flush=True)
+    for entry in ("run", "run_fused"):
+        _e, r_on, _g = drive(f"18a_bound_on_{entry}", lambda cls:
+                             stub_device_engine(spec=counter_spec(),
+                                                device="cuda", por="on"),
+                             entry, False)
+        _e, r_off, _g = drive(f"18a_bound_off_{entry}", lambda cls:
+                              stub_device_engine(spec=counter_spec(),
+                                                 device="cuda", por="off"),
+                              entry, False)
+        need((r_on.distinct_states, r_on.states_generated, r_on.levels)
+             == (r_off.distinct_states, r_off.states_generated,
+                 r_off.levels)
+             and r_on.metrics["gauges"]["por_cut_ratio"] == 1.0,
+             f"18a default Bound ({entry}): POR on is not inert")
+        e_on, b_on, _g = drive(f"18a_bounds_on_{entry}", lambda cls:
+                               stub_device_engine(
+                                   spec=counter_spec(dead_action=True,
+                                                     inv_bound=3),
+                                   dead_action=True, inv_bound=3,
+                                   device="cuda"), entry, False)
+        e_off, b_off, _g = drive(f"18a_bounds_off_{entry}", lambda cls:
+                                 stub_device_engine(
+                                     spec=counter_spec(dead_action=True,
+                                                       inv_bound=3),
+                                     dead_action=True, inv_bound=3,
+                                     device="cuda", bounds="off"),
+                                 entry, False)
+        tr = lambda r: [(t.action_name, t.state) for t in r.trace]
+        need(list(e_on.kern.action_names) == ["IncX", "IncY"]
+             and len(e_off.kern.action_names) == 3
+             and (b_on.distinct_states, b_on.states_generated, b_on.levels,
+                  b_on.violated_invariant, tr(b_on))
+             == (b_off.distinct_states, b_off.states_generated,
+                 b_off.levels, b_off.violated_invariant, tr(b_off))
+             and (e_on._pk.total_bits, e_on._pk_decl.total_bits) == (6, 8),
+             f"18a bounds on/off ({entry}): {out[f'18a_bounds_on_{entry}']} "
+             f"{out[f'18a_bounds_off_{entry}']}")
+    print("  default Bound: POR inert, bit-identical to off (generated "
+          "counts included), no K17 launch; bounds on against off "
+          "bit-identical (Jump pruned, 6 bits a state against the "
+          "declared 8)", flush=True)
+
+    # -- 18b: at scale ---------------------------------------------------
+    L = POR["limit"]
+    n_full = (L + 1) ** 2
+    print(f"phase 18b: the counter (inv_free) at Limit {L}: {n_full} states "
+          f"unreduced; tile {POR['tile']}, FPSet {POR['fpset']} slots",
+          flush=True)
+    scale = {}
+    for key, entry, por in (("fused_off", "run_fused", "off"),
+                            ("fused_on", "run_fused", "on"),
+                            ("run_on", "run", "on")):
+        eng, res, got = drive(f"18b_{key}", lambda cls: stub_device_engine(
+            spec=counter_spec(inv_free=True, limit=L), limit=L,
+            device="cuda", por=por, tile_size=POR["tile"],
+            fpset_capacity=POR["fpset"], next_capacity=POR["next"]),
+            entry, por == "on", check_deadlock=True)
+        scale[key] = (res, got)
+        o = out[f"18b_{key}"]
+        print(f"  {key}: distinct {res.distinct_states} generated "
+              f"{res.states_generated} levels {len(res.levels)} kept/full "
+              f"{o['kept']}/{o['full']} amp {o['amp']} wall "
+              f"{o['wall_s']:.3f}s; {res.error} at {res.deadlock_state}; "
+              f"K17 {got}", flush=True)
+        need(res.error == "deadlock"
+             and res.deadlock_state == {"x": L, "y": L},
+             f"18b {key}: {res.error} {res.deadlock_state}")
+    need(scale["fused_off"][0].distinct_states == n_full,
+         f"18b: POR off gave {scale['fused_off'][0].distinct_states}")
+    for key in ("fused_on", "run_on"):
+        res = scale[key][0]
+        need(res.distinct_states == 2 * L + 1
+             and res.levels == [1] * (2 * L + 1),
+             f"18b {key}: {res.distinct_states} in {len(res.levels)} levels")
+    main_launches = scale["fused_on"][1]
+
+    # -- 18c: K17 against its plain version ------------------------------
+    print("phase 18c: K17 against its plain version on the card, bit for "
+          "bit, then timed", flush=True)
+    rows = []
+    for c, label, launches in ((stub_rec.case, "stub", stub_launches),
+                               (k17_stress_case(), "stress",
+                                main_launches)):
+        need(c is not None, "18c: no K17 call was recorded")
+        for r in check_k17(c, label):
+            r["launches"] = launches[r["kernel"]]
+            rows.append(r)
+
+    # -- 18d: the cfg-only bindings --------------------------------------
+    for path in (DEFECT, SHIPPED):
+        e = DeviceBFS(load_binding(path, "VSR"), device="cuda", por="auto")
+        need(e._facts is None and e._por_facts is None
+             and not e._por_active and preflight(e.spec).passes_run == [],
+             f"18d: {path}: bounds or POR resolved on a cfg-only binding")
+    print("phase 18d: the defect and shipped runs (cfg-only bindings) "
+          "resolved bounds and POR to None (preflight ran no pass on "
+          "them), so phases 5-9 ran as before and held their recorded "
+          "numbers", flush=True)
+    out["phase_s"] = time.time() - t_phase
+    print(f"  phase 18 in {out['phase_s']:.1f}s", flush=True)
+    return rows
+
+
 def gpu_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -5026,7 +5458,7 @@ def kernels_line(rows):
 
 
 def run_phases(args, doc, t_all):
-    """Phases 1-17 (the module docstring); returns the exit code."""
+    """Phases 1-18 (the module docstring); returns the exit code."""
     import numpy as np
     import torch
     from tpuvsr_torch import kernels
@@ -5148,6 +5580,7 @@ def run_phases(args, doc, t_all):
     rows += per_action_phase(args, doc)
     rows += sim_phase(args, doc)
     rows += validate_phase(args, doc)
+    rows += por_phase(args, doc)
     doc.pop("main_pointers", None)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all

@@ -45,6 +45,7 @@ import torch  # noqa: E402
 
 import jax  # noqa: E402
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_st03 import (  # noqa: E402
     CHUNK, GUIDE, PAD, _batch, _enum, _fps, _full_bag_row, _is_era,
     _jax_outputs, _port_outputs, _run, _signature, _walk_rows, jax_fns_of)
@@ -146,18 +147,6 @@ FAMILY = {
                    seeds=(33, 33, 32), guide=CP06_GUIDE),
 }
 KEY = "A01"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain versions run small batches, where torch's intra-op
-    thread pool costs more than it gives, and the test workers share the
-    cores: one thread for a module's tests, the count restored after
-    (each family file imports this fixture)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def binding(model, path, np_limit):

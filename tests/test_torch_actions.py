@@ -38,6 +38,7 @@ from tpuvsr.frontend.trace_parse import parse_trace_file
 from tpuvsr.interp.evalr import Evaluator
 from tpuvsr.models.vsr import VSRCodec as JCodec
 from tpuvsr.models.vsr_kernel import VSRKernel as JKernel
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch import kernels
 from tpuvsr_torch.engine.spec import load_binding
 from tpuvsr_torch.models import vsr as pvsr

@@ -32,6 +32,7 @@ from tpuvsr.models.vsr import VSRCodec as JCodec
 from tpuvsr.models.vsr_kernel import VSRKernel as JKernel
 from tpuvsr.testing import stub_sym_factory as j_sym_factory
 from tpuvsr.testing import sym_pair_spec
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.core.values import ModelValue, TLAError
 from tpuvsr_torch.engine import canon as C
 from tpuvsr_torch.engine.device_bfs import DeviceBFS

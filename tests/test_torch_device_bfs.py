@@ -21,6 +21,7 @@ from tpuvsr.models.vsr import VSRCodec as JCodec
 from tpuvsr.models.vsr_kernel import VSRKernel as JKernel
 from tpuvsr.testing import counter_spec
 from tpuvsr.testing import stub_model_factory as j_stub_factory
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.engine.device_bfs import DeviceBFS, device_bfs_check
 from tpuvsr_torch.engine.spec import load_binding
 from tpuvsr_torch.models.registry import make_model
@@ -273,7 +274,13 @@ def test_import_loads_no_jax():
             "tpuvsr_torch.interp.actions, tpuvsr_torch.engine.spec, "
             "tpuvsr_torch.engine.bfs, tpuvsr_torch.engine.trace, "
             "tpuvsr_torch.validate, tpuvsr_torch.validate.batch, "
-            "tpuvsr_torch.validate.host, tpuvsr_torch.validate.traces\n"
+            "tpuvsr_torch.validate.host, tpuvsr_torch.validate.traces, "
+            "tpuvsr_torch.analysis, tpuvsr_torch.analysis.passes, "
+            "tpuvsr_torch.analysis.passes.bounds, "
+            "tpuvsr_torch.analysis.passes.independence, "
+            "tpuvsr_torch.analysis.passes.drift, tpuvsr_torch.lower.ir, "
+            "tpuvsr_torch.engine.bounds, tpuvsr_torch.engine.por, "
+            "tpuvsr_torch.engine.paged_bfs\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuvsr' or "
             "m.startswith('tpuvsr.')]\n"

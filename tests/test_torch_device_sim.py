@@ -49,7 +49,7 @@ from tpuvsr.models.registry import make_model as j_make_model  # noqa: E402
 from tpuvsr.testing import counter_spec  # noqa: E402
 from tpuvsr.testing import stub_model_factory as j_stub_factory  # noqa: E402
 
-from tests.test_torch_a01 import one_torch_thread  # noqa: E402,F401
+from tests.test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from tpuvsr_torch.engine.device_sim import (DeviceSimulator,  # noqa: E402
                                             device_simulate)

@@ -29,6 +29,7 @@ from tpuvsr.models.vsr import VSRCodec as JCodec  # noqa: E402
 from tpuvsr.models.vsr_kernel import VSRKernel as JKernel  # noqa: E402
 from tpuvsr.testing import canon_csr as j_canon_csr  # noqa: E402
 from tpuvsr.testing import stub_graph_engine as j_graph_engine  # noqa: E402
+from tests.test_torch_threads import one_torch_thread  # noqa: E402,F401
 from tpuvsr_torch.core.values import TLAError  # noqa: E402
 from tpuvsr_torch.engine.device_bfs import DeviceBFS  # noqa: E402
 from tpuvsr_torch.engine.device_liveness import (  # noqa: E402

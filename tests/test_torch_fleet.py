@@ -57,6 +57,7 @@ from tpuvsr.sim.fleet import FleetSimulator as JFleet  # noqa: E402
 from tpuvsr.sim.splitting import NoveltySplitter as JSplitter  # noqa: E402
 from tpuvsr.testing import stub_fleet as j_stub_fleet  # noqa: E402
 
+from tests.test_torch_threads import one_torch_thread  # noqa: E402,F401
 from tpuvsr_torch.engine.carry import table_from_numpy  # noqa: E402
 from tpuvsr_torch.engine.spec import load_binding  # noqa: E402
 from tpuvsr_torch.models.registry import make_model  # noqa: E402

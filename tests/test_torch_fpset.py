@@ -13,6 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from tpuvsr.engine import fpset as J
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.engine import fpset as P
 from tpuvsr_torch.engine.carry import table_from_numpy
 

@@ -26,6 +26,7 @@ from tpuvsr.frontend.parser import parse_expr_text as j_parse_expr
 from tpuvsr.frontend.parser import parse_module_text as j_parse
 from tpuvsr.frontend.trace_parse import parse_trace_file as j_trace_file
 from tpuvsr.interp.evalr import Evaluator as JEvaluator
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.core.values import TLAError, fmt, value_key
 from tpuvsr_torch.engine.bfs import bfs_check
 from tpuvsr_torch.engine.device_bfs import DeviceBFS

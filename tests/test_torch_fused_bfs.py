@@ -10,6 +10,7 @@ import os
 import numpy as np
 import pytest
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_device_bfs import _jax_stub, _port_stub, _same
 from tpuvsr_torch.engine import tile as TL
 from tpuvsr_torch.engine.device_bfs import DeviceBFS

@@ -15,6 +15,7 @@ from tpuvsr.engine.pack import build_pack_spec as j_build
 from tpuvsr.frontend.cfg import parse_cfg_file as j_cfg
 from tpuvsr.models.vsr import VSRCodec as JCodec
 from tpuvsr.testing import stub_model_factory as j_stub
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.analysis.widths import derive_ranges_from
 from tpuvsr_torch.core.values import TLAError
 from tpuvsr_torch.engine.carry import frontier_from_numpy

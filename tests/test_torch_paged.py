@@ -15,6 +15,7 @@ import torch
 from tpuvsr.engine.paged_bfs import PagedBFS as JPagedBFS
 from tpuvsr.testing import counter_spec
 from tpuvsr.testing import stub_device_engine as j_stub_engine
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.core.values import TLAError
 from tpuvsr_torch.engine.device_bfs import DeviceBFS
 from tpuvsr_torch.engine.fpset import query_core

@@ -50,7 +50,7 @@ if __name__ == "__main__":
 
 from tpuvsr.testing import stub_device_engine as j_stub_engine  # noqa: E402
 
-from tests.test_torch_a01 import one_torch_thread  # noqa: E402,F401
+from tests.test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from tpuvsr_torch.engine import tile as TL  # noqa: E402
 from tpuvsr_torch.engine.device_bfs import DeviceBFS, _Bufs  # noqa: E402

@@ -18,7 +18,7 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
-from tests.test_torch_a01 import one_torch_thread  # noqa: E402,F401
+from tests.test_torch_threads import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_per_action import (  # noqa: E402
     DEFECT, DEFECT_KW, _acts, pointers)
 from tpuvsr_torch.engine.device_bfs import DeviceBFS  # noqa: E402

@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.sim import rng
 
 SEEDS = [0, 1, 2, 2**31 - 1]

@@ -39,6 +39,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_gids import expand_macros
 from tpuvsr.analysis.passes.widths import derive_ranges_from as j_ranges
 from tpuvsr.engine.device_bfs import DeviceBFS as JDeviceBFS

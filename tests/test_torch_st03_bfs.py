@@ -18,6 +18,7 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
+from tests.test_torch_threads import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_st03 import (  # noqa: E402
     MODULE, PAD, SHIPPED, SMALL, _batch, _fps, _jax, _run)
 from tpuvsr_torch.engine.device_bfs import DeviceBFS  # noqa: E402

@@ -9,6 +9,7 @@ the two halves run side by side."""
 
 import pytest
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_st03 import (  # noqa: F401  (the tests run here)
     _case, test_codec_round_trip_matches_jax, test_fingerprints_match_jax,
     test_guard_matrix_matches_jax, test_incremental_fingerprints_match_jax,

@@ -35,6 +35,7 @@ from tpuvsr.interp.evalr import Evaluator  # noqa: E402
 from tpuvsr.models.vsr import VSRCodec as JCodec  # noqa: E402
 from tpuvsr.models.vsr_kernel import VSRKernel as JKernel  # noqa: E402
 from tpuvsr.testing import stub_sym_engine as j_sym_engine  # noqa: E402
+from tests.test_torch_threads import one_torch_thread  # noqa: E402,F401
 from tpuvsr_torch.engine.device_bfs import DeviceBFS  # noqa: E402
 from tpuvsr_torch.engine.spec import load_binding  # noqa: E402
 from tpuvsr_torch.testing import (  # noqa: E402

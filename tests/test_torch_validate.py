@@ -24,6 +24,7 @@ from tpuvsr.validate.batch import ev_slice_d
 from tpuvsr.validate.batch import traces_digest as j_digest
 from tpuvsr.validate.host import host_validate_batch as j_host_batch
 from tpuvsr.validate.traces import traces_from_records as j_traces
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.core.values import TLAError
 from tpuvsr_torch.engine.spec import load_binding
 from tpuvsr_torch.testing import (counter_binding, counter_spec,

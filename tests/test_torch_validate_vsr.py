@@ -35,6 +35,7 @@ from tpuvsr.validate.batch import BatchValidator as JValidator
 from tpuvsr.validate.batch import ev_slice_d
 from tpuvsr.validate.traces import Trace as JTrace
 from tpuvsr.validate.traces import TraceEvent as JEvent
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.core.values import fmt
 from tpuvsr_torch.engine.spec import InitShim, load_binding
 from tpuvsr_torch.frontend.cfg import parse_cfg_file

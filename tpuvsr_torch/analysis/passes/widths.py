@@ -1,0 +1,189 @@
+"""Pass 2 — width/overflow abstract interpretation.
+
+The dense layouts (models/*.py) pack narrow protocol fields into wider
+lanes: VSR's deterministic-CHOOSE sort key packs (client_id, operation,
+request_number, view_number) into one int32 at bit offsets 20/16/8/0
+(vsr_kernel._entry_sort_key), and the whole A01→CP06 family packs log
+entries as ``value_id << 8 | view_number`` (ENTRY_VIEW_BITS).  A cfg
+whose bound constants let a field exceed its lane silently corrupts
+fingerprints and CHOOSE tie-breaks — the classic "wraps after hours"
+failure the reference never had because TLC has no packed layouts.
+
+This pass derives per-field value ranges from the bound cfg constants
+alone (interval abstract interpretation over the constant bindings —
+no codec construction, so it still fires when the codec itself would
+refuse the config) and proves each range fits its allocated bit-width:
+
+* view_number  <= 1 + StartViewOnTimerLimit (+ RestartEmptyLimit on
+  VSR: views are only minted by TimerSendSVC under ``aux_svc < limit``,
+  VSR.tla:578-580; a restarted replica can re-reach old views)
+* op_number / request_number / operation id <= |Values| (each value is
+  requested at most once — the aux_client_acked ghost guard)
+* client_id <= ClientCount
+* recovery nonce x <= 1 + CrashLimit (UniqueNumber mints one per crash)
+
+plus a generic int31 check on every derived range and every integer
+constant (all dense planes are int32 lanes).
+
+A copy of ``tpuvsr/analysis/passes/widths.py``, with one difference: the
+range table is the port's own ``analysis/widths.derive_ranges_from``
+(the one source of the packed frontier's budgets), which derives no
+recovery-nonce bound for a module whose RetryRecovery re-mints it
+(``NONCE_UNBOUNDED``, ROADMAP queue 3 item 5).
+"""
+
+from __future__ import annotations
+
+from ..report import SEV_ERROR, SEV_INFO, SEV_WARN
+from ..widths import derive_ranges_from
+
+PASS = "widths"
+
+INT31 = 1 << 31
+
+# Packed-field budgets per layout family: (field, limit, where) — a
+# field whose derived max REACHES the limit no longer fits.
+_VSR_PACKED = (
+    ("client_id", 1 << 11, "packed sort key bits 20..30 "
+                           "(vsr_kernel._entry_sort_key)"),
+    ("operation", 1 << 4, "packed sort key bits 16..19 "
+                          "(vsr_kernel._entry_sort_key)"),
+    ("request_number", 1 << 8, "packed sort key bits 8..15 "
+                               "(vsr_kernel._entry_sort_key)"),
+    ("view_number", 1 << 8, "packed sort key bits 0..7 "
+                            "(vsr_kernel._entry_sort_key)"),
+)
+_PACKED_ENTRY = (
+    ("view_number", 1 << 8, "packed log entry low byte "
+                            "(ENTRY_VIEW_BITS, models/a01.py)"),
+    ("operation", 1 << 23, "packed log entry high bits "
+                           "(value_id << 8 must fit int32)"),
+)
+
+# AL05 reverts to plain value-id entries (al05.py undoes RR05's
+# 2-field packing), so _PACKED_ENTRY's attributions are wrong for it —
+# but AL05Codec still INHERITS RR05Codec.__init__'s MAX_VIEW < 256
+# construction guard, so the view bound itself is real.  Its
+# module-specific hazard is the re-based recovery suffix log
+# (dedicated plane check: FAMILY_PLANES).
+_AL05_PACKED = (
+    ("view_number", 1 << 8, "inherited packed-entry construction "
+                            "guard (AL05Codec <- RR05Codec.__init__: "
+                            "MAX_VIEW < 256)"),
+)
+# CP06 entries are plain ids too (NoOp = |Values|+1, cp06.py), but
+# WinningDVC packs its suffix sort keys as domain*64 + entry_code
+# (cp06_kernel._winning_dvc) — entry codes must stay under 64 or the
+# deterministic-CHOOSE tie-break silently mis-sorts.
+_CP06_PACKED = (
+    ("view_number", 1 << 8, "inherited packed-entry construction "
+                            "guard (CP06Codec <- RR05Codec.__init__: "
+                            "MAX_VIEW < 256)"),
+    ("entry_code", 64, "packed suffix sort key domain*64 + entry "
+                       "(cp06_kernel._winning_dvc; NoOp id = "
+                       "|Values|+1)"),
+)
+
+# module name -> packed-field table (absent = generic checks only)
+FAMILY_PACKED = {
+    "VSR": _VSR_PACKED,
+    "VR_STATE_TRANSFER": (),          # scalar int32 entries, no packing
+    "VR_ASSUME_NEWVIEWCHANGE": _PACKED_ENTRY,
+    "VR_INC_RESEND": _PACKED_ENTRY,
+    "VR_APP_STATE": _PACKED_ENTRY,
+    "VR_REPLICA_RECOVERY": _PACKED_ENTRY,
+    "VR_REPLICA_RECOVERY_ASYNC_LOG": _AL05_PACKED,
+    "VR_REPLICA_RECOVERY_CP": _CP06_PACKED,
+}
+
+# module name -> dedicated plane-budget checks: (field, bounded
+# quantity, where).  The plane
+# capacity is MAX_OPS = |Values| rows, derived from the same cfg —
+# normally an INFO fit/headroom line, a WARN when the bound is
+# underivable from the constants, an ERROR should the derived range
+# ever exceed the plane.
+FAMILY_PLANES = {
+    "VR_REPLICA_RECOVERY_ASYNC_LOG": (
+        ("suffix_log", "op_number",
+         "re-based recovery suffix rows rec_log/m_log[MAX_OPS] "
+         "(al05.py _encode_rec: first_op = prefix_ceil + 1)"),),
+    "VR_REPLICA_RECOVERY_CP": (
+        ("checkpoint_plane", "cp_number",
+         "checkpoint payload rows m_cp/rec_cp/dvc_cp[MAX_OPS] "
+         "(cp06.py zero_state)"),),
+}
+
+
+def derive_ranges(spec):
+    """Interval ranges of the protocol quantities, from cfg constants
+    alone.  Returns {} entries only for derivable quantities."""
+    return derive_ranges_from(spec.ev.constants, spec.module.name)
+
+
+def run(spec, report):
+    rng = derive_ranges(spec)
+    c = spec.ev.constants
+
+    # generic int31 lane check: every derived range and every integer
+    # constant must fit a signed 32-bit dense plane
+    for name, (_lo, hi) in sorted(rng.items()):
+        if hi >= INT31:
+            report.add(PASS, SEV_ERROR, name,
+                       f"derived range [0, {hi}] exceeds the int32 "
+                       f"dense-plane width")
+    for name, v in sorted(c.items()):
+        if isinstance(v, int) and not isinstance(v, bool) and \
+                abs(v) >= INT31:
+            report.add(PASS, SEV_ERROR, name,
+                       f"constant {v} does not fit an int32 lane")
+
+    packed = FAMILY_PACKED.get(spec.module.name)
+    if packed is None:
+        report.add(PASS, SEV_INFO, spec.module.name,
+                   "no registered packed layout for this module; "
+                   "generic int32 checks only")
+        return
+
+    # dedicated plane-row budgets (AL05 suffix log, CP06 checkpoint
+    # plane): the quantity must provably fit the MAX_OPS = |Values|
+    # rows its dense plane allocates
+    values = c.get("Values")
+    nvalues = len(values) if isinstance(values, frozenset) else None
+    for fld, qty, where in FAMILY_PLANES.get(spec.module.name, ()):
+        if nvalues is None or qty not in rng:
+            report.add(PASS, SEV_WARN, fld,
+                       f"cannot derive the {fld} bound ({qty} vs the "
+                       f"MAX_OPS = |Values| plane rows) from the cfg "
+                       f"constants; {where} is unverified")
+            continue
+        lo, hi = rng[qty]
+        if hi > nvalues:
+            report.add(PASS, SEV_ERROR, fld,
+                       f"derived {qty} range [{lo}, {hi}] exceeds the "
+                       f"{nvalues}-row plane in {where}; rows would "
+                       f"clip silently")
+        else:
+            slack = "exactly" if hi == nvalues else \
+                f"(headroom {nvalues - hi})"
+            report.add(PASS, SEV_INFO, fld,
+                       f"{qty} range [{lo}, {hi}] fits the "
+                       f"{nvalues}-row plane in {where} {slack}")
+
+    for fld, limit, where in packed:
+        if fld not in rng:
+            report.add(PASS, SEV_WARN, fld,
+                       f"cannot derive a static bound for {fld!r} from "
+                       f"the cfg constants; packed width {limit} in "
+                       f"{where} is unverified")
+            continue
+        lo, hi = rng[fld]
+        if hi >= limit:
+            report.add(PASS, SEV_ERROR, fld,
+                       f"derived range [{lo}, {hi}] overflows the "
+                       f"{limit.bit_length() - 1}-bit field in {where} "
+                       f"(max representable {limit - 1}); values would "
+                       f"wrap silently")
+        else:
+            report.add(PASS, SEV_INFO, fld,
+                       f"range [{lo}, {hi}] fits {where} "
+                       f"(headroom {limit - 1 - hi})")

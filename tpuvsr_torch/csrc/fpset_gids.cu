@@ -6,7 +6,8 @@
 // store, and grow (:289-333) rebuilds the column through it.  The
 // table is K1's slots[CAP, 5] uint32 layout (tag, row0, row1, row2,
 // claim), probed from _slot_hash of the keyed fingerprint (word 0
-// remapped 0 -> 1), at most MAX_PROBES = 64 probes; the gid column is
+// remapped 0 -> 1), at most 64 probes (the chain of common.cuh,
+// tpuvsr_keyed and tpuvsr_probe, which K17 shares); the gid column is
 // a separate int32[CAP] array, -1 where nothing was stored.
 //
 //   store   each masked lane walks its chain until it meets its own
@@ -37,23 +38,6 @@
 
 namespace {
 
-constexpr int MAX_PROBES = 64;
-
-__device__ __forceinline__ void keyed(const uint32_t* fps, int i,
-                                      uint32_t* k) {
-    k[0] = fps[4 * (size_t)i + 0];
-    k[1] = fps[4 * (size_t)i + 1];
-    k[2] = fps[4 * (size_t)i + 2];
-    k[3] = fps[4 * (size_t)i + 3];
-    if (k[0] == 0) k[0] = 1;
-}
-
-__device__ __forceinline__ bool mine(const uint32_t* row,
-                                     const uint32_t* k) {
-    return row[0] == k[0] && row[1] == k[1] && row[2] == k[2] &&
-           row[3] == k[3];
-}
-
 __global__ void store_gids_kernel(const uint32_t* __restrict__ slots,
                                   uint32_t capm, int* __restrict__ vals,
                                   const uint32_t* __restrict__ fps,
@@ -63,11 +47,11 @@ __global__ void store_gids_kernel(const uint32_t* __restrict__ slots,
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n || !mask[i]) return;
     uint32_t k[4];
-    keyed(fps, i, k);
+    tpuvsr_keyed(fps, i, k);
     const uint32_t h = tpuvsr_slot_hash(k[0], k[1], k[2], k[3]);
-    for (int t = 0; t < MAX_PROBES; ++t) {
+    for (int t = 0; t < TPUVSR_MAX_PROBES; ++t) {
         const uint32_t idx = (h + (uint32_t)t) & capm;
-        if (mine(slots + 5 * (size_t)idx, k)) {
+        if (tpuvsr_slot_is(slots + 5 * (size_t)idx, k)) {
             vals[idx] = gids[i];
             return;
         }
@@ -87,21 +71,15 @@ __global__ void probe_kernel(const uint32_t* __restrict__ slots,
     else out_fresh[i] = 0;
     if (!mask[i]) return;
     uint32_t k[4];
-    keyed(fps, i, k);
-    const uint32_t h = tpuvsr_slot_hash(k[0], k[1], k[2], k[3]);
-    for (int t = 0; t < MAX_PROBES; ++t) {
-        const uint32_t idx = (h + (uint32_t)t) & capm;
-        const uint32_t* row = slots + 5 * (size_t)idx;
-        if (mine(row, k)) {
-            if (vals) out_gid[i] = vals[idx];
-            return;
-        }
-        if (row[0] == 0) {
-            if (!vals) out_fresh[i] = 1;
-            return;
-        }
+    tpuvsr_keyed(fps, i, k);
+    const long long idx = tpuvsr_probe(slots, capm, k);
+    if (idx >= 0) {
+        if (vals) out_gid[i] = vals[idx];
+    } else if (idx == -1) {
+        if (!vals) out_fresh[i] = 1;
+    } else if (!vals) {
+        atomicExch(overflow, 1);
     }
-    if (!vals) atomicExch(overflow, 1);
 }
 
 }  // namespace

@@ -12,6 +12,11 @@
 //                  scatter of the trace pointers (:942-956), the commit
 //                  flag, the reason by its priority and deadlock
 //                  (:957-985), and the carry's counters;
+// Under the ample-set reduction (K17, csrc/por_ample.cu) commit_prefix
+// also ANDs K17's keep mask into the commit mask, and commit_finish
+// counts K17's kept expansions in gen/act, the unreduced ones in gfull
+// and K17's amp count (:989-1013); with POR off both pointers are null
+// and the launches are the same as without it.
 //   level_step     when the level's last tile has run (:1231-1300): the
 //                  level's trace pointers appended at level_base +
 //                  n_front, its size recorded, its rows made the next
@@ -61,7 +66,7 @@ enum Carry {
     C_T, C_REASON, C_HALT, C_STOP, C_NN, C_N_FRONT, C_DEPTH, C_LEVEL_BASE,
     C_FP_COUNT, C_GEN, C_TILES, C_LVL_CUR, C_VIOL_ROW, C_VIOL_AID,
     C_VIOL_LANE, C_DEAD, C_GROW_AID, C_IDLE, C_WANT_DEADLOCK, C_MAX_DEPTH,
-    C_MAX_STATES, C_MAX_LVLS, C_NEXT_CAP, C_TP_CAP, C_NEED
+    C_MAX_STATES, C_MAX_LVLS, C_NEXT_CAP, C_TP_CAP, C_GFULL, C_AMP, C_NEED
 };
 
 enum Tile {
@@ -93,7 +98,8 @@ __global__ void prefix_kernel(const long long* __restrict__ carry,
                               const int* __restrict__ q_lane,
                               const int* __restrict__ q_aid,
                               const uint8_t* __restrict__ q_ok,
-                              const uint8_t* __restrict__ ovf, int total,
+                              const uint8_t* __restrict__ ovf,
+                              const uint8_t* __restrict__ keep, int total,
                               int n_act, uint8_t* __restrict__ mcommit,
                               long long* __restrict__ tile) {
     __shared__ int flags[MAX_ACTIONS];
@@ -146,7 +152,8 @@ __global__ void prefix_kernel(const long long* __restrict__ carry,
     }
     __syncthreads();
     for (int i = tid; i < total; i += THREADS)
-        mcommit[i] = s_room && en2[i] && q_ok[i] && q_aid[i] < s_first_bad;
+        mcommit[i] = s_room && en2[i] && q_ok[i] &&
+                     q_aid[i] < s_first_bad && (!keep || keep[i]);
 }
 
 // The two finishes' shared steps.  A halted carry commits nothing: dest
@@ -226,10 +233,15 @@ struct Verdict {
 // asks for it and the tile commits); the violation's and the first
 // overflow's ids; on a commit gen and act by the tile's counts, and t
 // and tiles by one while the reason stays RUNNING; halt on any reason.
+// Under POR (``kept`` set: K17's kept counts per action and ``amp``, its
+// count of rows that took the ample shortcut) gen and act take the kept
+// counts, gfull the unreduced ones and amp K17's count.
 __device__ void fold_verdict(long long* carry, const Verdict& v, int dmin,
                              long long t, int T,
                              const long long* __restrict__ cnts,
-                             int n_act) {
+                             int n_act,
+                             const long long* __restrict__ kept = nullptr,
+                             const long long* __restrict__ amp = nullptr) {
     int reason = RUNNING;
     if (!v.room) reason = R_NEXT_GROW;
     else if (v.viol) reason = R_VIOLATION;
@@ -249,12 +261,18 @@ __device__ void fold_verdict(long long* carry, const Verdict& v, int dmin,
     }
     if (v.ovf_e) carry[C_GROW_AID] = v.grow_aid;
     if (v.commit) {
-        long long sum = 0;
+        const long long* gen = kept ? kept : cnts;
+        long long sum = 0, full = 0;
         for (int a = 0; a < n_act; ++a) {
-            sum += cnts[a];
-            carry[C_NEED + n_act + a] += cnts[a];
+            sum += gen[a];
+            full += cnts[a];
+            carry[C_NEED + n_act + a] += gen[a];
         }
         carry[C_GEN] += sum;
+        if (kept) {
+            carry[C_GFULL] += full;
+            carry[C_AMP] += *amp;
+        }
         if (reason == RUNNING) {
             carry[C_T] = t + 1;
             carry[C_TILES] += 1;
@@ -276,7 +294,9 @@ __global__ void finish_kernel(long long* __restrict__ carry,
                               const uint8_t* __restrict__ valid, int T,
                               int* __restrict__ par, int* __restrict__ act,
                               int* __restrict__ prm,
-                              int* __restrict__ dest) {
+                              int* __restrict__ dest,
+                              const long long* __restrict__ kept,
+                              const long long* __restrict__ amp) {
     const long long halted = carry[C_HALT];
     const long long nn = carry[C_NN], t = carry[C_T];
     __syncthreads();
@@ -296,7 +316,7 @@ __global__ void finish_kernel(long long* __restrict__ carry,
                     room && tile[F_FIRST_BAD] >= n_act && !oi,
                     tile[F_GROW_AID], tile[F_VROW], tile[F_VAID],
                     tile[F_VLANE]};
-    fold_verdict(carry, v, dmin, t, T, cnts, n_act);
+    fold_verdict(carry, v, dmin, t, T, cnts, n_act, kept, amp);
 }
 
 // K15 action_gate: action a's flags over its queue segment [E] and its
@@ -460,13 +480,15 @@ __global__ void level_update_kernel(long long* __restrict__ carry,
 }  // namespace
 
 // carry: int64 words (enum Carry); en2, iok, q_ok, ovf, mcommit: uint8;
-// err, q_*: int32 [total]; tile: int64 [F_AFLAGS + n_act].
+// err, q_*: int32 [total]; tile: int64 [F_AFLAGS + n_act]; keep: null,
+// or K17's [total] uint8 keep mask, ANDed into mcommit (POR).
 TPUVSR_EXPORT int tpuvsr_commit_prefix(const void* carry, const void* en2,
                                        const void* iok, const void* err,
                                        const void* q_pidx,
                                        const void* q_lane,
                                        const void* q_aid, const void* q_ok,
-                                       const void* ovf, int total, int n_act,
+                                       const void* ovf, const void* keep,
+                                       int total, int n_act,
                                        void* mcommit, void* tile,
                                        void* stream) {
     if (n_act > MAX_ACTIONS) return (int)cudaErrorInvalidValue;
@@ -474,14 +496,15 @@ TPUVSR_EXPORT int tpuvsr_commit_prefix(const void* carry, const void* en2,
             (const long long*)carry, (const uint8_t*)en2,
             (const uint8_t*)iok, (const int*)err, (const int*)q_pidx,
             (const int*)q_lane, (const int*)q_aid, (const uint8_t*)q_ok,
-            (const uint8_t*)ovf, total, n_act, (uint8_t*)mcommit,
-            (long long*)tile);
+            (const uint8_t*)ovf, (const uint8_t*)keep, total, n_act,
+            (uint8_t*)mcommit, (long long*)tile);
     return (int)cudaGetLastError();
 }
 
 // fresh: [total] uint8 (K1); ovf_i: one int32 (K1's overflow); cnts:
 // [n_act] int64; en_any, valid: [T] uint8; par, act, prm: next-buffer
-// pointer columns (int32); dest: [total] int32 out.
+// pointer columns (int32); dest: [total] int32 out; kept, amp: null, or
+// K17's [n_act] int64 kept counts and one int64 amp count (POR).
 TPUVSR_EXPORT int tpuvsr_commit_finish(void* carry, const void* tile,
                                        const void* fresh, const void* ovf_i,
                                        const void* q_pidx,
@@ -490,14 +513,16 @@ TPUVSR_EXPORT int tpuvsr_commit_finish(void* carry, const void* tile,
                                        const void* cnts, int n_act,
                                        const void* en_any, const void* valid,
                                        int T, void* par, void* act,
-                                       void* prm, void* dest, void* stream) {
+                                       void* prm, void* dest,
+                                       const void* kept, const void* amp,
+                                       void* stream) {
     KLAUNCH(finish_kernel, 1, THREADS, (cudaStream_t)stream,
             (long long*)carry, (const long long*)tile,
             (const uint8_t*)fresh, (const int*)ovf_i, (const int*)q_pidx,
             (const int*)q_lane, (const int*)q_aid, total,
             (const long long*)cnts, n_act, (const uint8_t*)en_any,
             (const uint8_t*)valid, T, (int*)par, (int*)act, (int*)prm,
-            (int*)dest);
+            (int*)dest, (const long long*)kept, (const long long*)amp);
     return (int)cudaGetLastError();
 }
 

@@ -86,13 +86,33 @@ buffers when the tile commits (``engine/edges.py``).  The drain of those
 buffers lives in the host-paged loop, so only ``PagedBFS`` turns it on,
 and only with symmetry off (a graph's nodes are concrete states).
 
-Left out of this port (see ROADMAP.md): the interpreter checks (preflight,
-and the violation cross-check is done with the kernel's own invariant
-functions on the state rebuilt on the host), bounds facts, partial-order
-reduction, the dispatch window, ``run_chained``, checkpoints, and the
-fused pass's checkpoint and rescue seams and wall-clock budget.  Results
-match the JAX engine with bounds off, POR off and a window of 1, which
-its own tests show give the same results as the defaults.
+Speclint and its facts (``bounds="auto"``, ``por="off"``, the JAX
+engine's defaults, :140, :225-252): ``run`` and ``run_fused`` (and
+``PagedBFS.run``) start with ``analysis.preflight``.  The bounds facts
+(``engine/bounds.py``) prune statically dead actions from the kernel
+(``PrunedKernel``: K6's columns, K10's action ids), tighten the pack to
+the reachable intervals (``_pk``; ``_pk_decl`` keeps the declared layout)
+and seed the fused caps from the static fanout; results are those with
+bounds off.  The ample-set reduction (``engine/por.py``, ``por="on"``,
+fused commit only) runs K17 (``engine/tile.py`` ``por_cand``,
+``por_probe``, ``por_keep``) in each tile: a row whose ample candidate's
+successors are all fresh (their FPSet level markers, the gid column,
+above the frontier's level) commits only that action's successors, and
+K11 stores marker depth + 1 on the fresh lanes after K1.  ``gen`` and
+``act`` then count the kept expansions; ``_por_kept``, ``_por_full`` and
+``_por_amp`` feed the ``por_cut_ratio``, ``ample_states`` and
+``por_eligible_actions`` gauges.  A cfg-only binding (``SpecBinding``)
+has no module text to analyse: under "auto" both resolve to None and
+preflight runs no pass; "on" raises (the port's rule, the JAX package
+has no such binding).
+
+Left out of this port (see ROADMAP.md): the interpreter checks (the
+violation cross-check is done with the kernel's own invariant functions
+on the state rebuilt on the host), the dispatch window,
+``run_chained``, checkpoints (with their bounds and POR manifest
+checks), the run journal, and the fused pass's checkpoint and rescue
+seams and wall-clock budget.  Results match the JAX engine with a window
+of 1, which its own tests show gives the same results as the default.
 """
 
 from __future__ import annotations
@@ -102,17 +122,23 @@ import time
 import numpy as np
 import torch
 
+from ..analysis import preflight
+from ..analysis.widths import derive_ranges_from
 from ..core.values import TLAError
 from ..device import resolve_device
 from ..models import registry
 from .. import kernels
 from .bfs import CheckResult
+from .bounds import prune_kernel, resolve_bounds
 from .canon import build_canon_spec, kernel_fold_order
 from .device_sim import apply_one
 from .edges import emit_edges
 from .fpset import (dedup_keep, empty_gids, empty_table, grow, insert_core,
                     lookup_gids, store_gids)
-from .tile import (C_DEAD, C_DEPTH, C_FP_COUNT, C_GEN, C_HALT, C_IDLE,
+from .pack import build_pack_spec
+from .por import PORFilter, resolve_por
+from .tile import (C_AMP, C_DEAD, C_DEPTH, C_FP_COUNT, C_GEN, C_GFULL,
+                   C_HALT, C_IDLE,
                    C_LEVEL_BASE, C_LVL_CUR, C_NEED, C_NEXT_CAP, C_N_FRONT,
                    C_NN, C_REASON, C_STOP, C_T, C_TILES, C_TP_CAP,
                    C_VIOL_AID, C_VIOL_LANE, C_VIOL_ROW, C_GROW_AID,
@@ -122,6 +148,7 @@ from .tile import (C_DEAD, C_DEPTH, C_FP_COUNT, C_GEN, C_HALT, C_IDLE,
                    R_SLOT_ERR, R_VIOLATION, RUNNING, PA_FIELDS, P_COMMIT,
                    Segments, action_finish, action_gate, commit_finish,
                    commit_prefix, compact, level_step, new_carry,
+                   por_buffers, por_cand, por_keep, por_probe, por_tables,
                    queue_buffers)
 from .trace import TraceEntry
 
@@ -165,7 +192,7 @@ class DeviceBFS:
                  fpset_capacity=1 << 20,
                  next_capacity=1 << 14, chunk_tiles=64,
                  model_factory=None, device=None, symmetry="auto",
-                 edges=False, commit="fused"):
+                 edges=False, commit="fused", bounds="auto", por="off"):
         if commit not in ("fused", "per-action"):
             raise TLAError(f"commit must be 'fused' or 'per-action' "
                            f"(got {commit!r})")
@@ -198,6 +225,19 @@ class DeviceBFS:
         # caller that must see every kernel call as it happens turns
         # this off
         self.graphs = self.device.type == "cuda"
+        # speclint's bounds facts (module docstring): dead actions
+        # pruned, the pack tightened, the fused caps seeded from fanout
+        self._facts = resolve_bounds(spec, bounds)
+        self._pruned = []
+        # the ample-set reduction: its facts, refused under a blocker
+        # when forced; the filter is bound to the kernel in _build
+        self._por_facts = resolve_por(
+            spec, por,
+            temporal=bool(getattr(spec, "temporal_props", None)
+                          or spec.cfg.properties),
+            edges=self._edges_on, commit=self.commit)
+        self._por = None
+        self._por_kept = self._por_full = self._por_amp = 0
         self._build(max_msgs)
 
     # ------------------------------------------------------------------
@@ -206,8 +246,27 @@ class DeviceBFS:
         again on bag growth."""
         self.codec, self.kern = self._model_factory(self.spec,
                                                     max_msgs=max_msgs)
+        # statically dead actions leave the kernel's lane tables; they
+        # are never enabled, so results are those of the full kernel
+        if self._facts is not None and self._facts.dead_actions:
+            dead = [n for n in self._facts.dead_actions
+                    if n in self.kern.action_names]
+            if dead and len(dead) < len(self.kern.action_names):
+                self.kern = prune_kernel(self.kern, dead)
+                self._pruned = dead
         kern = self.kern
+        # the pack tightened to the reachable intervals (_pk_decl keeps
+        # the declared layout for the bound_tightening_ratio gauge); the
+        # flat lane order, which the kernels read, is the same
+        self._pk_decl = kern.pk
+        tighten = (self._facts.plane_tighten()
+                   if self._facts is not None else {})
         self._pk = kern.pk
+        if tighten and kern.pk is not None:
+            self._pk = build_pack_spec(
+                self.codec, ranges=derive_ranges_from(
+                    self.spec.cfg.constants, self.spec.module_name),
+                tighten=tighten)
         # the model's bag-overflow flag; K8 knows the engine's bit only
         # (a stub model that never fills a bag declares none)
         self._bag_bit = getattr(kern, "ERR_BAG_OVERFLOW", ERR_BAG_OVERFLOW)
@@ -222,6 +281,14 @@ class DeviceBFS:
         if self.expand_caps is None:
             self.expand_caps = [min(t, max(8, _align8(self.tile)))
                                 for t in tl]
+            # the bounds pass proves at most `fanout` lanes of an action
+            # enabled per state: tile * fanout is a sound first cap
+            if self._facts is not None:
+                for a, n in enumerate(names):
+                    fo = self._facts.fanout.get(n)
+                    if fo:
+                        self.expand_caps[a] = min(
+                            tl[a], max(8, _align8(self.tile * fo)))
         else:
             self.expand_caps = [min(t, max(8, int(c)))
                                 for t, c in zip(tl, self.expand_caps)]
@@ -249,6 +316,17 @@ class DeviceBFS:
                           np.concatenate([[0], np.cumsum(self._lanes)[:-1]])]
         self._lane_aid = torch.as_tensor(
             np.repeat(np.arange(len(names)), self._lanes), device=self.device)
+        # the ample-set filter bound to THIS kernel (rebuilt with it, so
+        # the action alignment survives bag growth and pruning);
+        # _por_active gates every device table: facts with no eligible
+        # action leave the tile bodies as they are without POR
+        self._por = (PORFilter(self._por_facts, kern)
+                     if self._por_facts is not None else None)
+        self._por_active = (self._por is not None
+                            and self._por.any_eligible
+                            and self.commit == "fused")
+        if self._por_active:
+            self._por_pt = por_tables(self._por.amat, self.device)
 
     def _expand_caps(self):
         """Per-action compaction capacities, in lanes: the fused
@@ -317,12 +395,13 @@ class DeviceBFS:
     # one chunk of tiles (the body of the JAX level pass)
     # ------------------------------------------------------------------
     def _level(self, table, front, n_front, start_t, bufs, nn,
-               want_deadlock, eb=None):
+               want_deadlock, eb=None, pdepth=0):
         """Run tiles start_t.. of the level until a reason stops the
         chunk or chunk_tiles tiles committed.  Returns the loop state
         as host values; ``table`` and ``bufs`` (and the edge buffers
         ``eb`` of an edge run, ``engine/edges.EdgeBuffers``) are updated
-        in place."""
+        in place.  ``pdepth`` is the frontier's level, the ample-set
+        reduction's C3 marker bound."""
         T, K = self.tile, self.chunk_tiles
         pk, kern, dev = self._pk, self.kern, self.device
         n_tiles = (n_front + T - 1) // T
@@ -332,6 +411,7 @@ class DeviceBFS:
         total_E = sum(caps)
         out = {"t": start_t, "reason": RUNNING, "viol": None, "dead": -1,
                "grow_aid": -1, "nn": nn, "dist": 0, "gen": 0,
+               "gfull": 0, "amp": 0,
                "act": np.zeros(n_act, np.int64),
                "need": np.zeros(n_act, np.int64)}
         if kk == 0:
@@ -348,16 +428,23 @@ class DeviceBFS:
             1, self._lane_aid, lane_sum).cpu().numpy()         # [kk, n_act]
         out["need"] = counts.max(axis=0)
         tile = self._tile if self.commit == "fused" else self._tile_pa
+        pdepth_t = (torch.tensor([pdepth], dtype=I64, device=dev)
+                    if self._por_active else None)
         while out["t"] < n_tiles and out["t"] < start_t + K:
             self._count("tiles")
             tile(out, table, bufs, cflat, en, en_any, cvalid, counts,
-                 start_t, caps, total_E, want_deadlock, eb)
+                 start_t, caps, total_E, want_deadlock, eb, pdepth_t)
             if out["reason"] != RUNNING:
                 break
+        if self._por_active:
+            self._por_kept += out["gen"]
+            self._por_full += out["gfull"]
+            self._por_amp += out["amp"]
         return out
 
     def _tile(self, out, table, bufs, cflat, en, en_any, cvalid, counts,
-              start_t, caps, total_E, want_deadlock, eb=None):
+              start_t, caps, total_E, want_deadlock, eb=None,
+              pdepth_t=None):
         T = self.tile
         pk, kern, dev = self._pk, self.kern, self.device
         n_act = len(kern.action_names)
@@ -408,9 +495,24 @@ class DeviceBFS:
                         parts) if self._incremental
                     else self._fp(o["succ"]))
             mcommit = en2 & (aid_q < first_bad)
+            P = None
+            if self._por_active:
+                # K17 on the pre-insert table: a row whose ample
+                # candidate's successors are all fresh keeps only them
+                P = por_buffers(T, segs.total, n_act, dev)
+                por_cand(en[off:off + T], cvalid[off:off + T], segs,
+                         self._por_pt, P)
+                por_probe(table, table["gids"], fp_q, en2, q, P, pdepth_t)
+                por_keep(en2, q, P, pdepth_t)
+                mcommit = mcommit & P["keep"]
             # -- stage 3: one dedup, one insert, one scatter -----------
             keep = dedup_keep(fp_q, mcommit)
             _tbl, fresh, ovf_i = insert_core(table, fp_q, keep)
+            if P is not None:
+                # the level markers ride the insert ungated: a paused
+                # tile's own inserts read as fresh on re-entry
+                store_gids(table["slots"], table["gids"], fp_q, P["mark"],
+                           fresh)
             rank = torch.cumsum(fresh, 0) - 1 + out["nn"]
             dest = torch.where(fresh, rank, bufs.cap)
             pk.pack(o["succ"], out=bufs.nb,
@@ -423,17 +525,22 @@ class DeviceBFS:
             emitted = [] if eb is None else [self._emit(
                 table, eb, fp_q, fresh, rank, en2, q,
                 (first_bad >= n_act) & (ovf_t == 0), base).long()]
-            host = torch.stack([
+            host = torch.cat([torch.stack([
                 fresh.sum(), ovf_t.long(), first_bad, viol.any().long(),
                 slot.any().long(), bag.any().long(),
                 q["pidx"][vidx].long(), aid_q[vidx],
-                q["lane"][vidx].long()] + tail + [oob_flag()] + emitted
+                q["lane"][vidx].long()] + tail + [oob_flag()] + emitted)]
+                + ([] if P is None else [P["kept"], P["amp"]])
                 ).cpu().numpy()
         else:
+            P = None
             host = np.concatenate([[0, 0, ovf_first, 0, 0, 0, 0, 0, 0],
                                    torch.stack(tail + [oob_flag()]
                                                ).cpu().numpy()])
         h = [int(x) for x in host]
+        if P is not None:
+            kept, amp = np.asarray(h[-n_act - 1:-1], np.int64), h[-1]
+            h = h[:-n_act - 1]
         if len(h) > 12:
             eb.n += h[12]
         (nfi, ovf_i, first_bad, viol_any, slot_any, bag_any, vrow, vaid,
@@ -461,8 +568,15 @@ class DeviceBFS:
             out["dead"] = base + dead_i
         out["reason"] = reason
         if commit:
-            out["gen"] += int(cnts.sum())
-            out["act"] += cnts
+            if P is None:
+                out["gen"] += int(cnts.sum())
+                out["act"] += cnts
+            else:
+                # gen/act describe the reduced run; gfull the unreduced
+                out["gen"] += int(kept.sum())
+                out["act"] += kept
+                out["gfull"] += int(cnts.sum())
+                out["amp"] += amp
             if reason == RUNNING:
                 out["t"] = t + 1
 
@@ -577,7 +691,8 @@ class DeviceBFS:
                           eb.src_base + base)
 
     def _tile_pa(self, out, table, bufs, cflat, en, en_any, cvalid, counts,
-                 start_t, caps, total_E, want_deadlock, eb=None):
+                 start_t, caps, total_E, want_deadlock, eb=None,
+                 pdepth_t=None):
         """One tile of ``run``'s level pass with the per-action commit:
         the headroom gates on the host (as ``_tile``), then the tile on
         the device (``_pa_body``) against a carry made for it, and one
@@ -734,6 +849,12 @@ class DeviceBFS:
                 table["slots"], empty_gids(self.fpset_capacity,
                                            self.device), fps0,
                 torch.arange(n0, dtype=I32, device=self.device), ones)
+        if self._por_active:
+            # the C3 level-marker column: the initial states are level
+            # 0, and a zero column gives each of them marker 0 without a
+            # store (an empty slot's value is never read)
+            table["gids"] = torch.zeros((self.fpset_capacity,), dtype=I32,
+                                        device=self.device)
         self._h_parent = [np.full(n0, -1, np.int64)]
         self._h_action = [np.full(n0, -1, np.int32)]
         self._h_param = [np.zeros(n0, np.int32)]
@@ -783,8 +904,16 @@ class DeviceBFS:
         return out
 
     # ------------------------------------------------------------------
+    def _start(self, log):
+        """What every entry point does first: the speclint gate (before
+        any device work; a report in which no pass ran for a cfg-only
+        binding) and the reduction's counters reset."""
+        preflight(self.spec, log=log)
+        self._por_kept = self._por_full = self._por_amp = 0
+
     def run(self, max_states=None, max_depth=None, check_deadlock=False,
             log=None) -> CheckResult:
+        self._start(log)
         emit = log or (lambda msg: None)
         self._act_counts = np.zeros(len(self.kern.action_names), np.int64)
         self._lanes_disp = 0
@@ -810,7 +939,8 @@ class DeviceBFS:
             n_tiles = (n_front + self.tile - 1) // self.tile
             while True:
                 out = self._level(table, front, n_front, start_t, bufs,
-                                  n_next, check_deadlock)
+                                  n_next, check_deadlock,
+                                  pdepth=depth - 1)
                 start_t, n_next = out["t"], out["nn"]
                 res.states_generated += out["gen"]
                 fp_count += out["dist"]
@@ -925,7 +1055,10 @@ class DeviceBFS:
                 "mcommit": z(segs.total), "dest": z(segs.total, dtype=I32),
                 "ar": torch.arange(T, device=dev),
                 # K15's chain (the per-action commit)
-                "pa": z(len(PA_FIELDS), dtype=I64)}
+                "pa": z(len(PA_FIELDS), dtype=I64),
+                # K17's outputs (the ample-set reduction)
+                "por": (por_buffers(T, segs.total, n_act, dev)
+                        if self._por_active else None)}
 
     def _fused_tile(self, S):
         """One tile of the fused pass, with no host sync (the body the
@@ -953,14 +1086,25 @@ class DeviceBFS:
         fp_q = (kern.fingerprint_incremental(o["succ"], o["ri"], o["ts"],
                                              q["pidx"], tile_flat, parts)
                 if self._incremental else self._fp(o["succ"], S["canon"]))
+        P, table = S["por"], S["table"]
+        if P is not None:
+            # K17 before K1, the level (pdepth) read from the carry
+            pdepth = carry[C_DEPTH:C_DEPTH + 1]
+            por_cand(en, valid, S["segs"], self._por_pt, P)
+            por_probe(table, table["gids"], fp_q, o["en2"], q, P, pdepth)
+            por_keep(o["en2"], q, P, pdepth)
         commit_prefix(carry, q, o["en2"], o["iok"], o["err"], S["tile"],
-                      S["mcommit"])
+                      S["mcommit"], None if P is None else P["keep"])
         keep = dedup_keep(fp_q, S["mcommit"])
-        _tbl, fresh, ovf_i = insert_core(S["table"], fp_q, keep)
+        _tbl, fresh, ovf_i = insert_core(table, fp_q, keep)
         if not isinstance(ovf_i, torch.Tensor):
             ovf_i = torch.tensor(int(ovf_i), dtype=I32)
+        if P is not None:
+            store_gids(table["slots"], table["gids"], fp_q, P["mark"],
+                       fresh)
+        kept, amp = (None, None) if P is None else (P["kept"], P["amp"])
         commit_finish(carry, q, S["tile"], fresh, ovf_i, en_any, valid,
-                      bufs, S["dest"])
+                      bufs, S["dest"], kept, amp)
         pk.pack(o["succ"], out=bufs.nb, dest=S["dest"])
         level_step(carry, bufs, front.nb, S["tp"], S["lvl"], T)
 
@@ -1066,6 +1210,7 @@ class DeviceBFS:
         if self._edges_on:
             raise TLAError("edge emission runs in PagedBFS.run (the "
                            "chunked level pass), not in run_fused")
+        self._start(log)
         emit = log or (lambda msg: None)
         kern, T, dev = self.kern, self.tile, self.device
         n_act = len(kern.action_names)
@@ -1108,6 +1253,10 @@ class DeviceBFS:
 
         def finish():
             res.states_generated = gen0 + h[C_GEN]
+            if self._por_active:
+                self._por_kept = h[C_GEN]
+                self._por_full = h[C_GFULL]
+                self._por_amp = h[C_AMP]
             self._count("tiles", h[C_TILES])
             self._count("replays_after_stop", h[C_IDLE])
             self._finish(res, h[C_FP_COUNT], table, t0)
@@ -1270,6 +1419,24 @@ class DeviceBFS:
                                      else kernel_fold_order(self.kern))}
         if res.states_generated and fp_count:
             gauges["orbit_ratio"] = round(res.states_generated / fp_count, 4)
+        if self._facts is not None:
+            # what the bounds pass proved and how many pack bits it saved
+            if self._facts.state_bound is not None:
+                gauges["state_bound"] = int(self._facts.state_bound)
+            gauges["dead_actions"] = len(self._pruned)
+            ratio = 1.0
+            if self._pk is not None and self._pk_decl is not None and \
+                    self._pk.total_bits:
+                ratio = self._pk_decl.total_bits / self._pk.total_bits
+            gauges["bound_tightening_ratio"] = round(ratio, 4)
+        if self._por is not None:
+            # generated kept / generated full (1.0 when inert), and the
+            # expanded states that took the shortcut with work elided
+            full = int(self._por_full)
+            gauges["por_cut_ratio"] = (round(int(self._por_kept) / full, 4)
+                                       if full else 1.0)
+            gauges["ample_states"] = int(self._por_amp)
+            gauges["por_eligible_actions"] = self._por.n_eligible
         if acts is not None:
             gauges["action_expansions"] = {
                 n: int(c) for n, c in zip(self.kern.action_names, acts)}

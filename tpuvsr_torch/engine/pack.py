@@ -370,16 +370,35 @@ class PackSpec:
         return to_i32((v + t["lo"].to(torch.int64)) & MASK32)
 
 
-def build_pack_spec(codec, ranges=None):
-    """Derive the :class:`PackSpec` for a codec binding.
+def build_pack_spec(codec, ranges=None, tighten=None):
+    """Derive the :class:`PackSpec` for a codec binding
+    (``tpuvsr/engine/pack.py:288-330``).
 
     ``ranges`` is the widths table (``analysis.widths.
     derive_ranges_from``).  Codecs that declare no ``plane_bounds``
-    return None."""
+    return None.  ``tighten`` is the bounds pass's reachable-interval
+    map (``BoundsFacts.plane_tighten()``): a plane whose declared bound
+    is uniform (or absent) gets it intersected with its reachable
+    interval, so it packs in fewer bits, and the round trip stays exact
+    for every reachable state; per-column declared tables keep their
+    own budgets.  K4's range flag then holds the tightened bounds."""
     if not hasattr(codec, "plane_bounds"):
         return None
     bounds = codec.plane_bounds(ranges or {})
     zero = codec.zero_state()
+    if tighten:
+        bounds = dict(bounds)
+        for key, (tlo, thi) in tighten.items():
+            if key not in zero:
+                continue                    # not a plane of this codec
+            cur = bounds.get(key)
+            if cur is None:
+                bounds[key] = (int(tlo), int(thi))
+            elif isinstance(cur, tuple) and len(cur) == 2 and \
+                    not isinstance(cur[0], (tuple, list)):
+                lo, hi = max(cur[0], int(tlo)), min(cur[1], int(thi))
+                if lo <= hi:
+                    bounds[key] = (lo, hi)  # reachable and declared
     entries = []
     for key, z in zero.items():
         shape = tuple(np.shape(z))

@@ -40,10 +40,16 @@ the tile's edges once at its end, on the final commit flag (the JAX
 per-action edge block).  Symmetry works as there:
 every insert goes through ``_fp``.
 
+Speclint's ``preflight``, the bounds facts and the ample-set reduction
+(``bounds=``, ``por=``) are DeviceBFS's (the JAX engine's
+``paged_bfs.py:219-236``): ``run`` gates on ``preflight`` before any
+device work, and each chunk's level pass probes and stores the C3 level
+markers (K17, K11) as ``DeviceBFS.run()`` does.
+
 Left out of this port (see ROADMAP.md): the dispatch window (one level
 pass call at a time; the JAX package's results are the same for every
-window size), checkpoints and rescue, the wall-clock budget, the run
-journal and ``preflight``.
+window size), checkpoints and rescue, the wall-clock budget and the run
+journal.
 """
 
 from __future__ import annotations
@@ -200,6 +206,7 @@ class PagedBFS(DeviceBFS):
     # ------------------------------------------------------------------
     def run(self, max_states=None, max_depth=None, check_deadlock=False,
             log=None) -> CheckResult:
+        self._start(log)
         emit = log or (lambda msg: None)
         T, dev = self.tile, self.device
         self._act_counts = np.zeros(len(self.kern.action_names), np.int64)
@@ -311,7 +318,8 @@ class PagedBFS(DeviceBFS):
                         eb.src_base = level_base + chunk_start
                         eb.gid_base = level_base + n_front + n_next_total
                     out = self._level(table, chunk, n_c, start_t, bufs,
-                                      n_next, check_deadlock, eb)
+                                      n_next, check_deadlock, eb,
+                                      pdepth=depth - 1)
                     start_t, n_next = out["t"], out["nn"]
                     res.states_generated += out["gen"]
                     fp_count += out["dist"]

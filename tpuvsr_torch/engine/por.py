@@ -1,0 +1,207 @@
+"""Engine-side consumption of the independence pass — ample-set
+partial-order reduction.
+
+``analysis/passes/independence.py`` computes the facts; this module is
+the seam through which the engines trust them:
+
+* :func:`resolve_por` — the one policy switch, mirroring
+  ``bounds.resolve_bounds``: ``"auto"`` consumes the facts iff the
+  speclint gate is live AND no soundness blocker applies; forcing
+  ``"on"`` under the gate off or under a blocker is a loud
+  ``TLAError`` (the CLI rejects the flag combinations at parse time;
+  this guards library callers).  Blockers: temporal properties
+  (PROPERTY — the reduced graph does not preserve LTL without
+  visibility conditions far beyond invariants), ``-edges on`` (the
+  behavior graph must cover the FULL next-state relation), and
+  non-fused commit modes (the ample filter lives in the fused
+  commit's staging queue).  Engine constructors default ``por="off"``
+  — unlike bounds tightening, the reduction legitimately SHRINKS
+  distinct-state counts, so library callers opt in; the CLI's
+  ``-por`` defaults to auto for real checking runs.
+* :class:`PORFilter` — the device-resident ample tables bound to one
+  kernel.
+
+Soundness (the classic ample-set conditions, README "Partial-order
+reduction"):
+
+* C0/C1 (persistence): an action is *eligible* only when the facts
+  matrix shows it independent of EVERY other kernel action.  That is
+  deliberately stronger than "independent of every currently enabled
+  action": independence of the enabled set alone is not persistent —
+  a currently-disabled conflicting action can become enabled along a
+  path of independent actions and then race the ample action.  Full-
+  matrix independence closes that hole statically: nothing can ever
+  write an eligible action's read set, so its enabled LANE SET is
+  constant along every path that does not fire it, and all its
+  enabled lanes form a persistent set.
+* C2 (invisibility): eligible actions must not write any cfg
+  invariant's read set, so skipping interleavings cannot change any
+  invariant verdict.  Deadlock detection needs no visibility
+  condition (persistent sets preserve deadlocks) and the enabled-any
+  reduction in the engines runs on the UNMASKED guard matrix.
+* C3 (no ignoring): enforced by the BFS level structure.  A state
+  takes the ample shortcut only if its ample successors are FRESH —
+  not present in the visited set as of the current level (the FPSet
+  gids column stores a level marker per fingerprint; ``marker <=
+  frontier level`` means old).  Any cycle in the reduced graph
+  contains a state whose cycle successor was discovered at the same
+  or an earlier level, so that state refused the shortcut and was
+  fully expanded.  States committed *while generating the next level*
+  carry ``level+1`` markers and still count as fresh, which makes the
+  check timing-immune: pause/re-entry after a mid-level FPSet growth
+  and kill/resume from a level-boundary snapshot (markers rebuilt as
+  zeros — every stored fingerprint is old at a boundary) reproduce
+  bit-identical decisions.
+* Sharded C3: the owner-partitioned FPSet cannot probe successor
+  freshness locally, so the sharded engine uses a fully static
+  proviso instead — only eligible actions with a *monotone progress
+  witness* (facts: a bounded variable every firing strictly
+  increases) may shortcut.  Because every eligible action is
+  independent of every other, no action writes another eligible
+  action's witness, so the summed witnesses strictly increase along
+  any all-ample path; bounded above, such a path is finite and no
+  cycle can consist of ample shortcuts only.  The sharded reduction
+  is therefore weaker (counts may shrink less than the single-device
+  engines') but deterministic and collective-free.
+
+Trace honesty: with a reduction active, a violation's first-found
+witness trace can differ from the unreduced run's (the verdict cannot
+— some violating state is always preserved).  The oracles in
+``tests/test_por.py`` assert verdict/deadlock identity everywhere and
+bit-identical counts wherever the filter is inert.
+
+Checkpoint seam: engines record the facts digest in snapshot
+manifests under ``por`` and refuse to resume under a flipped ``-por``
+or changed facts (mirroring pack/canon/bounds).
+
+A copy of ``tpuvsr/engine/por.py`` (``resolve_por`` :85, ``PORFilter``
+:126, whole, with ``sharded=`` for the sharded engine's static proviso
+and ``journal_doc``/``manifest`` for the checkpoint seam).  The port
+consumes it in ``DeviceBFS.run()``, ``run_fused()`` and ``PagedBFS``,
+whose device step is K17 (``csrc/por_ample.cu``, ``engine/tile.py``
+``por_cand``/``por_probe``/``por_keep``).  Still to come, each with its
+own item: ``run_chained``, checkpoints (the manifest's ``por`` check),
+the observer and journal, and the CLI's ``-por`` flag.  As with bounds,
+a cfg-only binding has no module text: ``"auto"`` resolves to None and
+``"on"`` raises a ``TLAError`` that names the missing text (the port's
+rule).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.values import TLAError
+
+
+def resolve_por(spec, req="off", *, temporal=False, edges=False,
+                commit="fused"):
+    """The engines' POR switch -> :class:`IndependenceFacts` or None.
+
+    ``req``: ``"auto"`` (on iff the speclint gate is live and no
+    blocker applies) | True/"on" (forced; loud error on gate-off or
+    blocker) | False/"off"."""
+    if req is None or req is False or req == "off":
+        return None
+    if req not in (True, "on", "auto"):
+        raise TLAError(f"por must be 'auto', 'on' or 'off' (got {req!r})")
+    forced = req is True or req == "on"
+    from ..analysis import has_module_text, lint_enabled
+    if not lint_enabled():
+        if forced:
+            raise TLAError(
+                "por=on requires the speclint gate: TPUVSR_LINT=off / "
+                "-lint=off disables the static independence analysis "
+                "the ample-set filter would trust (drop -por on or "
+                "re-enable lint)")
+        return None
+    blockers = []
+    if temporal:
+        blockers.append("temporal properties (PROPERTY)")
+    if edges:
+        blockers.append("-edges on (the behavior graph must cover the "
+                        "full next-state relation)")
+    if commit != "fused":
+        blockers.append(f"commit={commit!r} (the ample filter lives in "
+                        f"the fused commit)")
+    if blockers:
+        if forced:
+            raise TLAError(
+                f"por=on is unsound under {'; '.join(blockers)} — "
+                f"partial-order reduction preserves invariant and "
+                f"deadlock verdicts only (drop -por on)")
+        return None
+    if not has_module_text(spec):
+        if forced:
+            raise TLAError(
+                f"por=on needs the module text of {spec.module_name}: a "
+                f"cfg-only binding has no .tla to analyse (bind it with "
+                f"load_spec, or drop por=on)")
+        return None
+    from ..analysis.passes.independence import analyze
+    return analyze(spec)
+
+
+class PORFilter:
+    """Ample-set tables for one kernel binding.
+
+    ``amat[a, b]`` is True when expanding only action ``a`` is safe in
+    the presence of an enabled ``b`` — rows of ineligible actions are
+    all-False (any enabled action, including ``a`` itself, vetoes
+    them), so the per-tile-row conflict gather
+    ``enabled @ ~amat.T > 0`` rejects them without a separate
+    eligibility mask."""
+
+    def __init__(self, facts, kern, *, sharded=False):
+        names = list(kern.action_names)
+        n = len(names)
+        fidx = {nm: i for i, nm in enumerate(facts.action_names)}
+        amat = np.zeros((n, n), bool)
+        eligible = np.zeros(n, bool)
+        for a, nm in enumerate(names):
+            i = fidx.get(nm)
+            if i is None or nm in facts.poisoned:
+                continue       # kernel action unknown to the facts:
+                #                dependent-with-all (sound)
+            if facts.visible.get(nm, True):
+                continue       # C2: writes an invariant's read set
+            if facts.inv_refused:
+                continue
+            if sharded and not facts.monotone.get(nm):
+                continue       # sharded C3 needs the static witness
+            row_ok = True
+            for other in names:
+                if other == nm:
+                    continue
+                j = fidx.get(other)
+                if j is None or not facts.matrix[i][j]:
+                    row_ok = False
+                    break
+            if not row_ok:
+                continue
+            eligible[a] = True
+            for b, other in enumerate(names):
+                amat[a, b] = (b == a) or facts.matrix[i][fidx[other]]
+        self.facts = facts
+        self.sharded = bool(sharded)
+        self.eligible = eligible
+        self.amat = amat
+        self.n_actions = n
+        self.n_eligible = int(eligible.sum())
+        self.any_eligible = bool(eligible.any())
+        self.digest = facts.digest
+
+    def journal_doc(self):
+        """The ``por`` object journaled on run_start (key-set parity
+        across engines; ``None`` journaled when POR is off)."""
+        return {"digest": self.digest,
+                "actions": self.n_actions,
+                "eligible_actions": self.n_eligible,
+                "sharded_proviso": self.sharded,
+                "independence": self.facts.journal_doc()}
+
+    def manifest(self):
+        """The checkpoint-manifest ``por`` entry."""
+        return {"digest": self.digest,
+                "eligible_actions": self.n_eligible,
+                "sharded_proviso": self.sharded}

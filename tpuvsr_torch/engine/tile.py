@@ -1,6 +1,7 @@
 """The BFS's tile pipeline on the device: kernels K7 (work-queue
-compaction), K8 (the fused tile commit and the level step) and K15 (the
-per-action commit), and the carry they share.
+compaction), K8 (the fused tile commit and the level step), K15 (the
+per-action commit) and K17 (the ample-set step of the partial-order
+reduction), and the carry they share.
 
 The counterpart of the device code of ``tpuvsr/engine/device_bfs.py``
 that ``run_fused`` runs: the per-action ``jnp.nonzero(size=E_a)``
@@ -24,7 +25,19 @@ step meets a stop condition (``stop``); from then on K6 and K7 do
 nothing, ``commit_prefix`` masks every item out, ``commit_finish``
 scatters nothing (it counts the replay in ``idle``) and ``level_step``
 does nothing, so a tile replayed after the stop commits nothing.  The
-layout is ``enum Carry`` of ``csrc/tile_commit.cu``.
+layout is ``enum Carry`` of ``csrc/tile_commit.cu``.  Under the ample-set
+reduction ``gen`` and ``act`` count the kept expansions, ``gfull`` the
+unreduced ones and ``amp`` the rows that took the ample shortcut with
+work elided (the JAX body's ``gfull``/``amp``, :989-1013).
+
+**K17** (``csrc/por_ample.cu``) is the POR block of the fused body
+(``tpuvsr/engine/device_bfs.py:783-799``, ``:909-931``, ``:989-1019``):
+``por_cand`` finds each tile row's ample candidate from the guard
+matrix, ``por_probe`` probes the candidate's successors' level markers
+in the pre-insert FPSet (it must run before K1's insert), and
+``por_keep`` writes the keep mask ``commit_prefix`` ANDs into the commit
+mask, the kept and amp counts ``commit_finish`` folds into the carry,
+and the marker values (depth + 1) K11 stores on the fresh lanes.
 
 Each wrapper sends CPU tensors to its plain PyTorch version (in this
 module) and CUDA tensors to its kernel (``csrc/compact.cu``,
@@ -39,6 +52,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .fpset import lookup_gids_plain
 
 I64 = torch.int64
 I32 = torch.int32
@@ -65,11 +79,11 @@ CARRY_FIELDS = (
     "t", "reason", "halt", "stop", "nn", "n_front", "depth", "level_base",
     "fp_count", "gen", "tiles", "lvl_cur", "viol_row", "viol_aid",
     "viol_lane", "dead", "grow_aid", "idle", "want_deadlock", "max_depth",
-    "max_states", "max_lvls", "next_cap", "tp_cap")
+    "max_states", "max_lvls", "next_cap", "tp_cap", "gfull", "amp")
 (C_T, C_REASON, C_HALT, C_STOP, C_NN, C_N_FRONT, C_DEPTH, C_LEVEL_BASE,
  C_FP_COUNT, C_GEN, C_TILES, C_LVL_CUR, C_VIOL_ROW, C_VIOL_AID, C_VIOL_LANE,
  C_DEAD, C_GROW_AID, C_IDLE, C_WANT_DEADLOCK, C_MAX_DEPTH, C_MAX_STATES,
- C_MAX_LVLS, C_NEXT_CAP, C_TP_CAP) = range(len(CARRY_FIELDS))
+ C_MAX_LVLS, C_NEXT_CAP, C_TP_CAP, C_GFULL, C_AMP) = range(len(CARRY_FIELDS))
 C_NEED = len(CARRY_FIELDS)          # need[n_act], then act[n_act]
 
 # the tile's verdict, written by commit_prefix and read by commit_finish
@@ -206,7 +220,7 @@ def _compact_kernel(en, valid, segs, q, carry, action=None):
 # ----------------------------------------------------------------------
 # K8: commit_prefix
 # ----------------------------------------------------------------------
-def commit_prefix(carry, q, en2, iok, err, tile, mcommit):
+def commit_prefix(carry, q, en2, iok, err, tile, mcommit, keep=None):
     """K8 wrapper, first entry: the tile's verdict before the insert.
     ``en2`` [total] bool successors enabled, ``iok`` [total] bool
     invariants hold, ``err`` [total] int32 error flags of the queue
@@ -216,13 +230,15 @@ def commit_prefix(carry, q, en2, iok, err, tile, mcommit):
     violating item's (row, action, lane), per-action flags) and
     ``mcommit`` [total] bool: the enabled items of actions before the
     first failing one, none when the gate fails or the carry is
-    halted."""
+    halted.  Under POR ``keep`` ([total] bool, K17's keep mask) is
+    ANDed into ``mcommit``; the flags still see every item."""
     if en2.device.type == "cpu":
-        return commit_prefix_plain(carry, q, en2, iok, err, tile, mcommit)
-    return _prefix_kernel(carry, q, en2, iok, err, tile, mcommit)
+        return commit_prefix_plain(carry, q, en2, iok, err, tile, mcommit,
+                                   keep)
+    return _prefix_kernel(carry, q, en2, iok, err, tile, mcommit, keep)
 
 
-def commit_prefix_plain(carry, q, en2, iok, err, tile, mcommit):
+def commit_prefix_plain(carry, q, en2, iok, err, tile, mcommit, keep=None):
     n_act = q["cnts"].shape[0]
     total = en2.shape[0]
     ok = en2 & q["ok"]
@@ -252,11 +268,12 @@ def commit_prefix_plain(carry, q, en2, iok, err, tile, mcommit):
     aflags = v_a.long() | (b_a.long() << 1) | (s_a.long() << 2)
     tile.copy_(torch.cat([torch.tensor(flags, dtype=I64,
                                        device=tile.device), aflags]))
-    mcommit.copy_(ok & (aid < first_bad) & room & (c[C_HALT] == 0))
+    m = ok & (aid < first_bad) & room & (c[C_HALT] == 0)
+    mcommit.copy_(m if keep is None else m & keep)
     return tile, mcommit
 
 
-def _prefix_kernel(carry, q, en2, iok, err, tile, mcommit):
+def _prefix_kernel(carry, q, en2, iok, err, tile, mcommit, keep=None):
     total = en2.shape[0]
     n_act = q["cnts"].shape[0]
     if n_act > MAX_ACTIONS:
@@ -272,8 +289,9 @@ def _prefix_kernel(carry, q, en2, iok, err, tile, mcommit):
         ck(q["lane"], "lane", I32, (total,)),
         ck(q["aid"], "aid", I32, (total,)),
         ck(q["ok"], "ok", torch.bool, (total,)),
-        ck(q["ovf"], "ovf", torch.bool, (n_act,)), total, n_act,
-        ck(mcommit, "mcommit", torch.bool, (total,)),
+        ck(q["ovf"], "ovf", torch.bool, (n_act,)),
+        None if keep is None else ck(keep, "keep", torch.bool, (total,)),
+        total, n_act, ck(mcommit, "mcommit", torch.bool, (total,)),
         ck(tile, "tile", I64, (F_AFLAGS + n_act,)),
         kernels.stream_of(en2))
     return tile, mcommit
@@ -283,7 +301,7 @@ def _prefix_kernel(carry, q, en2, iok, err, tile, mcommit):
 # K8: commit_finish
 # ----------------------------------------------------------------------
 def commit_finish(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
-                  dest):
+                  dest, kept=None, amp=None):
     """K8 wrapper, second entry: after the insert (K1's ``fresh`` [total]
     bool and its overflow flag ``ovf_i``, a 0-dim int32 tensor).  Writes
     ``dest`` [total] int32 = ``nn + cumsum(fresh) - 1`` for fresh items
@@ -296,16 +314,19 @@ def commit_finish(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
     enabled, when the carry asks for it); on a commit ``gen`` and
     ``act`` by the tile's counts; ``t`` and ``tiles`` by one when the
     tile commits and the reason stays RUNNING; ``halt`` on any reason.
-    A halted carry gets ``dest`` all -1 and one more ``idle`` replay."""
+    A halted carry gets ``dest`` all -1 and one more ``idle`` replay.
+    Under POR (``kept`` [n_act] int64 and ``amp`` [1] int64, K17's) a
+    commit adds the kept counts to ``gen`` and ``act``, the unreduced
+    counts to ``gfull`` and ``amp`` to ``amp``."""
     if fresh.device.type == "cpu":
         return commit_finish_plain(carry, q, tile, fresh, ovf_i, en_any,
-                                   valid, bufs, dest)
+                                   valid, bufs, dest, kept, amp)
     return _finish_kernel(carry, q, tile, fresh, ovf_i, en_any, valid,
-                          bufs, dest)
+                          bufs, dest, kept, amp)
 
 
 def commit_finish_plain(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
-                        dest):
+                        dest, kept=None, amp=None):
     c = carry.tolist()
     if c[C_HALT]:
         return _halted_plain(carry, dest, True)
@@ -320,7 +341,8 @@ def commit_finish_plain(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
     _fold_verdict_plain(
         c, f[F_ROOM], f[F_VIOL], f[F_SLOT], f[F_BAG], f[F_OVF], oi,
         f[F_ROOM] and f[F_FIRST_BAD] >= n_act and not oi, f[F_GROW_AID],
-        f[F_VROW], f[F_VAID], f[F_VLANE], en_any, valid, q["cnts"])
+        f[F_VROW], f[F_VAID], f[F_VLANE], en_any, valid, q["cnts"],
+        kept, amp)
     carry.copy_(torch.tensor(c, dtype=I64, device=carry.device))
     return dest
 
@@ -349,12 +371,14 @@ def _rank_scatter_plain(fresh, nn, row0, q, bufs, dest):
 
 
 def _fold_verdict_plain(c, room, viol, slot, bag, ovf_e, ovf_i, commit,
-                        grow_aid, vrow, vaid, vlane, en_any, valid, cnts):
+                        grow_aid, vrow, vaid, vlane, en_any, valid, cnts,
+                        kept=None, amp=None):
     """The two finishes' verdict at the tile's end, on the carry list
     ``c``: the reason by its priority, then deadlock; the violation's and
     the first overflow's ids; on a commit ``gen`` and ``act`` by
-    ``cnts``, and ``t`` and ``tiles`` by one while the reason stays
-    RUNNING; ``halt`` on any reason."""
+    ``cnts`` (by ``kept`` under POR, with ``gfull`` by ``cnts`` and
+    ``amp`` by ``amp``), and ``t`` and ``tiles`` by one while the reason
+    stays RUNNING; ``halt`` on any reason."""
     T, t = valid.shape[0], c[C_T]
     if not room:
         reason = R_NEXT_GROW
@@ -380,11 +404,14 @@ def _fold_verdict_plain(c, room, viol, slot, bag, ovf_e, ovf_i, commit,
     if ovf_e:
         c[C_GROW_AID] = grow_aid
     if commit:
-        counts = cnts.tolist()
+        counts = (cnts if kept is None else kept).tolist()
         n_act = len(counts)
         c[C_GEN] += sum(counts)
         for a in range(n_act):
             c[C_NEED + n_act + a] += counts[a]
+        if kept is not None:
+            c[C_GFULL] += int(cnts.sum())
+            c[C_AMP] += int(amp.sum())
         if reason == RUNNING:
             c[C_T] = t + 1
             c[C_TILES] += 1
@@ -394,7 +421,7 @@ def _fold_verdict_plain(c, room, viol, slot, bag, ovf_e, ovf_i, commit,
 
 
 def _finish_kernel(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
-                   dest):
+                   dest, kept=None, amp=None):
     total = fresh.shape[0]
     n_act = q["cnts"].shape[0]
     T = valid.shape[0]
@@ -413,6 +440,8 @@ def _finish_kernel(carry, q, tile, fresh, ovf_i, en_any, valid, bufs,
         ck(valid, "valid", torch.bool, (T,)), T,
         ck(bufs.par, "par", I32), ck(bufs.act, "act", I32),
         ck(bufs.prm, "prm", I32), ck(dest, "dest", I32, (total,)),
+        None if kept is None else ck(kept, "kept", I64, (n_act,)),
+        None if amp is None else ck(amp, "amp", I64, (1,)),
         kernels.stream_of(fresh))
     return dest
 
@@ -621,3 +650,172 @@ def _action_finish_kernel(carry, pa, q, fresh, ovf_i, a, cnts, en_any,
         ck(bufs.prm, "prm", I32), ck(dest, "dest", I32, (E,)),
         kernels.stream_of(fresh))
     return dest
+
+
+# ----------------------------------------------------------------------
+# K17: the ample-set step (partial-order reduction)
+# ----------------------------------------------------------------------
+def por_tables(amat, device):
+    """The reduction's tables for one ``PORFilter`` on ``device``:
+    ``amat`` ([n_act, n_act] bool, the plain versions' matrix) and
+    ``conf`` ([n_act] int64 bit patterns of uint64 masks: bit b of
+    ``conf[a]`` is ``~amat[a, b]``, the actions whose being enabled
+    vetoes a; K17's cand reads these)."""
+    amat = torch.as_tensor(amat, dtype=torch.bool)
+    n_act = amat.shape[0]
+    if n_act > MAX_ACTIONS:
+        raise ValueError(f"por: {n_act} actions, K17 takes at most "
+                         f"{MAX_ACTIONS}")
+    conf = []
+    for a in range(n_act):
+        m = 0
+        for b in range(n_act):
+            if not bool(amat[a, b]):
+                m |= 1 << b
+        conf.append(m - (1 << 64) if m >= 1 << 63 else m)
+    return {"amat": amat.to(device),
+            "conf": torch.tensor(conf, dtype=I64, device=device)}
+
+
+def por_buffers(T, total, n_act, device):
+    """K17's outputs for a tile of ``T`` rows and a queue of ``total``
+    items: per row ``has_cand``, ``aid_star``, ``n_en``, ``amp_bad``; per
+    item ``keep`` and ``mark``; ``kept`` [n_act] and ``amp`` [1]."""
+    z = lambda n, dt: torch.zeros((n,), dtype=dt, device=device)
+    return {"has_cand": z(T, torch.bool), "aid_star": z(T, I32),
+            "n_en": z(T, I32), "amp_bad": z(T, I32),
+            "keep": z(total, torch.bool), "mark": z(total, I32),
+            "kept": z(n_act, I64), "amp": z(1, I64)}
+
+
+def por_cand(en, valid, segs, pt, P):
+    """K17 wrapper, first entry.  ``en`` [T, n_lanes] bool guard matrix
+    of a tile, ``valid`` [T] bool, ``segs`` a ``Segments`` (each action's
+    first lane and lane count), ``pt`` ``por_tables``.  Writes into
+    ``P`` (``por_buffers``): ``has_cand`` (some enabled action of the
+    row conflicts with no enabled action), ``aid_star`` (the lowest such
+    action, 0 when none), ``n_en`` (the row's enabled actions);
+    ``amp_bad``, ``kept`` and ``amp`` are cleared."""
+    if en.device.type == "cpu":
+        return por_cand_plain(en, valid, segs, pt, P)
+    T, n_lanes = en.shape
+    n_act = len(segs.host)
+    ck = kernels.check
+    kernels.launch(
+        "por_cand", "tpuvsr_por_cand",
+        ck(en, "en", torch.bool, (T, n_lanes)),
+        ck(valid, "valid", torch.bool, (T,)), T, n_lanes,
+        ck(segs.dev, "segs", I32, (n_act, 4)), n_act,
+        ck(pt["conf"], "conf", I64, (n_act,)),
+        ck(P["has_cand"], "has_cand", torch.bool, (T,)),
+        ck(P["aid_star"], "aid_star", I32, (T,)),
+        ck(P["n_en"], "n_en", I32, (T,)),
+        ck(P["amp_bad"], "amp_bad", I32, (T,)),
+        ck(P["kept"], "kept", I64, (n_act,)),
+        ck(P["amp"], "amp", I64, (1,)), kernels.stream_of(en))
+    return P
+
+
+def por_cand_plain(en, valid, segs, pt, P):
+    """Plain version of ``por_cand``: the JAX body's matmul (``conflict =
+    en_act @ ~amat.T > 0``, an int32 one there; float32 here, which
+    PyTorch multiplies on the card too, and exact: each sum counts at
+    most 64 ones) and argmax."""
+    en_act = torch.stack([en[:, lo:lo + L].any(dim=1)
+                          for lo, L, _E, _qo in segs.host],
+                         dim=1) & valid[:, None]
+    conflict = (en_act.float() @ (~pt["amat"]).float().T) > 0
+    cand = en_act & ~conflict
+    P["has_cand"].copy_(cand.any(dim=1))
+    P["aid_star"].copy_(torch.argmax(cand.to(torch.int8), dim=1))
+    P["n_en"].copy_(en_act.sum(dim=1))
+    P["amp_bad"].zero_()
+    P["kept"].zero_()
+    P["amp"].zero_()
+    return P
+
+
+def por_probe(table, gids, fps, en2, q, P, pdepth):
+    """K17 wrapper, second entry, BEFORE K1's insert: the ample items
+    (enabled, of a row with a candidate, of its ``aid_star``) probe
+    their fingerprints ``fps`` ([total, 4] int32) in ``table``'s slots
+    and the level-marker column ``gids``; a stored marker ``0 <= g <=
+    pdepth`` (``pdepth`` a one-word int64 tensor: an old state) sets
+    ``P["amp_bad"]`` of the item's row."""
+    if fps.device.type == "cpu":
+        return por_probe_plain(table, gids, fps, en2, q, P, pdepth)
+    slots = table["slots"]
+    cap = slots.shape[0]
+    total = fps.shape[0]
+    T = P["has_cand"].shape[0]
+    ck = kernels.check
+    kernels.launch(
+        "por_probe", "tpuvsr_por_probe",
+        ck(slots, "slots", I32, (cap, 5)), cap,
+        ck(gids, "gids", I32, (cap,)), ck(fps, "fps", I32, (total, 4)),
+        ck(en2, "en2", torch.bool, (total,)),
+        ck(q["ok"], "ok", torch.bool, (total,)),
+        ck(q["pidx"], "pidx", I32, (total,)),
+        ck(q["aid"], "aid", I32, (total,)), total,
+        ck(P["has_cand"], "has_cand", torch.bool, (T,)),
+        ck(P["aid_star"], "aid_star", I32, (T,)),
+        ck(pdepth, "pdepth", I64, (1,)),
+        ck(P["amp_bad"], "amp_bad", I32, (T,)), kernels.stream_of(fps))
+    return P
+
+
+def por_probe_plain(table, gids, fps, en2, q, P, pdepth):
+    """Plain version of ``por_probe``: ``lookup_gids_plain`` of the ample
+    items and a scatter amax of the old ones onto their rows."""
+    pidx = q["pidx"].long()
+    is_amp = (en2 & q["ok"] & P["has_cand"][pidx]
+              & (q["aid"] == P["aid_star"][pidx]))
+    g = lookup_gids_plain(table, gids, fps, is_amp)
+    old = is_amp & (g >= 0) & (g <= int(pdepth))
+    P["amp_bad"].scatter_reduce_(0, pidx, old.to(I32), "amax")
+    return P
+
+
+def por_keep(en2, q, P, pdepth):
+    """K17 wrapper, third entry: ``take`` = has_cand and not amp_bad per
+    row; ``P["keep"]`` = enabled items of rows that do not take the
+    shortcut, and of those that do, their ``aid_star`` items only;
+    ``P["kept"]`` the kept items per action; ``P["amp"]`` the rows that
+    take it with more than one action enabled; ``P["mark"]`` = pdepth +
+    1 (the level marker K11 stores on the fresh lanes)."""
+    if en2.device.type == "cpu":
+        return por_keep_plain(en2, q, P, pdepth)
+    total = en2.shape[0]
+    T = P["has_cand"].shape[0]
+    n_act = P["kept"].shape[0]
+    ck = kernels.check
+    kernels.launch(
+        "por_keep", "tpuvsr_por_keep",
+        ck(en2, "en2", torch.bool, (total,)),
+        ck(q["ok"], "ok", torch.bool, (total,)),
+        ck(q["pidx"], "pidx", I32, (total,)),
+        ck(q["aid"], "aid", I32, (total,)), total,
+        ck(P["has_cand"], "has_cand", torch.bool, (T,)),
+        ck(P["aid_star"], "aid_star", I32, (T,)),
+        ck(P["n_en"], "n_en", I32, (T,)),
+        ck(P["amp_bad"], "amp_bad", I32, (T,)), T,
+        ck(pdepth, "pdepth", I64, (1,)),
+        ck(P["keep"], "keep", torch.bool, (total,)),
+        ck(P["mark"], "mark", I32, (total,)),
+        ck(P["kept"], "kept", I64, (n_act,)),
+        ck(P["amp"], "amp", I64, (1,)), kernels.stream_of(en2))
+    return P
+
+
+def por_keep_plain(en2, q, P, pdepth):
+    """Plain version of ``por_keep`` (the JAX body's keep_q, kept_act and
+    amp expressions)."""
+    pidx = q["pidx"].long()
+    take = P["has_cand"] & (P["amp_bad"] == 0)
+    keep = en2 & q["ok"] & (~take[pidx] | (q["aid"] == P["aid_star"][pidx]))
+    P["keep"].copy_(keep)
+    P["mark"].fill_(int(pdepth) + 1)
+    P["kept"].copy_(torch.zeros_like(P["kept"]).index_add_(
+        0, q["aid"].long(), keep.to(I64)))
+    P["amp"].copy_((take & (P["n_en"] > 1)).sum().reshape(1))
+    return P

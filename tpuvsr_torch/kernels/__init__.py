@@ -217,6 +217,15 @@ KERNELS = {
     "validate_commit": ("validate_step", "tpuvsr/validate/batch.py:260 "
                         "chunk_fn, one_trace's filter, dedup, rank "
                         "scatter and divergence update (:224-258)"),
+    # K17: the ample-set step of the partial-order reduction
+    "por_cand": ("por_ample", "tpuvsr/engine/device_bfs.py:783-799 "
+                 "_fused_body_factory ample candidate (en_act @ ~amat.T, "
+                 "argmax)"),
+    "por_probe": ("por_ample", "tpuvsr/engine/device_bfs.py:909-926 "
+                  "_fused_body_factory C3 probe of the level markers"),
+    "por_keep": ("por_ample", "tpuvsr/engine/device_bfs.py:927-931 "
+                 "_fused_body_factory keep mask (+ :989-1013 kept/amp "
+                 "counters)"),
 }
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
@@ -234,8 +243,9 @@ _ENTRY = {
     "tpuvsr_fleet_swarm_noise": "ppifip" + "i" + "p",
     "tpuvsr_vsr_guards": "piii" + "iiiiiiiii" + "ppp" + "ppp" + "p",
     "tpuvsr_compact": "ppiipi" + "i" + "pppppp" + "pii" + "p",
-    "tpuvsr_commit_prefix": "ppppppppp" + "ii" + "pp" + "p",
-    "tpuvsr_commit_finish": "ppppppp" + "ipi" + "ppi" + "pppp" + "p",
+    "tpuvsr_commit_prefix": "pppppppppp" + "ii" + "pp" + "p",
+    "tpuvsr_commit_finish": "ppppppp" + "ipi" + "ppi" + "pppp" + "pp"
+                            + "p",
     "tpuvsr_level_step": "pppppp" + "i" + "pppp" + "ii" + "p",
     "tpuvsr_action_gate": "pppppppp" + "p" + "ii" + "q" + "p" + "p",
     "tpuvsr_action_finish": "ppppppp" + "iii" + "p" + "ppi" + "pppp" + "p",
@@ -249,6 +259,9 @@ _ENTRY = {
     "tpuvsr_vstep_fill": "pppppp" + "iiii" + "ppppp" + "p",
     "tpuvsr_vstep_commit": "iiiiiii" + "pppppppppp" + "pppppp" + "ppppp"
                            + "p",
+    "tpuvsr_por_cand": "pp" + "ii" + "p" + "i" + "ppppppp" + "p",
+    "tpuvsr_por_probe": "p" + "q" + "pppppp" + "i" + "pppp" + "p",
+    "tpuvsr_por_keep": "pppp" + "i" + "pppp" + "i" + "ppppp" + "p",
 }
 # K13 and K14 take one signature for every model of the ST03 family
 for _m in ("st03", "a01", "i01", "as04", "rr05", "al05", "cp06"):

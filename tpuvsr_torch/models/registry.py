@@ -77,6 +77,19 @@ def _resolve(module):
     raise KeyError(f"no hand model kernel for module {module!r} in the port")
 
 
+def has_device_model(spec) -> bool:
+    """True if the port has a hand model kernel for the spec's module AND
+    the bound constants fit its dense layout
+    (``tpuvsr/models/registry.py:has_device_model``)."""
+    from ..core.values import TLAError
+    try:
+        codec_cls, _ = _resolve(spec.module_name)
+        codec_cls(spec.cfg.constants)
+        return True
+    except (KeyError, TLAError):
+        return False
+
+
 def make_model(binding, max_msgs=None):
     """(codec, kernel) for a bound spec (``engine/spec.SpecBinding``)."""
     codec_cls, kern_cls = _resolve(binding.module_name)

@@ -4,9 +4,12 @@ A port of ``tpuvsr/testing.py:counter_spec``, ``stub_model_factory``,
 ``stub_fleet``, ``stub_device_engine``, a ``stub_simulator`` beside them,
 ``stub_trace_records``, ``stub_validator``, ``stub_sym_factory``,
 ``stub_sym_engine``, ``stub_ticker_factory``, ``canon_csr`` and
-``stub_graph_engine``.  ``counter_spec`` parses the inline counter module
-with the port's own frontend; the engines take it or the cfg-only
-``counter_binding``.
+``stub_graph_engine``, and the parsed fixtures of the speclint passes
+and the ample-set reduction: ``counter_spec`` (with its ``inv_free``,
+``dead_action`` and ``nonlinear_guard`` variants), ``sym_pair_spec``,
+``ticker_spec`` and the ``POR_STUB_*`` oracles.  ``counter_spec`` parses
+the inline counter module with the port's own frontend; the engines take
+it or the cfg-only ``counter_binding``.
 It implements the kernel contract the device BFS and the walker fleet
 consume (``action_names``, ``_lane_count``, ``lane_action``,
 ``lane_param``, ``_guard_fns``, ``_action_fns``, ``fingerprint``,
@@ -68,6 +71,24 @@ COUNTER_CFG = ("CONSTANTS\n    Limit = 3\n"
 #: the counter spec's exact fixpoint
 STUB_DISTINCT = 16
 STUB_LEVELS = [1, 2, 3, 4, 3, 2, 1]
+
+#: the ``inv_free`` fixture's fixpoint under the ample-set partial-order
+#: reduction: IncX and IncY are independent and invisible, so every
+#: state expands one action, the (Limit, Limit) deadlock survives, and
+#: generated kept / generated full is 6 / 9
+POR_STUB_DISTINCT = 7
+POR_STUB_LEVELS = [1, 1, 1, 1, 1, 1, 1]
+POR_STUB_KEPT = 6
+POR_STUB_FULL = 9
+
+#: the dead-action fixture: ``Limit > 5`` folds FALSE under Limit = 3,
+#: so Jump never fires; the bounds pass proves it dead
+DEAD_ACTION = """Jump ==
+    /\\ Limit > 5
+    /\\ x' = x + 2
+    /\\ UNCHANGED y
+
+"""
 
 
 class _Shape:
@@ -192,19 +213,34 @@ class StubKern:
         return check
 
 
-def counter_spec(inv_bound=None, inv_x_bound=None, limit=None):
+def counter_spec(inv_bound=None, inv_x_bound=None, dead_action=False,
+                 nonlinear_guard=False, limit=None, inv_free=False):
     """The inline two-counter spec (16 states, diameter 6), parsed by the
-    port's frontend (``tpuvsr/testing.py:78``).  ``inv_bound`` tightens
-    Bound to ``x + y <= inv_bound``, ``inv_x_bound`` to ``x <=
+    port's frontend (``tpuvsr/testing.py:78-129``).  ``inv_bound``
+    tightens Bound to ``x + y <= inv_bound``, ``inv_x_bound`` to ``x <=
     inv_x_bound`` (pair each with ``stub_model_factory``'s); ``limit``
-    overrides the cfg's Limit."""
+    overrides the cfg's Limit.  ``dead_action`` adds Jump, whose guard
+    folds FALSE under the cfg (pair with
+    ``stub_model_factory(dead_action=True)``); ``nonlinear_guard`` makes
+    IncX's guard ``x * x < Limit``, outside the bounds pass's interval
+    domain (tightening refused); ``inv_free`` replaces Bound with
+    ``Limit >= 0``, which reads neither counter, so IncX and IncY are
+    independent and invisible: the ample-set reduction's fixture."""
     src = COUNTER
+    if inv_free:
+        src = src.replace("Bound == x + y <= 2 * Limit",
+                          "Bound == Limit >= 0")
     if inv_x_bound is not None:
         src = src.replace("Bound == x + y <= 2 * Limit",
                           f"Bound == x <= {int(inv_x_bound)}")
     elif inv_bound is not None:
         src = src.replace("Bound == x + y <= 2 * Limit",
                           f"Bound == x + y <= {int(inv_bound)}")
+    if nonlinear_guard:
+        src = src.replace("/\\ x < Limit", "/\\ x * x < Limit")
+    if dead_action:
+        src = src.replace("Next == IncX \\/ IncY",
+                          DEAD_ACTION + "Next == IncX \\/ IncY \\/ Jump")
     cfg = COUNTER_CFG
     if limit is not None:
         cfg = cfg.replace("Limit = 3", f"Limit = {int(limit)}")
@@ -233,18 +269,25 @@ def stub_model_factory(limit=3, inv_bound=None, inv_x_bound=None,
     return make
 
 
-def stub_device_engine(inv_bound=None, device=None, limit=3, **kw):
-    """A small DeviceBFS over the counter stub (the JAX harness's
-    defaults: tile 4, FPSet 2^8 slots, next buffer 2^6 rows); keywords
-    such as ``commit="per-action"`` reach the engine."""
+def stub_device_engine(inv_bound=None, device=None, limit=3, spec=None,
+                       dead_action=False, inv_x_bound=None, cls=None,
+                       **kw):
+    """A small DeviceBFS (or ``cls``, e.g. ``PagedBFS``) over the counter
+    stub (the JAX harness's defaults: tile 4, FPSet 2^8 slots, next
+    buffer 2^6 rows) and ``spec`` (default the cfg-only
+    ``counter_binding``; a parsed ``counter_spec`` gives the engine's
+    speclint, bounds and POR something to analyse); keywords such as
+    ``commit="per-action"`` or ``por="on"`` reach the engine."""
     from .engine.device_bfs import DeviceBFS
-    return DeviceBFS(counter_binding(),
-                     model_factory=stub_model_factory(
-                         limit=limit, inv_bound=inv_bound),
-                     tile_size=kw.pop("tile_size", 4),
-                     fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
-                     next_capacity=kw.pop("next_capacity", 1 << 6),
-                     device=device, **kw)
+    cls = cls or DeviceBFS
+    return cls(spec or counter_binding(),
+               model_factory=stub_model_factory(
+                   limit=limit, inv_bound=inv_bound,
+                   inv_x_bound=inv_x_bound, dead_action=dead_action),
+               tile_size=kw.pop("tile_size", 4),
+               fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
+               next_capacity=kw.pop("next_capacity", 1 << 6),
+               device=device, **kw)
 
 
 def stub_fleet(inv_bound=None, inv_x_bound=None, walkers=64, device=None,
@@ -338,6 +381,31 @@ def stub_validator(spec=None, batch=64, cand_cap=4, chunk_steps=4,
 # ---------------------------------------------------------------------
 # SymPair: the symmetric fixture (tpuvsr/testing.py:403-470)
 # ---------------------------------------------------------------------
+SYMPAIR = """---- MODULE ObsSymPair ----
+CONSTANTS Vals
+VARIABLES a, b
+
+Init == a = 0 /\\ b = 0
+
+WriteA ==
+    /\\ a = 0
+    /\\ \\E v \\in Vals : a' = v
+    /\\ UNCHANGED b
+
+WriteB ==
+    /\\ b = 0
+    /\\ \\E v \\in Vals : b' = v
+    /\\ UNCHANGED a
+
+Next == WriteA \\/ WriteB
+
+Symm == Permutations(Vals)
+
+NoPair == a = 0 \\/ b = 0
+
+AllOk == TRUE
+====
+"""
 SYMPAIR_CFG = ("CONSTANTS\n    Vals = {v1, v2, v3}\n"
                "INIT Init\nNEXT Next\nSYMMETRY Symm\nINVARIANT {inv}\n")
 
@@ -363,6 +431,15 @@ def sympair_binding(inv_pair=False, symmetry=True):
         invariants=list(cfg.invariants),
         symmetry_perms=(permutations(cfg.constants["Vals"])
                         if cfg.symmetry else []))
+
+
+def sym_pair_spec(inv_pair=False, symmetry=True):
+    """SymPair parsed by the port's frontend (``tpuvsr/testing.py:438``):
+    the same cfg as ``sympair_binding``'s."""
+    cfg = SYMPAIR_CFG.replace("{inv}", "NoPair" if inv_pair else "AllOk")
+    if not symmetry:
+        cfg = cfg.replace("SYMMETRY Symm\n", "")
+    return SpecModel(parse_module_text(SYMPAIR), parse_cfg_text(cfg))
 
 
 class _SymShape:
@@ -474,21 +551,73 @@ def stub_sym_factory(inv_pair=False):
     return make
 
 
-def stub_sym_engine(symmetry="auto", inv_pair=False, device=None, **kw):
-    """A small DeviceBFS over SymPair (the JAX harness's defaults: tile 4,
-    FPSet 2^8 slots, next buffer 2^6 rows)."""
+def stub_sym_engine(symmetry="auto", inv_pair=False, device=None, spec=None,
+                    cls=None, **kw):
+    """A small DeviceBFS (or ``cls``) over SymPair (the JAX harness's
+    defaults: tile 4, FPSet 2^8 slots, next buffer 2^6 rows) and
+    ``spec`` (default the cfg-only ``sympair_binding``; ``sym_pair_spec``
+    is the parsed one)."""
     from .engine.device_bfs import DeviceBFS
-    return DeviceBFS(sympair_binding(inv_pair=inv_pair),
-                     model_factory=stub_sym_factory(inv_pair=inv_pair),
-                     symmetry=symmetry, tile_size=kw.pop("tile_size", 4),
-                     fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
-                     next_capacity=kw.pop("next_capacity", 1 << 6),
-                     device=device, **kw)
+    cls = cls or DeviceBFS
+    return cls(spec or sympair_binding(inv_pair=inv_pair),
+               model_factory=stub_sym_factory(inv_pair=inv_pair),
+               symmetry=symmetry, tile_size=kw.pop("tile_size", 4),
+               fpset_capacity=kw.pop("fpset_capacity", 1 << 8),
+               next_capacity=kw.pop("next_capacity", 1 << 6),
+               device=device, **kw)
 
 
 # ---------------------------------------------------------------------
 # Ticker: the behaviour-graph fixture (tpuvsr/testing.py:590-776)
 # ---------------------------------------------------------------------
+TICKER = """---- MODULE ObsTicker ----
+EXTENDS Naturals
+VARIABLES x, stopped
+
+Init ==
+    /\\ x = 0
+    /\\ stopped = FALSE
+
+Tick ==
+    /\\ stopped = FALSE
+    /\\ x' = (x + 1) % {mod}
+    /\\ UNCHANGED stopped
+
+Stop ==
+    /\\ stopped' = TRUE
+    /\\ UNCHANGED x
+
+Next ==
+    \\/ Tick
+    \\/ Stop
+
+AtZero == x = 0
+Hit == x = 2
+
+Spec == Init /\\ [][Next]_vars
+FairSpec == Init /\\ [][Next]_vars /\\ WF_vars(Tick)
+
+AlwaysEventuallyZero == []<>AtZero
+EventuallyHit == AtZero ~> Hit
+
+vars == <<x, stopped>>
+====
+"""
+
+
+def ticker_spec(spec_name="FairSpec", props=("AlwaysEventuallyZero",),
+                modulus=3, stop=True):
+    """The Ticker parsed by the port's frontend (``tpuvsr/testing.py:638``):
+    ``2 * modulus`` states (``modulus`` with ``stop=False``) and a
+    PROPERTY cfg."""
+    src = TICKER.replace("{mod}", str(int(modulus)))
+    if not stop:
+        src = src.replace("    \\/ Stop\n", "")
+    cfg = parse_cfg_text(f"SPECIFICATION {spec_name}\nPROPERTY\n"
+                         + "\n".join(props) + "\n")
+    return SpecModel(parse_module_text(src), cfg)
+
+
 def ticker_binding(modulus=3, stop=True, spec_name="FairSpec",
                    props=("AlwaysEventuallyZero",)):
     """The Ticker spec's binding, made directly (the port has no .tla):
