@@ -16,8 +16,9 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
   5. the BFS path: DeviceBFS.run on examples/VSR_defect.cfg to depth
      10 (tile 128, 64 tiles a chunk, 2^26 FPSet slots; K6 and K7 serve
      its guard matrix and compaction), launch counts reset just before
-     and read just after; the level sizes must be the JAX package's
-     recorded ones; its trace-pointer tables are kept for phase 7;
+     and read just after (K18 checks the initial state's invariants);
+     the level sizes must be the JAX package's recorded ones; its
+     trace-pointer tables are kept for phase 7;
   6. the hunt path (the walker fleet):
      a. an untimed recording pass of the guided defect hunt (its first
         round, kernel by kernel: every round has the same shapes); K5
@@ -117,6 +118,7 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
      e. the behaviour graph of the Ticker stub (DeviceGraph) on the
         card, streamed and two-pass: both CSRs equal the streamed one
         the plain versions give on the CPU, under canon_csr;
+     then 19c (below) on 9c's engine;
   10. VR_STATE_TRANSFER (ST03), the first model of the VSR family other
      than VSR (tile 128, 64 tiles a chunk, 2^26 FPSet slots; launch
      counts reset just before each run and read just after, and in each
@@ -137,7 +139,7 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         pauses and peak memory;
      d. the timed run_fused on tpuvsr_torch/configs/
         VR_STATE_TRANSFER_shipped.cfg to depth 16 and run() to depth
-        14: the levels through the JAX record's depth the record's
+        12: the levels through the JAX record's depth the record's
         (ST03_SHIPPED_LEVELS), and run()'s levels run_fused()'s;
   11. the family's other models, A01 (VR_ASSUME_NEWVIEWCHANGE), I01
      (VR_INC_RESEND) and AS04 (VR_APP_STATE), each on its own
@@ -159,7 +161,7 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         distinct/s, host reads, graph captures, growth pauses and peak
         memory;
      d. <module>_shipped.cfg through run_fused to depth 16 and run() to
-        depth 13: the levels through depth 8 the JAX record's, run()'s
+        depth 12: the levels through depth 8 the JAX record's, run()'s
         levels run_fused()'s;
      e. an untimed recording run() of the shipped constants to the
         model's ``cover_depth`` (A01 and I01 11, AS04 12) that keeps, for
@@ -180,12 +182,13 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         held bit for bit against their plain versions and timed; it and
         run_fused() stop at depth 17 on the same NoLogDivergence
         counterexample (RECOVERY's), with the record's levels before it;
-        with no invariant, run() and run_fused() reach the fixpoint
-        (RECOVERY's distinct, generated, diameter and levels) with equal
-        trace-pointer tables; K4's range check on the recorded queue's
-        successors: the flag stays 0 on them and is set by a copy with
-        one lane of any bounded plane past or below its bound, on which
-        the plain pack raises;
+        with no invariant, run_fused() reaches the fixpoint (RECOVERY's
+        distinct, generated, diameter and levels) and run() depth 18
+        (AL05_REACH_RUN_DEPTH) with the record's levels, their
+        trace-pointer tables equal through it; K4's range check on the
+        recorded queue's successors: the flag stays 0 on them and is set
+        by a copy with one lane of any bounded plane past or below its
+        bound, on which the plain pack raises;
      b. RR05's small cfg at CrashLimit 0 through both entry points to
         VR_APP_STATE's fixpoint (FAMILY's AS04 record), equal pointers;
      c. RR05's small cfg at CrashLimit 1: a recording run() (K13, K14,
@@ -370,9 +373,10 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         against the declared 8;
      b. at scale: the inv_free counter at Limit POR["limit"] (2047:
         4,194,304 states unreduced), check_deadlock, through run_fused()
-        with POR off and on and run() with POR on: the same deadlock at
-        (Limit, Limit), the reduced runs 4,095 distinct in 4,095 levels;
-        each prints distinct, generated, kept/full, amp and seconds;
+        with POR off and on, and run() with POR on at POR["run_limit"]
+        (1023): the deadlock at (Limit, Limit), the reduced runs 2 *
+        Limit + 1 distinct in as many levels (4,095 and 2,047); each
+        prints distinct, generated, kept/full, amp and seconds;
      c. K17 held bit for bit against its plain versions, stage by stage,
         on the inputs of the largest tile of a's run() (the stub's
         shape) and on a stress shape made on the card (8,192 rows x 64
@@ -384,6 +388,40 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
      d. the defect and shipped bindings (cfg-only) resolve bounds and
         POR to None and preflight runs no pass on them, so phases 5-9
         ran as before;
+  19. liveness (engine/liveness.liveness_check over the device-built
+     behaviour graph) and K18, the state predicates (``state_predicates``
+     of VSRKernel and of the ST03 family's kernels: csrc/vsr_actions.cu
+     and csrc/st03_actions.cu, St::invariants one bit at a time, the
+     code K10 and K14 run on successors); every engine checks its
+     initial states' invariants with one K18 launch (phase 5 requires
+     it), and a reported violation's rebuilt state with another:
+     a. the Ticker stub, parsed (testing.ticker_spec, modulus 6), in five
+        cases (FairSpec and Spec with []<>AtZero, FairSpec with AtZero ~>
+        Hit, the stop-free FairSpec with each property) through
+        DeviceGraph on the card in both modes: verdict, property name,
+        lasso (actions and states) and cycle start those of
+        liveness_check on the interpreter's graph;
+     b. A01's small cfg through PagedBFS(retain_levels=True, edges=True)
+        to its fixpoint (42,753 / 106,794 / 24, FAMILY's levels), the
+        engine handed to DeviceGraph; its streamed CSR out of levels 0-7
+        that of two_pass_prefix(engine, 8) under canon_csr;
+        batch_predicate for every name of A01's INVARIANT_FNS over every
+        state (one K18 launch a name and level block), K18 with every
+        bit held bit for bit against its plain version over every
+        state, the states on which each holds printed
+        (AllReplicasMoveToSameView false on some); a kernels-line row
+        at the fixpoint's shape;
+     c. (run in phase 9, before 9c's engine is freed) K18 with VSR's five
+        bits over the levels 9c retains (the ten it expanded, 148,897
+        states, in batches of 2^16 rows as DeviceGraph moves them), bit
+        for bit against its plain version; a kernels-line row at one
+        batch, its launches phase 5's;
+     d. (run in phases 10-13) on every K14 queue that
+        check_st03_kernels and check_family_coverage hold (10b, 11b,
+        11e, 12a, 12c, 12e, 13a, 13c), K18 with every bit on K14's
+        successor rows, each bit equal to K14's iok under that
+        invariant alone and the whole to K18's plain version: all seven
+        family instantiations launch; phase 19 requires every one;
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
@@ -475,10 +513,12 @@ ST03_FIXPOINT = (42753, 106794, 24)
 # tests/test_torch_st03_bfs.py shipped 11, 198 s on 8 CPU cores)
 ST03_SHIPPED_LEVELS = [1, 4, 17, 63, 238, 851, 2814, 8564, 24012, 62231,
                        149418, 333593]
-# phase 10d's depths: run_fused takes 10-60 s to depth 16 on the card,
-# run() about 140 s to 16 and a quarter of that to 14
+# phase 10d's depths: run_fused takes 10-60 s to depth 16 on the card;
+# run(), host-bound (a host read a tile), took 65 s to 14 (PERF.md §4)
+# and runs to 12 (run_fused keeps 16 and the record; run()'s levels are
+# still held to run_fused()'s through its depth)
 ST03_SHIPPED_DEPTH = 16
-ST03_SHIPPED_RUN_DEPTH = 14
+ST03_SHIPPED_RUN_DEPTH = 12
 # phase 11: the family's other models.  The small cfgs' fixpoints are
 # scripts/fixpoints.json's (distinct, generated, diameter); the levels,
 # small and shipped, are those of a host-driven level BFS over the JAX
@@ -512,12 +552,13 @@ FAMILY = {
         "cover_depth": 12},
 }
 # phase 11d's depths: run_fused (2-4 s to depth 14 on the card), and
-# run() (a host sync a tile; 1.5-4.2 s to depth 11).  ``cover_depth``
+# run() (a host sync a tile; 1.5-4.2 s to depth 11; 7.5-36.2 s to 13,
+# PERF.md §4, so 12, run_fused keeping 16).  ``cover_depth``
 # is phase 11e's: the shallowest at which every action but
 # NoProgressChange is enabled on the shipped constants (I01's ResendSVC
 # by depth 6; AS04's ReceiveNewState first at depth 12, 4 lanes)
 FAMILY_FUSED_DEPTH = 16
-FAMILY_RUN_DEPTH = 13
+FAMILY_RUN_DEPTH = 12
 # phase 12: the crash-recovery models at CrashLimit 1.  The records are
 # those of a host-driven level BFS over the JAX package's kernel from
 # init_dense (exact: dense states, no pack): RR05's levels through depth
@@ -574,6 +615,10 @@ RECOVERY = {
 RECOVERY_DEPTH = 30          # 12c: RR05, CrashLimit 1 (it stops at 17)
 # 12c with no invariant, past the counterexample: the nonce keeps growing
 RECOVERY_DEEP = {"fused": 28, "run": 22}
+# 12a with no invariant: run_fused() to AL05's fixpoint; run(), host-bound
+# (41.7-63.5 s to the fixpoint, PERF.md §4), to depth 18, its levels the
+# record's and its pointer tables run_fused()'s through 18
+AL05_REACH_RUN_DEPTH = 18
 # 12d (run_fused peaks 11.5 / 20.9 GB at depth 12) and 12e (state
 # transfer's receives first fire past depth 10)
 RECOVERY_WIDE = {"fused": 12, "run": 10, "cover": 12}
@@ -2632,7 +2677,20 @@ def paged_phase(args, doc, binding, run_pointers):
     print(f"  two-pass graph (index levels 0-{d}, edges out of levels "
           f"0-{d - 1}): {int(indptr2[-1])} edges in {two_s:.3f}s, equal to "
           f"the streamed ones; launches {counts2}", flush=True)
-    del eng
+
+    print("phase 19c: K18 over the levels 9c retains (the expanded ones), "
+          "every VSR predicate, against its plain version", flush=True)
+    t0 = time.time()
+    n19, holds, big = k18_over_blocks(eng, "19c")
+    need(n19 == n_exp, f"19c: {n19} rows of {n_exp}")
+    k18_rows = []
+    k18_row(k18_rows, eng.kern, big, doc["main"]["launches"][
+        "vsr_state_pred"], "vsr_state_pred (19c, a batch of 9c's levels)")
+    doc["k18_vsr"] = {"rows": n19, "holds": holds,
+                      "wall_s": time.time() - t0}
+    print(f"  {n19} states: where each predicate holds {holds}",
+          flush=True)
+    del eng, big
 
     print("phase 9d: K11 and K12 against their plain versions", flush=True)
     rec = GidRecorder()
@@ -2650,6 +2708,7 @@ def paged_phase(args, doc, binding, run_pointers):
         # launches there are lookup_gids'
         r["launches"] = (0 if r.get("as") == "query_core"
                          else counts[r["kernel"]])
+    rows += k18_rows
     del eng, rec
 
     print("phase 9e: the Ticker stub's behaviour graph, stream and "
@@ -2810,6 +2869,9 @@ def check_family_coverage(rec, K, what, idle=("NoProgressChange",)):
             need(not bad, f"{what}: {a_name} differs from its plain version "
                  f"in {bad} (invariant mask {m}) on the queue where {act} "
                  f"was enabled {c} times")
+        check_k18_succ(kern, flat, pidx, aid, lane,
+                       f"{what} (19d), the queue where {act} was enabled "
+                       f"{c} times")
         need(max_abs(kern.fingerprint(a["succ"]),
                      kern.fingerprint_plain(a["succ"])) == 0,
              f"{what}: {K.FP_KERNELS['full']} differs from its plain "
@@ -2867,6 +2929,9 @@ def check_st03_kernels(rec, kern_cls=None):
                extra={"shape": [B, kern.pk.lanes], "n_lanes": kern.n_lanes,
                       "enabled": int(a[0].sum()), "bag_scans": n_scan})
     check_actions(out, rec.calls[a_name][1], name=a_name)
+    k_a, flat_a, pidx, aid, lane = rec.calls[a_name][1][:5]
+    check_k18_succ(k_a, flat_a, pidx, aid, lane,
+                   f"{a_name}'s recorded queue (19d)")
     fp_rows(out, rec.calls, K.FP_KERNELS, evict=evict)
     # the full fingerprint at a tile's width (the recorded call is the
     # Init row): the successors of the recorded incremental call
@@ -3030,7 +3095,7 @@ def family_kernels():
 
 
 VSR_KERNELS = ["vsr_guards", "vsr_actions", "vsr_canon", "vsr_fp_parts",
-               "vsr_fp_full", "vsr_fp_incremental"]
+               "vsr_fp_full", "vsr_fp_incremental", "vsr_state_pred"]
 
 
 def family_canon_kernels():
@@ -3480,10 +3545,14 @@ def recovery_phase(args, doc):
              == al["fixpoint"], f"{what}: {res.distinct_states} distinct,"
              f" {res.states_generated} generated, diameter {res.diameter}")
         need(res.error is None, f"{what}: {res.error}")
-    eng, res, info = model_run("AL05", al["module"], "small", "run",
+    dr = AL05_REACH_RUN_DEPTH
+    eng, res, info = model_run("AL05", al["module"], "small", "run", dr,
                                invariants=(), label="AL05 small, no "
                                "invariant,")
-    al_fixpoint(res, "AL05 run() with no invariant")
+    need(res.levels == al["small"][:dr + 1]
+         and res.distinct_states == sum(al["small"][:dr + 1]),
+         f"AL05 run() with no invariant to depth {dr}: levels "
+         f"{res.levels}")
     run_pointers = trace_pointers(eng)
     out["AL05_reach_run"] = info
     del eng
@@ -3499,8 +3568,8 @@ def recovery_phase(args, doc):
     for k in al_rows:
         k["launches"] = info["launches"][k["kernel"]]
     rows += al_rows
-    print(f"  levels {res.levels}, pointer tables equal to run()'s",
-          flush=True)
+    print(f"  levels {res.levels}, pointer tables equal to run()'s "
+          f"(to depth {dr})", flush=True)
 
     print("phase 12b: RR05 small cfg at CrashLimit 0, run() and "
           "run_fused() to its fixpoint (VR_APP_STATE's)", flush=True)
@@ -5005,9 +5074,12 @@ def validate_phase(args, doc):
 # phase 18: speclint, the bounds facts and the ample-set reduction (K17).
 # 18b drives the counter stub's inv_free variant at Limit 2047: 2048^2 =
 # 4,194,304 states unreduced, 2 * 2047 + 1 = 4,095 reduced (one a
-# level); 18c's stress shape is a tile of 8,192 rows over 64 one-lane
-# actions, a queue of 65,536 items and a 2^22-slot table half full
-POR = {"limit": 2047, "tile": 512, "fpset": 1 << 24, "next": 1 << 14,
+# level); run() with POR on, two host reads a level, runs at Limit 1023
+# (2,047 levels; 12-30 s at 2047, PERF.md §4), held to the same formulas;
+# 18c's stress shape is a tile of 8,192 rows over 64 one-lane actions, a
+# queue of 65,536 items and a 2^22-slot table half full
+POR = {"limit": 2047, "run_limit": 1023, "tile": 512, "fpset": 1 << 24,
+       "next": 1 << 14,
        "rows": 8192, "actions": 64, "queue": 1 << 16, "slots": 1 << 22,
        "pdepth": 5, "seed": 0}
 K17_KERNELS = ("por_cand", "por_probe", "por_keep")
@@ -5349,30 +5421,32 @@ def por_phase(args, doc):
           f"unreduced; tile {POR['tile']}, FPSet {POR['fpset']} slots",
           flush=True)
     scale = {}
-    for key, entry, por in (("fused_off", "run_fused", "off"),
-                            ("fused_on", "run_fused", "on"),
-                            ("run_on", "run", "on")):
+    for key, entry, por, Lk in (("fused_off", "run_fused", "off", L),
+                                ("fused_on", "run_fused", "on", L),
+                                ("run_on", "run", "on", POR["run_limit"])):
         eng, res, got = drive(f"18b_{key}", lambda cls: stub_device_engine(
-            spec=counter_spec(inv_free=True, limit=L), limit=L,
+            spec=counter_spec(inv_free=True, limit=Lk), limit=Lk,
             device="cuda", por=por, tile_size=POR["tile"],
             fpset_capacity=POR["fpset"], next_capacity=POR["next"]),
             entry, por == "on", check_deadlock=True)
-        scale[key] = (res, got)
+        scale[key] = (res, got, Lk)
         o = out[f"18b_{key}"]
-        print(f"  {key}: distinct {res.distinct_states} generated "
+        o["limit"] = Lk
+        print(f"  {key} (Limit {Lk}): distinct {res.distinct_states} "
+              f"generated "
               f"{res.states_generated} levels {len(res.levels)} kept/full "
               f"{o['kept']}/{o['full']} amp {o['amp']} wall "
               f"{o['wall_s']:.3f}s; {res.error} at {res.deadlock_state}; "
               f"K17 {got}", flush=True)
         need(res.error == "deadlock"
-             and res.deadlock_state == {"x": L, "y": L},
+             and res.deadlock_state == {"x": Lk, "y": Lk},
              f"18b {key}: {res.error} {res.deadlock_state}")
     need(scale["fused_off"][0].distinct_states == n_full,
          f"18b: POR off gave {scale['fused_off'][0].distinct_states}")
     for key in ("fused_on", "run_on"):
-        res = scale[key][0]
-        need(res.distinct_states == 2 * L + 1
-             and res.levels == [1] * (2 * L + 1),
+        res, _got, Lk = scale[key]
+        need(res.distinct_states == 2 * Lk + 1
+             and res.levels == [1] * (2 * Lk + 1),
              f"18b {key}: {res.distinct_states} in {len(res.levels)} levels")
     main_launches = scale["fused_on"][1]
 
@@ -5400,6 +5474,258 @@ def por_phase(args, doc):
           "numbers", flush=True)
     out["phase_s"] = time.time() - t_phase
     print(f"  phase 18 in {out['phase_s']:.1f}s", flush=True)
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 19: liveness.  K18 (the state predicates) is held in 19c inside
+# phase 9 and in 19d inside phases 10-13; K18_HELD counts the rows each
+# instantiation was held on
+# ----------------------------------------------------------------------
+K18_HELD = {}
+# the planes K18's family invariants read (csrc/st03_actions.cu
+# St::invariants<MODEL>), where a model has them
+K18_FAMILY_PLANES = ("status", "view", "op", "commit", "log", "no_prog",
+                     "aux_svc", "aux_acked", "dvc", "dvc_view", "app")
+# 19a: the Ticker's five cases (spec, properties, Stop in Next), modulus
+# 6, and the JAX harness's graph settings
+TICKER_CASES = {
+    "FairSpec/AlwaysEventuallyZero": ("FairSpec", ("AlwaysEventuallyZero",),
+                                      True),
+    "Spec/AlwaysEventuallyZero": ("Spec", ("AlwaysEventuallyZero",), True),
+    "FairSpec/EventuallyHit": ("FairSpec", ("EventuallyHit",), True),
+    "stop-free FairSpec/EventuallyHit": ("FairSpec", ("EventuallyHit",),
+                                         False),
+    "stop-free FairSpec/AlwaysEventuallyZero": (
+        "FairSpec", ("AlwaysEventuallyZero",), False)}
+TICKER_GRAPH = {"tile_size": 4, "chunk_tiles": 2, "next_capacity": 32,
+                "fpset_capacity": 1 << 8}
+# 19b: A01's streamed CSR held to the two-pass graph out of levels 0-7
+A01_PREFIX = 8
+
+
+def k18_name(kern):
+    return getattr(kern, "STATE_PRED_KERNEL", ("vsr_state_pred",))[0]
+
+
+def k18_cost(kern, n):
+    """(bytes, operations) of K18 with every bit on n rows: the words of
+    the planes its invariants read, once, and the int32 out (VSR's reads
+    only the operation column of the log: R x MAX_OPS words); about
+    three operations a compare of the nested loops."""
+    span = {k: e - s for k, _sh, s, e in kern.pk._splits}
+    R, V, P = kern.R, kern.V, kern.MAX_OPS
+    if hasattr(kern, "STATE_PRED_KERNEL"):
+        words = sum(span.get(k, 0) for k in K18_FAMILY_PLANES)
+        ops = 3 * (3 * R * R * P + R ** 3 + 2 * V * R * P + 6 * R * R)
+    else:
+        words = sum(span[k] for k in ("status", "view", "aux_acked")) \
+            + R * P
+        ops = 3 * (2 * V * R * P + 2 * R)
+    return n * (words + 1) * 4, n * ops
+
+
+def check_k18_succ(kern, flat, pidx, aid, lane, what):
+    """19d: K18 with every bit on the successor rows of a recorded K14
+    (or K10) queue, bit for bit against K14's iok under each invariant
+    alone and against K18's plain version."""
+    import torch
+    names = list(kern.INVARIANT_FNS)
+    full = (1 << len(names)) - 1
+    ioks = [kern.successors(flat, pidx, aid, lane, 1 << b)["iok"]
+            for b in range(len(names))]
+    succ = kern.successors(flat, pidx, aid, lane, 0)["succ"]
+    bits = kern.state_predicates(succ, full)
+    need(torch.equal(bits, kern.state_predicates_plain(succ, full)),
+         f"{what}: {k18_name(kern)} differs from its plain version")
+    for b, (n, iok) in enumerate(zip(names, ioks)):
+        need(torch.equal((bits >> b & 1).bool(), iok),
+             f"{what}: {k18_name(kern)}'s {n} bit differs from "
+             f"{getattr(kern, 'ACTIONS_KERNEL', ('vsr_actions',))[0]}'s "
+             f"iok")
+    K18_HELD[k18_name(kern)] = K18_HELD.get(k18_name(kern), 0) \
+        + succ.shape[0]
+
+
+def k18_over_blocks(eng, what, batch=1 << 16):
+    """19b, 19c: K18 with every bit over the retained level blocks of
+    ``eng`` (flat rows on the card, ``batch`` rows at a time, as
+    ``DeviceGraph._run_batched`` moves them), bit for bit against its
+    plain version on the same rows.  Returns (rows, the rows on which
+    each INVARIANT_FNS entry holds, the largest batch)."""
+    import numpy as np
+    import torch
+    kern = eng.kern
+    names = list(kern.INVARIANT_FNS)
+    full = (1 << len(names)) - 1
+    holds, n, big = np.zeros(len(names), np.int64), 0, None
+    for blk in eng.level_blocks:
+        nb = next(iter(blk.values())).shape[0]
+        for lo in range(0, nb, batch):
+            flat = eng._pk.flatten({
+                k: torch.as_tensor(v[lo:lo + batch], device="cuda")
+                for k, v in blk.items()}).contiguous()
+            a = kern.state_predicates(flat, full)
+            p = kern.state_predicates_plain(flat, full)
+            need(torch.equal(a, p), f"{what}: {k18_name(kern)} differs "
+                 f"from its plain version on {int((a != p).sum())} of "
+                 f"{flat.shape[0]} rows")
+            holds += torch.stack([(a >> b & 1).sum() for b in
+                                  range(len(names))]).cpu().numpy()
+            n += flat.shape[0]
+            if big is None or flat.shape[0] > big.shape[0]:
+                big = flat
+    K18_HELD[k18_name(kern)] = K18_HELD.get(k18_name(kern), 0) + n
+    return n, dict(zip(names, holds.tolist())), big
+
+
+def k18_row(out, kern, flat, launches, label):
+    """A kernels-line row of K18 (every bit) on ``flat``, timed after an
+    L2 flush, with its plain version's time and its byte bound."""
+    names = list(kern.INVARIANT_FNS)
+    full = (1 << len(names)) - 1
+    n = flat.shape[0]
+    nbytes, nops = k18_cost(kern, n)
+    name = k18_name(kern)
+    kernel_row(out, name,
+               cuda_ms(lambda: kern.state_predicates(flat, full),
+                       evict=l2_evict(flat.device)),
+               cuda_ms(lambda: kern.state_predicates_plain(flat, full),
+                       reps=5),
+               max_abs(kern.state_predicates(flat, full),
+                       kern.state_predicates_plain(flat, full)),
+               nbytes, nops,
+               extra={"shape": [n, kern.pk.lanes], "bits": len(names)},
+               label=label)
+    out[-1]["launches"] = launches
+
+
+def liveness_phase(args, doc):
+    """Phase 19: liveness on the card (19a, 19b; 19c ran in phase 9 and
+    19d in phases 10-13).  Returns A01's K18 row."""
+    import numpy as np
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine.device_liveness import (DeviceGraph,
+                                                     two_pass_prefix)
+    from tpuvsr_torch.engine.liveness import liveness_check
+    from tpuvsr_torch.engine.paged_bfs import PagedBFS
+    from tpuvsr_torch.testing import (canon_csr, stub_ticker_factory,
+                                      ticker_spec)
+    t_phase = time.time()
+    out = doc["liveness"] = {}
+
+    def verdict(res):
+        return (res.ok, res.property_name,
+                [(e.action_name, dict(e.state)) for e in res.trace],
+                res.cycle_start, res.distinct_states)
+
+    print("phase 19a: the Ticker's liveness verdicts through DeviceGraph "
+          "on the card, stream and two-pass, against the interpreter's "
+          "graph", flush=True)
+    for case, (name, props, stop) in TICKER_CASES.items():
+        spec = ticker_spec(spec_name=name, props=props, modulus=6,
+                           stop=stop)
+        want = verdict(liveness_check(spec))
+        for mode in ("stream", "two-pass"):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            g = DeviceGraph(spec, mode=mode, device="cuda",
+                            model_factory=stub_ticker_factory(6, stop),
+                            **TICKER_GRAPH)
+            got = verdict(liveness_check(spec, graph=g))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = kernels.launch_counts()
+            k = "edge_emit" if mode == "stream" else "fpset_probe"
+            need(counts[k] > 0, f"19a {case} {mode}: {k} not launched")
+            need(got == want, f"19a {case} {mode}: {got[:2]} lasso "
+                 f"{got[2]} from {got[3]}; the interpreter's {want[:2]} "
+                 f"{want[2]} from {want[3]}")
+            out[f"19a {case} {mode}"] = {"ok": got[0], "property": got[1],
+                                         "lasso": len(got[2]),
+                                         "cycle_start": got[3],
+                                         "wall_s": wall}
+        print(f"  {case}: ok {want[0]} {want[1] or ''} lasso of "
+              f"{len(want[2])} states from {want[3]}: stream and two-pass "
+              f"equal the interpreter's", flush=True)
+    need([v["ok"] for k, v in out.items() if k.startswith("19a")] ==
+         [False] * 6 + [True] * 4, "19a: verdicts")
+
+    fam = FAMILY["A01"]
+    print("phase 19b: A01's small cfg through PagedBFS(retain_levels, "
+          "edges) to its fixpoint, the graph handed over, K18 over every "
+          "state", flush=True)
+    eng, res, info = model_run("A01", fam["module"], "small", "run",
+                               engine_cls=PagedBFS, retain_levels=True,
+                               edges=True, label="A01 small (19b, edges)")
+    for k in ("fpset_store_gids", "fpset_probe", "edge_emit",
+              "a01_state_pred"):
+        need(info["launches"][k] > 0, f"19b: {k} was not launched")
+    need((res.distinct_states, res.states_generated, res.diameter)
+         == fam["fixpoint"] and res.levels == fam["small"],
+         f"19b: {res.distinct_states} / {res.states_generated} / "
+         f"{res.diameter}, levels {res.levels}")
+    t0 = time.time()
+    g = DeviceGraph(eng.spec, engine=eng, result=res)
+    graph_s = time.time() - t0
+    need(g.mode == "stream" and g.n == fam["fixpoint"][0],
+         f"19b: graph {g.mode} of {g.n} states")
+    upto = sum(fam["small"][:A01_PREFIX])
+    t0 = time.time()
+    tp = two_pass_prefix(eng, A01_PREFIX)
+    two_s = time.time() - t0
+    cs, ct = canon_csr(g), canon_csr(tp)
+    need(ct[:upto] == cs[:upto] and not any(ct[upto:]),
+         f"19b: the two-pass graph out of levels 0-{A01_PREFIX - 1} "
+         f"differs from the streamed one")
+    names = list(eng.kern.INVARIANT_FNS)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    vals = {n: g.batch_predicate(n) for n in names}
+    torch.cuda.synchronize()
+    pred_s = time.time() - t0
+    counts = kernels.launch_counts()
+    launches = counts["a01_state_pred"]
+    need(launches == len(names) * len(g.blocks), f"19b: {launches} K18 "
+         f"launches for {len(names)} predicates over {len(g.blocks)} "
+         f"level blocks")
+    n, holds, _big = k18_over_blocks(eng, "19b")
+    need(n == g.n, f"19b: {n} rows held")
+    for n_, v in vals.items():
+        need(int(v.sum()) == holds[n_], f"19b: batch_predicate({n_}) "
+             f"holds on {int(v.sum())} states, K18 on {holds[n_]}")
+    need(holds["AllReplicasMoveToSameView"] < g.n,
+         "19b: AllReplicasMoveToSameView holds on every state")
+    out["19b"] = {"distinct": g.n, "edges": int(g.csr[1].shape[0]),
+                  "edges_per_s": g.edges_per_s, "graph_s": graph_s,
+                  "two_pass_s": two_s, "predicates_s": pred_s,
+                  "holds": holds, "bfs_wall_s": info["wall_s"]}
+    print(f"  {g.n} states, {int(g.csr[1].shape[0])} edges; the two-pass "
+          f"graph out of levels 0-{A01_PREFIX - 1} ({upto} sources) equals "
+          f"the streamed one; batch_predicate over {g.n} states in "
+          f"{pred_s:.3f}s ({launches} K18 launches)", flush=True)
+    print(f"  states where each predicate holds: {holds}", flush=True)
+    # the fixpoint's shape: every state in one call
+    every = torch.cat([g._flat(b, 0, next(iter(b.values())).shape[0])
+                       for b in g.blocks]).contiguous()
+    rows = []
+    k18_row(rows, eng.kern, every, launches,
+            "a01_state_pred (19b, A01's fixpoint)")
+    del every
+    del g, tp, eng
+
+    print("phase 19c/19d: K18 held on every model", flush=True)
+    want = ["vsr_state_pred"] + [f"{m.lower()}_state_pred" for m in (
+        "ST03", "A01", "I01", "AS04", "RR05", "AL05", "CP06")]
+    need(all(K18_HELD.get(k, 0) > 0 for k in want),
+         f"K18 held on {K18_HELD}")
+    out["k18_held_rows"] = dict(K18_HELD)
+    print(f"  rows held bit for bit: {K18_HELD}", flush=True)
+    out["phase_s"] = time.time() - t_phase
+    print(f"  phase 19 in {out['phase_s']:.1f}s", flush=True)
     return rows
 
 
@@ -5458,7 +5784,7 @@ def kernels_line(rows):
 
 
 def run_phases(args, doc, t_all):
-    """Phases 1-18 (the module docstring); returns the exit code."""
+    """Phases 1-19 (the module docstring); returns the exit code."""
     import numpy as np
     import torch
     from tpuvsr_torch import kernels
@@ -5568,6 +5894,8 @@ def run_phases(args, doc, t_all):
         need(k["launches"] > 0, f"{k['name']} was not launched on the "
              f"BFS path")
     need(counts["vsr_canon"] == 0, "K9 was launched on the BFS path")
+    need(counts["vsr_state_pred"] > 0, "K18 was not launched on the BFS "
+         "path (the initial states' invariants)")
     rows += hunt_phase(args, doc)
     rows += fused_phase(args, doc, binding, run_pointers)
     rows += symmetric_phase(args, doc)
@@ -5581,6 +5909,7 @@ def run_phases(args, doc, t_all):
     rows += sim_phase(args, doc)
     rows += validate_phase(args, doc)
     rows += por_phase(args, doc)
+    rows += liveness_phase(args, doc)
     doc.pop("main_pointers", None)
     doc["kernels"] = rows
     doc["total_s"] = time.time() - t_all

@@ -280,7 +280,9 @@ def test_import_loads_no_jax():
             "tpuvsr_torch.analysis.passes.independence, "
             "tpuvsr_torch.analysis.passes.drift, tpuvsr_torch.lower.ir, "
             "tpuvsr_torch.engine.bounds, tpuvsr_torch.engine.por, "
-            "tpuvsr_torch.engine.paged_bfs\n"
+            "tpuvsr_torch.engine.paged_bfs, "
+            "tpuvsr_torch.engine.device_liveness, "
+            "tpuvsr_torch.engine.liveness\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuvsr' or "
             "m.startswith('tpuvsr.')]\n"

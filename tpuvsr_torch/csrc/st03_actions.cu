@@ -106,6 +106,22 @@
 // (PACKED_ENTRIES), apart from A01's assume-mode guards (A01_LIKE), AS04's
 // app state (APP_STATE), the recovery sub-protocol (RECOVERY) and CP06's
 // checkpoints (CHECKPOINTS).
+//
+// K18, the state predicates (tpuvsr_<model>_state_pred, one entry point
+// a model in the same template scheme), is in this file too, so that one
+// definition of each invariant (St::invariants<MODEL>) serves K14's
+// successors and the states themselves.  It replaces the batched
+// invariant and predicate calls of the JAX liveness graph
+// (tpuvsr/engine/device_liveness.py:383 _run_batched via :394
+// batch_predicate) over the family's predicates (st03_kernel.py:911-954
+// and the subclasses', e.g. as04_kernel.py:348, i01_kernel.py:399,
+// cp06_kernel.py:757) and the engines' check of a state's own
+// invariants.  For each of N flat rows it writes one int32 whose bit b
+// is set iff entry b of the model's INVARIANT_FNS holds, for the bits of
+// mask; fbit[b] is that entry's family bit (FamilyInvariant order), one
+// St::invariants<MODEL> call a bit.  Bound and design as K18 of
+// csrc/vsr_actions.cu: the bytes of the planes read, one thread a state
+// on its row where it lies.
 #include <climits>
 
 #include "common.cuh"
@@ -1799,6 +1815,47 @@ __global__ void actions_kernel(
     for (int l = threadIdx.x; l < lanes; l += blockDim.x) dst[l] = row[l];
 }
 
+// K18: one thread a state, on its row where it lies; no action runs, so
+// the scratch of St stays unset
+template <int MODEL>
+__global__ void state_pred_kernel(
+        const int* __restrict__ flat, int lanes, int N,
+        const int* __restrict__ planes, const int* __restrict__ fbit,
+        int nbits, int R, int V, int M, int OPS, int NHDR, int timer_limit,
+        int mask, int* __restrict__ out) {
+    const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (n >= N) return;
+    St g;
+    g.s = const_cast<int*>(flat + n * lanes);
+    g.off = planes;
+    g.R = R; g.V = V; g.M = M; g.OPS = OPS; g.NHDR = NHDR;
+    g.mh = g.rh = g.rl = g.rc = g.ts = nullptr;
+    g.re = g.tn = 0;
+    int bits = 0;
+    for (int b = 0; b < nbits; ++b)
+        if (mask >> b & 1)
+            bits |= (g.invariants<MODEL>(1 << fbit[b], timer_limit) ? 1 : 0)
+                    << b;
+    out[n] = bits;
+}
+
+template <int MODEL>
+int launch_state_pred(const void* flat, int lanes, int N, const void* planes,
+                      const void* fbit, int nbits, int R, int V, int M,
+                      int OPS, int NHDR, int timer_limit, int mask,
+                      void* out, void* stream) {
+    if (nbits > N_FAMILY_INVARIANTS || (nbits < 31 && (mask >> nbits)))
+        return (int)cudaErrorInvalidValue;
+    if (N > 0) {
+        cudaStream_t st = (cudaStream_t)stream;
+        KLAUNCH(state_pred_kernel<MODEL>, tpuvsr_blocks(N, THREADS), THREADS,
+            st, (const int*)flat, lanes, N, (const int*)planes,
+            (const int*)fbit, nbits, R, V, M, OPS, NHDR, timer_limit, mask,
+            (int*)out);
+    }
+    return (int)cudaGetLastError();
+}
+
 template <int MODEL>
 int launch_actions(const void* flat, int lanes, const void* pidx,
                    const void* aid, const void* lane, int N,
@@ -1857,3 +1914,27 @@ TPUVSR_ACTIONS_ENTRY(as04, MODEL_AS04)
 TPUVSR_ACTIONS_ENTRY(rr05, MODEL_RR05)
 TPUVSR_ACTIONS_ENTRY(al05, MODEL_AL05)
 TPUVSR_ACTIONS_ENTRY(cp06, MODEL_CP06)
+
+// K18.  flat: [N, lanes] int32 rows; planes: as K14's; fbit: [nbits]
+// int32, the family bit (FamilyInvariant order) of each entry of the
+// model's INVARIANT_FNS; mask: bits of INVARIANT_FNS to evaluate; out:
+// [N] int32, bit b set iff entry b holds (bits outside mask 0).  One
+// entry point a model, all with this signature.
+#define TPUVSR_STATE_PRED_ENTRY(name, MODEL)                              \
+    TPUVSR_EXPORT int tpuvsr_##name##_state_pred(                         \
+            const void* flat, int lanes, int N, const void* planes,       \
+            const void* fbit, int nbits, int R, int V, int M, int OPS,    \
+            int NHDR, int timer_limit, int mask, void* out,               \
+            void* stream) {                                               \
+        return launch_state_pred<MODEL>(                                  \
+            flat, lanes, N, planes, fbit, nbits, R, V, M, OPS, NHDR,      \
+            timer_limit, mask, out, stream);                              \
+    }
+
+TPUVSR_STATE_PRED_ENTRY(st03, MODEL_ST03)
+TPUVSR_STATE_PRED_ENTRY(a01, MODEL_A01)
+TPUVSR_STATE_PRED_ENTRY(i01, MODEL_I01)
+TPUVSR_STATE_PRED_ENTRY(as04, MODEL_AS04)
+TPUVSR_STATE_PRED_ENTRY(rr05, MODEL_RR05)
+TPUVSR_STATE_PRED_ENTRY(al05, MODEL_AL05)
+TPUVSR_STATE_PRED_ENTRY(cp06, MODEL_CP06)

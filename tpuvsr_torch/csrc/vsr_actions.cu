@@ -39,6 +39,22 @@
 // here; the primary of a view keeps torch.remainder's floor modulo; a
 // lexicographic tie keeps the earlier row.  With a halt word (the fused
 // pass's carry) the kernel does nothing while it is set.
+//
+// K18, the state predicates (tpuvsr_vsr_state_pred), is in this file
+// too, so that one definition of each invariant (St::invariants) serves
+// K10's successors and the states themselves.  It replaces the batched
+// invariant and predicate calls of the JAX liveness graph
+// (tpuvsr/engine/device_liveness.py:383 _run_batched via :394
+// batch_predicate: jit(vmap(invariant_fn([name]))) over each retained
+// level block) and the engines' check of a state's own invariants (the
+// initial states, a reported violation's rebuilt state).  For each of N
+// flat rows it writes one int32 whose bit b is set iff entry b of
+// INVARIANT_FNS holds on the row, for the bits of mask (others 0): one
+// St::invariants call a bit.  What bounds it: the bytes of the planes
+// the invariants read (view, status, log, aux_acked) and the int32 out;
+// a simple first design, one thread a state reading its row where it
+// lies (no shared memory, uncoalesced across a warp), so expect it well
+// above that bound.
 #include <climits>
 
 #include "common.cuh"
@@ -863,6 +879,27 @@ __global__ void actions_kernel(
     for (int l = threadIdx.x; l < lanes; l += blockDim.x) dst[l] = row[l];
 }
 
+// K18: one thread a state, on its row where it lies; no action runs, so
+// the scratch of St stays unset
+__global__ void state_pred_kernel(
+        const int* __restrict__ flat, int lanes, int N,
+        const int* __restrict__ planes, int R, int V, int M, int C,
+        int OPS, int NHDR, int NENT, int mask, int* __restrict__ out) {
+    const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (n >= N) return;
+    St g;
+    g.s = const_cast<int*>(flat + n * lanes);
+    g.off = planes;
+    g.R = R; g.V = V; g.M = M; g.C = C; g.OPS = OPS; g.NHDR = NHDR;
+    g.NENT = NENT;
+    g.mh = g.rh = g.re = g.rl = g.ts = nullptr;
+    g.rll = g.rhl = g.tn = 0;
+    int bits = 0;
+    for (int b = 0; b < N_INVARIANTS; ++b)
+        if (mask >> b & 1) bits |= (g.invariants(1 << b) ? 1 : 0) << b;
+    out[n] = bits;
+}
+
 }  // namespace
 
 // Dynamic shared memory of one block: the row and the scratch words.
@@ -912,6 +949,23 @@ TPUVSR_EXPORT int tpuvsr_vsr_actions(
             NENT, timer_limit, restart_limit, inv_mask,
             (const long long*)halt, (int*)succ, (uint8_t*)en2, (int*)err,
             (int*)ts, (int*)tn, (int*)ri, (uint8_t*)iok);
+    }
+    return (int)cudaGetLastError();
+}
+
+// K18.  flat: [N, lanes] int32 rows; planes: [N_PLANES] int32 plane
+// offsets (ALL_KEYS order); mask: bits of INVARIANT_FNS to evaluate;
+// out: [N] int32, bit b set iff invariant b holds (bits outside mask 0).
+TPUVSR_EXPORT int tpuvsr_vsr_state_pred(
+        const void* flat, int lanes, int N, const void* planes, int R,
+        int V, int M, int C, int OPS, int NHDR, int NENT, int mask,
+        void* out, void* stream) {
+    if (mask >> N_INVARIANTS) return (int)cudaErrorInvalidValue;
+    if (N > 0) {
+        cudaStream_t st = (cudaStream_t)stream;
+        KLAUNCH(state_pred_kernel, tpuvsr_blocks(N, THREADS), THREADS, st,
+            (const int*)flat, lanes, N, (const int*)planes, R, V, M, C, OPS,
+            NHDR, NENT, mask, (int*)out);
     }
     return (int)cudaGetLastError();
 }

@@ -131,7 +131,7 @@ from .. import kernels
 from .bfs import CheckResult
 from .bounds import prune_kernel, resolve_bounds
 from .canon import build_canon_spec, kernel_fold_order
-from .device_sim import apply_one
+from .device_sim import apply_one, failing_row
 from .edges import emit_edges
 from .fpset import (dedup_keep, empty_gids, empty_table, grow, insert_core,
                     lookup_gids, store_gids)
@@ -814,12 +814,10 @@ class DeviceBFS:
     # ------------------------------------------------------------------
     def _first_failing(self, flat):
         """Name of the first cfg invariant that fails on the one state
-        ``flat`` [1, lanes], or None."""
-        st = self._pk.unflatten(flat)
-        for name, f in self.kern.invariant_fns(self.inv_names):
-            if not bool(f(st)[0]):
-                return name
-        return None
+        ``flat`` [1, lanes], or None (``device_sim.failing_row``: one
+        ``state_predicates`` call, K18 on the card)."""
+        hit = failing_row(self.kern, flat, self.inv_names)
+        return None if hit is None else hit[1]
 
     def _register_init(self, res):
         pk = self._pk
@@ -858,13 +856,13 @@ class DeviceBFS:
         self._h_parent = [np.full(n0, -1, np.int64)]
         self._h_action = [np.full(n0, -1, np.int32)]
         self._h_param = [np.zeros(n0, np.int32)]
-        for i in range(n0):
-            bad = self._first_failing(self._init_flat[i:i + 1])
-            if bad:
-                res.ok = False
-                res.violated_invariant = bad
-                res.trace = self._trace(i)
-                return table, n0, i
+        # every initial state's invariants in one state_predicates call
+        hit = failing_row(self.kern, self._init_flat, self.inv_names)
+        if hit is not None:
+            i, res.violated_invariant = hit
+            res.ok = False
+            res.trace = self._trace(i)
+            return table, n0, i
         res.states_generated += len(init)
         return table, n0, None
 

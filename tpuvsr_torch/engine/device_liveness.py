@@ -1,9 +1,10 @@
-"""The behaviour graph of a state space, built by the device engines:
-graph construction only.
+"""The behaviour graph of a state space, built by the device engines,
+and its batched state predicates.
 
 The counterpart of ``tpuvsr/engine/device_liveness.py`` (``DeviceGraph``,
 ``_LazyStates``, ``dense_row``, ``_build_fp_index`` :205,
-``_make_edge_pass`` :240, ``_build_edges`` :310), in both modes:
+``_make_edge_pass`` :240, ``_build_edges`` :310, ``_run_batched`` :383,
+``batch_predicate`` :394, ``batch_expr`` :404), in both modes:
 
 * ``"stream"`` (the default): the edges stream out of the safety BFS,
   ``PagedBFS(retain_levels=True, edges=True)``: K11 resolves every
@@ -18,10 +19,17 @@ The counterpart of ``tpuvsr/engine/device_liveness.py`` (``DeviceGraph``,
 
 Both give the same CSR up to the order of edges within one source's
 segment (``testing.canon_csr``); ``two_pass_prefix`` runs the two-pass
-over the first levels of a run cut at a depth.  Liveness needs SYMMETRY off.  The
-property evaluation of the JAX module (``_run_batched``,
-``batch_predicate``, ``batch_expr``) and ``engine/liveness.py`` need the
-TLA+ frontend and the AST lowerer, which the port does not have yet.
+over the first levels of a run cut at a depth.  Liveness needs SYMMETRY
+off.
+
+``engine/liveness.liveness_check`` reads the graph (``states``,
+``inits``, ``csr``) and evaluates each property leaf over all states:
+a name in the kernel's ``INVARIANT_FNS`` through ``batch_predicate`` on
+the kernel's ``state_predicates`` (K18 on the card, its plain version on
+the CPU), in fixed-size batches of the retained level blocks.  Any
+other leaf goes to ``batch_expr``, which returns None until the AST
+lowerer (``lower/compile.py``) is ported, so the caller evaluates it on
+the interpreter.
 """
 
 from __future__ import annotations
@@ -126,6 +134,11 @@ class DeviceGraph:
         self.graph_overhead_ratio = round(
             max(0.0, self.build_elapsed - self.bfs_elapsed)
             / max(self.bfs_elapsed, 1e-9), 4)
+        # edges over the larger of the two clocks: under engine
+        # hand-over build_elapsed is only the CSR's assembly
+        self.edges_per_s = round(
+            int(self.csr[1].shape[0])
+            / max(self.build_elapsed, self.bfs_elapsed, 1e-9), 1)
         if log:
             log(f"device behaviour graph ({mode}): {self.n} states, "
                 f"{int(self.csr[1].shape[0])} edges in "
@@ -253,6 +266,48 @@ class DeviceGraph:
                  for j in range(indptr[u], indptr[u + 1])]
                 for u in range(self.n)]
         return self._edges_list
+
+    # -- batched predicate evaluation ----------------------------------
+    def _run_batched(self, pred, batch=1 << 16):
+        """``pred`` (flat rows [m, lanes] on the engine's device -> bool
+        [m]) over every state in gid order, ``batch`` rows at a time
+        from the retained level blocks; one host read a batch.  Returns
+        a bool array [n]."""
+        out = np.empty(self.n, bool)
+        for bi, blk in enumerate(self.blocks):
+            base = int(self._block_base[bi])
+            nb = _block_rows(blk)
+            for off in range(0, nb, batch):
+                m = min(batch, nb - off)
+                vals = pred(self._flat(blk, off, off + m))
+                out[base + off:base + off + m] = vals.cpu().numpy()
+        return out
+
+    def batch_predicate(self, name):
+        """A named predicate over all states: bool array [n], or None
+        where no kernel evaluates it.  A name of the kernel's
+        ``INVARIANT_FNS`` runs on ``state_predicates`` (K18 on the card);
+        on a parsed spec a parameterless definition goes to
+        ``batch_expr``; a cfg-only binding has no definitions."""
+        kern = self.kern
+        if name in getattr(kern, "INVARIANT_FNS", {}):
+            mask = kern.invariant_mask([name])
+            return self._run_batched(
+                lambda flat: kern.state_predicates(flat, mask) != 0)
+        defs = getattr(getattr(self.spec, "module", None), "defs", None)
+        d = defs.get(name) if defs is not None else None
+        if d is not None and not d.params:
+            return self.batch_expr(d.body, {})
+        return None
+
+    def batch_expr(self, expr, bindings):
+        """An arbitrary property-leaf expression over all states, with
+        ``bindings`` mapping quantifier-bound names to static values.
+        The JAX package compiles it through its AST lowerer
+        (``tpuvsr/lower/compile.py``), which the port does not have yet:
+        this returns None, as the JAX function does where no lowerer
+        exists, and the caller evaluates the leaf on the interpreter."""
+        return None
 
 
 def two_pass_prefix(engine, levels):

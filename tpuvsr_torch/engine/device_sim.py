@@ -38,7 +38,7 @@ a round (K5's shared noise entry).
 
 A violation the device flags is replayed through the kernel into a
 TRACE-format counterexample, and its last state is checked again with
-the kernel's invariant functions: the JAX package checks it with the
+the kernel's state predicates (K18): the JAX package checks it with the
 interpreter, which the port does not have; a disagreement raises
 ``TLAError``.  Left out: the observer, journal and timers.
 """
@@ -74,6 +74,26 @@ def apply_one(kern, flat, aid, param):
         kern.pk.unflatten(flat), torch.tensor([int(param)], device=dev))
     return (kern.pk.flatten({k: v for k, v in succ.items()
                              if not k.startswith("_")}), bool(en[0]))
+
+
+def failing_row(kern, flat, names):
+    """(row, name): the first row of the flat states ``flat`` [n, lanes]
+    on which an invariant of ``names`` fails, and the first such name in
+    ``names``' order; None when every row holds them all.  One
+    ``kern.state_predicates`` call checks every row (K18 on the card,
+    its plain version on the CPU) and one host read takes its bits."""
+    bits_of = [(n, kern.invariant_mask([n])) for n in names]
+    mask = 0
+    for _n, b in bits_of:
+        mask |= b
+    if not mask:
+        return None
+    bits = kern.state_predicates(flat, mask).cpu().numpy()
+    bad = np.flatnonzero((bits & mask) != mask)
+    if bad.size == 0:
+        return None
+    i = int(bad[0])
+    return i, next(n for n, b in bits_of if not int(bits[i]) & b)
 
 
 def materialize_walk(kern, codec, st0, aids, prms, n_steps, device):
@@ -420,13 +440,12 @@ class DeviceSimulator:
 
     def first_failing(self, dense):
         """Name of the first cfg invariant the one dense state (numpy
-        arrays) fails, or None."""
-        st = {k: torch.as_tensor(np.asarray(v))[None].to(self.device)
-              for k, v in dense.items()}
-        for name, f in self.kern.invariant_fns(self.inv_names):
-            if not bool(f(st)[0]):
-                return name
-        return None
+        arrays) fails, or None (``failing_row``)."""
+        flat = self.kern.pk.flatten(
+            {k: torch.as_tensor(np.asarray(v))[None].to(self.device)
+             for k, v in dense.items()}).contiguous()
+        hit = failing_row(self.kern, flat, self.inv_names)
+        return None if hit is None else hit[1]
 
     def run(self, num=1000, depth=100, seed=0, check_deadlock=False,
             log=None, max_seconds=None) -> SimResult:

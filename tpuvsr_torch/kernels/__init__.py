@@ -217,6 +217,11 @@ KERNELS = {
     "validate_commit": ("validate_step", "tpuvsr/validate/batch.py:260 "
                         "chunk_fn, one_trace's filter, dedup, rank "
                         "scatter and divergence update (:224-258)"),
+    # K18: the state predicates, with K10's and K14's invariant code
+    "vsr_state_pred": ("vsr_actions", "tpuvsr/engine/device_liveness.py:383 "
+                       "_run_batched via :394 batch_predicate over "
+                       "tpuvsr/models/vsr_kernel.py:1176-1200 inv_*, "
+                       "pred_all_replicas_same_view"),
     # K17: the ample-set step of the partial-order reduction
     "por_cand": ("por_ample", "tpuvsr/engine/device_bfs.py:783-799 "
                  "_fused_body_factory ample candidate (en_act @ ~amat.T, "
@@ -227,6 +232,20 @@ KERNELS = {
                  "_fused_body_factory keep mask (+ :989-1013 kept/amp "
                  "counters)"),
 }
+# K18 on the ST03 family: one instantiation a model in st03_actions.cu,
+# over the predicates of each model's INVARIANT_FNS (JAX file:line)
+for _m, _preds in (
+        ("st03", "st03_kernel.py:911-954"),
+        ("a01", "st03_kernel.py:911-954 on a01_kernel.py's entries"),
+        ("i01", "i01_kernel.py:399 INVARIANT_FNS (+ st03's :911-954)"),
+        ("as04", "as04_kernel.py:348 INVARIANT_FNS (+ st03's :911-954)"),
+        ("rr05", "as04_kernel.py:348 INVARIANT_FNS on rr05_kernel.py's "
+         "entries"),
+        ("al05", "as04_kernel.py:348 INVARIANT_FNS on al05_kernel.py's rows"),
+        ("cp06", "cp06_kernel.py:757 INVARIANT_FNS (+ as04, st03)")):
+    KERNELS[f"{_m}_state_pred"] = (
+        "st03_actions", "tpuvsr/engine/device_liveness.py:383 _run_batched "
+        f"via :394 batch_predicate over tpuvsr/models/{_preds}")
 SOURCES = tuple(sorted({src for src, _ in KERNELS.values()}))
 
 # C entry point -> argument types ("p" pointer, "i" int, "q" long long,
@@ -262,13 +281,16 @@ _ENTRY = {
     "tpuvsr_por_cand": "pp" + "ii" + "p" + "i" + "ppppppp" + "p",
     "tpuvsr_por_probe": "p" + "q" + "pppppp" + "i" + "pppp" + "p",
     "tpuvsr_por_keep": "pppp" + "i" + "pppp" + "i" + "ppppp" + "p",
+    "tpuvsr_vsr_state_pred": "piip" + "iiiiiii" + "i" + "p" + "p",
 }
-# K13 and K14 take one signature for every model of the ST03 family
+# K13, K14 and K18 take one signature for every model of the ST03 family
 for _m in ("st03", "a01", "i01", "as04", "rr05", "al05", "cp06"):
     _ENTRY[f"tpuvsr_{_m}_guards"] = ("piii" + "iiiiiiii" + "ppp" + "ppp"
                                      + "p")
     _ENTRY[f"tpuvsr_{_m}_actions"] = ("pipppi" + "pp" + "iiiii" + "iiii"
                                       + "p" + "ppppppp" + "p")
+    _ENTRY[f"tpuvsr_{_m}_state_pred"] = ("piipp" + "i" + "iiiiii" + "i"
+                                         + "p" + "p")
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
           "f": ctypes.c_float}
 

@@ -50,6 +50,7 @@ class A01Kernel(ST03Kernel):
                   "incremental": "a01_fp_incremental"}
     GUARDS_KERNEL = ("a01_guards", "tpuvsr_a01_guards")
     ACTIONS_KERNEL = ("a01_actions", "tpuvsr_a01_actions")
+    STATE_PRED_KERNEL = ("a01_state_pred", "tpuvsr_a01_state_pred")
     PLANE_KEYS = ALL_KEYS + FAMILY_PLANES
     GUARD_KEYS = GUARD_PLANES + FAMILY_GUARD_PLANES
     # packed entries: the value-id field relabelled, the view kept, codes

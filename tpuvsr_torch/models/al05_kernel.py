@@ -54,6 +54,7 @@ class AL05Kernel(RR05Kernel):
                   "incremental": "al05_fp_incremental"}
     GUARDS_KERNEL = ("al05_guards", "tpuvsr_al05_guards")
     ACTIONS_KERNEL = ("al05_actions", "tpuvsr_al05_actions")
+    STATE_PRED_KERNEL = ("al05_state_pred", "tpuvsr_al05_state_pred")
     REC_PLANES = RR05Kernel.REC_PLANES + ("rec_ceil",)
 
     def __init__(self, codec: AL05Codec, perms=None, pack_spec=None):

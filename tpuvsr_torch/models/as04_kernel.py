@@ -62,6 +62,7 @@ class AS04Kernel(ST03Kernel):
                   "incremental": "as04_fp_incremental"}
     GUARDS_KERNEL = ("as04_guards", "tpuvsr_as04_guards")
     ACTIONS_KERNEL = ("as04_actions", "tpuvsr_as04_actions")
+    STATE_PRED_KERNEL = ("as04_state_pred", "tpuvsr_as04_state_pred")
     # ST03's plain relabelling over the app state and the DVC slots' logs
     # too (tpuvsr/models/as04_kernel.py:51)
     PERM_REP_KEYS = ("log", "app", "dvc_log")

@@ -76,6 +76,7 @@ class CP06Kernel(RR05Kernel):
                   "incremental": "cp06_fp_incremental"}
     GUARDS_KERNEL = ("cp06_guards", "tpuvsr_cp06_guards")
     ACTIONS_KERNEL = ("cp06_actions", "tpuvsr_cp06_actions")
+    STATE_PRED_KERNEL = ("cp06_state_pred", "tpuvsr_cp06_state_pred")
     REC_PLANES = RR05Kernel.REC_PLANES + ("rec_flag", "rec_first",
                                           "rec_cp", "rec_cpn")
     # tpuvsr/models/cp06_kernel.py:56-58: the checkpoints relabel too

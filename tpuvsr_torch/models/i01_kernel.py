@@ -61,6 +61,7 @@ class I01Kernel(A01Kernel):
                   "incremental": "i01_fp_incremental"}
     GUARDS_KERNEL = ("i01_guards", "tpuvsr_i01_guards")
     ACTIONS_KERNEL = ("i01_actions", "tpuvsr_i01_actions")
+    STATE_PRED_KERNEL = ("i01_state_pred", "tpuvsr_i01_state_pred")
     # A01's packed relabelling over the DVC slots' logs too
     # (tpuvsr/models/i01_kernel.py:53)
     PERM_REP_KEYS = ("log", "dvc_log")

@@ -76,6 +76,7 @@ class RR05Kernel(AS04Kernel):
                   "incremental": "rr05_fp_incremental"}
     GUARDS_KERNEL = ("rr05_guards", "tpuvsr_rr05_guards")
     ACTIONS_KERNEL = ("rr05_actions", "tpuvsr_rr05_actions")
+    STATE_PRED_KERNEL = ("rr05_state_pred", "tpuvsr_rr05_state_pred")
     REC_PLANES = REC_PLANES
     # tpuvsr/models/rr05_kernel.py:57, 83: A01's packed relabelling over
     # every plane named here, the app state included

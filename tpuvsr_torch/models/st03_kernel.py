@@ -142,9 +142,11 @@ class ST03Kernel(RowFingerprint):
     GLOB_KEYS = GLOBAL_KEYS
     FP_KERNELS = {"full": "st03_fp_full", "parts": "st03_fp_parts",
                   "incremental": "st03_fp_incremental"}
-    # (kernels.KERNELS name, C entry point) of K13 and K14 for the model
+    # (kernels.KERNELS name, C entry point) of K13, K14 and K18 for the
+    # model
     GUARDS_KERNEL = ("st03_guards", "tpuvsr_st03_guards")
     ACTIONS_KERNEL = ("st03_actions", "tpuvsr_st03_actions")
+    STATE_PRED_KERNEL = ("st03_state_pred", "tpuvsr_st03_state_pred")
     # the planes K14 and K13 locate (ST03's, then the family's)
     PLANE_KEYS = ALL_KEYS
     GUARD_KEYS = GUARD_PLANES
@@ -1089,6 +1091,46 @@ class ST03Kernel(RowFingerprint):
             ck(out["tn"], "tn", I32, (n,)), ck(out["ri"], "ri", I32, (n,)),
             ck(out["iok"], "iok", torch.bool, (n,)),
             kernels.stream_of(flat))
+        return out
+
+    # -- K18: the invariants on states themselves -------------------------
+    def state_predicates(self, flat, mask):
+        """K18 wrapper: flat rows [N, lanes] -> int32 [N], bit b set iff
+        entry b of ``INVARIANT_FNS`` holds on the row, for the bits of
+        ``mask`` (``invariant_mask``; the others 0).  A CPU tensor takes
+        the plain version, a CUDA tensor the kernel (K14's invariant
+        code, csrc/st03_actions.cu, one call a bit)."""
+        if flat.device.type == "cpu":
+            return self.state_predicates_plain(flat, mask)
+        return self._state_pred_kernel(flat, mask)
+
+    def state_predicates_plain(self, flat, mask):
+        """The plain version of K18: the ``INVARIANT_FNS`` entries of
+        ``mask`` on the unflattened rows, one bit each."""
+        st = self.pk.unflatten(flat)
+        out = torch.zeros((flat.shape[0],), dtype=I32, device=flat.device)
+        for b, f in enumerate(self.INVARIANT_FNS.values()):
+            if int(mask) >> b & 1:
+                out |= getattr(self, f)(st).to(I32) << b
+        return out
+
+    def _state_pred_kernel(self, flat, mask):
+        N, lanes = flat.shape
+        out = torch.empty((N,), dtype=I32, device=flat.device)
+        key = ("fbit", str(flat.device))
+        fbit = self._fp_tables.get(key)
+        if fbit is None:
+            fbit = self._fp_tables[key] = torch.tensor(
+                [FAMILY_INVARIANTS.index(n) for n in self.INVARIANT_FNS],
+                dtype=I32, device=flat.device)
+        ck = kernels.check
+        kernels.launch(
+            *self.STATE_PRED_KERNEL,
+            ck(flat, "flat", I32, (N, self.pk.lanes)), lanes, N,
+            self.action_tables(flat.device).data_ptr(), fbit.data_ptr(),
+            len(self.INVARIANT_FNS), self.R, self.V, self.M, self.MAX_OPS,
+            self.NHDR, self.shape.timer_limit, int(mask),
+            ck(out, "out", I32, (N,)), kernels.stream_of(flat))
         return out
 
     # ==================================================================

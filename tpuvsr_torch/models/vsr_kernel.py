@@ -1282,6 +1282,40 @@ class VSRKernel(RowFingerprint):
             kernels.stream_of(flat))
         return out
 
+    # -- K18: the invariants on states themselves -------------------------
+    def state_predicates(self, flat, mask):
+        """K18 wrapper: flat rows [N, lanes] -> int32 [N], bit b set iff
+        entry b of ``INVARIANT_FNS`` holds on the row, for the bits of
+        ``mask`` (``invariant_mask``; the others 0).  A CPU tensor takes
+        the plain version, a CUDA tensor the kernel (K10's invariant
+        code, csrc/vsr_actions.cu, one call a bit)."""
+        if flat.device.type == "cpu":
+            return self.state_predicates_plain(flat, mask)
+        return self._state_pred_kernel(flat, mask)
+
+    def state_predicates_plain(self, flat, mask):
+        """The plain version of K18: the ``INVARIANT_FNS`` entries of
+        ``mask`` on the unflattened rows, one bit each."""
+        st = self.pk.unflatten(flat)
+        out = torch.zeros((flat.shape[0],), dtype=I32, device=flat.device)
+        for b, f in enumerate(self.INVARIANT_FNS.values()):
+            if int(mask) >> b & 1:
+                out |= getattr(self, f)(st).to(I32) << b
+        return out
+
+    def _state_pred_kernel(self, flat, mask):
+        N, lanes = flat.shape
+        out = torch.empty((N,), dtype=I32, device=flat.device)
+        s = self.shape
+        ck = kernels.check
+        kernels.launch(
+            "vsr_state_pred", "tpuvsr_vsr_state_pred",
+            ck(flat, "flat", I32, (N, self.pk.lanes)), lanes, N,
+            self.action_tables(flat.device).data_ptr(), self.R, self.V,
+            self.M, s.C, self.MAX_OPS, self.NHDR, NENT, int(mask),
+            ck(out, "out", I32, (N,)), kernels.stream_of(flat))
+        return out
+
     def step_all(self, st):
         """[B] states -> all lane successors: (succs with a [B, n_lanes]
         leading pair of axes, enabled [B, n_lanes]).  Disabled lanes

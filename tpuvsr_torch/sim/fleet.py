@@ -50,7 +50,7 @@ import torch
 from ..core.values import TLAError
 from ..device import resolve_device
 from ..engine.canon import build_canon_spec
-from ..engine.device_sim import materialize_walk
+from ..engine.device_sim import failing_row, materialize_walk
 from ..engine.simulate import SimResult
 from .. import kernels
 from ..models import registry
@@ -342,13 +342,12 @@ class FleetSimulator:
 
     def first_failing(self, dense):
         """Name of the first cfg invariant the one dense state (numpy
-        arrays) fails, or None."""
-        st = {k: torch.as_tensor(np.asarray(v))[None].to(self.device)
-              for k, v in dense.items()}
-        for name, f in self.kern.invariant_fns(self.inv_names):
-            if not bool(f(st)[0]):
-                return name
-        return None
+        arrays) fails, or None (``failing_row``)."""
+        flat = self.kern.pk.flatten(
+            {k: torch.as_tensor(np.asarray(v))[None].to(self.device)
+             for k, v in dense.items()}).contiguous()
+        hit = failing_row(self.kern, flat, self.inv_names)
+        return None if hit is None else hit[1]
 
     # -- round driver --------------------------------------------------
     def _init_batch(self, base, active):

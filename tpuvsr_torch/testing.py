@@ -14,10 +14,10 @@ It implements the kernel contract the device BFS and the walker fleet
 consume (``action_names``, ``_lane_count``, ``lane_action``,
 ``lane_param``, ``_guard_fns``, ``_action_fns``, ``fingerprint``,
 ``fingerprint_batch``, ``hunt_score``, ``invariant_fns``/
-``invariant_fn``, ``pk``) over a state space of ``STUB_DISTINCT`` = 16
-states with level sizes ``STUB_LEVELS`` — small enough that every
-engine path (growth pauses, violation, deadlock, trace replay) runs in
-seconds.  SymPair (two write-once registers over a symmetric set of
+``invariant_fn``, ``invariant_mask``/``state_predicates``, ``pk``) over a
+state space of ``STUB_DISTINCT`` = 16 states with level sizes
+``STUB_LEVELS`` — small enough that every engine path (growth pauses,
+violation, deadlock, trace replay) runs in seconds.  SymPair (two write-once registers over a symmetric set of
 three model values, SYMMETRY ``Permutations(Vals)``) has 16 states in 5
 orbits; its kernel declares ``SYM_PLANES`` and no ``_permuted``, so it
 drives the table action of ``engine/canon.py``.  The Ticker (a
@@ -124,7 +124,22 @@ class StubCodec:
         return batch
 
 
-class StubKern:
+class _OnePredicate:
+    """The K18 contract of the stubs (``invariant_mask``,
+    ``state_predicates``), plain on every device: a stub has no hand
+    kernels, and every invariant name checks its one predicate
+    (``invariant_fns``), so every name's bit is bit 0."""
+
+    def invariant_mask(self, names):
+        return 1 if names else 0
+
+    def state_predicates(self, flat, mask):
+        st = self.pk.unflatten(flat)
+        ok = self.invariant_fns(["_"])[0][1](st)
+        return (ok.to(torch.int32) * (int(mask) & 1)).to(torch.int32)
+
+
+class StubKern(_OnePredicate):
     action_names = ("IncX", "IncY")
     n_lanes = 2
     lane_action = np.array([0, 1], np.int32)
@@ -483,7 +498,7 @@ class SymCodec:
         return batch
 
 
-class SymKern:
+class SymKern(_OnePredicate):
     action_names = ("WriteA", "WriteB")
     V = 3
     # both registers hold bare value ids: a permutation remaps every lane
@@ -655,11 +670,16 @@ class TickCodec:
         return {"x": int(np.asarray(d["x"])),
                 "stopped": bool(int(np.asarray(d["stopped"])))}
 
+    def encode(self, st):
+        return {"status": np.int32(0), "x": np.int32(st["x"]),
+                "stopped": np.int32(bool(st["stopped"])),
+                "err": np.int32(0)}
+
     def pad_msgs(self, batch, old):
         return batch
 
 
-class TickKern:
+class TickKern(_OnePredicate):
     def __init__(self, codec, modulus, stop):
         self.modulus = modulus
         self.action_names = ("Tick", "Stop") if stop else ("Tick",)
