@@ -11,6 +11,14 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
      recording run of that path (same depth, tile, chunk and 2^26 FPSet
      slots); time kernel, plain version and, where PyTorch computes the
      same function in one call (K2: a torch.sort lexsort), that call;
+     b. K7 on every case of tpuvsr_torch.testing.compact_case (warp
+        and non-warp row counts, one lane and over 64 lanes a segment,
+        cap 1, no valid row, one segment alone, 1,100 rows) and on a
+        halted carry; K3's parts, full and incremental fingerprints of
+        each of the eight model layouts (VSR's defect config and the
+        family's small cfgs, MAX_MSGS 48) on rows of random 32-bit
+        words (testing.fp_wide_case: no touched slot, R + 1, mixed):
+        each bit for bit against its plain version;
   4. run the counter stub through DeviceBFS on the card (16 distinct,
      levels [1,2,3,4,3,2,1]; the Bound violation trace);
   5. the BFS path: DeviceBFS.run on examples/VSR_defect.cfg to depth
@@ -421,7 +429,10 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         11e, 12a, 12c, 12e, 13a, 13c), K18 with every bit on K14's
         successor rows, each bit equal to K14's iok under that
         invariant alone and the whole to K18's plain version: all seven
-        family instantiations launch; phase 19 requires every one;
+        family instantiations launch; phase 19 requires every one, and
+        times each but A01's (19b's) on the largest successor batch it
+        was held on, its launches those of the model's first run in
+        phases 10-13 (the initial states' check);
   then print the kernels line, and the result line last.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Options:
@@ -1296,6 +1307,71 @@ def check_kernels(rec):
     return out
 
 
+# phase 3b: each model's K3 on the cases of testing.fp_wide_case, at the
+# family's small cfgs (VSR: the defect config) and MAX_MSGS 48
+EDGE_LAYOUTS = [("VSR", DEFECT)] + [
+    (module, os.path.join(ROOT, "tpuvsr_torch", "configs",
+                          f"{module}_small.cfg"))
+    for module in ("VR_STATE_TRANSFER", "VR_ASSUME_NEWVIEWCHANGE",
+                   "VR_INC_RESEND", "VR_APP_STATE", "VR_REPLICA_RECOVERY",
+                   "VR_REPLICA_RECOVERY_ASYNC_LOG", "VR_REPLICA_RECOVERY_CP")]
+
+
+def check_edge_cases(doc):
+    """Phase 3b: K7 on every case of ``testing.compact_case`` (and on a
+    halted carry) and K3 (parts, full, incremental) on
+    ``testing.fp_wide_case`` rows of each of the eight model layouts,
+    against their plain versions on the card, bit for bit."""
+    import torch
+    from tpuvsr_torch.engine import tile as TL
+    from tpuvsr_torch.engine.spec import load_binding
+    from tpuvsr_torch.models.registry import make_model
+    from tpuvsr_torch.testing import (COMPACT_CASES, FP_TOUCHED,
+                                      compact_case, fp_wide_case)
+    dev = torch.device("cuda")
+    for name in COMPACT_CASES + ("halted",):
+        c = compact_case("rows128" if name == "halted" else name)
+        n_act = len(c.lanes)
+        segs = TL.Segments(c.lane_off, c.lanes, c.caps, dev)
+        en = torch.as_tensor(c.en, device=dev)
+        valid = torch.as_tensor(c.valid, device=dev)
+        outs = []
+        for fn in (TL.compact, TL.compact_plain):
+            q = TL.queue_buffers(segs.total, n_act, dev)
+            carry = TL.new_carry(n_act, dev, halt=int(name == "halted"))
+            carry[TL.C_NEED:TL.C_NEED + n_act] = torch.tensor(c.need)
+            fn(en, valid, segs, q, carry, action=c.action)
+            outs.append([*q.values(), carry])
+        torch.cuda.synchronize()
+        need(all(torch.equal(a, b) for a, b in zip(*outs)),
+             f"K7 differs from its plain version on case {name}")
+    n_fp = 0
+    for module, cfg in EDGE_LAYOUTS:
+        _c, kern = make_model(load_binding(cfg, module), max_msgs=48)
+        for seed, touched in enumerate(FP_TOUCHED):
+            w = fp_wide_case(kern, n=1000, T=128, seed=seed, touched=touched)
+            t = {k: torch.as_tensor(v, device=dev) for k, v in
+                 vars(w).items()}
+            parent, succ = t["parent"], t["succ"]
+            a, p = kern.parent_parts(parent), kern.parent_parts_plain(parent)
+            fa, fp_ = kern.fingerprint(succ), kern.fingerprint_plain(succ)
+            args = (succ, t["ri"], t["ts"], t["pidx"], parent)
+            ia = kern.fingerprint_incremental(*args, a)
+            ip = kern.fingerprint_incremental_plain(*args, p)
+            torch.cuda.synchronize()
+            for what, x, y in (("parts", a, p), ("full", fa, fp_),
+                               ("incremental", ia, ip)):
+                x, y = (x, y) if isinstance(x, tuple) else ((x,), (y,))
+                need(all(torch.equal(u, v) for u, v in zip(x, y)),
+                     f"K3 {what} differs from its plain version on "
+                     f"{module} (MAX_MSGS 48, touched {touched})")
+            n_fp += 1
+    doc["edge_cases"] = {"compact": len(COMPACT_CASES) + 1,
+                         "fingerprint": n_fp}
+    print(f"  K7 on {len(COMPACT_CASES) + 1} cases, K3 on {n_fp} "
+          f"(layout, touched) cases: bit for bit", flush=True)
+
+
 class HuntRecorder:
     """Keeps, during a hunt run, the inputs of the K5 call with the most
     enabled lanes, the swarm-noise call, the splitter's K1/K2/K3 calls on
@@ -2045,7 +2121,8 @@ def fused_phase(args, doc, binding, run_pointers):
 def profile_quantum(doc, key, eng, depth):
     """torch.profiler over the first quantum of ``eng.run_fused`` at its
     full size (REPLAYS_CAP tile replays between two host reads), into
-    ``doc[key]``."""
+    ``doc[key]``: wall, device time and busy share, device ms by
+    kernel (activity name) and the profiler's table."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from tpuvsr_torch.engine.device_bfs import REPLAYS_CAP
@@ -2062,9 +2139,14 @@ def profile_quantum(doc, key, eng, depth):
             h = replay(run_tile, n)
             wall_q = time.time() - t1
         dev_us = device_us(prof)
+        by_kernel = {}
+        for e in device_events(prof):
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
+                + e.device_time_total / 1e3
         doc[key] = {
             "replays": n, "wall_s": wall_q, "device_s": dev_us / 1e6,
             "device_busy_share": dev_us / 1e6 / wall_q,
+            "device_ms_by_kernel": by_kernel,
             "table": prof.key_averages().table(
                 sort_by="cuda_time_total", row_limit=40)}
         print(f"  profiled fused quantum ({n} tiles): wall {wall_q:.3f}s, "
@@ -2984,6 +3066,8 @@ def st03_phase(args, doc):
         wall = time.time() - t0
         counts = kernels.launch_counts()
         what = f"ST03 {os.path.basename(cfg)} {entry}"
+        if counts["st03_state_pred"] and "st03_state_pred" not in K18_RUNS:
+            K18_RUNS["st03_state_pred"] = (what, counts["st03_state_pred"])
         for k in ("st03_guards", "st03_actions", "st03_fp_parts",
                   "st03_fp_incremental", "st03_fp_full"):
             need(counts[k] > 0, f"{k} was not launched on {what}")
@@ -3158,6 +3242,9 @@ def model_run(m, module, size, entry, depth=None, constants=None,
             undo()
     counts = kernels.launch_counts()
     what = f"{label or m + ' ' + size} {entry}"
+    k18 = k18_name(eng.kern)
+    if counts.get(k18, 0) and k18 not in K18_RUNS:
+        K18_RUNS[k18] = (what, counts[k18])
     need(type(eng.kern).__name__ == f"{m}Kernel",
          f"{what} ran on {type(eng.kern).__name__}")
     K = type(eng.kern)
@@ -5483,6 +5570,11 @@ def por_phase(args, doc):
 # instantiation was held on
 # ----------------------------------------------------------------------
 K18_HELD = {}
+# the largest successor batch each family instantiation was held on in
+# 19d, (kern, rows), and the launches of the first run of phases 10-13
+# that launched it, (run, count): the family's kernels-line rows
+K18_SUCC = {}
+K18_RUNS = {}
 # the planes K18's family invariants read (csrc/st03_actions.cu
 # St::invariants<MODEL>), where a model has them
 K18_FAMILY_PLANES = ("status", "view", "op", "commit", "log", "no_prog",
@@ -5545,6 +5637,9 @@ def check_k18_succ(kern, flat, pidx, aid, lane, what):
              f"iok")
     K18_HELD[k18_name(kern)] = K18_HELD.get(k18_name(kern), 0) \
         + succ.shape[0]
+    best = K18_SUCC.get(k18_name(kern))
+    if best is None or succ.shape[0] > best[1].shape[0]:
+        K18_SUCC[k18_name(kern)] = (kern, succ)
 
 
 def k18_over_blocks(eng, what, batch=1 << 16):
@@ -5724,6 +5819,14 @@ def liveness_phase(args, doc):
          f"K18 held on {K18_HELD}")
     out["k18_held_rows"] = dict(K18_HELD)
     print(f"  rows held bit for bit: {K18_HELD}", flush=True)
+    # the other family instantiations on their largest 19d batch
+    for name in want[1:]:
+        if name == "a01_state_pred":
+            continue
+        kern, succ = K18_SUCC[name]
+        run, n = K18_RUNS[name]
+        k18_row(rows, kern, succ, n, f"{name} (19d, K14's largest queue)")
+        rows[-1]["launches_of"] = run
     out["phase_s"] = time.time() - t_phase
     print(f"  phase 19 in {out['phase_s']:.1f}s", flush=True)
     return rows
@@ -5820,6 +5923,9 @@ def run_phases(args, doc, t_all):
     doc["recorded_sizes"] = {k: v[0] for k, v in rec.calls.items()}
     rows = check_kernels(rec)
     del rec, eng
+    print("phase 3b: K7 and K3 edge cases against their plain versions",
+          flush=True)
+    check_edge_cases(doc)
 
     print("phase 4: counter stub", flush=True)
     r = stub_device_engine(device="cuda").run()

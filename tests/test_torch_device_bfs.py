@@ -302,7 +302,8 @@ def _imports(path):
 
 
 def test_no_jax_or_tpuvsr_import_in_the_port():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "torch_kernel_ab.py")]
     for d, _s, names in os.walk(os.path.join(ROOT, "tpuvsr_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     bad = [(f, m) for f in files for m in _imports(f)

@@ -1,6 +1,7 @@
 """The port's guard matrix (K6's plain version) against the JAX engine's
 ``_guard_matrix`` closure, and the work-queue compaction (K7's plain
-version) against ``jnp.nonzero(size=E, fill_value=T*L)``, on the CPU.
+version) against ``jnp.nonzero(size=E, fill_value=T*L)``, on the CPU
+(the cases of ``tpuvsr_torch.testing.compact_case``).
 
 Guard inputs: the 30 states of examples/found_violation_trace.txt and
 their enabled successors, plus 256 numpy-seeded rows drawn inside each
@@ -28,6 +29,7 @@ from tpuvsr_torch.engine import tile as TL
 from tpuvsr_torch.engine.spec import load_binding
 from tpuvsr_torch.models.registry import make_model
 from tpuvsr_torch.models.vsr_kernel import GUARD_PLANES
+from tpuvsr_torch.testing import COMPACT_CASES, compact_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFECT = os.path.join(ROOT, "examples", "VSR_defect.cfg")
@@ -146,47 +148,44 @@ def _jax_queue(en, valid, segs):
     return out
 
 
-@pytest.mark.parametrize("case", ["empty", "all_true", "exact_fit",
-                                  "overflow", "random"])
+@pytest.mark.parametrize("case", COMPACT_CASES)
 def test_compact_matches_jnp_nonzero(case):
-    rng = np.random.default_rng(11)
-    T, lanes = 6, [3, 5, 1, 4]
-    lane_off = np.concatenate([[0], np.cumsum(lanes)[:-1]])
-    n = sum(lanes)
-    valid = np.ones(T, bool)
-    if case == "empty":
-        en = np.zeros((T, n), bool)
-    elif case == "all_true":
-        en = np.ones((T, n), bool)
-        valid[4:] = False
-    else:
-        en = rng.random((T, n)) < 0.4
-        valid[5] = False
-    per = [int((en[:, lo:lo + L] & valid[:, None]).sum())
-           for lo, L in zip(lane_off, lanes)]
-    caps = {"empty": [4, 4, 4, 4], "all_true": [T * L for L in lanes],
-            "exact_fit": [max(p, 1) for p in per],   # a cap is >= 1
-            "overflow": [max(p - 2, 1) for p in per],
-            "random": [5, 9, 2, 7]}[case]
-    segs = TL.Segments(lane_off, lanes, caps, "cpu")
-    q = TL.queue_buffers(segs.total, len(lanes), "cpu")
-    carry = TL.new_carry(len(lanes), "cpu")
-    carry[TL.C_NEED:TL.C_NEED + len(lanes)] = torch.tensor([1, 0, 3, 0])
-    TL.compact(torch.from_numpy(en), torch.from_numpy(valid), segs, q,
-               carry)
+    """K7's plain version against jnp.nonzero on each case of
+    ``testing.compact_case``; with ``action`` set only that segment is
+    written, and the others keep their zeros and their need."""
+    c = compact_case(case)
+    T, n_act = c.en.shape[0], len(c.lanes)
+    segs = TL.Segments(c.lane_off, c.lanes, c.caps, "cpu")
+    q = TL.queue_buffers(segs.total, n_act, "cpu")
+    carry = TL.new_carry(n_act, "cpu")
+    carry[TL.C_NEED:TL.C_NEED + n_act] = torch.tensor(c.need)
+    TL.compact(torch.from_numpy(c.en), torch.from_numpy(c.valid), segs, q,
+               carry, action=c.action)
+    per = []
     for a, ((pidx, lane, ok, cnt), (lo, L, E, qo)) in enumerate(
-            zip(_jax_queue(en, valid, segs.host), segs.host)):
+            zip(_jax_queue(c.en, c.valid, segs.host), segs.host)):
+        per.append(cnt)
+        if c.action is not None and a != c.action:
+            assert not q["pidx"][qo:qo + E].any()
+            assert not q["ok"][qo:qo + E].any()
+            assert int(q["cnts"][a]) == 0 and not bool(q["ovf"][a])
+            assert int(carry[TL.C_NEED + a]) == c.need[a]
+            continue
         assert np.array_equal(q["pidx"][qo:qo + E].numpy(), pidx)
         assert np.array_equal(q["lane"][qo:qo + E].numpy(), lane)
         assert np.array_equal(q["ok"][qo:qo + E].numpy(), ok)
         assert (q["aid"][qo:qo + E] == a).all()
         assert int(q["cnts"][a]) == cnt
         assert bool(q["ovf"][a]) == (cnt > E)
-        assert int(carry[TL.C_NEED + a]) == max(cnt, [1, 0, 3, 0][a])
-    if case == "overflow":
+        assert int(carry[TL.C_NEED + a]) == max(cnt, c.need[a])
+    if case in ("overflow", "cap1", "rows37", "rows128", "rows1100"):
         assert q["ovf"].any()
     if case == "exact_fit":
         assert not q["ovf"].any() and bool(q["ok"].all()) == all(per)
+    if case == "cap1":
+        assert all(p > 1 for p in per) and bool(q["ok"].all())
+    if case == "all_invalid":
+        assert not any(per) and not q["ok"].any()
 
 
 def test_compact_halted_carry_leaves_the_queue():

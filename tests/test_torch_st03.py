@@ -41,6 +41,7 @@ import jax.numpy as jnp
 
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_gids import expand_macros
+from tests.test_torch_vsr_kernel import WIDE_WORDS, wide_word_check
 from tpuvsr.analysis.passes.widths import derive_ranges_from as j_ranges
 from tpuvsr.engine.device_bfs import DeviceBFS as JDeviceBFS
 from tpuvsr.engine.pack import build_pack_spec as j_pack_spec
@@ -547,6 +548,14 @@ def test_incremental_fingerprints_match_jax(case):
         "NoProgressChange"), B)
     if CASES[case.name][1]:
         assert (en & npc).any()
+
+
+@pytest.mark.parametrize("what", WIDE_WORDS)
+def test_fingerprints_of_wide_words_match_jax(case, what):
+    """Parts, full and incremental fingerprints with the global row on
+    words at and past 2^31, no touched slot and R + 1 of them
+    (``testing.fp_wide_case``)."""
+    wide_word_check(case.jk, case.kern, what, seed=23)
 
 
 def test_plain_calls_are_counted():

@@ -1,6 +1,7 @@
 """Parity of the port's VSR kernel (guards, actions, K3 fingerprints,
 invariants) with the JAX VSRKernel on the CPU, on all 30 states of
-examples/found_violation_trace.txt at MAX_MSGS=48.
+examples/found_violation_trace.txt at MAX_MSGS=48, and the fingerprints
+on rows of random 32-bit words (``testing.fp_wide_case``).
 
 The trace is parsed through a constants-only shim spec (a VSR module
 that declares only the cfg's CONSTANTS, plus an Evaluator), which needs
@@ -26,6 +27,7 @@ from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.engine.spec import load_binding
 from tpuvsr_torch.models.registry import make_model
 from tpuvsr_torch.models.vsr_kernel import ACTION_NAMES
+from tpuvsr_torch.testing import FP_TOUCHED, fp_wide_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFECT = os.path.join(ROOT, "examples", "VSR_defect.cfg")
@@ -157,6 +159,75 @@ def test_incremental_fingerprints_match_jax(golden):
         assert np.array_equal(want, got.numpy().view(np.uint32)), name
         checked.append(name)
     assert len(checked) >= 12, checked
+
+
+def perm_lanes(jk, pk):
+    """The flat lanes the JAX fingerprint relabels through its identity
+    permutation table (value ids), found as the lanes that change when a
+    row of ids past every table is relabelled (JAX clamps such an id).
+    A wide-word row keeps them in 0..V, where the table is the
+    identity."""
+    big = torch.full((1, pk.lanes), 0x7FFF0000, dtype=torch.int32)
+    st = {k: jnp.asarray(v[0].numpy()) for k, v in pk.unflatten(big).items()}
+    out = jk._permuted(st, jnp.asarray(jk.perms[0]))
+    flat = pk.flatten({k: torch.as_tensor(np.array(out[k]))[None]
+                       for k in st})
+    assert flat.shape == big.shape
+    return np.nonzero((flat != big).numpy()[0])[0]
+
+
+def wide_word_check(jk, kern, what, seed):
+    """The plain parts, full and incremental fingerprints against JAX on
+    ``testing.fp_wide_case`` rows (words over all 2^32 values; the
+    relabelled lanes in 0..V): ``what`` is "parts", "full" or
+    "incremental_<touched>" (``testing.FP_TOUCHED``)."""
+    pk = kern.pk
+    touched = what.split("_")[1] if what.startswith("incr") else "mixed"
+    c = fp_wide_case(kern, seed=seed, touched=touched,
+                     small_lanes=perm_lanes(jk, pk),
+                     small_max=jk.perms.shape[1] - 1)
+    parent = torch.from_numpy(c.parent)
+    dense = lambda rows: {k: v.numpy() for k, v in
+                          pk.unflatten(torch.from_numpy(rows)).items()}
+    jparts = jax.jit(jax.vmap(jk.parent_parts))
+    u32 = lambda t: t.numpy().view(np.uint32)
+    if what == "parts":
+        want = jparts(dense(c.parent))
+        got = kern.parent_parts(parent)
+        for w, g in zip(want, got):
+            assert np.array_equal(np.asarray(w)[:, 0], u32(g))
+        assert (c.parent.view(np.uint32) >= 2**31).any()
+        return
+    if what == "full":
+        want = np.asarray(jax.jit(jax.vmap(jk.fingerprint))(dense(c.succ)))
+        assert np.array_equal(want, u32(kern.fingerprint(
+            torch.from_numpy(c.succ))))
+        return
+    parts = jparts(dense(c.parent))
+    succ = dense(c.succ)
+    succ["_ts"] = c.ts
+    want = np.asarray(jax.jit(jax.vmap(jk.fingerprint_incremental))(
+        succ, c.ri, jax.tree_util.tree_map(lambda v: v[c.pidx], parts),
+        {k: v[c.pidx] for k, v in dense(c.parent).items()}))
+    got = kern.fingerprint_incremental(
+        torch.from_numpy(c.succ), torch.from_numpy(c.ri),
+        torch.from_numpy(c.ts), torch.from_numpy(c.pidx), parent,
+        kern.parent_parts(parent))
+    assert np.array_equal(want, u32(got))
+    n_ts = (c.ts >= 0).sum(axis=1)
+    assert {"none": n_ts.max() == 0,
+            "all": (n_ts == kern.R + 1).all(),
+            "mixed": 0 < n_ts.mean() < kern.R + 1}[touched]
+
+
+WIDE_WORDS = ["parts", "full"] + [f"incremental_{t}" for t in FP_TOUCHED]
+
+
+@pytest.mark.parametrize("what", WIDE_WORDS)
+def test_fingerprints_of_wide_words_match_jax(golden, what):
+    """Words at and past 2^31 (wrapping sums, the logical shifts of
+    mix32), no touched slot and R + 1 of them."""
+    wide_word_check(golden.jk, golden.kern, what, seed=17)
 
 
 def test_invariants_match_jax(golden):

@@ -353,19 +353,24 @@ def build(stems=SOURCES) -> dict:
     return took
 
 
+def load(path):
+    """The shared library at ``path``, its C entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    for name, sig in _ENTRY.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = [_CTYPE[c] for c in sig]
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib(stem: str):
     lib = _libs.get(stem)
     if lib is None:
         path = lib_path(stem)
         if not path.exists():
             build((stem,))
-        lib = ctypes.CDLL(str(path))
-        for name, sig in _ENTRY.items():
-            fn = getattr(lib, name, None)
-            if fn is not None:
-                fn.argtypes = [_CTYPE[c] for c in sig]
-                fn.restype = ctypes.c_int
-        _libs[stem] = lib
+        lib = _libs[stem] = load(path)
     return lib
 
 

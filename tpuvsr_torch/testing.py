@@ -30,9 +30,16 @@ and ``engine/device_liveness.DeviceGraph``.
 recording run of its cfgs to a budgeted depth meets: the parity tests
 (``tests/test_torch_cp06.py``) and ``chip_smoke.py`` phase 13 hold CP06's
 kernels to their plain versions on them.
+
+``compact_case`` and ``fp_wide_case`` are the edge cases of the
+work-queue compaction (K7) and of the fingerprint (K3): the CPU tests
+hold the plain versions to JAX on them, and ``chip_smoke.py`` holds the
+kernels to the plain versions on the card.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -886,3 +893,105 @@ def checkpoint_rows(codec):
     c["app"][:2] = pad([1])
     c["aux_acked"][0] = 2
     return [a, b, c]
+
+
+# ----------------------------------------------------------------------
+# K7 and K3 edge cases
+# ----------------------------------------------------------------------
+COMPACT_CASES = ("empty", "all_true", "exact_fit", "overflow", "random",
+                 "rows37", "rows128", "cap1", "all_invalid", "one_action",
+                 "rows1100")
+
+
+def compact_case(name):
+    """One work-queue compaction case (numpy): the guard matrix ``en``
+    [T, n] bool, ``valid`` [T] bool, the segments' first lanes
+    ``lane_off``, lane counts ``lanes`` and caps ``caps`` (each >= 1),
+    the carry's ``need`` before the call, and ``action``, the one
+    segment compacted (the per-action commit) or None.
+
+    The first five are 6 rows of four segments of 3, 5, 1 and 4 lanes.
+    ``rows37`` and ``rows128`` take a row count that is not and one that
+    is a multiple of a warp, with segments of one lane and of more than
+    64 (a row needs several warp votes); ``cap1`` caps every segment at
+    one item with most items enabled; ``all_invalid`` marks every row
+    invalid; ``one_action`` compacts segment 2 alone; ``rows1100`` runs
+    past a block's 1,024-row chunk."""
+    rng = np.random.default_rng(11)
+    T, lanes, action = 6, [3, 5, 1, 4], None
+    need = [1, 0, 3, 0]
+    if name in ("empty", "all_true", "exact_fit", "overflow", "random"):
+        n = sum(lanes)
+        valid = np.ones(T, bool)
+        if name == "empty":
+            en = np.zeros((T, n), bool)
+        elif name == "all_true":
+            en = np.ones((T, n), bool)
+            valid[4:] = False
+        else:
+            en = rng.random((T, n)) < 0.4
+            valid[5] = False
+    else:
+        T, lanes, density = {
+            "rows37": (37, [1, 70, 3, 33], 0.4),
+            "rows128": (128, [96, 1, 17, 65], 0.3),
+            "cap1": (37, [1, 70, 3, 33], 0.9),
+            "all_invalid": (37, [1, 70, 3, 33], 0.5),
+            "one_action": (128, [5, 1, 70, 9], 0.3),
+            "rows1100": (1100, [2, 33, 1], 0.2)}[name]
+        rng = np.random.default_rng(len(name) * 1000 + T)
+        en = rng.random((T, sum(lanes))) < density
+        valid = rng.random(T) < 0.85
+        if name == "all_invalid":
+            valid[:] = False
+        need = [int(x) for x in rng.integers(0, 40, len(lanes))]
+        action = 2 if name == "one_action" else None
+    lane_off = [int(x) for x in np.concatenate([[0], np.cumsum(lanes)[:-1]])]
+    per = [int((en[:, lo:lo + L] & valid[:, None]).sum())
+           for lo, L in zip(lane_off, lanes)]
+    caps = {"empty": [4, 4, 4, 4], "all_true": [T * L for L in lanes],
+            "exact_fit": [max(p, 1) for p in per],
+            "overflow": [max(p - 2, 1) for p in per],
+            "random": [5, 9, 2, 7], "cap1": [1] * len(lanes),
+            "all_invalid": [3, 64, 2, 5]}.get(
+        name, [max(p - 7, 1) if a % 2 else p + 5
+               for a, p in enumerate(per)])
+    return SimpleNamespace(name=name, en=en, valid=valid, lane_off=lane_off,
+                           lanes=list(lanes), caps=caps, need=need,
+                           action=action)
+
+
+FP_TOUCHED = ("none", "all", "mixed")
+
+
+def fp_wide_case(kern, n=64, T=8, seed=0, touched="mixed", small_lanes=(),
+                 small_max=0):
+    """Inputs of the fingerprint (K3) on a model kernel's layout, as
+    numpy: ``parent`` [T, lanes] and ``succ`` [n, lanes] int32 rows whose
+    words are uniform over all 2^32 values (so every sum wraps and the
+    mixes shift words at and past 2^31), except ``small_lanes``, drawn
+    from 0..``small_max``; ``ri`` [n] the replica each successor
+    mutated, ``pidx`` [n] its parent, and ``ts`` [n, R + 1] the touched
+    slots: all -1 (``"none"``), R + 1 distinct slots (``"all"``), or
+    each entry -1 or a slot, repeats allowed (``"mixed"``)."""
+    rng = np.random.default_rng(seed)
+    lanes, R, M = kern.pk.lanes, kern.R, kern.M
+    small = np.asarray(small_lanes, np.int64)
+
+    def rows(k):
+        x = rng.integers(-2**31, 2**31, size=(k, lanes), dtype=np.int64)
+        if small.size:
+            x[:, small] = rng.integers(0, small_max + 1, size=(k, small.size))
+        return x.astype(np.int32)
+    parent, succ = rows(T), rows(n)
+    ri = rng.integers(0, R, n).astype(np.int32)
+    pidx = rng.integers(0, T, n).astype(np.int32)
+    if touched == "none":
+        ts = np.full((n, R + 1), -1, np.int32)
+    elif touched == "all":
+        ts = np.stack([rng.choice(M, R + 1, replace=False)
+                       for _ in range(n)]).astype(np.int32)
+    else:
+        ts = np.where(rng.random((n, R + 1)) < 0.5, -1,
+                      rng.integers(0, M, (n, R + 1))).astype(np.int32)
+    return SimpleNamespace(parent=parent, succ=succ, ri=ri, pidx=pidx, ts=ts)
