@@ -17,8 +17,16 @@ Phases, in order; a failing phase ends the run with a non-zero exit:
         halted carry; K3's parts, full and incremental fingerprints of
         each of the eight model layouts (VSR's defect config and the
         family's small cfgs, MAX_MSGS 48) on rows of random 32-bit
-        words (testing.fp_wide_case: no touched slot, R + 1, mixed):
-        each bit for bit against its plain version;
+        words (testing.fp_wide_case: no touched slot, R + 1, mixed);
+        K10 on every case of testing.actions_case (all 19 actions, a
+        full message table, a revived tombstone, broadcasts, mixed
+        actions in a block, a segment's fill items, a halted carry; the
+        defect layout at MAX_MSGS 48, and the first case again at
+        MAX_MSGS 448, a row past 48 KB); K2 on every case of
+        testing.dedup_case (n = 1, all masked out, all equal, all-ones
+        fingerprints among masked-out lanes, the hunt's 4,096, n at the
+        one-block limit and one past it, so both of its paths): each bit
+        for bit against its plain version, over the whole output;
   4. run the counter stub through DeviceBFS on the card (16 distinct,
      levels [1,2,3,4,3,2,1]; the Bound violation trace);
   5. the BFS path: DeviceBFS.run on examples/VSR_defect.cfg to depth
@@ -997,9 +1005,9 @@ def action_profile(fn, names):
 
 def check_actions(out, call, label=None, name="vsr_actions"):
     """K10 (K14 with ``name`` "st03_actions") bit for bit against its
-    plain version on a recorded work queue (the entries the queue
-    filled), timed with its bound, and the plain version's device time
-    per action."""
+    plain version on a recorded work queue (every entry, the queue's
+    fill entries too), timed with its bound, and the plain version's
+    device time per action."""
     import torch
     kern, flat, pidx, aid, lane, mask, ok = call
     n, lanes = pidx.shape[0], flat.shape[1]
@@ -1008,7 +1016,7 @@ def check_actions(out, call, label=None, name="vsr_actions"):
     a = kern.successors(flat, pidx, aid, lane, mask)
     p = kern.successors_plain(flat, pidx, aid, lane, mask)
     torch.cuda.synchronize()
-    err = max(max_abs(a[k][ok], p[k][ok]) for k in a)
+    err = max(max_abs(a[k], p[k]) for k in a)
     buf = kern.successor_buffers(n, flat.device)
     # the queue's parents and outputs (up to 14 MB) would stay in L2
     # from one call to the next: each call starts from an evicted L2
@@ -1366,10 +1374,82 @@ def check_edge_cases(doc):
                      f"K3 {what} differs from its plain version on "
                      f"{module} (MAX_MSGS 48, touched {touched})")
             n_fp += 1
+    n_act = check_action_cases()
+    n_dedup = check_dedup_cases()
     doc["edge_cases"] = {"compact": len(COMPACT_CASES) + 1,
-                         "fingerprint": n_fp}
+                         "fingerprint": n_fp, "actions": n_act,
+                         "dedup": n_dedup}
     print(f"  K7 on {len(COMPACT_CASES) + 1} cases, K3 on {n_fp} "
-          f"(layout, touched) cases: bit for bit", flush=True)
+          f"(layout, touched) cases, K10 on {n_act}, K2 on {n_dedup}: "
+          f"bit for bit", flush=True)
+
+
+def check_action_cases():
+    """K10 on every case of ``testing.actions_case`` (and the first at
+    MAX_MSGS 448, whose row is past 48 KB) against its plain version on
+    the card: every output buffer, filled from the same pattern first,
+    bit for bit.  Returns the number of cases held."""
+    import torch
+    from tpuvsr_torch.engine.spec import load_binding
+    from tpuvsr_torch.models.registry import make_model
+    from tpuvsr_torch.testing import (ACTIONS_CASES, ACTIONS_CONSTANTS,
+                                      actions_case)
+    dev = torch.device("cuda")
+    held = 0
+    for name in ACTIONS_CASES + ("every_action@448",):
+        c = actions_case(name.split("@")[0])
+        kern = c.kern
+        rows, pidx, aid, lane = (torch.as_tensor(x, device=dev) for x in (
+            c.rows, c.pidx, c.aid, c.lane))
+        if name.endswith("@448"):
+            b = load_binding(DEFECT, "VSR")
+            b.cfg.constants.update(ACTIONS_CONSTANTS)
+            codec, kern = make_model(b, max_msgs=448)
+            rows = kern.pk.flatten(codec.pad_msgs(
+                c.kern.pk.unflatten(rows), c.kern.M)).contiguous()
+            need(rows.shape[1] * 4 > 48 * 1024,
+                 f"{name}: a row of {rows.shape[1]} lanes fits 48 KB")
+        halt = (torch.ones((1,), dtype=torch.int64, device=dev)
+                if c.halt else None)
+        outs = []
+        for fn in (kern.successors, kern.successors_plain):
+            buf = kern.successor_buffers(len(c.pidx), dev)
+            for v in buf.values():
+                v.fill_(1)
+            outs.append(fn(rows, pidx, aid, lane, c.inv_mask, buf, halt))
+        torch.cuda.synchronize()
+        bad = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+        need(not bad, f"K10 differs from its plain version on case {name} "
+             f"in {bad}")
+        held += 1
+    return held
+
+
+def check_dedup_cases():
+    """K2 on every case of ``testing.dedup_case`` against its plain
+    version (``dedup_batch`` scattered to queue order) on the card, bit
+    for bit; the cases at and past the one-block limit take one launch
+    and the scratch path.  Returns the number of cases held."""
+    import torch
+    from tpuvsr_torch import kernels
+    from tpuvsr_torch.engine import fpset as F
+    from tpuvsr_torch.testing import DEDUP_CASES, dedup_case
+    dev = torch.device("cuda")
+    for name in DEDUP_CASES:
+        c = dedup_case(name)
+        fps = torch.as_tensor(c.fps, device=dev)
+        mask = torch.as_tensor(c.mask, device=dev)
+        n0 = kernels.launch_counts()["dedup_batch"]
+        got = F.dedup_keep(fps, mask)
+        need(kernels.launch_counts()["dedup_batch"] == n0 + 1,
+             f"K2 was not launched on case {name}")
+        perm, keep = F.dedup_batch(fps, mask)
+        want = torch.zeros_like(mask)
+        want[perm] = keep
+        torch.cuda.synchronize()
+        need(torch.equal(got, want),
+             f"K2 differs from its plain version on case {name}")
+    return len(DEDUP_CASES)
 
 
 class HuntRecorder:
@@ -1545,7 +1625,8 @@ def check_wide_actions(call, max_msgs=448):
     """K10 on a message table grown until a row no longer fits the 48 KB
     of shared memory a block has by default (the kernel then opts in to
     more): bit for bit against its plain version on the hunt step's
-    queue, its rows padded with empty slots to ``max_msgs``."""
+    queue (every entry), its rows padded with empty slots to
+    ``max_msgs``."""
     import torch
     from tpuvsr_torch.engine.spec import load_binding
     from tpuvsr_torch.models.registry import make_model
@@ -1555,12 +1636,9 @@ def check_wide_actions(call, max_msgs=448):
          f"{wide.pk.lanes} lanes, which fit in 48 KB")
     rows = wide.pk.flatten(codec.pad_msgs(kern.pk.unflatten(flat),
                                           kern.M)).contiguous()
-    if ok is None:
-        ok = torch.ones((pidx.shape[0],), dtype=torch.bool,
-                        device=flat.device)
     a = wide.successors(rows, pidx, aid, lane, mask)
     p = wide.successors_plain(rows, pidx, aid, lane, mask)
-    err = max(max_abs(a[k][ok], p[k][ok]) for k in a)
+    err = max(max_abs(a[k], p[k]) for k in a)
     need(err == 0, f"K10 at MAX_MSGS {max_msgs} differs from its plain "
          f"version by {err}")
     print(f"  vsr_actions at MAX_MSGS {max_msgs} ({wide.pk.lanes} lanes, "
@@ -5923,8 +6001,8 @@ def run_phases(args, doc, t_all):
     doc["recorded_sizes"] = {k: v[0] for k, v in rec.calls.items()}
     rows = check_kernels(rec)
     del rec, eng
-    print("phase 3b: K7 and K3 edge cases against their plain versions",
-          flush=True)
+    print("phase 3b: K7, K3, K10 and K2 edge cases against their plain "
+          "versions", flush=True)
     check_edge_cases(doc)
 
     print("phase 4: counter stub", flush=True)

@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
-"""Two builds of the fingerprint (K3, ``csrc/vsr_fingerprint.cu``) and
-the work-queue compaction (K7, ``csrc/compact.cu``) of the PyTorch/CUDA
-port, timed in turns on one NVIDIA card.
+"""Two builds of the VSR successors (K10, ``csrc/vsr_actions.cu``), the
+batch dedup (K2, ``csrc/dedup.cu``), the fingerprint (K3,
+``csrc/vsr_fingerprint.cu``) and the work-queue compaction (K7,
+``csrc/compact.cu``) of the PyTorch/CUDA port, timed in turns on one
+NVIDIA card.
 
-``--other DIR`` holds another tree's ``compact.cu``,
-``vsr_fingerprint.cu`` and ``common.cuh`` (for example a parent commit's,
-from ``git show``); they are built with the port's nvcc flags into a
-temporary directory.  The inputs are recorded once, with this
-checkout's kernels: the defect config's ``run()`` to depth 10 (K3's
-parts and incremental fingerprints, and the full one of the initial
-state), an eager ``run_fused()`` to depth 10 (K7), the shipped model's
+``--other DIR`` holds another tree's ``vsr_actions.cu``, ``dedup.cu``,
+``compact.cu``, ``vsr_fingerprint.cu`` and ``common.cuh`` (for example
+a parent commit's, from ``git show``); they are built with the port's
+nvcc flags into a temporary directory.  A build whose K2 entry point
+wants its scratch on every call (before the one-block path) is called
+through ``parent_dedup``, that wrapper as it was (the C signature is
+the same; the script tells the two apart by the source).  The inputs are recorded once, with this checkout's kernels:
+the defect config's ``run()`` to depth 10 (K3's parts and incremental
+fingerprints, and the full one of the initial state), an eager
+``run_fused()`` to depth 10 (K7; K10's and K2's fused queue; K6 and
+K4's unpack at the tile's shape, [128, lanes]), an eager per-action
+``run_fused()`` to depth 8 (K2's reversed batch), the shipped model's
 symmetric ``run()`` to depth 9 (K3's full fingerprint of K9's canonical
-images), as ``chip_smoke.py`` phases 3, 7a and 8a record them, and a
-``run()`` of each family model's small cfg to depth 14 (its K3 calls,
-as phases 10a-13a record them); the hunt splitter's full fingerprint is
-timed at its shape on random rows.  Then, for each build in the order
-other, this, this, other:
+images, K10's queue), the hunt's first round, eager (K10's step and
+K2's splitter batch), as ``chip_smoke.py`` phases 3, 6a, 7a, 8a and 15
+record them, and a ``run()`` of each family model's small cfg to depth
+14 (its K3 calls, as phases 10a-13a record them); the hunt splitter's
+full fingerprint is timed at its shape on random rows.  Then, for each
+build in the order other, this, this, other:
 
 * each kernel on its recorded input, held bit for bit against its plain
-  version and timed as ``chip_smoke.cuda_ms`` times it (the family's
-  after an L2 flush, as phases 10b-13a time them), beside
-  ``torch.nonzero`` of K7's masked matrix;
+  version (K10 over the whole queue, fill entries included) and timed
+  as ``chip_smoke.cuda_ms`` times it (K10 and the family's K3 after an
+  L2 flush, as phases 7b and 10b-13a time them), beside
+  ``torch.nonzero`` of K7's masked matrix and the ``torch.sort``
+  lexsort of K2's batches;
 * the walls of ``run()`` and ``run_fused()`` to depth 10 on the defect
   config and of ``run_fused()`` to depth 16 on the shipped model with
   symmetry on (the entry point's call, the engine built before; their
@@ -46,14 +56,14 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STEMS = ("compact", "vsr_fingerprint")
+STEMS = ("compact", "vsr_fingerprint", "vsr_actions", "dedup")
 BFS = {"tile_size": 128, "chunk_tiles": 64, "fpset_capacity": 1 << 26,
        "device": "cuda"}
 FAMILY_DEPTH = 14
 
 
 def build_other(src, out_dir):
-    """{stem: library} of ``src``'s K3 and K7 sources."""
+    """{stem: library} of ``src``'s sources of ``STEMS``."""
     from tpuvsr_torch import kernels
     procs = []
     for stem in STEMS:
@@ -73,33 +83,149 @@ def build_other(src, out_dir):
 
 def record(defect, shipped):
     """The recorded inputs: chip_smoke's Recorder over run(), its
-    FusedRecorder over an eager run_fused() and its CanonRecorder over
-    the symmetric run()."""
+    FusedRecorder over an eager run_fused() (with K10's queue, K2's
+    batch and the tile-shape K6 and K4 unpack calls), K2's batch of an
+    eager per-action run_fused(), its CanonRecorder over the symmetric
+    run() (with K10's queue) and its HuntRecorder over the hunt's first
+    round."""
     import chip_smoke as CS
     from tpuvsr_torch.engine.device_bfs import DeviceBFS
     rec, fused, canon = CS.Recorder(), CS.FusedRecorder(), CS.CanonRecorder()
     un = rec.install()
     DeviceBFS(defect, **BFS).run(max_depth=10)
     un()
-    un = fused.install()
+    k10_fused, k10_shipped = CS.Recorder(), CS.Recorder()
+    tile = TileRecorder(BFS["tile_size"])
+    uns = [fused.install(), CS.record_actions(k10_fused), tile.install()]
     eng = DeviceBFS(defect, **BFS)
     eng.graphs = False
     eng.run_fused(max_depth=10)
+    for u in reversed(uns):
+        u()
+    per_action = TileRecorder(BFS["tile_size"])
+    un = per_action.install()
+    eng = DeviceBFS(defect, commit="per-action", **BFS)
+    eng.graphs = False
+    eng.run_fused(max_depth=8)
     un()
-    un = canon.install()
+    uns = [canon.install(), CS.record_actions(k10_shipped)]
     DeviceBFS(shipped, symmetry="auto", **BFS).run(max_depth=9)
-    un()
+    for u in reversed(uns):
+        u()
+    del eng
+    hunt = record_hunt()
     import torch
     from tpuvsr_torch.models.registry import make_model
     from tpuvsr_torch.testing import fp_wide_case
-    _c, hunt = make_model(defect, max_msgs=48)
-    rows = torch.as_tensor(fp_wide_case(hunt, n=4096, T=1).succ,
+    _c, hk = make_model(defect, max_msgs=48)
+    rows = torch.as_tensor(fp_wide_case(hk, n=4096, T=1).succ,
                            device=BFS["device"])
-    CS.need(torch.equal(hunt.fingerprint(rows), hunt.fingerprint_plain(rows)),
+    CS.need(torch.equal(hk.fingerprint(rows), hk.fingerprint_plain(rows)),
             "full differs from its plain version at the hunt's shape")
     return {**rec.calls, "compact": fused.calls["compact"],
             "vsr_fp_full_canon": canon.calls["vsr_fp_full"],
-            "hunt_shape": (hunt, rows)}
+            "hunt_shape": (hk, rows),
+            "vsr_actions_fused": k10_fused.calls["vsr_actions"],
+            "vsr_actions_shipped": k10_shipped.calls["vsr_actions"],
+            "vsr_actions_hunt": hunt.calls["vsr_actions"],
+            "dedup_fused": tile.calls["dedup_batch"],
+            "dedup_per_action": per_action.calls["dedup_batch"],
+            "dedup_hunt": hunt.calls["dedup_batch"],
+            "unpack_tile": tile.calls["unpack"],
+            "guards_tile": tile.calls["vsr_guards"]}
+
+
+class TileRecorder:
+    """Keeps, during an eager run_fused(), the K2 call with the largest
+    batch, and the K6 guard matrix and K4 unpack calls at the tile's
+    shape (``tile`` rows) with the most enabled lanes and rows."""
+
+    def __init__(self, tile):
+        self.tile = tile
+        self.calls = {}
+
+    def keep(self, name, size, make):
+        if size > self.calls.get(name, (-1, None))[0]:
+            self.calls[name] = (size, make())
+
+    def install(self):
+        from tpuvsr_torch.engine import device_bfs as D
+        from tpuvsr_torch.engine.pack import PackSpec
+        from tpuvsr_torch.models.vsr_kernel import VSRKernel
+        rec, T = self, self.tile
+        ded, unpack, guards = D.dedup_keep, PackSpec.unpack, \
+            VSRKernel.guard_matrix
+
+        def p_dedup(fps, mask):
+            rec.keep("dedup_batch", fps.shape[0],
+                     lambda: (fps.clone(), mask.clone()))
+            return ded(fps, mask)
+
+        def p_unpack(self, packed, rows=None):
+            if rows is not None and rows.shape[0] == T:
+                rec.keep("unpack", 1, lambda: (self, packed.clone(),
+                                               rows.clone()))
+            return unpack(self, packed, rows)
+
+        def p_guards(self, flat, out=None, halt=None):
+            r = guards(self, flat, out, halt)
+            if flat.shape[0] == T and not (halt is not None
+                                           and bool(halt[0])):
+                rec.keep("vsr_guards", int(r[0].sum()),
+                         lambda: (self, flat.clone()))
+            return r
+        D.dedup_keep, PackSpec.unpack = p_dedup, p_unpack
+        VSRKernel.guard_matrix = p_guards
+
+        def uninstall():
+            D.dedup_keep, PackSpec.unpack = ded, unpack
+            VSRKernel.guard_matrix = guards
+        return uninstall
+
+
+def record_hunt():
+    """chip_smoke's HuntRecorder over the hunt's first round, eager (as
+    phase 6a records it): K10's step and K2's splitter batch."""
+    import chip_smoke as CS
+    import torch
+    from tpuvsr_torch.sim import rng
+    from tpuvsr_torch.sim.defect_hunt import make_fleet
+    H = CS.HUNT
+    rec = CS.HuntRecorder(H["walkers"])
+    un = rec.install()
+    sim = make_fleet(H["walkers"], H["sigma"], H["mode"], device="cuda")
+    sim.graphs = False
+    sim.run_round(base=0, active=H["walkers"], depth=H["depth"],
+                  key=rng.prng_key(list(CS.HUNT_RECORD)[0], device="cuda"))
+    torch.cuda.synchronize()
+    un()
+    return rec
+
+
+def parent_dedup(fps, mask):
+    """K2's wrapper before its one-block path: a scratch hash of at
+    least 2n slots on every call (csrc/dedup.cu takes the same
+    arguments)."""
+    import torch
+    from tpuvsr_torch import kernels
+    n = fps.shape[0]
+    keep = torch.empty((n,), dtype=torch.bool, device=fps.device)
+    hcap = 64
+    while hcap < 2 * n:
+        hcap *= 2
+    dev = fps.device
+    hkeys = torch.empty((hcap, 4), dtype=torch.int32, device=dev)
+    hstate = torch.empty((hcap,), dtype=torch.int32, device=dev)
+    hmin = torch.empty((hcap,), dtype=torch.int32, device=dev)
+    lane_slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    ck = kernels.check
+    kernels.launch(
+        "dedup_batch", "tpuvsr_dedup_batch",
+        ck(fps, "fps", torch.int32, (n, 4)),
+        ck(mask, "mask", torch.bool, (n,)), n, keep.data_ptr(),
+        hkeys.data_ptr(), hstate.data_ptr(), hmin.data_ptr(), hcap,
+        lane_slot.data_ptr(), kernels.stream_of(fps))
+    return keep
 
 
 def record_family():
@@ -154,8 +280,9 @@ def family_times(family):
 
 
 def kernel_times(calls):
-    """{row: (ms, issue ms, timed_by)} of K3 and K7 on the recorded
-    inputs, each held against its plain version first."""
+    """{row: (ms, issue ms, timed_by)} of K3, K7, K10, K2, K6 and K4's
+    unpack on the recorded inputs, each held against its plain version
+    first."""
     import torch
     import chip_smoke as CS
     from tpuvsr_torch.engine import tile as TL
@@ -192,6 +319,52 @@ def kernel_times(calls):
     # random words (a full fingerprint's time does not depend on them)
     kern, rows = calls["hunt_shape"]
     out["vsr_fp_full_hunt_shape"] = CS.cuda_ms(lambda: kern.fingerprint(rows))
+    out.update(k10_k2_times(calls))
+    return out
+
+
+def k10_k2_times(calls):
+    """{row: (ms, issue ms, timed_by)} of K10 on its three recorded
+    queues (after an L2 flush), K2 on its three recorded batches beside
+    the torch.sort lexsort, and K6 and K4's unpack at the tile's shape;
+    ``<row>_identical`` says whether the build equals the plain version
+    there (the whole output)."""
+    import torch
+    import chip_smoke as CS
+    from tpuvsr_torch.engine import fpset as F
+    out = {}
+    for key in ("fused", "shipped", "hunt"):
+        kern, flat, pidx, aid, lane, mask, _ok = calls[f"vsr_actions_{key}"][1]
+        a = kern.successors(flat, pidx, aid, lane, mask)
+        p = kern.successors_plain(flat, pidx, aid, lane, mask)
+        out[f"vsr_actions_{key}_identical"] = all(
+            torch.equal(a[k], p[k]) for k in a)
+        buf = kern.successor_buffers(pidx.shape[0], flat.device)
+        evict = CS.l2_evict(flat.device)
+        out[f"vsr_actions_{key}"] = CS.cuda_ms(
+            lambda: kern.successors(flat, pidx, aid, lane, mask, buf),
+            evict=evict)
+        del evict
+    for key in ("fused", "per_action", "hunt"):
+        fps, mask = calls[f"dedup_{key}"][1]
+        perm, keep = F.dedup_batch(fps, mask)
+        want = torch.zeros_like(mask)
+        want[perm] = keep
+        out[f"dedup_{key}_identical"] = torch.equal(F.dedup_keep(fps, mask),
+                                                    want)
+        out[f"dedup_{key}"] = CS.cuda_ms(lambda: F.dedup_keep(fps, mask))
+        out[f"lexsort_{key}"] = CS.cuda_ms(
+            lambda: CS.lexsort_keep(fps, mask))
+    pk, packed, rows = calls["unpack_tile"][1]
+    CS.need(torch.equal(pk.unpack(packed, rows),
+                        pk.unpack_plain(packed, rows)),
+            "unpack differs from its plain version at the tile's shape")
+    out["unpack_tile"] = CS.cuda_ms(lambda: pk.unpack(packed, rows))
+    kern, flat = calls["guards_tile"][1]
+    CS.need(all(torch.equal(a, b) for a, b in zip(
+        kern.guard_matrix(flat), kern.guard_matrix_plain(flat))),
+        "guards differ from their plain version at the tile's shape")
+    out["vsr_guards_tile"] = CS.cuda_ms(lambda: kern.guard_matrix(flat))
     return out
 
 
@@ -255,15 +428,32 @@ def main(argv=None):
                          if isinstance(x, torch.Tensor)][:1]
                      for k, v in calls.items() if k in (
                          "vsr_fp_parts", "vsr_fp_incremental",
-                         "vsr_fp_full_canon", "compact")}
+                         "vsr_fp_full_canon", "compact", "dedup_fused",
+                         "dedup_per_action", "dedup_hunt", "unpack_tile",
+                         "guards_tile")}
+    for key in ("fused", "shipped", "hunt"):
+        _k, flat, pidx, *_r, ok = calls[f"vsr_actions_{key}"][1]
+        doc["shapes"][f"vsr_actions_{key}"] = {
+            "queue": pidx.shape[0], "lanes": flat.shape[1],
+            "parents": int(torch.unique(pidx).numel()),
+            "filled": None if ok is None else int(ok.sum())}
+    from tpuvsr_torch.engine import fpset as F
+    this_dedup = F._dedup_kernel
+    # a K2 source without the one-block kernel wants scratch on every call
+    with open(os.path.join(args.other, "dedup.cu")) as f:
+        old_dedup = "dedup_block_kernel" not in f.read()
+    doc["other_dedup_wrapper"] = "parent_dedup" if old_dedup else "this"
     for which in doc["order"]:
         kernels._libs.update(other if which == "other" else this)
+        F._dedup_kernel = (parent_dedup if which == "other"
+                           and old_dedup else this_dedup)
         r = {"build": which, "kernels": kernel_times(calls),
              "family": family_times(family)}
         r.update(walls(defect, shipped))
         doc["rounds"].append(r)
         print(json.dumps(r, default=str), flush=True)
     kernels._libs.update(this)
+    F._dedup_kernel = this_dedup
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -6,6 +6,9 @@ everything compared is integer, so the tolerance is 0.  FPSet slot
 positions are compared as sets: the JAX scatter lets an arbitrary writer
 win a slot, so only membership is a contract."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -13,9 +16,11 @@ import torch
 import jax.numpy as jnp
 
 from tpuvsr.engine import fpset as J
+from tpuvsr_torch import kernels
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.engine import fpset as P
 from tpuvsr_torch.engine.carry import table_from_numpy
+from tpuvsr_torch.testing import DEDUP_CASES, dedup_case
 
 
 def _fps(rng, n):
@@ -101,6 +106,42 @@ def test_dedup_matches_jax(seed):
     pp, pk = P.dedup_batch(_t(batch), torch.from_numpy(mask))
     assert np.array_equal(np.asarray(perm), pp.numpy())
     assert np.array_equal(np.asarray(keep), pk.numpy())
+
+
+@pytest.mark.parametrize("name", DEDUP_CASES)
+def test_dedup_case_matches_jax(name):
+    """K2's plain version on each case of ``testing.dedup_case`` (n = 1,
+    all masked out, all equal, all-ones fingerprints among masked-out
+    lanes, the hunt's 4,096, n at the one-block limit and one past it)
+    equals the JAX dedup_batch scattered to queue order."""
+    c = dedup_case(name)
+    u32 = c.fps.view(np.uint32)
+    perm, keep = J.dedup_batch(jnp.asarray(u32), jnp.asarray(c.mask))
+    want = np.zeros(len(c.mask), bool)
+    want[np.asarray(perm)] = np.asarray(keep)
+    got = P.dedup_keep(torch.from_numpy(c.fps.copy()),
+                       torch.from_numpy(c.mask)).numpy()
+    assert np.array_equal(want, got)
+    if name == "all_masked":
+        assert not got.any()
+    if name == "all_equal":
+        assert got.sum() == 1
+
+
+def test_dedup_block_max_matches_the_kernel_source():
+    """The wrapper's one-block limit is the kernel's: a batch the kernel
+    would send down its scratch path gets scratch from the wrapper."""
+    src = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tpuvsr_torch", "csrc",
+        "dedup.cu")).read()
+    m = re.search(r"constexpr int BLOCK_MAX = (\d+);", src)
+    assert m and int(m.group(1)) == P.DEDUP_BLOCK_MAX
+    # and the entry point the wrapper calls with or without scratch
+    sig = re.search(r"TPUVSR_EXPORT int tpuvsr_dedup_batch\((.*?)\)", src,
+                    re.S).group(1)
+    kinds = "".join("p" if "*" in a else "q" if "long long" in a else "i"
+                    for a in sig.split(","))
+    assert kinds == kernels._ENTRY["tpuvsr_dedup_batch"]
 
 
 def test_carried_table_answers_queries_like_jax():

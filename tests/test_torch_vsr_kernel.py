@@ -1,7 +1,8 @@
 """Parity of the port's VSR kernel (guards, actions, K3 fingerprints,
 invariants) with the JAX VSRKernel on the CPU, on all 30 states of
-examples/found_violation_trace.txt at MAX_MSGS=48, and the fingerprints
-on rows of random 32-bit words (``testing.fp_wide_case``).
+examples/found_violation_trace.txt at MAX_MSGS=48, the fingerprints on
+rows of random 32-bit words (``testing.fp_wide_case``), and K10's plain
+version on the work queues of ``testing.actions_case``.
 
 The trace is parsed through a constants-only shim spec (a VSR module
 that declares only the cfg's CONSTANTS, plus an Evaluator), which needs
@@ -27,7 +28,9 @@ from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tpuvsr_torch.engine.spec import load_binding
 from tpuvsr_torch.models.registry import make_model
 from tpuvsr_torch.models.vsr_kernel import ACTION_NAMES
-from tpuvsr_torch.testing import FP_TOUCHED, fp_wide_case
+from tpuvsr_torch.testing import (ACTIONS_CASES, ACTIONS_CONSTANTS,
+                                  ACTIONS_MAX_MSGS, FP_TOUCHED,
+                                  actions_case, fp_wide_case)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFECT = os.path.join(ROOT, "examples", "VSR_defect.cfg")
@@ -253,3 +256,58 @@ def test_recorded_transitions_reproduced(golden):
         succ = {k: v[i, lo:hi][en] for k, v in golden.ps.items()}
         sfp = kern.fingerprint_batch(succ).numpy()
         assert (sfp == fps[i + 1]).all(axis=1).any(), (i, e.action_name)
+
+
+# ----------------------------------------------------------------------
+# K10's edge cases (testing.actions_case): the plain version against the
+# JAX act_*, lane_replica and invariants, item by item
+# ----------------------------------------------------------------------
+ACTIONS_FIELDS = ("succ", "en2", "err", "ts", "tn", "ri", "iok")
+
+
+@pytest.fixture(scope="module")
+def actions_jax():
+    """jit(vmap) of every lane of every JAX action over a fixed batch of
+    parent rows, at ``testing.actions_case``'s constants and layout."""
+    from tests.test_torch_actions import _jax_all_lanes
+    cfg = j_cfg(DEFECT)
+    cfg.constants.update(ACTIONS_CONSTANTS)
+    return _jax_all_lanes(JKernel(JCodec(cfg.constants,
+                                         max_msgs=ACTIONS_MAX_MSGS)))
+
+
+@pytest.mark.parametrize("name", ACTIONS_CASES)
+def test_actions_case_matches_jax(actions_jax, name):
+    """Every output of K10's plain version (``successors_plain``) on the
+    case's queue, fill items included, equals the JAX action of the
+    item's (row, lane) from ``seed_touch``, its ``lane_replica`` and the
+    invariants; under a set halt word it writes nothing."""
+    from tests.test_torch_actions import _jax_outputs
+    c = actions_case(name)
+    kern = c.kern
+    rows = torch.as_tensor(c.rows)
+    T = rows.shape[0]
+    pad = torch.cat([rows, rows[:1].repeat(17 - T, 1)])
+    st = kern.pk.unflatten(pad)
+    dense = [{k: v[r].numpy() for k, v in st.items()} for r in range(17)]
+    want = _jax_outputs(kern, actions_jax, dense)
+    first = {a: int(np.argmax(kern.lane_action == a))
+             for a in range(len(ACTION_NAMES))}
+    g = np.asarray([first[a] for a in c.aid]) + c.lane
+    assert (kern.lane_param[g] == c.lane).all()
+    args = [torch.as_tensor(x) for x in (c.pidx, c.aid, c.lane)]
+    got = kern.successors_plain(rows, *args, c.inv_mask)
+    assert c.inv_mask == 31
+    for k in ACTIONS_FIELDS:
+        w = want[k][c.pidx, g]
+        assert np.array_equal(got[k].numpy(), w.astype(got[k].numpy().dtype)
+                              ), (name, k)
+    if c.ok is not None:
+        assert not c.ok.all()       # fill items, held above like the rest
+    if c.halt:
+        out = kern.successor_buffers(len(c.pidx), "cpu")
+        for v in out.values():
+            v.fill_(1)
+        kern.successors(rows, *args, c.inv_mask, out,
+                        halt=torch.ones((1,), dtype=torch.int64))
+        assert all(bool((v == 1).all()) for v in out.values())

@@ -36,6 +36,9 @@ from .. import kernels
 from .pack import MASK32, to_i32, to_u32
 
 MAX_PROBES = 64
+# K2's one-block path takes batches up to this size (csrc/dedup.cu
+# BLOCK_MAX: a table of 2 x 8,192 slots fills 128 KB of shared memory)
+DEDUP_BLOCK_MAX = 8192
 
 
 def empty_table(capacity: int, device):
@@ -91,7 +94,9 @@ def dedup_batch(fps: torch.Tensor, mask: torch.Tensor):
 def dedup_keep(fps: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """K2 wrapper: the first-occurrence keep mask in QUEUE order, i.e.
     ``zeros.at[perm].set(keep)`` of ``dedup_batch`` (what the fused
-    commit consumes, device_bfs.py:937-938)."""
+    commit consumes, device_bfs.py:937-938).  On the card a batch of at
+    most ``DEDUP_BLOCK_MAX`` lanes is one launch with no scratch; a
+    larger one two launches over a scratch hash allocated here."""
     if fps.device.type == "cpu":
         perm, keep = dedup_batch(fps, mask)
         out = torch.zeros_like(mask)
@@ -103,6 +108,14 @@ def dedup_keep(fps: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def _dedup_kernel(fps, mask):
     n = fps.shape[0]
     keep = torch.empty((n,), dtype=torch.bool, device=fps.device)
+    ck = kernels.check
+    args = (ck(fps, "fps", torch.int32, (n, 4)),
+            ck(mask, "mask", torch.bool, (n,)), n, keep.data_ptr())
+    if n <= DEDUP_BLOCK_MAX:
+        # one block, its hash table in shared memory: no scratch
+        kernels.launch("dedup_batch", "tpuvsr_dedup_batch", *args,
+                       None, None, None, 0, None, kernels.stream_of(fps))
+        return keep
     hcap = 64
     while hcap < 2 * n:
         hcap *= 2
@@ -111,13 +124,10 @@ def _dedup_kernel(fps, mask):
     hstate = torch.empty((hcap,), dtype=torch.int32, device=dev)
     hmin = torch.empty((hcap,), dtype=torch.int32, device=dev)
     lane_slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    ck = kernels.check
     kernels.launch(
-        "dedup_batch", "tpuvsr_dedup_batch",
-        ck(fps, "fps", torch.int32, (n, 4)),
-        ck(mask, "mask", torch.bool, (n,)), n, keep.data_ptr(),
-        hkeys.data_ptr(), hstate.data_ptr(), hmin.data_ptr(), hcap,
-        lane_slot.data_ptr(), kernels.stream_of(fps))
+        "dedup_batch", "tpuvsr_dedup_batch", *args, hkeys.data_ptr(),
+        hstate.data_ptr(), hmin.data_ptr(), hcap, lane_slot.data_ptr(),
+        kernels.stream_of(fps))
     return keep
 
 

@@ -31,8 +31,9 @@ recording run of its cfgs to a budgeted depth meets: the parity tests
 (``tests/test_torch_cp06.py``) and ``chip_smoke.py`` phase 13 hold CP06's
 kernels to their plain versions on them.
 
-``compact_case`` and ``fp_wide_case`` are the edge cases of the
-work-queue compaction (K7) and of the fingerprint (K3): the CPU tests
+``compact_case``, ``fp_wide_case``, ``actions_case`` and ``dedup_case``
+are the edge cases of the work-queue compaction (K7), the fingerprint
+(K3), the VSR successors (K10) and the batch dedup (K2): the CPU tests
 hold the plain versions to JAX on them, and ``chip_smoke.py`` holds the
 kernels to the plain versions on the card.
 """
@@ -995,3 +996,374 @@ def fp_wide_case(kern, n=64, T=8, seed=0, touched="mixed", small_lanes=(),
         ts = np.where(rng.random((n, R + 1)) < 0.5, -1,
                       rng.integers(0, M, (n, R + 1))).astype(np.int32)
     return SimpleNamespace(parent=parent, succ=succ, ri=ri, pidx=pidx, ts=ts)
+
+
+# ----------------------------------------------------------------------
+# K10 and K2 edge cases
+# ----------------------------------------------------------------------
+ACTIONS_CASES = ("every_action", "full_bag", "tombstone", "broadcast",
+                 "mixed_block", "fill", "halted")
+# the defect config with one RestartEmpty allowed, so that walks reach
+# the recovery actions; its layout is the defect config's at MAX_MSGS 48
+ACTIONS_CONSTANTS = {"RestartEmptyLimit": 1}
+ACTIONS_MAX_MSGS = 48
+ACTIONS_ROWS = 16           # parent rows a case holds, at most
+# actions that broadcast a record (R - 1 sends)
+BROADCASTS = ("TimerSendSVC", "ReceiveHigherSVC", "ReceiveHigherDVC",
+              "SendSV", "ReceiveClientRequest", "RestartEmpty")
+_ACTIONS_MODEL = {}
+
+
+def actions_model():
+    """(codec, kernel) of the edge cases of K10: examples/VSR_defect.cfg
+    with ``ACTIONS_CONSTANTS``, at MAX_MSGS ``ACTIONS_MAX_MSGS``."""
+    if not _ACTIONS_MODEL:
+        import os
+        from .engine.spec import load_binding
+        from .models.registry import make_model
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        b = load_binding(os.path.join(root, "examples", "VSR_defect.cfg"),
+                         "VSR")
+        b.cfg.constants.update(ACTIONS_CONSTANTS)
+        _ACTIONS_MODEL["m"] = make_model(b, max_msgs=ACTIONS_MAX_MSGS)
+    return _ACTIONS_MODEL["m"]
+
+
+def _walk_states(kern, start, walkers, steps, seed, prefer=()):
+    """Distinct flat rows along numpy-seeded walks from the rows
+    ``start`` (walker w from start[w % len]) over the plain kernel: an
+    enabled action of ``prefer`` when there is one, else an enabled
+    action drawn uniformly, then one of its enabled lanes; a walker with
+    none starts again from start[0].  In the order first met."""
+    rng = np.random.default_rng(seed)
+    flat = start[torch.arange(walkers) % start.shape[0]].clone()
+    rows, seen = [], set()
+    la = np.asarray(kern.lane_action)
+    lp = np.asarray(kern.lane_param)
+    idx = torch.arange(walkers, dtype=torch.int32)
+    for _ in range(steps):
+        en = kern.guard_matrix_plain(flat)[0].numpy()
+        pick = []
+        for w in range(walkers):
+            lanes = np.nonzero(en[w])[0]
+            if not lanes.size:
+                flat[w] = start[0]
+                lanes = np.nonzero(kern.guard_matrix_plain(start[:1])[0][0]
+                                   .numpy())[0]
+            acts = np.unique(la[lanes])
+            pref = [x for x in acts if kern.action_names[x] in prefer]
+            a = rng.choice(pref if pref else acts)
+            pick.append(rng.choice(lanes[la[lanes] == a]))
+        pick = np.asarray(pick)
+        o = kern.successors_plain(
+            flat, idx, torch.as_tensor(la[pick].astype(np.int32)),
+            torch.as_tensor(lp[pick].astype(np.int32)), 0)
+        flat = o["succ"]
+        for r in flat:
+            key = r.numpy().tobytes()
+            if key not in seen:
+                seen.add(key)
+                rows.append(r.clone())
+    return torch.stack(rows)
+
+
+def _trace_states(kern, codec):
+    """The 30 states of examples/found_violation_trace.txt (the defect's
+    counterexample, through state transfer), as flat rows."""
+    import os
+    from .frontend.cfg import parse_cfg_file
+    from .frontend.parser import parse_module_text
+    from .frontend.trace_parse import parse_trace_file
+    from .interp.evalr import Evaluator
+    ex = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples")
+    cfg = parse_cfg_file(os.path.join(ex, "VSR_defect.cfg"))
+    mod = parse_module_text("---- MODULE VSR ----\nCONSTANTS "
+                            + ", ".join(cfg.constants) + "\n====\n")
+    entries = parse_trace_file(
+        os.path.join(ex, "found_violation_trace.txt"),
+        SimpleNamespace(cfg=cfg, ev=Evaluator(mod, cfg.constants)))
+    dense = [codec.encode(e.state) for e in entries]
+    return kern.pk.flatten({k: torch.as_tensor(np.stack([d[k] for d in
+                                                         dense]))
+                            for k in dense[0]})
+
+
+def _case_rows(kern, codec):
+    """ACTIONS_ROWS parent rows, chosen so that the guard matrix enables
+    as many actions as it can, among the states of numpy-seeded walks
+    from Init, of the defect's counterexample trace (which reaches
+    SendGetState), and of walks from its states after SendGetState that
+    take ReceiveGetState and ReceiveNewState when they can."""
+    if "rows" not in _ACTIONS_MODEL:
+        init = kern.pk.flatten({k: torch.as_tensor(v)[None] for k, v in
+                                codec.init_dense().items()})
+        trace = _trace_states(kern, codec)
+        states = torch.cat([
+            _walk_states(kern, init, 16, 40, seed=5), trace,
+            _walk_states(kern, trace[15:], 30, 20, seed=6,
+                         prefer=("ReceiveGetState", "ReceiveNewState"))])
+        en = kern.guard_matrix_plain(states)[0].numpy()
+        la = np.asarray(kern.lane_action)
+        acts = np.zeros((len(states), len(kern.action_names)), bool)
+        for a in range(acts.shape[1]):
+            acts[:, a] = en[:, la == a].any(axis=1)
+        chosen, have = [], np.zeros(acts.shape[1], bool)
+        # greedy: each next row adds the most actions not yet enabled
+        while len(chosen) < ACTIONS_ROWS:
+            gain = (acts & ~have).sum(axis=1)
+            gain[chosen] = -1
+            r = int(np.argmax(gain))
+            if gain[r] <= 0:
+                r = [i for i in range(len(states)) if i not in chosen][
+                    len(chosen) * 7 % (len(states) - len(chosen))]
+            chosen.append(r)
+            have |= acts[r]
+        _ACTIONS_MODEL["rows"] = states[sorted(chosen)].contiguous()
+    return _ACTIONS_MODEL["rows"]
+
+
+def _queue(kern, items):
+    """Queue arrays of (row, lane-table index) pairs."""
+    items = np.asarray(items, np.int64).reshape(-1, 2)
+    la, lp = np.asarray(kern.lane_action), np.asarray(kern.lane_param)
+    return (items[:, 0].astype(np.int32), la[items[:, 1]].astype(np.int32),
+            lp[items[:, 1]].astype(np.int32))
+
+
+def _full_bag(kern, rows):
+    """``rows`` with every free message slot holding a distinct record no
+    action sends (type PrepareOk, op 100 + slot, count 1)."""
+    from .models import vsr as V
+    st = {k: v.clone() for k, v in kern.pk.unflatten(rows).items()}
+    for m in range(kern.M):
+        free = st["m_present"][:, m] == 0
+        st["m_hdr"][free, m] = 0
+        st["m_hdr"][free, m, V.H_TYPE] = V.M_PREPAREOK
+        st["m_hdr"][free, m, V.H_OP] = 100 + m
+        st["m_count"][free, m] = 1
+        st["m_present"][free, m] = 1
+    return kern.pk.flatten(st).contiguous()
+
+
+def _tombstones(kern, rows):
+    """A row whose free slots hold, as count-0 tombstones, the records
+    an enabled ReceiveClientRequest lane of one of ``rows`` broadcasts;
+    (row, lane-table index, revived slots)."""
+    a = list(kern.action_names).index("ReceiveClientRequest")
+    lanes = np.nonzero(np.asarray(kern.lane_action) == a)[0]
+    en = kern.guard_matrix_plain(rows)[0].numpy()
+    for r in range(rows.shape[0]):
+        for g in lanes[en[r, lanes]]:
+            pidx, aid, lane = (torch.as_tensor(x) for x in
+                               _queue(kern, [r, g]))
+            o = kern.successors_plain(rows, pidx, aid, lane, 0)
+            succ = kern.pk.unflatten(o["succ"])
+            par = kern.pk.unflatten(rows[r:r + 1])
+            new = torch.nonzero((succ["m_present"][0] == 1)
+                                & (par["m_present"][0] == 0))[:, 0].tolist()
+            if not new:
+                continue
+            t = {k: v.clone() for k, v in par.items()}
+            for m in new:
+                for k in ("m_hdr", "m_entry", "m_log", "m_log_len",
+                          "m_has_log"):
+                    t[k][0, m] = succ[k][0, m]
+                t["m_present"][0, m] = 1
+                t["m_count"][0, m] = 0
+            return kern.pk.flatten(t).contiguous(), int(g), new
+    raise AssertionError("no enabled ReceiveClientRequest lane adds a slot")
+
+
+def actions_case(name):
+    """One K10 edge case over the defect layout at MAX_MSGS 48 (numpy):
+    parent ``rows`` [T, lanes], the queue ``pidx``, ``aid``, ``lane``
+    [N] int32, ``ok`` [N] bool (the queue's filled entries), ``halt``
+    (the fused carry's halt word) and ``inv_mask`` (every invariant),
+    with ``kern`` and ``codec`` (``actions_model()``).
+
+    ``every_action`` holds, on walk states chosen to enable as many
+    actions as they can, every lane of every action on a row that
+    enables it (each action also on a row that does not); ``full_bag``
+    fills every free slot so that a send overflows (ERR_BAG_OVERFLOW);
+    ``tombstone`` revives count-0 records with a send; ``broadcast``
+    takes the enabled lanes of the six broadcasting actions;
+    ``mixed_block`` interleaves the actions so that the items a block
+    takes together (four at this layout) are of four actions;
+    ``fill`` is K7's queue of the rows (caps past the enabled counts:
+    fill entries, row T-1 lane 0); ``halted`` is ``every_action`` under
+    a set halt word.  Each asserts that it covers what its name says,
+    on the plain version's outputs."""
+    codec, kern = actions_model()
+    rows = _case_rows(kern, codec)
+    T = rows.shape[0]
+    la = np.asarray(kern.lane_action)
+    n_act = len(kern.action_names)
+    en = kern.guard_matrix_plain(rows)[0].numpy()
+    inv_mask = kern.invariant_mask(list(kern.INVARIANT_FNS))
+    ok, halt, check = None, False, None
+
+    def every_action():
+        items = []
+        for a in range(n_act):
+            lanes = np.nonzero(la == a)[0]
+            on = [r for r in range(T) if en[r, lanes].any()]
+            off = [r for r in range(T) if not en[r, lanes].any()]
+            for r in on[:2] + off[:1]:
+                items += [(r, g) for g in lanes]
+        return items
+
+    if name in ("every_action", "halted", "mixed_block"):
+        items = every_action()
+        if name == "mixed_block":
+            by = [[it for it in items if la[it[1]] == a]
+                  for a in range(n_act)]
+            items = []
+            while any(by):
+                for q in by:
+                    if q:
+                        items.append(q.pop(0))
+        halt = name == "halted"
+    elif name == "full_bag":
+        rows = _full_bag(kern, rows)
+        items = [(r, g) for r in range(T) for g in range(len(la))
+                 if la[g] not in (list(kern.action_names).index(
+                     "ExecuteOp"),)][::3]
+    elif name == "tombstone":
+        row, g, revived = _tombstones(kern, rows)
+        rows = torch.cat([rows, row]).contiguous()
+        T = rows.shape[0]
+        items = [(T - 1, x) for x in range(len(la))]
+
+        def check(out):
+            st = kern.pk.unflatten(out["succ"][g:g + 1])
+            par = kern.pk.unflatten(torch.as_tensor(rows[T - 1:T]))
+            assert bool(out["en2"][g])
+            for m in revived:
+                assert int(par["m_count"][0, m]) == 0
+                assert int(st["m_count"][0, m]) == 1
+            assert torch.equal(st["m_present"], par["m_present"])
+    elif name == "broadcast":
+        bc = [list(kern.action_names).index(n) for n in BROADCASTS]
+        items = [(r, g) for r in range(T) for g in range(len(la))
+                 if la[g] in bc and en[r, g]]
+    elif name == "fill":
+        from .engine import tile as TL
+        lanes = [int((la == a).sum()) for a in range(n_act)]
+        off = [int(x) for x in np.concatenate([[0], np.cumsum(lanes)[:-1]])]
+        per = [int(en[:, o:o + L].sum()) for o, L in zip(off, lanes)]
+        segs = TL.Segments(off, lanes, [p + 3 for p in per], "cpu")
+        q = TL.queue_buffers(segs.total, n_act, "cpu")
+        TL.compact_plain(torch.as_tensor(en), torch.ones(T, dtype=torch.bool),
+                         segs, q)
+        pidx, aid, lane = (q[k].numpy() for k in ("pidx", "aid", "lane"))
+        ok = q["ok"].numpy()
+        assert (~ok).sum() == 3 * n_act
+        assert ((pidx[~ok] == T - 1) & (lane[~ok] == 0)).all()
+    else:
+        raise KeyError(name)
+    if name != "fill":
+        pidx, aid, lane = _queue(kern, items)
+    rows = rows.numpy()
+    c = SimpleNamespace(name=name, kern=kern, codec=codec, rows=rows,
+                        pidx=pidx, aid=aid, lane=lane, ok=ok, halt=halt,
+                        inv_mask=inv_mask)
+    out = kern.successors_plain(*(torch.as_tensor(x) for x in (
+        rows, pidx, aid, lane)), inv_mask)
+    acts = set(aid.tolist())
+    enabled = set(aid[out["en2"].numpy()].tolist())
+    if name in ("every_action", "halted"):
+        assert acts == set(range(n_act)), sorted(acts)
+        assert enabled == set(range(n_act)), sorted(set(range(n_act))
+                                                     - enabled)
+    elif name == "mixed_block":
+        groups = [set(aid[i:i + 4].tolist())
+                  for i in range(0, len(aid) - 3, 4)]
+        assert sum(len(g) == 4 for g in groups) >= len(groups) // 2
+    elif name == "full_bag":
+        from .models import vsr as V
+        assert (kern.pk.unflatten(torch.as_tensor(rows))["m_present"]
+                == 1).all()
+        assert (out["err"].numpy()[out["en2"].numpy()]
+                & V.ERR_BAG_OVERFLOW).any()
+    elif name == "broadcast":
+        assert len(enabled) >= 5, enabled
+        assert (out["tn"].numpy() >= kern.R - 1).all()
+    elif name == "fill":
+        assert len(enabled) >= 10
+    if check is not None:
+        check(out)
+    return c
+
+
+DEDUP_CASES = ("one", "all_masked", "all_equal", "all_ones", "hunt",
+               "block_max", "past_block_max")
+
+
+def dedup_case(name):
+    """One K2 edge case (numpy): ``fps`` [n, 4] int32 words and ``mask``
+    [n] bool.  ``one`` is n = 1; ``all_masked`` masks every lane out;
+    ``all_equal`` repeats one fingerprint; ``all_ones`` masks all-ones
+    fingerprints in among masked-out lanes (the corner where the JAX
+    sort compares real fingerprints inside the masked-out group);
+    ``hunt`` is the hunt's 4,096 walkers, some fingerprints repeated by
+    the hundred as the splitter's clones repeat them; ``block_max``
+    and ``past_block_max`` are n at K2's one-block limit
+    (``engine/fpset.DEDUP_BLOCK_MAX``) and one past it, where the kernel
+    takes its two-launch path.  Each asserts that it covers what its
+    name says."""
+    from .engine.fpset import DEDUP_BLOCK_MAX
+    rng = np.random.default_rng(DEDUP_CASES.index(name) + 41)
+    ones = np.uint32(0xFFFFFFFF)
+
+    def words(k):
+        return rng.integers(0, 2**32, size=(k, 4), dtype=np.uint64).astype(
+            np.uint32)
+
+    n = {"one": 1, "all_masked": 300, "all_equal": 500, "all_ones": 400,
+         "hunt": 4096, "block_max": DEDUP_BLOCK_MAX,
+         "past_block_max": DEDUP_BLOCK_MAX + 1}[name]
+    if name == "all_equal":
+        fps = np.repeat(words(1), n, axis=0)
+        mask = rng.random(n) < 0.9
+    elif name == "all_ones":
+        pool = words(12)
+        pool[:3] = ones
+        pool[3, 3] = 0xFFFFFFFE
+        fps = pool[rng.integers(0, len(pool), n)]
+        mask = rng.random(n) < 0.6
+    elif name == "hunt":
+        # walkers cloned by the splitter: fingerprints repeated by the
+        # hundred (ranks drawn with weight 1 / (rank + 1))
+        pool = words(512)
+        w = 1.0 / np.arange(1, len(pool) + 1)
+        fps = pool[rng.choice(len(pool), n, p=w / w.sum())]
+        mask = rng.random(n) < 0.9
+    else:
+        pool = words(max(1, (3 * n) // 4))
+        pool[0, 0] = 0                      # word 0 zero
+        fps = pool[rng.integers(0, len(pool), n)]
+        mask = rng.random(n) < 0.85
+        if name == "one":
+            mask[:] = True
+        if name == "all_masked":
+            mask[:] = False
+    fps = np.ascontiguousarray(fps)
+    a1 = (fps == ones).all(axis=1)
+    assert len(fps) == n
+    if name == "all_masked":
+        assert not mask.any()
+    if name == "all_equal":
+        assert (fps == fps[0]).all() and mask.sum() > 1
+    if name == "all_ones":
+        i = np.nonzero(mask & a1)[0]
+        # all-ones lanes masked in after a masked-out lane and after
+        # another masked-in all-ones lane
+        assert len(i) and (~mask[i[i > 0] - 1]).any()
+        assert (mask & a1)[i[i > 0] - 1].any()
+    if name in ("hunt", "block_max", "past_block_max"):
+        u, cnt = np.unique(fps[mask], axis=0, return_counts=True)
+        assert len(u) < mask.sum()          # duplicates among masked-in
+        if name == "hunt":
+            assert cnt.max() >= 100
+    return SimpleNamespace(name=name, fps=fps.view(np.int32), mask=mask)
